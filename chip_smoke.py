@@ -25,8 +25,30 @@ Phases, each fatal on failure (no phase's failure is caught):
    device's busy share and device time by kernel class;
 5. hold the whole path on the card against the port on the CPU in
    float32 (one 128-token prompt, prefill + 8 decode steps);
-6. print a ``kernels`` JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+6. hold the training kernels, ``flash_attention`` (o, lse) and
+   ``flash_attention_bwd`` (dq, dk, dv), against their plain versions
+   by relative RMS error per (batch, head) slice: the train path's
+   shape (8, 16, 1024, 64), a small head_dim-32 shape and two tails
+   (s = 200, s = 40), causal and full, f32 and bf16; then show that
+   two planted faults (a dropped key tile, a shifted lse) fail;
+7. time both at the train path's shape (bf16, causal), L2 flushed,
+   beside their bound, plain version and scaled_dot_product_attention
+   (its backward through torch.autograd.grad);
+8. train the repo's transformer LM config at full width
+   (benchmark.py's train_transformer_lm: vocab 32768, d_model 1024, 16
+   heads, 12 layers, d_ff 4096, learned positions, bf16, 185.6M
+   parameters, batch 8 x seq 1024, SGD lr 0.01, 8 steps a call): one
+   warm and two timed calls, finite loss, weights changed, 12 + 12 flash
+   launches per step; tokens/s, ms/step, MFU; one profiled step;
+9. the train step on the card against the port on the CPU in float32
+   (full width, 2 layers, batch 2, seq 256, 2 steps): losses and every
+   weight;
+10. the train path in bf16 at its width (2 layers, batch 8 x seq 1024):
+    loss and every weight's gradient with attention through the kernels
+    against the plain attention route (``impl="einsum"``) on the card,
+    and a planted fault (lse rounded to bf16) that must fail;
+11. print a ``kernels`` JSON line, the card line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or without
 the package beside it. ``--report PATH`` also writes every measurement
@@ -47,6 +69,31 @@ F32_TOL = 2e-5          # kernel vs plain version, both float32
 BF16_TOL = 1e-2         # bf16 output rounding (2^-8 rel.) of values <~3
 PATH_TOL = 2e-3         # card vs CPU logits, f32, 12 layers summed
                         # in different orders (logits ~0.6 in magnitude)
+# flash_attention / flash_attention_bwd vs plain: relative RMS error
+# ||got - ref|| / ||ref|| of each (batch, head) slice, the largest slice's
+# (rel_err; the gradients sum up to 1024 terms that cancel, so an
+# elementwise relative bound means nothing). The plain backward is fed
+# the plain o (in the inputs' dtype) and the plain lse, never the
+# kernel's. Phase 6 plants faults to show these limits catch them.
+FA_F32_TOL = 1e-5       # o, dq, dk, dv, both float32: sums in other
+                        # orders
+FA_BF16_TOL = 1e-2      # o, dq, dk, dv: bf16 inputs, the plain version in
+                        # f32 on the same inputs. One bf16 rounding has a
+                        # relative RMS error of 1.7e-3; the kernel rounds
+                        # p (ds in the backward) for the tensor cores and
+                        # its output, so a sound kernel reads a few 1e-3
+FA_LSE_TOL = 1e-5       # lse, both dtypes: f32 sums of exact products of
+                        # the same inputs in another order
+TRAIN_LOSS_TOL = 1e-4   # card vs CPU train step, f32: loss ~10.4
+TRAIN_PARAM_TOL = 1e-5  # and every weight after 2 SGD steps (|w| ~0.02,
+                        # updates lr * g with lr 0.01)
+TRAIN_BF16_GRAD_TOL = 2e-2  # bf16 train gradients, kernels vs the plain
+                        # attention route: relative RMS error per weight.
+                        # Once the routes' roundings inside attention
+                        # differ, every later bf16 rounding differs too:
+                        # sound runs read up to ~9e-3, so this catches
+                        # gross faults only; the kernels themselves are
+                        # held per launch at FA_BF16_TOL / FA_LSE_TOL
 HBM_BPS = 3.35e12       # H100 SXM device memory
 BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 
@@ -127,6 +174,15 @@ def prefill_inputs(torch, gen, b, s, nh, kvh, dtype, hd=64, ps=16,
     return (rnd(b, s, nh, hd), rnd(b, s, kvh, hd), rnd(b, s, kvh, hd),
             rnd(num_pages, ps, kvh, hd), rnd(num_pages, ps, kvh, hd),
             perm.reshape(b, n_pb).to("cuda", torch.int32))
+
+
+def rel_err(got, ref):
+    """Relative RMS error ||got - ref|| / ||ref|| of each (batch, head)
+    slice of (b, h, s[, d]) tensors, the largest: a fault confined to
+    one slice is not averaged away over the batch."""
+    d = (got.float() - ref.float()).flatten(2).flatten(0, 1)
+    r = ref.float().flatten(2).flatten(0, 1)
+    return float((d.norm(dim=1) / r.norm(dim=1)).max())
 
 
 def decode_cost(q, block_tables, lengths):
@@ -278,6 +334,172 @@ def time_kernels(torch, fa, timer):
 
 
 # ---------------------------------------------------------------------------
+# phases 6/7: the training kernels
+# ---------------------------------------------------------------------------
+
+# (b, heads, s, head_dim): the train path's, a small one with head_dim
+# 32, and tails: s not a multiple of the 64-row tile, s below one tile
+FLASH_SHAPES = [(8, 16, 1024, 64), (2, 4, 128, 32), (1, 3, 200, 64),
+                (2, 2, 40, 32)]
+
+
+def attn_inputs(torch, gen, shape, dtype):
+    return tuple(torch.randn(*shape, generator=gen).to("cuda", dtype)
+                 for _ in range(4))                       # q, k, v, do
+
+
+FLASH_OUTS = ("o", "lse", "dq", "dk", "dv")
+
+
+def flash_limits(dtype, torch):
+    tol = FA_F32_TOL if dtype == torch.float32 else FA_BF16_TOL
+    return {n: FA_LSE_TOL if n == "lse" else tol for n in FLASH_OUTS}
+
+
+def plain_flash(torch, fa, q, k, v, do, causal, scale):
+    """The plain (o, lse, dq, dk, dv) in float32 on the same inputs; the
+    backward takes the plain o rounded to the inputs' dtype (what the
+    kernel stores) and the plain lse."""
+    f = [t.float() for t in (q, k, v, do)]
+    ro, rlse = fa._flash_fwd_torch(f[0], f[1], f[2], causal, scale)
+    rg = fa._flash_bwd_torch(f[0], f[1], f[2], ro.to(q.dtype).float(), rlse,
+                             f[3], causal, scale)
+    return (ro, rlse) + tuple(rg)
+
+
+def planted_faults(torch, fa, q, k, v, do, ref, scale):
+    """Phase 6's checks against two planted faults in slice (0, 0) of the
+    train path's shape (bf16, causal); each must fail the checks it
+    touches. (a) The function with key tile 0 hidden from the last
+    64-row q tile, what a kernel that skipped that one tile pair would
+    compute (the weakest such fault here: those rows see ~1000 keys):
+    o and lse must fail. (b) The plain backward fed an lse off by
+    log(16/15), as from a forward that lost a sixteenth of a row's
+    weight: dq, dk and dv must fail."""
+    n = q.shape[2]
+    x = [t[:1, :1].float() for t in (q, k, v, do)]
+    want = [t[:1, :1] for t in ref]
+    qf, kf, vf = (t.clone().requires_grad_() for t in x[:3])
+    keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+    keep[n - 64:, :64] = False
+    sc = torch.where(keep, qf @ kf.transpose(-1, -2) * scale, fa.NEG_INF)
+    lse = torch.logsumexp(sc, -1)
+    o = torch.exp(sc - lse[..., None]) @ vf
+    dropped = [o.detach(), lse.detach()] + list(
+        torch.autograd.grad(o, (qf, kf, vf), x[3]))
+    shifted = fa._flash_bwd_torch(
+        x[0], x[1], x[2], want[0].to(q.dtype).float(),
+        want[1] + float(np.log(16.0 / 15.0)), x[3], True, scale)
+    lim = flash_limits(q.dtype, torch)
+    res = {}
+    for tag, got, names in (("dropped key tile", dropped, ("o", "lse")),
+                            ("lse + log(16/15)", shifted,
+                             ("dq", "dk", "dv"))):
+        errs = {nm: rel_err(g, want[FLASH_OUTS.index(nm)])
+                for nm, g in zip(FLASH_OUTS[5 - len(got):], got)}
+        res[tag] = errs
+        log("planted fault (%s): %s" % (tag, " ".join(
+            "%s=%.2e" % kv for kv in errs.items())))
+        missed = [nm for nm in names if errs[nm] <= lim[nm]]
+        check(not missed, "planted fault (%s) passes the %s check(s): %s"
+              % (tag, missed, errs))
+    return res
+
+
+def check_flash(torch, fa):
+    """Phase 6: flash_attention (o, lse) and flash_attention_bwd (dq,
+    dk, dv) against their plain versions (plain_flash), causal and full,
+    f32 and bf16 (bf16: the plain version in f32 on the same inputs),
+    by rel_err; then the planted faults at the train path's shape."""
+    gen = torch.Generator().manual_seed(2)
+    rows, planted = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        lim = flash_limits(dtype, torch)
+        for shape in FLASH_SHAPES:
+            for causal in (True, False):
+                q, k, v, do = attn_inputs(torch, gen, shape, dtype)
+                scale = 1.0 / shape[3] ** 0.5
+                o, lse = fa._flash_fwd(q, k, v, causal)
+                dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    causal)
+                torch.cuda.synchronize()
+                ref = plain_flash(torch, fa, q, k, v, do, causal, scale)
+                errs = {n: rel_err(g, r) for n, g, r in
+                        zip(FLASH_OUTS, (o, lse, dq, dk, dv), ref)}
+                rows.append({"dtype": str(dtype), "shape": list(shape),
+                             "causal": causal, "rel_err": errs,
+                             "max_abs_err": max(max_err(g, r) for g, r in
+                                                zip((o, dq, dk, dv),
+                                                    ref[:1] + ref[2:]))})
+                log("check flash_attention(_bwd) %-14s %-18s causal=%d %s"
+                    % (dtype, shape, causal, " ".join(
+                        "%s=%.2e" % kv for kv in errs.items())))
+                bad = {n: e for n, e in errs.items() if e > lim[n]}
+                check(not bad, "flash_attention %s %s causal=%s: %s over "
+                      "the limits %s" % (dtype, shape, causal, bad, lim))
+                if (dtype == torch.bfloat16 and causal
+                        and shape == FLASH_SHAPES[0]):
+                    planted = planted_faults(torch, fa, q, k, v, do, ref,
+                                             scale)
+    return {"rows": rows, "planted": planted}
+
+
+def time_flash(torch, fa, timer):
+    """Phase 7: both training kernels at the train path's shape (bf16,
+    causal), L2 flushed before every launch, beside their bound, plain
+    version and one PyTorch library call (scaled_dot_product_attention;
+    its backward through torch.autograd.grad)."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(3)
+    shape = FLASH_SHAPES[0]
+    b, h, s, d = shape
+    q, k, v, do = attn_inputs(torch, gen, shape, torch.bfloat16)
+    scale = 1.0 / d ** 0.5
+    o, lse = fa._flash_fwd(q, k, v, True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    ro, _, *rg = plain_flash(torch, fa, q, k, v, do, True, scale)
+    pairs = b * h * s * (s + 1) // 2     # visible causal (query, key)
+    item = q.element_size()
+    # forward: q, k, v read, o written, lse (f32) written; QK^T and PV
+    fwd_bytes, fwd_flops = 4 * q.numel() * item + 4 * lse.numel(), \
+        4.0 * d * pairs
+    # backward: q, k, v, o, do and lse read, dq, dk, dv written; the
+    # five products (QK^T again, dO V^T, P^T dO, dS^T Q, dS K)
+    bwd_bytes, bwd_flops = 8 * q.numel() * item + 4 * lse.numel(), \
+        10.0 * d * pairs
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    rows = []
+    for name, fn, plain, lib, nbytes, flops, err in (
+            ("flash_attention", lambda: fa._flash_fwd(q, k, v, True),
+             lambda: fa._flash_fwd_torch(q, k, v, True, scale),
+             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+             fwd_bytes, fwd_flops, max_err(o, ro)),
+            ("flash_attention_bwd",
+             lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True),
+             lambda: fa._flash_bwd_torch(q, k, v, o, lse, do, True, scale),
+             lambda: torch.autograd.grad(lo, (lq, lk, lv), do,
+                                         retain_graph=True),
+             bwd_bytes, bwd_flops,
+             max(max_err(a, r) for a, r in zip((dq, dk, dv), rg)))):
+        t_bytes, t_flops = nbytes / HBM_BPS, flops / BF16_FLOPS
+        rows.append({
+            "name": name, "shape": "b=%d h=%d s=%d d=%d causal bf16" % shape,
+            "ms": timer(fn), "plain_ms": timer(plain),
+            "library_ms": timer(lib), "bound_ms": max(t_bytes, t_flops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "flops": flops, "bytes": nbytes, "max_abs_err": err})
+    for r in rows:
+        r["tflops"] = r["flops"] / (r["ms"] * 1e-3) / 1e12
+        log("time %-20s %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
+            "bound_ms=%.4f (%s) %.1f TFLOP/s max_abs_err=%.3g"
+            % (r["name"], r["shape"], r["ms"], r["plain_ms"],
+               r["library_ms"], r["bound_ms"], r["bound_by"], r["tflops"],
+               r["max_abs_err"]))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serve at full width
 # ---------------------------------------------------------------------------
 
@@ -342,8 +564,11 @@ def serve(torch, fa):
               "token outside the vocabulary")
     check(n_pre == len(reqs), "%d prefills for %d requests"
           % (n_pre, len(reqs)))
-    check(n_step > 0 and min(launches.values()) > 0,
+    serving = ("paged_decode_attention", "flash_prefill_paged")
+    check(n_step > 0 and min(launches[k] for k in serving) > 0,
           "a kernel of the path was never launched: %s" % launches)
+    check(all(n == 0 for k, n in launches.items() if k not in serving),
+          "serving launched a training kernel: %s" % launches)
     check(launches["flash_prefill_paged"] == cfg.n_layers * n_pre,
           "flash_prefill_paged launched %d times for %d prefills x %d "
           "layers" % (launches["flash_prefill_paged"], n_pre,
@@ -388,6 +613,10 @@ def _kernel_class(name):
         return "paged_decode_attention"
     if "flash_prefill_kernel" in low:
         return "flash_prefill_paged"
+    if "flash_fwd_" in low:
+        return "flash_attention"
+    if any(k in low for k in ("dkdv_", "dq_bf16", "dq_f32", "delta_kernel")):
+        return "flash_attention_bwd"
     if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "cublas",
                               "nvjet")):
         return "matmul"
@@ -395,15 +624,22 @@ def _kernel_class(name):
 
 
 def profile_round(torch, eng, reqs):
-    """The same requests again under torch.profiler, CUDA activity only:
-    the device's busy share of the round's wall time (union of kernel
-    intervals) and device time by kernel class. The profiler slows the
-    host, so this round's wall is not the measured round's."""
+    """The same requests again under torch.profiler (see profile_run)."""
+    def run():
+        for sess in [eng.submit(p, max_new_tokens=m) for p, m in reqs]:
+            sess.result()
+    return profile_run(torch, run)
+
+
+def profile_run(torch, run):
+    """``run()`` under torch.profiler, CUDA activity only: the device's
+    busy share of the wall time (union of kernel intervals) and device
+    time by kernel class. The profiler slows the host, so this wall is
+    not a measured one."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for sess in [eng.submit(p, max_new_tokens=m) for p, m in reqs]:
-            sess.result()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, device_ms, by_name = [], {}, {}
@@ -429,6 +665,264 @@ def profile_round(torch, eng, reqs):
     return {"wall_s": wall, "kernels": len(spans), "device_ms": device_ms,
             "top_kernels_ms": [[n[:96], ms] for n, ms in top],
             "busy_share": (busy_us / (wall * 1e6)) if spans else None}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: train at full width
+# ---------------------------------------------------------------------------
+
+# mxnet_tpu/benchmark.py:669-697 train_transformer_lm: GPT ~185M, learned
+# positions, MHA, batch 8, seq 1024, bf16, SGD lr 0.01, 8 steps a call
+TRAIN = dict(vocab_size=32768, d_model=1024, n_heads=16, n_layers=12,
+             d_ff=4096, max_len=1024)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_K, TRAIN_LR = 8, 1024, 8, 0.01
+
+
+def train(torch, fa):
+    """One warm call and two timed calls of 8 steps through
+    ``make_transformer_train_step(device_loop=True)``; loss finite every
+    call, weights changed, 12 forward and 12 backward flash launches per
+    step; tokens/s, ms/step and MFU with benchmark.py's flop count
+    (6N + 12 L d s / 2 per token); then one profiled step."""
+    from mxnet_tpu_torch.parallel.transformer import (
+        TransformerConfig, init_transformer_params_np,
+        make_transformer_train_step)
+    cfg = TransformerConfig(dtype=torch.bfloat16, **TRAIN)
+    t0 = time.time()
+    params = init_transformer_params_np(cfg, seed=0, trainable=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    log("train: weights %.1fs (%d params)" % (time.time() - t0, n_params))
+    rng = np.random.RandomState(0)            # as benchmark.py draws them
+    shape = (TRAIN_K, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = torch.tensor(rng.randint(0, cfg.vocab_size, shape),
+                          dtype=torch.int32, device="cuda")
+    targets = torch.tensor(rng.randint(0, cfg.vocab_size, shape),
+                           dtype=torch.int32, device="cuda")
+    loop = make_transformer_train_step(cfg, None, lr=TRAIN_LR,
+                                       device_loop=True)
+    w0 = params.layers["wq"].detach().clone()
+    calls = []
+    for i in range(3):
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = loop(params, tokens, targets)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        calls.append({"wall_s": time.perf_counter() - t0, "loss": loss,
+                      "launches": dict(fa.LAUNCHES)})
+        log("train: call %d (%s) %.3fs, last loss %.4f, launches %s"
+            % (i, "warm" if i == 0 else "timed", calls[-1]["wall_s"], loss,
+               calls[-1]["launches"]))
+        check(np.isfinite(loss), "train: loss %r is not finite" % loss)
+        for name in ("flash_attention", "flash_attention_bwd"):
+            check(calls[-1]["launches"][name] == cfg.n_layers * TRAIN_K,
+                  "train: %s launched %d times for %d steps x %d layers"
+                  % (name, calls[-1]["launches"][name], TRAIN_K,
+                     cfg.n_layers))
+        for name in ("paged_decode_attention", "flash_prefill_paged"):
+            check(calls[-1]["launches"][name] == 0,
+                  "train: %s launched" % name)
+    check(not torch.equal(w0, params.layers["wq"].detach()),
+          "train: the weights did not change")
+    dt = sum(c["wall_s"] for c in calls[1:]) / len(calls[1:])
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_K / dt
+    flop_per_tok = 6 * n_params + 12 * cfg.n_layers * cfg.d_model * \
+        TRAIN_SEQ * 0.5
+    mfu = tokens_per_s * flop_per_tok / BF16_FLOPS
+    check(mfu <= 1.05, "train: %.0f tokens/s implies MFU %.2f > 1"
+          % (tokens_per_s, mfu))
+    step = make_transformer_train_step(cfg, None, lr=TRAIN_LR)
+    prof = profile_run(torch, lambda: step(params, tokens[0], targets[0]))
+    res = {"n_params": n_params, "calls": calls, "ms_per_step": dt * 1e3 /
+           TRAIN_K, "tokens_per_s": tokens_per_s,
+           "flop_per_token": flop_per_tok, "mfu": mfu,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "profiled_step": prof}
+    log("train: %.0f tokens/s, %.2f ms/step, MFU %.3f (%.3g GFLOP/token, "
+        "989 TFLOP/s peak), peak memory %.1f GB"
+        % (tokens_per_s, res["ms_per_step"], mfu, flop_per_tok / 1e9,
+           res["peak_mem_gb"]))
+    log("train profiled step: wall %.3fs, device busy %s, %d kernels, "
+        "device ms by class %s"
+        % (prof["wall_s"], "not measured" if prof["busy_share"] is None
+           else "%.1f%%" % (100 * prof["busy_share"]), prof["kernels"],
+           {k: round(v, 3) for k, v in prof["device_ms"].items()}))
+    for name, ms in prof["top_kernels_ms"]:
+        log("train profiled step: %8.3f ms  %s" % (ms, name))
+    return res
+
+
+def train_vs_cpu(torch, fa):
+    """Phase 9: the train step on the card against the port on the CPU,
+    float32, at full width with 2 layers, batch 2, seq 256: the loss of
+    each of 2 steps and every weight after them."""
+    from mxnet_tpu_torch.convert import params_to_numpy
+    from mxnet_tpu_torch.parallel.transformer import (
+        TransformerConfig, init_transformer_params_np,
+        make_transformer_train_step)
+    cfg = TransformerConfig(dtype=torch.float32,
+                            **dict(TRAIN, n_layers=2, max_len=256))
+    p_cpu = init_transformer_params_np(cfg, seed=0, device="cpu",
+                                       trainable=True)
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    rng = np.random.RandomState(1)
+    tok = torch.tensor(rng.randint(0, cfg.vocab_size, (2, 2, 256)))
+    tgt = torch.tensor(rng.randint(0, cfg.vocab_size, (2, 2, 256)))
+    step = make_transformer_train_step(cfg, None, lr=TRAIN_LR)
+    losses = {"cpu": [], "cuda": []}
+    fa.reset_launches()
+    for i in range(2):
+        for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+            _, loss = step(params, tok[i].to(dev), tgt[i].to(dev))
+            losses[dev].append(float(loss))
+    launches = dict(fa.LAUNCHES)
+    check(launches["flash_attention"] == 2 * cfg.n_layers
+          and launches["flash_attention_bwd"] == 2 * cfg.n_layers,
+          "train vs CPU: launches %s for 2 card steps x %d layers"
+          % (launches, cfg.n_layers))
+    loss_err = max(abs(a - b) for a, b in zip(losses["cpu"],
+                                               losses["cuda"]))
+    got, want = params_to_numpy(p_gpu), params_to_numpy(p_cpu)
+    param_err = {}
+    for k in want:
+        pairs = (want[k].items() if k == "layers" else [(k, want[k])])
+        for name, w in pairs:
+            g = got[k][name] if k == "layers" else got[k]
+            param_err[name] = float(np.abs(g - w).max())
+    log("train vs CPU f32 (2 layers, batch 2, seq 256): losses cpu %s card "
+        "%s, max loss err %.2e (tol %g), max weight err %.2e in %s (tol %g)"
+        % (losses["cpu"], losses["cuda"], loss_err, TRAIN_LOSS_TOL,
+           max(param_err.values()), max(param_err, key=param_err.get),
+           TRAIN_PARAM_TOL))
+    check(all(np.isfinite(losses["cuda"])), "train vs CPU: non-finite loss")
+    check(loss_err <= TRAIN_LOSS_TOL, "train vs CPU: loss differs by %g"
+          % loss_err)
+    check(max(param_err.values()) <= TRAIN_PARAM_TOL,
+          "train vs CPU: weights differ: %s" % param_err)
+    return {"losses": losses, "loss_err": loss_err, "param_err": param_err}
+
+
+def check_captured(torch, fa, rec, lim):
+    """rel_err of one captured flash launch of the train path (its q, k,
+    v, the o and lse it returned, and the do, dq, dk, dv of its backward
+    launch) against the plain versions on the same inputs."""
+    ref = plain_flash(torch, fa, rec["q"], rec["k"], rec["v"], rec["do"],
+                      True, rec["scale"])
+    errs = {n: rel_err(rec[n], r) for n, r in zip(FLASH_OUTS, ref)}
+    return errs, {n: e for n, e in errs.items() if e > lim[n]}
+
+
+def train_bf16_routes(torch, fa):
+    """Phase 10: the train path in bf16 at its width (2 of its 12 layers,
+    batch 8 x seq 1024), loss and gradients from the same weights and
+    batch, three ways:
+
+    - "kernels": attention through flash_attention inside autograd (o
+      and lse saved, the incoming gradient transposed by the head
+      merge). Every launch's inputs and outputs are captured and held
+      against the plain versions on those inputs at phase 6's limits:
+      the kernels at the activations the path gives them.
+    - "plain": attention through ring_attention_local impl="einsum"
+      (plain tensor ops, autograd's own backward). The loss must agree
+      within one bf16 ulp of the summed token losses, and every weight's
+      gradient (the step applies p - lr * g; compared before the bf16
+      weights round the update) within TRAIN_BF16_GRAD_TOL: the routes
+      round differently inside attention and every later bf16 rounding
+      then differs, so this limit is looser than phase 6's.
+    - "planted": the kernels with the forward's lse rounded to bf16; the
+      captured launches must fail their checks."""
+    from mxnet_tpu_torch.parallel.transformer import (
+        TransformerConfig, _lm_local_loss, init_transformer_params_np)
+    cfg = TransformerConfig(dtype=torch.bfloat16, **dict(TRAIN, n_layers=2))
+    params = init_transformer_params_np(cfg, seed=0, trainable=True)
+    names = [n for n, _ in params.named_parameters()]
+    leaves = list(params.parameters())
+    rng = np.random.RandomState(2)
+    tok, tgt = (torch.tensor(rng.randint(0, cfg.vocab_size,
+                                         (TRAIN_BATCH, TRAIN_SEQ)),
+                             device="cuda") for _ in range(2))
+    real_fwd, real_bwd = fa._flash_fwd, fa.flash_attention_bwd
+    lim = flash_limits(torch.bfloat16, torch)
+
+    def run(route):
+        recs = []
+        fwd = real_fwd
+        if route == "planted":
+            def fwd(*args):
+                o, lse = real_fwd(*args)
+                return o, lse.bfloat16().float()
+
+        def capture_fwd(q, k, v, causal, sm_scale):
+            o, lse = fwd(q, k, v, causal, sm_scale)
+            recs.append({"q": q.detach(), "k": k.detach(),
+                         "v": v.detach(), "o": o.detach(), "lse": lse,
+                         "scale": sm_scale})
+            return o, lse
+
+        def capture_bwd(q, k, v, o, lse, do, causal, sm_scale):
+            dq, dk, dv = real_bwd(q, k, v, o, lse, do, causal, sm_scale)
+            rec = next(r for r in recs
+                       if r["o"].data_ptr() == o.data_ptr())
+            rec.update(do=do, dq=dq, dk=dk, dv=dv)
+            return dq, dk, dv
+
+        fa.reset_launches()
+        fa._flash_fwd, fa.flash_attention_bwd = capture_fwd, capture_bwd
+        try:
+            with torch.enable_grad():
+                loss = _lm_local_loss(params, tok, tgt, cfg, attn_impl=(
+                    "einsum" if route == "plain" else "auto"))
+            grads = torch.autograd.grad(loss, leaves)
+            torch.cuda.synchronize()
+        finally:
+            fa._flash_fwd, fa.flash_attention_bwd = real_fwd, real_bwd
+        n = 0 if route == "plain" else cfg.n_layers
+        launches = dict(fa.LAUNCHES)
+        check(launches["flash_attention"] == n
+              and launches["flash_attention_bwd"] == n and len(recs) == n,
+              "bf16 routes: %s route launched %s, expected %d + %d"
+              % (route, launches, n, n))
+        checks = [check_captured(torch, fa, r, lim) for r in recs]
+        return float(loss.detach()), grads, checks
+
+    runs = {route: run(route) for route in ("kernels", "plain", "planted")}
+    ref_loss, ref_grads, _ = runs["plain"]
+    # the per-token losses are summed in bf16 (as in the JAX step): the
+    # loss resolves one bf16 ulp of the sum over the token count
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    loss_ulp = 2.0 ** (np.floor(np.log2(ref_loss * n_tok)) - 7) / n_tok
+    res = {"loss_plain": ref_loss, "loss_ulp": loss_ulp}
+    for route in ("kernels", "planted"):
+        loss, grads, checks = runs[route]
+        errs = {n: float((g.float() - r.float()).norm() / r.float().norm())
+                for n, g, r in zip(names, grads, ref_grads)}
+        worst = max(errs, key=errs.get)
+        res[route] = {"loss": loss, "grad_rel_err": errs,
+                      "launch_rel_err": [c[0] for c in checks]}
+        for li, (e, bad) in enumerate(checks):
+            log("bf16 routes: %s, layer %d's flash launches vs plain: %s%s"
+                % (route, li, " ".join("%s=%.2e" % kv for kv in e.items()),
+                   " OVER %s" % sorted(bad) if bad else ""))
+        log("bf16 routes: %s vs plain attention: loss %.5f vs %.5f (ulp "
+            "%.4f); gradient rel. RMS err max %.2e in %s (limit %g): %s"
+            % (route, loss, ref_loss, loss_ulp, errs[worst], worst,
+               TRAIN_BF16_GRAD_TOL, " ".join(
+                   "%s=%.1e" % kv for kv in errs.items())))
+    ok = res["kernels"]
+    check(not any(bad for _, bad in runs["kernels"][2]),
+          "bf16 routes: a flash launch of the train path disagrees with "
+          "the plain version: %s" % ok["launch_rel_err"])
+    check(np.isfinite(ok["loss"]) and abs(ok["loss"] - ref_loss)
+          <= loss_ulp, "bf16 routes: loss %r vs plain %r" % (ok["loss"],
+                                                             ref_loss))
+    check(max(ok["grad_rel_err"].values()) <= TRAIN_BF16_GRAD_TOL,
+          "bf16 routes: gradients differ from the plain route's: %s"
+          % ok["grad_rel_err"])
+    check(all(bad for _, bad in runs["planted"][2]),
+          "bf16 routes: the planted fault (lse in bf16) passes the launch "
+          "checks: %s" % res["planted"]["launch_rel_err"])
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -507,30 +1001,52 @@ def main():
                 if "registers" in l]
         log("ptxas %s: %s" % (name, " | ".join(regs)))
 
+    timer = Timer(torch)
     checks = check_kernels(torch, fa)
-    main_rows, table = time_kernels(torch, fa, Timer(torch))
+    main_rows, table = time_kernels(torch, fa, timer)
     served = serve(torch, fa)
     path_errs = path_vs_cpu(torch)
+    flash_checks = check_flash(torch, fa)
+    flash_rows = time_flash(torch, fa, timer)
+    del timer
+    trained = train(torch, fa)
+    train_cpu = train_vs_cpu(torch, fa)
+    routes = train_bf16_routes(torch, fa)
 
     sources = {"paged_decode_attention": (
         "mxnet_tpu_torch/ops/cuda/csrc/paged_decode_attention.cu",
         "mxnet_tpu/ops/pallas/flash_attention.py:351"),
         "flash_prefill_paged": (
         "mxnet_tpu_torch/ops/cuda/csrc/flash_prefill_paged.cu",
-        "mxnet_tpu/ops/pallas/flash_attention.py:515")}
+        "mxnet_tpu/ops/pallas/flash_attention.py:515"),
+        "flash_attention": (
+        "mxnet_tpu_torch/ops/cuda/csrc/flash_attention.cu",
+        "mxnet_tpu/ops/pallas/flash_attention.py:60"),
+        # the TPU's backward is XLA (_flash_bwd), not a Pallas kernel
+        "flash_attention_bwd": (
+        "mxnet_tpu_torch/ops/cuda/csrc/flash_attention_bwd.cu",
+        "mxnet_tpu/ops/pallas/flash_attention.py:238")}
+    # launches: the serving kernels' from the served round, the training
+    # kernels' from the first timed train call (8 steps)
+    launches = dict(served["launches"])
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launches[name] = trained["calls"][1]["launches"][name]
     kernels = []
-    for r in main_rows:
+    for r in main_rows + flash_rows:
         src, rep = sources[r["name"]]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": src,
-            "replaces": rep, "launches": served["launches"][r["name"]],
+            "replaces": rep, "launches": launches[r["name"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     kind = torch.cuda.get_device_name(0)
     report = {"card": card, "torch": torch.__version__,
               "checks": checks, "timings": table, "serve": served,
-              "path_max_abs_err": path_errs, "kernels": kernels,
+              "path_max_abs_err": path_errs, "flash_checks": flash_checks,
+              "flash_timings": flash_rows, "train": trained,
+              "train_vs_cpu": train_cpu, "train_bf16_routes": routes,
+              "kernels": kernels,
               "wall_s": time.time() - t_all}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

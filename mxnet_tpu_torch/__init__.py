@@ -8,7 +8,10 @@ run on ``cuda:0`` unless the caller passes ``device="cpu"``.
 
 Ported so far: decode serving — :class:`serve.DecodeEngine` over the
 paged transformer (``parallel.transformer``) with the
-``paged_decode_attention`` and ``flash_prefill_paged`` kernels.
+``paged_decode_attention`` and ``flash_prefill_paged`` kernels — and
+single-device transformer LM training —
+:func:`parallel.make_transformer_train_step` with the
+``flash_attention`` forward and backward kernels.
 
 Importing the package imports no triton, loads no CUDA library and
 touches no GPU.

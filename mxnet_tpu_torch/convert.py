@@ -35,9 +35,10 @@ def _to_torch(arr, dtype, device):
     return t.to(dtype).to(device)
 
 
-def params_from_jax(np_params, cfg, device=None):
+def params_from_jax(np_params, cfg, device=None, trainable=False):
     """The JAX params pytree (as numpy arrays) -> :class:`TransformerParams`
-    in ``cfg.dtype`` on ``device`` (default ``cuda:0``).
+    in ``cfg.dtype`` on ``device`` (default ``cuda:0``), with gradients
+    when ``trainable``.
 
     Flattens each ``(pp, lps, ...)`` layer stack to ``(n_layers, ...)``;
     raises :class:`MXNetError` on a missing or extra key or a wrong
@@ -69,7 +70,7 @@ def params_from_jax(np_params, cfg, device=None):
                     % (name, arr.shape, shape[1:], cfg.n_layers))
             arr = arr.reshape((cfg.n_layers,) + arr.shape[2:])
         tensors[name] = _to_torch(arr, cfg.dtype, device)
-    return TransformerParams(cfg, tensors)
+    return TransformerParams(cfg, tensors, trainable=trainable)
 
 
 def params_to_numpy(params, pp=1):

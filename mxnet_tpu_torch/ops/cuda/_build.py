@@ -36,6 +36,8 @@ BUILD_DIR = os.path.join(
 SOURCES = {
     "paged_decode_attention": "paged_decode_attention.cu",
     "flash_prefill_paged": "flash_prefill_paged.cu",
+    "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 _HEADERS = ("common.cuh",)
 

@@ -1,10 +1,12 @@
-"""Paged attention for decode serving: hand-written CUDA kernels.
+"""Attention kernels written by hand in CUDA for Hopper.
 
-Counterpart of the JAX package's ``ops/pallas/flash_attention.py``
-(its ``paged_decode_attention`` and ``flash_prefill_paged``): the same
-signatures and layouts, each backed by a CUDA C++ kernel for Hopper
-(``csrc/*.cu``) and beside it a plain PyTorch version of the same
-function, op for op the JAX package's XLA twin.
+Counterpart of the JAX package's ``ops/pallas/flash_attention.py``:
+``flash_attention`` (training: forward, and its backward as a kernel of
+its own, ``flash_attention_bwd``), ``paged_decode_attention`` and
+``flash_prefill_paged`` (decode serving). The same signatures and
+layouts, each backed by a CUDA C++ kernel for Hopper (``csrc/*.cu``) and
+beside it a plain PyTorch version of the same function, op for op the
+JAX package's XLA twin.
 
 A wrapper launches its kernel for CUDA tensors, on
 ``torch.cuda.current_stream()``, and raises when the launch returns a
@@ -22,8 +24,9 @@ import torch
 from ...base import MXNetError
 from . import _build
 
-__all__ = ["paged_decode_attention", "flash_prefill_paged", "CUDA_KERNELS",
-           "LAUNCHES", "reset_launches", "NEG_INF"]
+__all__ = ["flash_attention", "flash_attention_bwd", "paged_decode_attention",
+           "flash_prefill_paged", "CUDA_KERNELS", "LAUNCHES", "reset_launches",
+           "NEG_INF", "HEAD_DIMS"]
 
 # kernel-contract registry: every CUDA kernel maps to its plain PyTorch
 # version in this module (tests/test_torch_contract.py checks each has
@@ -31,6 +34,8 @@ __all__ = ["paged_decode_attention", "flash_prefill_paged", "CUDA_KERNELS",
 CUDA_KERNELS = {
     "paged_decode_attention": "_paged_decode_torch",
     "flash_prefill_paged": "_flash_prefill_torch",
+    "flash_attention": "_flash_fwd_torch",
+    "flash_attention_bwd": "_flash_bwd_torch",
 }
 
 # kernel launches since the last reset_launches(), by kernel name
@@ -40,6 +45,9 @@ NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
+# head dims the flash_attention kernels are built for (CUDA tensors only)
+HEAD_DIMS = (32, 64)
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SYMBOLS = {
     # q, k_pages, v_pages, block_tables, lengths, out, b, kvh, group, hd,
@@ -48,6 +56,11 @@ _SYMBOLS = {
     # q, kg, vg, k_pages, v_pages, block_tables, out, b, s, nh, kvh, hd,
     # num_pages, page_size, bt_stride, sm_scale, stream
     "flash_prefill_paged": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # q, k, v, o, lse, b*h, s, hd, causal, sm_scale, stream
+    "flash_attention": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # q, k, v, o, lse, do, dq, dk, dv, delta, b*h, s, hd, causal,
+    # sm_scale, stream
+    "flash_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
 }
 
 
@@ -275,3 +288,188 @@ def flash_prefill_paged(q, kg, vg, k_pages, v_pages, block_tables):
         b, s, nh, kvh, hd, num_pages, ps, block_tables.shape[1],
         1.0 / math.sqrt(hd), stream))
     return out, k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# flash attention (training): forward with lse, backward from lse
+# ---------------------------------------------------------------------------
+
+def _flash_fwd_torch(q, k, v, causal, sm_scale):
+    """Plain version of :func:`_flash_fwd`, op for op the JAX package's
+    ``_flash_fwd_xla``: float32 scores scaled after the product, causal
+    mask -1e30, softmax with ``l == 0`` guarded, ``lse = m + log(l)``.
+    Returns ``(o in q's dtype, lse float32 (b, h, s))``."""
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if causal:
+        s_q, s_k = q.shape[2], k.shape[2]
+        mask = (torch.arange(s_k, device=q.device)[None, :]
+                <= torch.arange(s_q, device=q.device)[:, None])
+        sc = torch.where(mask, sc, NEG_INF)
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bhqk,bhkd->bhqd", p / l_safe, v.float())
+    lse = (m + torch.log(l_safe))[..., 0]
+    return o.to(q.dtype), lse
+
+
+def _flash_bwd_torch(q, k, v, o, lse, do, causal, sm_scale):
+    """Plain version of :func:`flash_attention_bwd`, op for op the JAX
+    package's ``_flash_bwd`` with one key block: ``delta`` from the
+    stored ``o`` in float32, ``p = exp(s - lse)`` zeroed where masked,
+    dk from the scaled q, dq scaled at the end. Returns ``(dq, dk, dv)``
+    in the inputs' dtypes."""
+    g = do.float()
+    qf = q.float() * sm_scale
+    kf = k.float()
+    vf = v.float()
+    delta = (o.float() * g).sum(-1)                               # (b,h,sq)
+    sc = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    mask = None
+    if causal:
+        s_q, s_k = q.shape[2], k.shape[2]
+        mask = (torch.arange(s_k, device=q.device)[None, :]
+                <= torch.arange(s_q, device=q.device)[:, None])
+        sc = torch.where(mask, sc, NEG_INF)
+    p = torch.exp(sc - lse[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, vf)
+    ds = p * (dp - delta[..., None])
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)                 # scaled q
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_attention(fn, float_args, lse=None):
+    """Checks shared by the flash_attention entries: q/k/v (and o, do)
+    one (b, h, s, head_dim) shape and dtype, contiguous, on one device;
+    ``lse`` float32 (b, h, s). On a CUDA device also a kernel head_dim
+    and 16-byte aligned storage (the kernels load 16 bytes at a time)."""
+    dev = _check_tensors(fn, float_args, [])
+    shape = tuple(float_args[0][1].shape)
+    _check(len(shape) == 4, "%s: q must be (b, heads, seq, head_dim), got "
+           "%s", fn, shape)
+    for name, t in float_args[1:]:
+        _check(tuple(t.shape) == shape, "%s: %s has shape %s, expected %s "
+               "(q, k and v share one shape)", fn, name, tuple(t.shape),
+               shape)
+    if lse is not None:
+        _check(isinstance(lse, torch.Tensor) and lse.device == dev
+               and lse.dtype == torch.float32 and lse.is_contiguous()
+               and tuple(lse.shape) == shape[:3],
+               "%s: lse must be a contiguous float32 %s tensor on %s", fn,
+               shape[:3], dev)
+    if dev.type == "cuda":
+        _check(shape[3] in HEAD_DIMS, "%s: head_dim %d has no kernel "
+               "(built for %s)", fn, shape[3], HEAD_DIMS)
+        # b * heads is the grid's y dimension
+        _check(shape[0] * shape[1] <= 65535, "%s: b * heads = %d exceeds "
+               "65535", fn, shape[0] * shape[1])
+        for name, t in float_args:
+            _check(t.data_ptr() % 16 == 0, "%s: %s storage is not 16-byte "
+                   "aligned", fn, name)
+    return dev, shape
+
+
+def _flash_fwd(q, k, v, causal=False, sm_scale=None):
+    """Attention forward that also returns the row log-sum-exp: ``(o,
+    lse)`` with ``o`` (b, h, s, head_dim) in q's dtype and ``lse`` (b, h,
+    s) float32, the pair ring attention merges by. Launches the
+    ``flash_attention`` kernel for CUDA tensors (head_dim 32 or 64); CPU
+    tensors take :func:`_flash_fwd_torch`.
+
+    Rounding: in bfloat16 the kernel multiplies the float32 product q k^T
+    by ``sm_scale`` (the order of the JAX package's XLA twin) where the
+    Pallas kernel scales q in float32 before the dot. The two agree
+    exactly for a power-of-two scale (head_dim 64) and within about one
+    float32 ulp of the score otherwise (head_dim 32)."""
+    fn = "flash_attention"
+    dev, (b, h, s, hd) = _check_attention(
+        fn, [("q", q), ("k", k), ("v", v)])
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    if dev.type == "cpu":
+        return _flash_fwd_torch(q, k, v, bool(causal), float(sm_scale))
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    if o.numel() == 0:
+        return o, lse
+    kernel = _kernel_fn(fn, q.dtype)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launch(fn, dev, kernel, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b * h, s, hd, int(bool(causal)), float(sm_scale),
+        stream))
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
+    """Gradients ``(dq, dk, dv)`` of attention from the forward's ``o``
+    and ``lse`` and the output gradient ``do`` (FlashAttention-2
+    recompute, the JAX package's ``_flash_bwd``). One launch of the
+    ``flash_attention_bwd`` kernel entry (delta pre-pass, dk/dv pass, dq
+    pass) for CUDA tensors; CPU tensors take :func:`_flash_bwd_torch`."""
+    fn = "flash_attention_bwd"
+    dev, (b, h, s, hd) = _check_attention(
+        fn, [("q", q), ("k", k), ("v", v), ("o", o), ("do", do)], lse=lse)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(hd)
+    if dev.type == "cpu":
+        return _flash_bwd_torch(q, k, v, o, lse, do, bool(causal),
+                                float(sm_scale))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if dq.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b * h * s,), dtype=torch.float32, device=dev)
+    kernel = _kernel_fn(fn, q.dtype)
+    # read at call time: inside autograd's backward this is the stream
+    # the engine runs the node on
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _launch(fn, dev, kernel, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), b * h, s, hd, int(bool(causal)),
+        float(sm_scale), stream))
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``o = flash_attention(q, k, v)`` with the kernel backward; saves
+    q, k, v, o and lse, as the JAX package's custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        o, lse = _flash_fwd(q, k, v, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        ctx.sm_scale = sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal=False, sm_scale=None):
+    """Memory-efficient attention ``softmax(q k^T * sm_scale [+ causal
+    mask]) v``, differentiable.
+
+    Parameters
+    ----------
+    q, k, v : (batch, heads, seq, head_dim), one shape, contiguous, on
+        one device; float32 or bfloat16 (head_dim 32 or 64 on CUDA).
+    causal : mask keys after each query position.
+    sm_scale : score scale; default ``1/sqrt(head_dim)``.
+
+    Forward and backward are the ``flash_attention`` and
+    ``flash_attention_bwd`` kernels on CUDA tensors, their plain
+    versions on CPU tensors."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))

@@ -1,8 +1,9 @@
-"""Decoder-only transformer LM: the decode-serving subset.
+"""Decoder-only transformer LM: decode serving and single-device training.
 
 Counterpart of the JAX package's ``parallel/transformer.py`` for the
-paths a serving engine runs: the paged prefill and the paged decode
-step, plus the single-device reference forward. Weights live in a
+paths a serving engine runs (the paged prefill and the paged decode
+step), the single-device reference forward, and the train step
+``make_transformer_train_step`` on a mesh of one device. Weights live in a
 :class:`TransformerParams` module in the JAX package's layout (``x @
 w``; per-layer stacks flattened from ``(pp, layers_per_stage, ...)`` to
 ``(n_layers, ...)``), so the two packages load the same numbers
@@ -11,9 +12,11 @@ w``; per-layer stacks flattened from ``(pp, layers_per_stage, ...)`` to
 The page pool is updated IN PLACE: the paged prefill writes each
 layer's prompt K/V through the ``flash_prefill_paged`` kernel and the
 decode step writes the new token's K/V before ``paged_decode_attention``
-reads the pool, on one stream. The dense KV cache, the sharded train
-step, ``transformer_generate`` and MoE layers come with later parts of
-the port.
+reads the pool, on one stream. The train step runs the same layer math
+with the ``flash_attention`` kernel (forward and backward) and updates
+the weights in place. The dense KV cache, sharded meshes (dp/sp/tp/pp/ep
+above 1), ``remat``, ``transformer_generate`` and MoE layers come with
+later parts of the port.
 """
 from __future__ import annotations
 
@@ -28,13 +31,18 @@ from torch import nn
 from ..base import MXNetError
 from ..ops.cuda.flash_attention import (flash_prefill_paged,
                                         paged_decode_attention)
+from .ring_attention import ring_attention_local
 
 __all__ = ["TransformerConfig", "TransformerParams", "LAYER_KEYS",
            "init_transformer_params_np", "transformer_forward_single",
            "init_kv_pages", "PagedKVCache", "transformer_decode_step",
-           "transformer_decode_step_paged", "transformer_prefill_paged"]
+           "transformer_decode_step_paged", "transformer_prefill_paged",
+           "make_transformer_train_step", "AXES"]
 
 NEG_INF = -1e30
+
+# the JAX package's mesh axes, in its order
+AXES = ("dp", "sp", "tp", "pp", "ep")
 
 # per-layer weights of the dense (no-MoE) block, in the JAX layout
 LAYER_KEYS = ("ln1_g", "ln1_b", "ln2_g", "ln2_b", "wq", "wk", "wv", "wo",
@@ -53,6 +61,11 @@ class TransformerConfig:
     max_len: int = 512
     num_experts: int = 0          # 0 = dense FFN; MoE is not ported yet
     dtype: torch.dtype = torch.float32
+    # sequence-parallel attention: "ring" or "ulysses"; on one device
+    # both are the ring body's flash_attention call
+    sp_attn: str = "ring"
+    # recompute each block in the backward (not ported yet)
+    remat: bool = False
     # "learned" adds a trained position table; "rope" rotates q/k
     pos_type: str = "learned"
     rope_base: float = 10000.0
@@ -66,7 +79,7 @@ def _validate(cfg):
     if cfg.num_experts:
         raise NotImplementedError(
             "num_experts=%d: MoE layers are not ported yet (ROADMAP "
-            "queue A, 'MoE decode')" % cfg.num_experts)
+            "A7)" % cfg.num_experts)
     kvh = cfg.n_kv_heads
     if kvh is not None:
         if not isinstance(kvh, int) or kvh < 1:
@@ -78,6 +91,9 @@ def _validate(cfg):
     if cfg.pos_type not in ("learned", "rope"):
         raise ValueError("pos_type must be 'learned' or 'rope', got %r"
                          % (cfg.pos_type,))
+    if cfg.sp_attn not in ("ring", "ulysses"):
+        raise ValueError("sp_attn must be 'ring' or 'ulysses', got %r"
+                         % (cfg.sp_attn,))
 
 
 def expected_shapes(cfg):
@@ -98,9 +114,11 @@ class TransformerParams(nn.Module):
     """The model's weights: ``embed`` (tied output projection), final
     LayerNorm ``lnf_g``/``lnf_b``, ``pos`` for learned positions, and
     ``layers[name]`` stacked (n_layers, ...) for every name in
-    :data:`LAYER_KEYS`. Serving weights: no gradients."""
+    :data:`LAYER_KEYS`. Serving weights (the default) take no
+    gradients; ``trainable=True`` makes every weight a leaf that does,
+    for :func:`make_transformer_train_step`."""
 
-    def __init__(self, cfg, tensors):
+    def __init__(self, cfg, tensors, trainable=False):
         super().__init__()
         _validate(cfg)
         shapes = expected_shapes(cfg)
@@ -109,13 +127,14 @@ class TransformerParams(nn.Module):
             if tuple(t.shape) != shape:
                 raise MXNetError("%s: shape %s, expected %s"
                                  % (name, tuple(t.shape), shape))
-        self.embed = nn.Parameter(tensors["embed"], requires_grad=False)
-        self.lnf_g = nn.Parameter(tensors["lnf_g"], requires_grad=False)
-        self.lnf_b = nn.Parameter(tensors["lnf_b"], requires_grad=False)
-        self.pos = (nn.Parameter(tensors["pos"], requires_grad=False)
+        grad = bool(trainable)
+        self.embed = nn.Parameter(tensors["embed"], requires_grad=grad)
+        self.lnf_g = nn.Parameter(tensors["lnf_g"], requires_grad=grad)
+        self.lnf_b = nn.Parameter(tensors["lnf_b"], requires_grad=grad)
+        self.pos = (nn.Parameter(tensors["pos"], requires_grad=grad)
                     if "pos" in shapes else None)
         self.layers = nn.ParameterDict({
-            k: nn.Parameter(tensors[k], requires_grad=False)
+            k: nn.Parameter(tensors[k], requires_grad=grad)
             for k in LAYER_KEYS})
 
     def layer(self, li):
@@ -149,15 +168,17 @@ def _init_numpy(cfg, seed):
 
 
 def init_transformer_params_np(cfg: TransformerConfig, seed=0,
-                               device=None):
+                               device=None, trainable=False):
     """Seeded weights equal to the JAX package's
     ``init_transformer_params(cfg, mesh, seed)`` (drawn from
     ``np.random.RandomState(seed)`` in the same order, cast to
     ``cfg.dtype``), as a :class:`TransformerParams` on ``device``
-    (default ``cuda:0``; pass ``"cpu"`` for the host)."""
+    (default ``cuda:0``; pass ``"cpu"`` for the host); ``trainable``
+    as for :class:`TransformerParams`."""
     from ..convert import params_from_jax
     _validate(cfg)
-    return params_from_jax(_init_numpy(cfg, seed), cfg, device)
+    return params_from_jax(_init_numpy(cfg, seed), cfg, device,
+                           trainable=trainable)
 
 
 # ---------------------------------------------------------------------------
@@ -412,3 +433,167 @@ def transformer_decode_step_paged(params, k_pages, v_pages, block_tables,
     logits, paged = transformer_decode_step(params, paged, tokens_t, pos,
                                             cfg)
     return logits, paged.k_pages, paged.v_pages
+
+
+# ---------------------------------------------------------------------------
+# single-device training
+# ---------------------------------------------------------------------------
+
+# the ROADMAP item that ports each mesh axis above size 1
+_MESH_ITEMS = {"dp": "A13", "sp": "A13/A15", "tp": "A15", "pp": "A15",
+               "ep": "A15"}
+
+
+def _check_mesh(mesh):
+    """``mesh``: None (every axis 1) or a dict of the five axis sizes,
+    as the JAX package's Mesh carries them. Only size 1 is ported."""
+    if mesh is None:
+        return
+    for ax in AXES:
+        if ax not in mesh:
+            raise ValueError("mesh is missing axis %r" % ax)
+    extra = sorted(set(mesh) - set(AXES))
+    if extra:
+        raise ValueError("mesh has unknown axes %s (axes are %s)"
+                         % (extra, AXES))
+    for ax in AXES:
+        n = int(mesh[ax])
+        if n < 1:
+            raise ValueError("mesh axis %r has size %d" % (ax, n))
+        if n > 1:
+            raise NotImplementedError(
+                "mesh axis %r = %d: only a one-device mesh is ported; "
+                "sharded training over torch.distributed is ROADMAP %s"
+                % (ax, n, _MESH_ITEMS[ax]))
+
+
+def _attention_local(lp, x, cfg, attn_impl="auto"):
+    """x (b, s, d) -> attention block output (b, s, d), the JAX
+    package's ``_attention_local`` on one device: K/V expanded to the
+    query heads before the kernel, RoPE at positions 0..s-1, causal
+    flash attention through the ring's local body (at sp = 1 Ulysses'
+    local body is the same flash_attention call, ``ulysses.py:46``).
+    ``attn_impl`` is the ring body's ``impl``: "auto" (the kernels, as
+    the JAX package always takes) or "einsum" (plain tensor ops, the
+    reference the kernels' route is held against on the card)."""
+    b, s, d = x.shape
+    hd = d // cfg.n_heads
+    kvh = _kv_heads(cfg)
+    groups = cfg.n_heads // kvh
+    q = x @ lp["wq"]
+    k = x @ lp["wk"]
+    v = x @ lp["wv"]
+
+    def split(t, nh):
+        return t.reshape(b, s, nh, hd).transpose(1, 2)
+
+    qh = split(q, cfg.n_heads)
+    kh = _expand_kv(split(k, kvh), groups, 1)
+    vh = _expand_kv(split(v, kvh), groups, 1)
+    if cfg.pos_type == "rope":
+        pos = torch.arange(s, device=x.device)
+        qh = _rope(qh, pos, cfg.rope_base)
+        kh = _rope(kh, pos, cfg.rope_base)
+    o = ring_attention_local(qh, kh, vh, causal=True,
+                             sm_scale=1.0 / math.sqrt(hd), impl=attn_impl)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
+    return o @ lp["wo"]
+
+
+def _block_local(lp, x, cfg, attn_impl="auto"):
+    """One pre-LN block: attention, then the dense FFN (``_ffn``, the
+    JAX package's ``_dense_ffn_local``), each added to the residual."""
+    x = x + _attention_local(lp, _ln(x, lp["ln1_g"], lp["ln1_b"]), cfg,
+                             attn_impl)
+    return x + _ffn(lp, _ln(x, lp["ln2_g"], lp["ln2_b"]))
+
+
+def _stage_local(params, x, cfg, attn_impl="auto"):
+    """Every layer in order: the JAX package's ``_stage_local`` scan, as
+    its ``_pipeline_stages_local`` runs it for pp = 1. The layer stacks
+    are split with one ``unbind`` each, whose backward stacks the
+    layers' gradients in one op (indexing layer by layer would add a
+    full-stack zero gradient per layer)."""
+    stacks = {k: p.unbind(0) for k, p in params.layers.items()}
+    for li in range(cfg.n_layers):
+        x = _block_local({k: t[li] for k, t in stacks.items()}, x, cfg,
+                         attn_impl)
+    return x
+
+
+def _lm_local_loss(params, tokens, targets, cfg, attn_impl="auto"):
+    """Mean next-token negative log-likelihood of ``targets`` (b, s)
+    given ``tokens`` (b, s), as a float32 scalar: the JAX package's
+    ``_lm_local_loss`` on one device (the dense model's aux loss is 0).
+    ``attn_impl``: see :func:`_attention_local`."""
+    s = tokens.shape[1]
+    x = params.embed[tokens.long()]
+    if cfg.pos_type == "learned":
+        x = x + params.pos[:s]
+    x = _stage_local(params, x, cfg, attn_impl)
+    x = _ln(x, params.lnf_g, params.lnf_b)
+    logp = torch.log_softmax(x @ params.embed.T, dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    return nll.sum().float() / float(nll.numel())
+
+
+def make_transformer_train_step(cfg: TransformerConfig, mesh=None, lr=0.1,
+                                num_microbatches=None, device_loop=False):
+    """Build ``step(params, tokens, targets) -> (params, loss)``: forward,
+    backward through the flash attention kernels, and SGD ``p - lr * g``
+    on every weight, the JAX package's ``make_transformer_train_step``
+    on a one-device mesh.
+
+    ``params`` is a :class:`TransformerParams` built with
+    ``trainable=True``; the step updates it in place (the analog of the
+    JAX step's donated params) and returns it with the loss as a float32
+    scalar tensor on its device, without waiting for the device.
+    ``tokens``/``targets`` (batch, seq) integers are moved to the
+    params' device.
+
+    ``mesh``: None or a dict of the five axis sizes ``dp, sp, tp, pp,
+    ep``; sizes above 1 raise :class:`NotImplementedError` naming the
+    ROADMAP item, as do ``cfg.remat`` and MoE configs.
+    ``num_microbatches`` matters only for pp > 1. ``device_loop=True``
+    returns ``loop(params, tokens, targets)`` over stacked (k, batch,
+    seq) batches instead: k steps in one call, returning the last
+    loss."""
+    _validate(cfg)
+    _check_mesh(mesh)
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat=True: recomputing each block in the backward "
+            "(torch.utils.checkpoint) is not ported yet (ROADMAP A9.1)")
+    del num_microbatches
+    lr = float(lr)
+
+    def step(params, tokens, targets):
+        leaves = list(params.parameters())
+        if not all(p.requires_grad for p in leaves):
+            raise MXNetError("params take no gradients (serving weights); "
+                             "build them with trainable=True")
+        dev = leaves[0].device
+        with torch.enable_grad():
+            loss = _lm_local_loss(params, tokens.to(dev), targets.to(dev),
+                                  cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            torch._foreach_add_(leaves, grads, alpha=-lr)
+        return params, loss.detach()
+
+    if not device_loop:
+        return step
+
+    def loop(params, tokens, targets):
+        """``k`` steps over stacked (k, batch, seq) batches; returns
+        (params, last loss)."""
+        if tokens.dim() != 3 or tuple(targets.shape) != tuple(tokens.shape):
+            raise ValueError("device_loop takes stacked (k, batch, seq) "
+                             "tokens and targets, got %s and %s"
+                             % (tuple(tokens.shape), tuple(targets.shape)))
+        loss = None
+        for i in range(tokens.shape[0]):
+            params, loss = step(params, tokens[i], targets[i])
+        return params, loss
+
+    return loop

@@ -8,9 +8,17 @@ mode) and skips without one. On the card:
 The file imports no JAX, so it runs where only PyTorch is installed.
 Each kernel is held against its plain PyTorch version on the same
 inputs: float32 at rtol/atol 2e-5, bfloat16 against the plain version
-in float32 at 1e-2 (bf16 output rounding), pages bitwise. The engine on
-the card must give the CPU engine's greedy streams, with the kernels
-launched once per layer per prefill and per decode step.
+in float32 at 1e-2 (bf16 output rounding), pages bitwise. The flash
+attention kernels (forward and backward) are held by relative RMS error
+||got - plain|| / ||plain|| of each (batch, head) slice, the plain
+backward fed the plain o and lse: o, dq, dk, dv within 1e-5 in float32
+and 1e-2 in bfloat16 (one bf16 rounding is 1.7e-3 RMS; the kernels
+round p and ds for the tensor cores and their outputs), lse within 1e-5
+in both. The engine on the card must give the CPU engine's greedy
+streams, with the kernels launched once per layer per prefill and per
+decode step; the train step on the card must match the CPU's in
+float32, and in bfloat16 its gradients through the kernels must match
+those through the plain attention route.
 """
 import numpy as np
 import pytest
@@ -128,3 +136,98 @@ def test_engine_on_card_matches_cpu_engine(card):
     assert launches["flash_prefill_paged"] == cfg.n_layers * len(reqs)
     assert launches["paged_decode_attention"] == cfg.n_layers * steps
     assert outs["cpu"] == outs[str(card)]
+
+
+def _rel_err(got, ref):
+    """Largest relative RMS error over the (batch, head) slices."""
+    d = (got.float() - ref.float()).flatten(2).flatten(0, 1)
+    r = ref.float().flatten(2).flatten(0, 1)
+    return float((d.norm(dim=1) / r.norm(dim=1)).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [
+    (2, 16, 256, 64),            # the train path's heads and head_dim
+    (1, 3, 200, 32),             # head_dim 32, a ragged last tile
+])
+def test_flash_attention_kernels_match_plain(card, dtype, causal, shape):
+    rng = np.random.RandomState(8)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(
+        np.float32)).to(card, dt) for _ in range(4))
+    scale = 1.0 / shape[3] ** 0.5
+    n0 = dict(tfa.LAUNCHES)
+    o, lse = tfa._flash_fwd(q, k, v, causal)
+    grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention"] == n0["flash_attention"] + 1
+    assert (tfa.LAUNCHES["flash_attention_bwd"]
+            == n0["flash_attention_bwd"] + 1)
+    f = [t.float() for t in (q, k, v, do)]
+    ro, rl = tfa._flash_fwd_torch(f[0], f[1], f[2], causal, scale)
+    rg = tfa._flash_bwd_torch(f[0], f[1], f[2], ro.to(dt).float(), rl,
+                              f[3], causal, scale)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for name, got, ref in zip(("o", "lse", "dq", "dk", "dv"),
+                              (o, lse) + tuple(grads), (ro, rl) + tuple(rg)):
+        assert got.dtype == (torch.float32 if got is lse else dt)
+        assert _rel_err(got, ref) <= (1e-5 if got is lse else tol), name
+
+
+def test_flash_attention_rejects_head_dim_without_kernel(card):
+    q = torch.zeros(1, 1, 16, 8, device=card)
+    with pytest.raises(tfa.MXNetError, match="head_dim"):
+        tfa.flash_attention(q, q, q)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    cfg = T.TransformerConfig(vocab_size=128, d_model=128, n_heads=2,
+                              n_kv_heads=1, n_layers=2, d_ff=256,
+                              max_len=96, pos_type="rope")
+    rng = np.random.RandomState(9)
+    tok = torch.from_numpy(rng.randint(0, 128, (2, 2, 96)))
+    tgt = torch.from_numpy(rng.randint(0, 128, (2, 2, 96)))
+    step = T.make_transformer_train_step(cfg, lr=0.1)
+    runs = {}
+    for dev in ("cpu", card):
+        params = T.init_transformer_params_np(cfg, seed=5, device=dev,
+                                              trainable=True)
+        tfa.reset_launches()
+        losses = [float(step(params, tok[i], tgt[i])[1]) for i in range(2)]
+        runs[str(dev)] = (losses, params, dict(tfa.LAUNCHES))
+    (l_cpu, p_cpu, _), (l_gpu, p_gpu, launches) = runs["cpu"], runs[
+        str(card)]
+    assert launches["flash_attention"] == 2 * cfg.n_layers
+    assert launches["flash_attention_bwd"] == 2 * cfg.n_layers
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5, atol=1e-5)
+    for (name, a), (_, b) in zip(p_gpu.named_parameters(),
+                                 p_cpu.named_parameters()):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), atol=1e-5,
+                                   err_msg=name)
+
+
+def test_bf16_train_gradients_match_plain_attention_route(card):
+    cfg = T.TransformerConfig(vocab_size=256, d_model=256, n_heads=4,
+                              n_layers=2, d_ff=512, max_len=128,
+                              dtype=torch.bfloat16)
+    params = T.init_transformer_params_np(cfg, seed=6, device=card,
+                                          trainable=True)
+    rng = np.random.RandomState(10)
+    tok, tgt = (torch.from_numpy(rng.randint(0, 256, (2, 128))).to(card)
+                for _ in range(2))
+    leaves = list(params.parameters())
+    runs = {}
+    for impl in ("auto", "einsum"):
+        tfa.reset_launches()
+        loss = T._lm_local_loss(params, tok, tgt, cfg, attn_impl=impl)
+        grads = torch.autograd.grad(loss, leaves)
+        runs[impl] = (float(loss.detach()), grads, dict(tfa.LAUNCHES))
+    assert runs["auto"][2]["flash_attention_bwd"] == cfg.n_layers
+    assert runs["einsum"][2]["flash_attention"] == 0
+    # one bf16 ulp of the summed token losses (256 of them, ~5.5 each)
+    assert abs(runs["auto"][0] - runs["einsum"][0]) <= 8.0 / 256
+    for (name, _), g, r in zip(params.named_parameters(), runs["auto"][1],
+                               runs["einsum"][1]):
+        assert _rel_err(g[None, None], r[None, None]) <= 2e-2, name
