@@ -47,7 +47,29 @@ Phases, each fatal on failure (no phase's failure is caught):
     loss and every weight's gradient with attention through the kernels
     against the plain attention route (``impl="einsum"``) on the card,
     and a planted fault (lse rounded to bf16) that must fail;
-11. print a ``kernels`` JSON line, the card line, and last
+11. hold the fused optimizer update kernel (``sgd_fused_update``,
+    ``adam_fused_update``: one launch over a whole parameter list)
+    against its plain versions, bitwise, over all 157 ResNet-50
+    parameter shapes: SGD with momentum, stateless, with clip; Adam at
+    steps 1 and 7; per-tensor lr and wd; then a planted fault (the hyper
+    table shifted by one tensor) that must fail;
+12. time both over the ResNet-50 parameter list beside their bound,
+    plain version and ``torch._fused_sgd_`` / ``torch._fused_adam_``;
+13. train ResNet-50 through ``Module.fit`` with the arguments
+    ``examples/common/fit.py`` passes for ``--network resnet
+    --num-layers 50 --benchmark 1`` (batch 32 of float32 3x224x224, SGD
+    lr 0.1 momentum 0.9 wd 1e-4, MultiFactorScheduler, Xavier, TF32
+    off): a warm epoch and a timed epoch of 24 batches each, finite
+    loss, weights and moving statistics changed, ``sgd_fused_update``
+    launched once a step and its plain version never; img/s, ms/step,
+    MFU; the same fit with ``--optimizer adam`` for 4 batches
+    (``adam_fused_update`` once a step); one profiled step;
+14. two chained ResNet-50 steps (batch 2) on the card, on the CPU in
+    float32 and on the CPU in float64 (the witness): the card's errors
+    against the witness (outputs, each weight's and moving statistic's
+    change) held to the CPU float32's own, and a planted BatchNorm
+    gradient fault that must fail;
+15. print a ``kernels`` JSON line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -117,20 +139,25 @@ def card_line():
 class Timer(object):
     """Mean device time of ``fn`` over ``iters`` launches, each after a
     256 MB write that evicts the 50 MB L2 and keeps the card busy
-    while the host enqueues the launch."""
+    while the host enqueues the launch. ``hold_ms`` adds a device-side
+    wait of that long after the write, for calls whose host side takes
+    longer than the write (the start event is then recorded with the
+    launch already queued)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.float32,
                                  device="cuda")
 
-    def __call__(self, fn, iters=30):
+    def __call__(self, fn, iters=30, hold_ms=0.0):
         torch = self.torch
         fn()
         torch.cuda.synchronize()
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
+            if hold_ms:
+                torch.cuda._sleep(int(hold_ms * 2e6))   # ~2 GHz clock
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -631,11 +658,11 @@ def profile_round(torch, eng, reqs):
     return profile_run(torch, run)
 
 
-def profile_run(torch, run):
+def profile_run(torch, run, classify=_kernel_class):
     """``run()`` under torch.profiler, CUDA activity only: the device's
     busy share of the wall time (union of kernel intervals) and device
-    time by kernel class. The profiler slows the host, so this wall is
-    not a measured one."""
+    time by kernel class (``classify(kernel name)``). The profiler slows
+    the host, so this wall is not a measured one."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -648,7 +675,7 @@ def profile_run(torch, run):
             continue
         start, end = ev.time_range.start, ev.time_range.end
         spans.append((start, end))
-        cls = _kernel_class(ev.name)
+        cls = classify(ev.name)
         device_ms[cls] = device_ms.get(cls, 0.0) + (end - start) / 1e3
         by_name[ev.name] = by_name.get(ev.name, 0.0) + (end - start) / 1e3
     busy_us, cur_s, cur_e = 0.0, None, None
@@ -926,6 +953,617 @@ def train_bf16_routes(torch, fa):
 
 
 # ---------------------------------------------------------------------------
+# phases 11-14: ResNet-50 Module.fit and the fused update kernel
+# ---------------------------------------------------------------------------
+
+RESNET_BATCH = 32       # examples/train_imagenet.py --batch-size default
+IMAGENET_EXAMPLES = 1281167
+# benchmark.py:84-86: 4.09 GFLOP a 224x224 forward, x2 multiply-add, x3
+# forward + backward
+RESNET_TRAIN_FLOP = 3 * 2 * 4.09e9
+F32_FLOPS = 67e12       # H100 SXM dense float32 outside the tensor cores
+# phase 14: two chained steps of the card (f32), the CPU (f32) and the CPU
+# in float64 (the witness) from one state; per step, relative RMS error
+# against the witness of the outputs, each weight's change since the start
+# and each moving statistic's. At this network's initialization float32
+# itself is far off: the CPU's weight changes sit 1.4e-2 (median) from the
+# witness after step 1 and ~0.5 after step 2, and a 1e-7 nudge of the
+# witness's own weights moves it as far (the gradient is ill-conditioned,
+# whatever the precision). So the card is held to the CPU's own float32
+# error: every error at most RESNET_RATIO_TOL times the CPU's same error
+# (the card read 1.10-1.30x in its first run; the planted BatchNorm fault
+# 2.9-4.0x). Step 1's outputs and moving statistics are forward only and
+# are held absolutely (card 4.7e-6 and 1.9e-5 in that run).
+RESNET_OUT_TOL = 1e-4
+RESNET_DSTAT_TOL = 1e-3
+RESNET_RATIO_TOL = 1.75
+
+def resnet_symbol(mx, num_layers=50):
+    """examples/train_imagenet.py --network resnet --num-layers 50."""
+    return mx.models.resnet(num_classes=1000, num_layers=num_layers,
+                            image_shape=(3, 224, 224))
+
+
+def resnet_param_shapes(mx):
+    """(name, shape) of ResNet-50's 157 trained arguments, from the
+    port's infer_shape."""
+    sym = resnet_symbol(mx)
+    arg_shapes, _, _ = sym.infer_shape(data=(RESNET_BATCH, 3, 224, 224),
+                                       softmax_label=(RESNET_BATCH,))
+    return [(n, s) for n, s in zip(sym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")]
+
+
+def update_inputs(torch, gen, shapes, kind, clip=False, step=1):
+    """Random weights, gradients and states on the card for every shape,
+    and per-tensor hypers (lr and wd differing between tensors, wd 0 on
+    biases and betas as ``set_wd_mult`` gives): kind "sgd_mom", "sgd"
+    or "adam" (lr bias-corrected for ``step`` as ``Adam.fused_hyper``)."""
+    def rnd(shape, scale):
+        return (torch.randn(shape, generator=gen) * scale).to("cuda")
+
+    ws = [rnd(s, 0.05) for _, s in shapes]
+    gs = [rnd(s, 1.0) for _, s in shapes]
+    if kind == "sgd_mom":
+        states = [(rnd(s, 0.01),) for _, s in shapes]
+    elif kind == "sgd":
+        states = [() for _ in shapes]
+    else:
+        states = [(rnd(s, 0.01), rnd(s, 1e-3).abs()) for _, s in shapes]
+    hypers = []
+    for i, (name, _) in enumerate(shapes):
+        decays = name.endswith("_weight") or name.endswith("_gamma")
+        h = {"lr": 0.1 * (1 + (i % 7) / 7.0),
+             "wd": 1e-4 * (1 + i % 3) if decays else 0.0,
+             "rescale_grad": 1.0 / RESNET_BATCH}
+        if clip:
+            h["clip_gradient"] = 0.02   # clips about half of g / 32
+        if kind == "sgd_mom":
+            h["momentum"] = 0.9
+        elif kind == "adam":
+            b1, b2 = 0.9, 0.999
+            h["lr"] = 1e-3 * (1 + (i % 7) / 7.0) * float(
+                np.sqrt(1.0 - b2 ** step) / (1.0 - b1 ** step))
+            h.update(beta1=b1, beta2=b2, one_minus_beta1=1.0 - b1,
+                     one_minus_beta2=1.0 - b2, epsilon=1e-8)
+        hypers.append(h)
+    return ws, gs, states, hypers
+
+
+def run_update(torch, fu, kind, ws, gs, states, hypers, plain):
+    """A copy of the weights and states after one update, by the kernel
+    or (``plain``) the plain version."""
+    ws = [w.clone() for w in ws]
+    states = [tuple(s.clone() for s in st) for st in states]
+    if plain:
+        rule = fu._adam_fused if kind == "adam" else fu._sgd_fused
+    else:
+        rule = fu.adam_fused_update if kind == "adam" \
+            else fu.sgd_fused_update
+    rule(ws, gs, states, hypers)
+    torch.cuda.synchronize()
+    return ws, states
+
+
+def update_diff(torch, a, b):
+    """(all bitwise equal, max abs difference) of two update results."""
+    pairs = list(zip(a[0], b[0])) + [
+        (x, y) for sa, sb in zip(a[1], b[1]) for x, y in zip(sa, sb)]
+    return (all(torch.equal(x, y) for x, y in pairs),
+            max(max_err(x, y) for x, y in pairs))
+
+
+def check_fused(torch, mx, fu):
+    """Phase 11: both update kernels against their plain versions on the
+    card, bitwise, over all 157 ResNet-50 parameter shapes: SGD with
+    momentum, stateless SGD, SGD with clip, Adam at steps 1 and 7. Then a
+    planted fault that must fail: the plain version fed the hyper table
+    shifted by one tensor."""
+    shapes = resnet_param_shapes(mx)
+    check(len(shapes) == 157, "ResNet-50 has %d trained arguments, not 157"
+          % len(shapes))
+    gen = torch.Generator().manual_seed(11)
+    rows = []
+    for kind, clip, step in (("sgd_mom", False, 1), ("sgd", False, 1),
+                             ("sgd_mom", True, 1), ("adam", False, 1),
+                             ("adam", False, 7)):
+        args = update_inputs(torch, gen, shapes, kind, clip, step)
+        got = run_update(torch, fu, kind, *args, plain=False)
+        ref = run_update(torch, fu, kind, *args, plain=True)
+        same, err = update_diff(torch, got, ref)
+        rows.append({"kind": kind, "clip": clip, "step": step,
+                     "bitwise": same, "max_abs_err": err})
+        log("check %s_fused_update %-7s clip=%d step=%d over %d tensors: "
+            "bitwise %s, max abs err %.3g" % (
+                "adam" if kind == "adam" else "sgd", kind, clip, step,
+                len(shapes), same, err))
+        check(same, "fused update %s clip=%s step=%d differs from the "
+              "plain version (max abs err %g)" % (kind, clip, step, err))
+        if kind == "sgd_mom" and not clip:
+            ws, gs, states, hypers = args
+            shifted = run_update(torch, fu, kind, ws, gs, states,
+                                 hypers[1:] + hypers[:1], plain=True)
+            same_p, err_p = update_diff(torch, got, shifted)
+            log("planted fault (hyper table shifted by one tensor): "
+                "bitwise %s, max abs err %.3g" % (same_p, err_p))
+            check(not same_p, "planted fault (shifted hyper table) passes "
+                  "the bitwise check")
+            rows.append({"planted": "hypers shifted by one",
+                         "bitwise": same_p, "max_abs_err": err_p})
+    return rows
+
+
+def time_fused(torch, mx, fu, timer):
+    """Phase 12: both kernels over the whole ResNet-50 parameter list
+    (25.55M values), L2 flushed before every launch, beside their bound,
+    the plain version and PyTorch's own fused optimizer kernels
+    (``torch._fused_sgd_`` / ``torch._fused_adam_``, what
+    ``torch.optim.SGD/Adam(fused=True)`` run; the same bytes under a
+    slightly different formula). The wrapper's host side (argument
+    checks, tables) takes longer than the L2 flush, so the kernel and
+    library calls are timed with a 2 ms device-side hold before each;
+    ``host_ms`` is the wrapper's own host time per call."""
+    shapes = resnet_param_shapes(mx)
+    gen = torch.Generator().manual_seed(12)
+    n = sum(int(np.prod(s)) for _, s in shapes)
+    rows = []
+    # bytes: SGD-momentum reads w, g, mom and writes w, mom; Adam reads
+    # w, g, m, v and writes w, m, v. Operations per value: 7 and 15.
+    for kind, nbytes, flops in (("sgd_mom", 20 * n, 7.0 * n),
+                                ("adam", 28 * n, 15.0 * n)):
+        ws, gs, states, hypers = update_inputs(torch, gen, shapes, kind)
+        got = run_update(torch, fu, kind, ws, gs, states, hypers, False)
+        ref = run_update(torch, fu, kind, ws, gs, states, hypers, True)
+        _, err = update_diff(torch, got, ref)
+        if kind == "adam":
+            name = "adam_fused_update"
+            fn = lambda: fu.adam_fused_update(ws, gs, states, hypers)
+            plain = lambda: fu._adam_fused(ws, gs, states, hypers)
+            steps = [torch.ones((), device="cuda") for _ in ws]
+            lib = lambda: torch._fused_adam_(
+                ws, gs, [s[0] for s in states], [s[1] for s in states], [],
+                steps, lr=1e-3, beta1=0.9, beta2=0.999, weight_decay=1e-4,
+                eps=1e-8, amsgrad=False, maximize=False)
+        else:
+            name = "sgd_fused_update"
+            fn = lambda: fu.sgd_fused_update(ws, gs, states, hypers)
+            plain = lambda: fu._sgd_fused(ws, gs, states, hypers)
+            lib = lambda: torch._fused_sgd_(
+                ws, gs, [s[0] for s in states], weight_decay=1e-4,
+                momentum=0.9, lr=0.1, dampening=0.0, nesterov=False,
+                maximize=False, is_first_step=False)
+        t_bytes, t_flops = nbytes / HBM_BPS, flops / F32_FLOPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        rows.append({
+            "name": name, "shape": "ResNet-50: 157 tensors, %d values" % n,
+            "ms": timer(fn, hold_ms=2.0), "plain_ms": timer(plain),
+            "library_ms": timer(lib, hold_ms=2.0), "host_ms": host_ms,
+            "bound_ms": max(t_bytes, t_flops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "max_abs_err": err})
+        del ws, gs, states
+    for r in rows:
+        log("time %-18s %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
+            "bound_ms=%.4f (%s) %.0f GB/s host_ms=%.3f max_abs_err=%.3g"
+            % (r["name"], r["shape"], r["ms"], r["plain_ms"],
+               r["library_ms"], r["bound_ms"], r["bound_by"],
+               r["bytes"] / (r["ms"] * 1e-3) / 1e9, r["host_ms"],
+               r["max_abs_err"]))
+    return rows
+
+
+def synthetic_iter(mx, data_shape, num_classes, epoch_size, ctx):
+    """examples/common/data.py:55-87 SyntheticDataIter: one fixed batch
+    from RandomState(0), uniform in [-1, 1), labels in [0, num_classes),
+    replayed ``epoch_size`` times; on the card, as the JAX iterator's
+    arrays land on the default (accelerator) context."""
+    class SyntheticDataIter(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(batch_size=data_shape[0])
+            rng = np.random.RandomState(0)
+            self._data = mx.nd.array(rng.uniform(-1, 1, data_shape).astype(
+                np.float32), ctx=ctx)
+            self._label = mx.nd.array(rng.randint(
+                0, num_classes, (data_shape[0],)).astype(np.float32),
+                ctx=ctx)
+            self.provide_data = [mx.io.DataDesc("data", data_shape)]
+            self.provide_label = [mx.io.DataDesc("softmax_label",
+                                                 (data_shape[0],))]
+            self._cur = 0
+
+        def reset(self):
+            self._cur = 0
+
+        def next(self):
+            if self._cur >= epoch_size:
+                raise StopIteration
+            self._cur += 1
+            return mx.io.DataBatch(data=[self._data], label=[self._label],
+                                   provide_data=self.provide_data,
+                                   provide_label=self.provide_label)
+
+    return SyntheticDataIter()
+
+
+def fit_args(mx, optimizer="sgd", lr=0.1, batch_size=RESNET_BATCH):
+    """The Module.fit arguments examples/common/fit.py:98-160 passes for
+    ``--network resnet --num-layers 50 --benchmark 1`` on one device:
+    ``_get_lr_scheduler``'s MultiFactorScheduler over ImageNet's epoch
+    size (steps at epochs 30, 60, 80, factor 0.1), wd 1e-4, momentum 0.9
+    for SGD, Xavier(gaussian, in, 2), accuracy and top-5 accuracy, a
+    Speedometer every 20 batches, kvstore 'device', allow_missing."""
+    epoch_size = -(-IMAGENET_EXAMPLES // batch_size)
+    params = {"learning_rate": lr, "wd": 1e-4,
+              "lr_scheduler": mx.lr_scheduler.MultiFactorScheduler(
+                  step=[epoch_size * e for e in (30, 60, 80)], factor=0.1,
+                  base_lr=lr)}
+    if optimizer == "sgd":
+        params["momentum"] = 0.9
+    return dict(kvstore="device", optimizer=optimizer,
+                optimizer_params=params,
+                initializer=mx.init.Xavier(rnd_type="gaussian",
+                                           factor_type="in", magnitude=2),
+                eval_metric=["accuracy",
+                             mx.metric.create("top_k_accuracy", top_k=5)],
+                batch_end_callback=[mx.callback.Speedometer(batch_size, 20)],
+                allow_missing=True)
+
+
+def _resnet_class(name):
+    low = name.lower()
+    if "fused_update_kernel" in low:
+        return "fused_update"
+    if "batch_norm" in low or "bn_" in low or "welford" in low:
+        return "batchnorm"
+    if any(k in low for k in ("fprop", "dgrad", "wgrad", "conv", "winograd",
+                              "implicit_gemm", "cudnn", "xmma_fft")):
+        return "cudnn_conv"
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "cublas", "cutlass")):
+        return "cublas"
+    return "elementwise_other"
+
+
+def resnet_fit(torch, mx, fu, fa, batches=24):
+    """Phase 13: ResNet-50 through ``Module.fit`` on the card, the
+    configuration of examples/train_imagenet.py --benchmark 1 (batch 32
+    of float32 3x224x224, TF32 off), two epochs of ``batches`` batches:
+    the first warms up, the second is timed (host clock from the end of
+    the first epoch-end callback, after its snapshot of the weights, to
+    the start of the second, after a synchronize). Every launch count is
+    0 just before the fit and read just after: ``sgd_fused_update`` once a
+    step, its plain version never. Then the same fit with
+    ``--optimizer adam`` for 4 batches (``adam_fused_update`` once a
+    step), and one SGD step under torch.profiler."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    sym = resnet_symbol(mx)
+    shape = (RESNET_BATCH, 3, 224, 224)
+    ctx = mx.gpu(0)
+    train = mx.io.ResizeIter(synthetic_iter(
+        mx, shape, 1000, IMAGENET_EXAMPLES // RESNET_BATCH, ctx), batches)
+    ends, resumed, snaps = [], [], []
+
+    def epoch_end(epoch, _sym, arg, aux):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        snaps.append(({k: v.asnumpy() for k, v in arg.items()},
+                      {k: v.asnumpy() for k, v in aux.items()}))
+        resumed.append(time.perf_counter())   # the snapshot is not timed
+
+    plain_calls = [0]
+    real_plain = fu._sgd_fused
+
+    def spy(*args):
+        plain_calls[0] += 1
+        return real_plain(*args)
+
+    mod = mx.mod.Module(sym, context=ctx)
+    mx.random.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    fu.reset_launches()
+    fa.reset_launches()
+    fu._sgd_fused = spy
+    try:
+        t0 = time.perf_counter()
+        mod.fit(train, num_epoch=2, epoch_end_callback=epoch_end,
+                **fit_args(mx))
+    finally:
+        fu._sgd_fused = real_plain
+    launches = dict(fu.LAUNCHES, **fa.LAUNCHES)
+    warm_s = ends[0] - t0
+    dt = ends[1] - resumed[0]
+    steps = 2 * batches
+    check(launches["sgd_fused_update"] == steps,
+          "fit: sgd_fused_update launched %d times for %d steps"
+          % (launches["sgd_fused_update"], steps))
+    check(plain_calls[0] == 0, "fit: the plain SGD rule ran %d times"
+          % plain_calls[0])
+    check(all(n == 0 for k, n in launches.items()
+              if k != "sgd_fused_update"),
+          "fit launched another kernel: %s" % launches)
+    ce = mx.metric.CrossEntropy()
+    ce.update([train.data_iter._label], mod.get_outputs())
+    loss = float(ce.get()[1])
+    out = mod.get_outputs()[0]
+    check(out.shape == (RESNET_BATCH, 1000), "outputs %s" % (out.shape,))
+    check(np.isfinite(loss), "fit: cross-entropy %r is not finite" % loss)
+    (a0, x0), (a1, x1) = snaps
+    w_moved = max(float(np.abs(a1[k] - a0[k]).max()) for k in a0)
+    s_moved = max(float(np.abs(x1[k] - x0[k]).max()) for k in x0)
+    check(w_moved > 0 and s_moved > 0, "fit: weights (%g) or BN moving "
+          "stats (%g) did not change in the timed epoch" % (w_moved,
+                                                          s_moved))
+    check(all(np.isfinite(v).all() for v in a1.values()),
+          "fit: non-finite weights")
+    img_s = RESNET_BATCH * batches / dt
+    mfu = img_s * RESNET_TRAIN_FLOP / F32_FLOPS
+    check(mfu <= 1.05, "fit: %.0f img/s implies MFU %.2f > 1" % (img_s, mfu))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    metric = mx.metric.create(["accuracy"])
+    batch = next(iter(train))
+    train.reset()
+    fu.reset_launches()
+
+    def one_step():
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(metric, batch.label)
+
+    prof = profile_run(torch, one_step, _resnet_class)
+    check(fu.LAUNCHES["sgd_fused_update"] == 1, "profiled step launched "
+          "sgd_fused_update %d times" % fu.LAUNCHES["sgd_fused_update"])
+    del mod
+    # --optimizer adam: the same fit, 4 batches
+    mod = mx.mod.Module(sym, context=ctx)
+    fu.reset_launches()
+    mod.fit(mx.io.ResizeIter(train.data_iter, 4), num_epoch=1,
+            **fit_args(mx, optimizer="adam"))
+    adam_launches = fu.LAUNCHES["adam_fused_update"]
+    check(adam_launches == 4, "fit(optimizer='adam'): adam_fused_update "
+          "launched %d times for 4 steps" % adam_launches)
+    check(all(np.isfinite(v.asnumpy()).all()
+              for v in mod.get_params()[0].values()),
+          "fit(optimizer='adam'): non-finite weights")
+    del mod
+    res = {"batch": RESNET_BATCH, "timed_batches": batches,
+           "warm_epoch_s": warm_s, "timed_epoch_s": dt,
+           "img_per_s": img_s, "ms_per_step": dt * 1e3 / batches,
+           "mfu": mfu, "cross_entropy": loss, "weights_moved": w_moved,
+           "stats_moved": s_moved, "launches": launches,
+           "adam_launches": adam_launches, "peak_mem_gb": peak_gb,
+           "cudnn_benchmark": torch.backends.cudnn.benchmark,
+           "profiled_step": prof}
+    log("resnet fit: %d steps (%d warm); timed epoch %.3fs: %.1f img/s, "
+        "%.2f ms/step, MFU %.3f (24.54 GFLOP/img, 67 TFLOP/s f32 peak); "
+        "warm epoch %.2fs; cross-entropy %.4f; launches %s; adam run %d "
+        "launches; peak memory %.1f GB; cudnn.benchmark=%s"
+        % (steps, batches, dt, img_s, res["ms_per_step"], mfu, warm_s, loss,
+           launches, adam_launches, peak_gb, res["cudnn_benchmark"]))
+    log("resnet profiled step: wall %.3fs, device busy %s, %d kernels, "
+        "device ms by class %s"
+        % (prof["wall_s"], "not measured" if prof["busy_share"] is None
+           else "%.1f%%" % (100 * prof["busy_share"]), prof["kernels"],
+           {k: round(v, 3) for k, v in prof["device_ms"].items()}))
+    for name, ms in prof["top_kernels_ms"]:
+        log("resnet profiled step: %8.3f ms  %s" % (ms, name))
+    return res
+
+
+def rel_rms(got, ref):
+    """||got - ref|| / ||ref|| (0 when both are 0)."""
+    den = float(np.linalg.norm(ref))
+    num = float(np.linalg.norm(got - ref))
+    return num / den if den > 0 else num
+
+
+def bn_unbiased_backward(torch, real):
+    """A planted fault for phase 14: BatchNorm whose gradient is that of
+    normalizing by the unbiased batch variance; its forward value (and the
+    moving statistics) stay the sound op's."""
+    def fn(data, gamma, beta, moving_mean, moving_var, **attrs):
+        res = real(data, gamma, beta, moving_mean, moving_var, **attrs)
+        if not attrs.get("train_mode") or attrs.get("use_global_stats"):
+            return res
+        out = res[0] if isinstance(res, tuple) else res
+        red = tuple(i for i in range(data.dim()) if i != 1)
+        var, mean = torch.var_mean(data, dim=red, correction=1, keepdim=True)
+        if attrs.get("fix_gamma", True):
+            gamma = torch.ones_like(gamma)
+        shape = (1, -1) + (1,) * (data.dim() - 2)
+        bad = ((data - mean) / torch.sqrt(var + attrs.get("eps", 1e-3))
+               * gamma.view(shape) + beta.view(shape))
+        out = bad + (out - bad).detach()
+        return (out,) + tuple(res[1:]) if isinstance(res, tuple) else out
+    return fn
+
+
+class _F64Witness(object):
+    """The fused SGD step of ``Module.fit`` in float64 on the CPU: the
+    port's graph bound in float64 (``simple_bind``), ``Executor.train_step``
+    with the plain rule, the hypers of an optimizer made as Module makes
+    it."""
+
+    def __init__(self, torch, mx, fu, sym, arg0, aux0, x, y, nudge=0.0):
+        self.names = [n for n in sym.list_arguments()
+                      if n not in ("data", "softmax_label")]
+        f64 = np.float64
+        self.exe = sym.simple_bind(
+            ctx=mx.cpu(), grad_req={n: "write" for n in self.names},
+            type_dict={n: f64 for n in sym.list_arguments()
+                       + sym.list_auxiliary_states()},
+            data=x.shape, softmax_label=y.shape)
+        self.exe.copy_params_from(
+            {k: v.asnumpy().astype(f64) for k, v in arg0.items()},
+            {k: v.asnumpy().astype(f64) for k, v in aux0.items()})
+        gen = torch.Generator().manual_seed(5)
+        for n in self.names:            # a relative nudge of every weight
+            w = self.exe.arg_dict[n]._data
+            w.mul_(1 + nudge * torch.randn(w.shape, generator=gen,
+                                           dtype=torch.float64))
+        self.opt = mx.optimizer.create(
+            "sgd", sym=sym, param_idx2name=dict(enumerate(self.names)),
+            rescale_grad=1.0 / x.shape[0],
+            **fit_args(mx, batch_size=x.shape[0])["optimizer_params"])
+        self.states = {n: (mx.nd.NDArray(torch.zeros(
+            self.exe.arg_dict[n].shape, dtype=torch.float64)),)
+            for n in self.names}
+        self.feed = {"data": x.astype(f64), "softmax_label": y.astype(f64)}
+        self.rule = fu._sgd_fused
+
+    def step(self):
+        hyper = {n: self.opt.fused_hyper(i) for i, n in enumerate(self.names)}
+        out = self.exe.train_step(self.rule, self.names, self.states, hyper,
+                                  feed=self.feed)
+        return (out[0].asnumpy(),
+                {n: self.exe.arg_dict[n].asnumpy() for n in self.names},
+                {k: v.asnumpy() for k, v in self.exe.aux_dict.items()})
+
+
+def resnet_vs_f64(torch, mx, fu, batch=2, steps=2, sides=(
+        "cpu", "dev", "planted", "f64_nudged"), num_layers=50):
+    """ResNet-50 (or ``num_layers``) at full width, ``batch`` images of
+    3x224x224, ``steps`` chained fused SGD steps (``forward_backward`` +
+    ``update``, ``Module.fit``'s loop body with its optimizer arguments)
+    from one Xavier state: the witness (``_F64Witness``) and each side of
+    ``sides``: "cpu" a CPU Module in f32, "dev" the card's Module in f32,
+    "planted" the card's with ``bn_unbiased_backward``, "f64_nudged" a
+    second witness whose weights are nudged by 1e-7 (relative). Per step
+    and side, relative RMS error against the witness of the outputs, of
+    each weight's change since the start and of each moving statistic's.
+    """
+    from mxnet_tpu_torch.ops import registry as reg
+    sym = resnet_symbol(mx, num_layers)
+    rng = np.random.RandomState(1)
+    x = rng.uniform(-1, 1, (batch, 3, 224, 224)).astype(np.float32)
+    y = rng.randint(0, 1000, (batch,)).astype(np.float32)
+    data = mx.io.DataBatch([mx.nd.array(x)], [mx.nd.array(y)])
+    mx.random.seed(1)
+    init = mx.mod.Module(sym, context=mx.cpu())
+    init.bind(data_shapes=[("data", x.shape)],
+              label_shapes=[("softmax_label", y.shape)])
+    init.init_params(fit_args(mx)["initializer"])
+    arg0, aux0 = init.get_params()
+    a0 = {k: v.asnumpy().astype(np.float64) for k, v in arg0.items()}
+    x0 = {k: v.asnumpy().astype(np.float64) for k, v in aux0.items()}
+    del init
+    witness = _F64Witness(torch, mx, fu, sym, arg0, aux0, x, y)
+    mods = {}
+    for side in sides:
+        if side == "f64_nudged":
+            mods[side] = _F64Witness(torch, mx, fu, sym, arg0, aux0, x, y,
+                                     nudge=1e-7)
+            continue
+        mod = mx.mod.Module(sym, context=mx.cpu() if side == "cpu"
+                            else mx.gpu(0))
+        mod.bind(data_shapes=[("data", x.shape)],
+                 label_shapes=[("softmax_label", y.shape)])
+        mod.init_params(None, arg_params=arg0, aux_params=aux0)
+        mod.init_optimizer(kvstore="device", optimizer="sgd",
+                           optimizer_params=fit_args(
+                               mx, batch_size=batch)["optimizer_params"])
+        mods[side] = mod
+    bn = reg.get_op("BatchNorm")
+    sound_bn = bn.fn
+    rows = []
+    for step in range(1, steps + 1):
+        t0 = time.time()
+        o_w, a_w, s_w = witness.step()
+        row = {"step": step, "witness_s": time.time() - t0}
+        for side, mod in mods.items():
+            if side == "f64_nudged":
+                out, a, s = mod.step()
+            else:
+                fu.reset_launches()
+                if side == "planted":
+                    bn.fn = bn_unbiased_backward(torch, sound_bn)
+                try:
+                    mod.forward_backward(data)
+                    mod.update()
+                finally:
+                    bn.fn = sound_bn
+                check(side == "cpu" or fu.LAUNCHES["sgd_fused_update"] == 1,
+                      "resnet vs f64: %d launches in one %s step"
+                      % (fu.LAUNCHES["sgd_fused_update"], side))
+                a, s = [{k: v.asnumpy() for k, v in d.items()}
+                        for d in mod.get_params()]
+                out = mod.get_outputs()[0].asnumpy()
+            check(np.isfinite(out).all() and out.shape == (batch, 1000),
+                  "resnet vs f64: %s outputs %s" % (side, out.shape,))
+            dw = {k: rel_rms(v - a0[k], a_w[k] - a0[k]) for k, v in a.items()}
+            ds = {k: rel_rms(v - x0[k], s_w[k] - x0[k]) for k, v in s.items()}
+            row[side] = {"out_rel": rel_rms(out, o_w), "dw": dw, "ds": ds,
+                         "dw_max": max(dw.values()),
+                         "dw_median": float(np.median(list(dw.values()))),
+                         "dw_worst": max(dw, key=dw.get),
+                         "ds_max": max(ds.values()),
+                         "ds_worst": max(ds, key=ds.get)}
+        rows.append(row)
+        log("resnet vs f64 (batch %d) step %d (witness %.1fs): %s" % (
+            batch, step, row["witness_s"], "; ".join(
+                "%s outputs %.2e, weight change median %.2e max %.2e (%s), "
+                "moving-stat change max %.2e (%s)"
+                % (side, r["out_rel"], r["dw_median"], r["dw_max"],
+                   r["dw_worst"], r["ds_max"], r["ds_worst"])
+                for side, r in ((k, row[k]) for k in sides))))
+    return rows
+
+
+def resnet_misses(side, cpu, step):
+    """The phase-14 limits ``side``'s errors (a ``resnet_vs_f64`` row
+    entry) exceed at ``step``, against the CPU's float32 ``cpu``."""
+    misses = []
+    if step == 1:       # forward only: outputs and batch statistics
+        if side["out_rel"] > RESNET_OUT_TOL:
+            misses.append("outputs %.3g > %g" % (side["out_rel"],
+                                                  RESNET_OUT_TOL))
+        if side["ds_max"] > RESNET_DSTAT_TOL:
+            misses.append("%s's change %.3g > %g" % (
+                side["ds_worst"], side["ds_max"], RESNET_DSTAT_TOL))
+        keys = ("dw_median", "dw_max")
+    else:
+        keys = ("out_rel", "dw_median", "dw_max", "ds_max")
+    for k in keys:
+        if side[k] > RESNET_RATIO_TOL * cpu[k]:
+            misses.append("%s %.3g > %g x the CPU's %.3g" % (
+                k, side[k], RESNET_RATIO_TOL, cpu[k]))
+    return misses
+
+
+def resnet_vs_cpu(torch, mx, fu):
+    """Phase 14: ResNet-50 on the card against the CPU's float64
+    witness, two chained steps at batch 2 (``resnet_vs_f64``), beside the
+    CPU's own float32 run and a nudged witness: the card must keep within
+    the limits of ``resnet_misses`` at every step, and the planted
+    BatchNorm fault must not."""
+    rows = resnet_vs_f64(torch, mx, fu)
+    planted = []
+    for row in rows:
+        misses = resnet_misses(row["dev"], row["cpu"], row["step"])
+        check(not misses, "resnet vs f64 step %d: the card is off: %s"
+              % (row["step"], "; ".join(misses)))
+        planted += resnet_misses(row["planted"], row["cpu"], row["step"])
+        log("resnet vs f64 step %d: card/CPU error ratios: %s; planted: %s"
+            % (row["step"], ", ".join(
+                "%s %.2f" % (k, row["dev"][k] / max(row["cpu"][k], 1e-30))
+                for k in ("out_rel", "dw_median", "dw_max", "ds_max")),
+               ", ".join("%s %.2f" % (k, row["planted"][k]
+                                      / max(row["cpu"][k], 1e-30))
+                         for k in ("out_rel", "dw_median", "dw_max",
+                                   "ds_max"))))
+    log("resnet vs f64: the planted BatchNorm fault misses %s"
+        % (planted or "nothing"))
+    check(planted, "resnet vs f64: the planted BatchNorm fault passes")
+    return [{"step": row["step"], "witness_s": row["witness_s"],
+             **{side: {k: v for k, v in r.items() if k not in ("dw", "ds")}
+                for side, r in row.items() if isinstance(r, dict)}}
+            for row in rows]
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the card against the CPU, f32
 # ---------------------------------------------------------------------------
 
@@ -981,8 +1619,10 @@ def main():
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops.cuda import _build
     from mxnet_tpu_torch.ops.cuda import flash_attention as fa
+    from mxnet_tpu_torch.ops.cuda import fused_update as fu
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.time()
@@ -1012,6 +1652,12 @@ def main():
     trained = train(torch, fa)
     train_cpu = train_vs_cpu(torch, fa)
     routes = train_bf16_routes(torch, fa)
+    fused_checks = check_fused(torch, mx, fu)
+    timer = Timer(torch)
+    fused_rows = time_fused(torch, mx, fu, timer)
+    del timer
+    fitted = resnet_fit(torch, mx, fu, fa)
+    resnet_cpu = resnet_vs_cpu(torch, mx, fu)
 
     sources = {"paged_decode_attention": (
         "mxnet_tpu_torch/ops/cuda/csrc/paged_decode_attention.cu",
@@ -1025,14 +1671,24 @@ def main():
         # the TPU's backward is XLA (_flash_bwd), not a Pallas kernel
         "flash_attention_bwd": (
         "mxnet_tpu_torch/ops/cuda/csrc/flash_attention_bwd.cu",
-        "mxnet_tpu/ops/pallas/flash_attention.py:238")}
+        "mxnet_tpu/ops/pallas/flash_attention.py:238"),
+        # one CUDA source computes both; the TPU's body is _update_kernel
+        "sgd_fused_update": (
+        "mxnet_tpu_torch/ops/cuda/csrc/fused_update.cu",
+        "mxnet_tpu/ops/pallas/fused_update.py:65"),
+        "adam_fused_update": (
+        "mxnet_tpu_torch/ops/cuda/csrc/fused_update.cu",
+        "mxnet_tpu/ops/pallas/fused_update.py:65")}
     # launches: the serving kernels' from the served round, the training
-    # kernels' from the first timed train call (8 steps)
+    # kernels' from the first timed train call (8 steps), the update
+    # kernels' from the ResNet-50 fits (48 SGD steps; 4 Adam steps)
     launches = dict(served["launches"])
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] = trained["calls"][1]["launches"][name]
+    launches["sgd_fused_update"] = fitted["launches"]["sgd_fused_update"]
+    launches["adam_fused_update"] = fitted["adam_launches"]
     kernels = []
-    for r in main_rows + flash_rows:
+    for r in main_rows + flash_rows + fused_rows:
         src, rep = sources[r["name"]]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": src,
@@ -1046,7 +1702,9 @@ def main():
               "path_max_abs_err": path_errs, "flash_checks": flash_checks,
               "flash_timings": flash_rows, "train": trained,
               "train_vs_cpu": train_cpu, "train_bf16_routes": routes,
-              "kernels": kernels,
+              "fused_update_checks": fused_checks,
+              "fused_update_timings": fused_rows, "resnet_fit": fitted,
+              "resnet_vs_cpu": resnet_cpu, "kernels": kernels,
               "wall_s": time.time() - t_all}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

@@ -4,21 +4,40 @@ A package beside ``mxnet_tpu`` (the JAX reference, which it never
 imports). Plain tensor code is PyTorch; every kernel the JAX package
 wrote in Pallas for the TPU is a CUDA C++ kernel for ``sm_90a`` here,
 built from ``ops/cuda/csrc`` with ``nvcc`` at first use. Entry points
-run on ``cuda:0`` unless the caller passes ``device="cpu"``.
+run on ``cuda:0`` unless the caller passes ``device="cpu"`` / ``cpu()``.
 
-Ported so far: decode serving — :class:`serve.DecodeEngine` over the
-paged transformer (``parallel.transformer``) with the
-``paged_decode_attention`` and ``flash_prefill_paged`` kernels — and
-single-device transformer LM training —
-:func:`parallel.make_transformer_train_step` with the
-``flash_attention`` forward and backward kernels.
+Ported so far:
+
+- decode serving: :class:`serve.DecodeEngine` over the paged transformer
+  (``parallel.transformer``), kernels ``paged_decode_attention`` and
+  ``flash_prefill_paged``;
+- single-device transformer LM training:
+  :func:`parallel.make_transformer_train_step`, the ``flash_attention``
+  forward and backward kernels;
+- symbolic training through ``Module.fit`` on one device (the ResNet
+  path of ``examples/train_imagenet.py``): ``ndarray``, the op registry
+  with the ResNet op set (``ops``), ``symbol``, ``models.resnet``,
+  ``initializer``, ``executor``, ``optimizer`` (SGD, Adam),
+  ``lr_scheduler``, ``io``, ``metric``, ``callback``, ``model`` and
+  ``module``; the ``sgd_fused_update`` / ``adam_fused_update`` kernel
+  updates every parameter in one launch a step.
 
 Importing the package imports no triton, loads no CUDA library and
 touches no GPU.
 """
-from . import config, context, convert, ops, parallel, serve, telemetry
+from . import (callback, config, context, convert, executor, initializer,
+               io, lr_scheduler, metric, model, models, module, ndarray,
+               ops, optimizer, parallel, random, serve, symbol, telemetry)
 from .base import MXNetError
 from .context import cpu, default_device, gpu
 
-__all__ = ["MXNetError", "cpu", "gpu", "default_device", "config",
-           "context", "convert", "ops", "parallel", "serve", "telemetry"]
+nd = ndarray
+sym = symbol
+mod = module
+init = initializer
+
+__all__ = ["MXNetError", "cpu", "gpu", "default_device", "callback",
+           "config", "context", "convert", "executor", "init", "initializer",
+           "io", "lr_scheduler", "metric", "mod", "model", "models", "module",
+           "nd", "ndarray", "ops", "optimizer", "parallel", "random", "serve",
+           "sym", "symbol", "telemetry"]

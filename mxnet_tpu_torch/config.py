@@ -49,6 +49,22 @@ VARS = {
                                  "(queued or mid-stream; expired "
                                  "sessions are retired and their pages "
                                  "freed). 0 disables."),
+    "MXNET_FUSED_STEP": (bool, True,
+                         "Run Module's forward + backward + optimizer "
+                         "update as one train step (Executor.train_step: "
+                         "one torch.autograd.grad, then ONE fused-update "
+                         "launch over every parameter). 0 restores the "
+                         "separate forward/backward calls plus a "
+                         "per-parameter update."),
+    "MXNET_PALLAS_FUSED_UPDATE": (bool, True,
+                                  "Route the SGD/Adam fused update rules "
+                                  "through the hand-written kernel "
+                                  "(ops/cuda/fused_update.py; on CPU "
+                                  "tensors it runs its plain version). "
+                                  "Declared for parity with the JAX "
+                                  "package, where 0 selects the XLA "
+                                  "rules; the port has no second route "
+                                  "on the card, so 0 raises."),
 }
 
 
@@ -57,4 +73,8 @@ def get(name):
     registered type, else its registered default."""
     typ, default, _ = VARS[name]
     raw = os.environ.get(name)
-    return default if raw is None else typ(raw)
+    if raw is None:
+        return default
+    if typ is bool:
+        return raw.lower() in ("1", "true", "yes", "on")
+    return typ(raw)

@@ -1,11 +1,13 @@
-"""Weights between the JAX package's pytree and this package's module.
+"""Weights between the JAX package and this one.
 
-The JAX package keeps transformer weights as a pytree of arrays whose
-layer stacks lead with ``(pp, layers_per_stage)``; this package keeps
-them in a :class:`~.parallel.transformer.TransformerParams` with the
-stacks flattened to ``(n_layers, ...)``. The caller turns the JAX arrays
-into numpy first (``jax.tree_util.tree_map(np.asarray, params)``), so
-this module never imports JAX.
+Transformer weights: the JAX package keeps them as a pytree of arrays
+whose layer stacks lead with ``(pp, layers_per_stage)``; this package
+keeps them in a :class:`~.parallel.transformer.TransformerParams` with
+the stacks flattened to ``(n_layers, ...)``. Module parameters: name ->
+array dicts on both sides, with the same names (``Module.get_params()``
+there, ``Module.set_params`` / ``fit(arg_params=...)`` here). The caller
+turns the JAX arrays into numpy first (``np.asarray`` /
+``NDArray.asnumpy()``), so this module never imports JAX.
 """
 from __future__ import annotations
 
@@ -14,10 +16,12 @@ import torch
 
 from .base import MXNetError
 from .context import default_device
+from .ndarray.ndarray import NDArray
 from .parallel.transformer import (LAYER_KEYS, TransformerParams,
                                    _validate, expected_shapes)
 
-__all__ = ["params_from_jax", "params_to_numpy"]
+__all__ = ["params_from_jax", "params_to_numpy", "module_params_from_numpy",
+           "module_params_to_numpy"]
 
 
 def _to_torch(arr, dtype, device):
@@ -92,3 +96,25 @@ def params_to_numpy(params, pp=1):
         k: host(p).reshape((pp, n_layers // pp) + tuple(p.shape[1:]))
         for k, p in params.layers.items()}
     return out
+
+
+def module_params_from_numpy(arg_params, aux_params, device=None):
+    """Module parameters as name -> numpy dicts (the JAX
+    ``Module.get_params()`` through ``.asnumpy()``) -> (arg, aux) dicts of
+    float32 NDArrays on ``device`` (default ``cuda:0``), what
+    ``Module.set_params`` and ``Module.fit(arg_params=..., aux_params=...)``
+    take."""
+    device = default_device(device)
+
+    def conv(params):
+        return {name: NDArray(_to_torch(arr, torch.float32, device))
+                for name, arr in (params or {}).items()}
+
+    return conv(arg_params), conv(aux_params)
+
+
+def module_params_to_numpy(arg_params, aux_params):
+    """(arg, aux) NDArray dicts (``Module.get_params()``) -> name -> numpy
+    dicts, what the JAX package's ``nd.array`` takes back."""
+    return ({n: a.asnumpy() for n, a in arg_params.items()},
+            {n: a.asnumpy() for n, a in aux_params.items()})

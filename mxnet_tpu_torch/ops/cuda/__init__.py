@@ -1,8 +1,20 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``), built with
 ``nvcc`` at first use (``_build``) and bound with ctypes. Importing this
-package builds nothing and touches no GPU."""
+package builds nothing and touches no GPU.
+
+Each kernel module keeps its own ``CUDA_KERNELS`` registry and
+``LAUNCHES`` counters: ``flash_attention`` (the attention kernels of
+decode serving and transformer training) and ``fused_update`` (the
+optimizer updates of ``Module.fit``)."""
+from . import flash_attention as _fa
+from . import fused_update as _fu
 from .flash_attention import (CUDA_KERNELS, LAUNCHES, flash_prefill_paged,
                               paged_decode_attention, reset_launches)
+from .fused_update import adam_fused_update, sgd_fused_update
 
-__all__ = ["CUDA_KERNELS", "LAUNCHES", "flash_prefill_paged",
-           "paged_decode_attention", "reset_launches"]
+# every module that registers CUDA kernels
+KERNEL_MODULES = (_fa, _fu)
+
+__all__ = ["CUDA_KERNELS", "LAUNCHES", "KERNEL_MODULES", "adam_fused_update",
+           "flash_prefill_paged", "paged_decode_attention", "reset_launches",
+           "sgd_fused_update"]

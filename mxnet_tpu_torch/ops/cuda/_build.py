@@ -38,6 +38,7 @@ SOURCES = {
     "flash_prefill_paged": "flash_prefill_paged.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "fused_update": "fused_update.cu",
 }
 _HEADERS = ("common.cuh",)
 

@@ -1,0 +1,266 @@
+"""Neural-network operators of the ResNet training path.
+
+Counterpart of the JAX package's ``ops/nn.py`` (FullyConnected :32,
+Convolution :62, Pooling :136, BatchNorm :230, Activation :353,
+SoftmaxOutput :475), with the same names, input slots, attrs and
+defaults, so that symbols built here get the same auto-created variables
+(``fc1_weight``, ``bn0_moving_mean``) and load the JAX package's JSON.
+Convolutions and matrix products go to cuDNN/cuBLAS through
+``torch.nn.functional``, as the JAX package left them to XLA; BatchNorm
+in training mode to ``F.batch_norm`` without running buffers (its batch
+variance is the biased one the JAX op uses; the moving statistics are
+updated by the graph evaluator, as in the JAX package).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..base import MXNetError
+from .registry import register
+
+
+def _tup(v, n, default):
+    if v is None or v == ():
+        return (default,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    return tuple(int(x) for x in v)
+
+
+# ---------------------------------------------------------------------------
+# FullyConnected (reference: src/operator/nn/fully_connected.cc:239)
+# ---------------------------------------------------------------------------
+
+@register("FullyConnected", attr_defaults={"num_hidden": 0, "no_bias": False,
+                                           "flatten": True})
+def _fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
+                     flatten=True):
+    if flatten and data.dim() > 2:
+        data = data.reshape(data.shape[0], -1)
+    return F.linear(data, weight, None if no_bias else bias)
+
+
+# ---------------------------------------------------------------------------
+# Convolution (reference: src/operator/nn/convolution.cc)
+# ---------------------------------------------------------------------------
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_NC_LAYOUTS = (None, "NCW", "NCHW", "NCDHW")
+
+
+@register("Convolution", attr_defaults={
+    "kernel": (), "stride": (), "dilate": (), "pad": (), "num_filter": 0,
+    "num_group": 1, "no_bias": False, "layout": None, "workspace": 1024,
+    "cudnn_tune": None, "cudnn_off": False})
+def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                 pad=(), num_filter=0, num_group=1, no_bias=False, layout=None,
+                 **_ignored):
+    """NCHW in and out, weight (num_filter, C / num_group, *kernel)."""
+    nd = len(kernel)
+    if nd not in _CONV:
+        raise MXNetError("Convolution supports 1/2/3-d kernels")
+    if layout not in _NC_LAYOUTS:
+        raise MXNetError("Convolution layout %r is not ported (channels-"
+                         "first only; ROADMAP A15)" % (layout,))
+    return _CONV[nd](data, weight, None if no_bias else bias,
+                     _tup(stride, nd, 1), _tup(pad, nd, 0),
+                     _tup(dilate, nd, 1), int(num_group))
+
+
+# ---------------------------------------------------------------------------
+# Pooling (reference: src/operator/nn/pooling.cc)
+# ---------------------------------------------------------------------------
+
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _window_sum(x, kernel, stride):
+    """Sum over each window of an already padded input."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(2)
+    return _AVG_POOL[len(kernel)](x, kernel, stride, divisor_override=1)
+
+
+@register("Pooling", attr_defaults={
+    "kernel": (), "pool_type": "max", "global_pool": False, "stride": (),
+    "pad": (), "pooling_convention": "valid", "count_include_pad": True,
+    "cudnn_off": False})
+def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
+             pad=(), pooling_convention="valid", count_include_pad=True,
+             **_ignored):
+    """Max pads with -inf, avg/sum with 0. ``valid`` floors the output
+    size; ``full`` takes its ceiling, padding the high side as far as the
+    last window needs (the JAX op's convention, which unlike torch's
+    ``ceil_mode`` keeps a last window that starts in the padding).
+    ``count_include_pad=False`` averages over the input elements only."""
+    nd = data.dim() - 2
+    if pool_type not in ("max", "avg", "sum"):
+        raise MXNetError("Pooling pool_type %r is not ported (max, avg, sum;"
+                         " ROADMAP A15)" % (pool_type,))
+    if global_pool:
+        axes = tuple(range(2, data.dim()))
+        if pool_type == "max":
+            return data.amax(dim=axes, keepdim=True)
+        if pool_type == "sum":
+            return data.sum(dim=axes, keepdim=True)
+        return data.mean(dim=axes, keepdim=True)
+    if nd not in _MAX_POOL:
+        raise MXNetError("Pooling supports 1/2/3-d windows")
+    kernel = _tup(kernel, nd, 1)
+    stride = _tup(stride, nd, 1)
+    pad = _tup(pad, nd, 0)
+    if pooling_convention not in ("valid", "full"):
+        raise MXNetError("pooling_convention %r is not ported (valid, full;"
+                         " ROADMAP A15)" % (pooling_convention,))
+    if (pooling_convention == "valid" and pool_type != "sum"
+            and all(p <= k // 2 for p, k in zip(pad, kernel))):
+        # torch's own padding: -inf for max; for avg its divisor is the
+        # whole window or, without count_include_pad, the input part
+        if pool_type == "max":
+            return _MAX_POOL[nd](data, kernel, stride, pad)
+        return _AVG_POOL[nd](data, kernel, stride, pad,
+                             count_include_pad=bool(count_include_pad))
+    spans = []                       # F.pad order: last dim first
+    for i, (k, s, p) in enumerate(zip(kernel, stride, pad)):
+        hi = p
+        if pooling_convention == "full":
+            in_sz = data.shape[2 + i]
+            out_sz = -(-(in_sz + 2 * p - k) // s) + 1
+            hi = max(p, (out_sz - 1) * s + k - in_sz - p)
+        spans = [p, hi] + spans
+    if pool_type == "max":
+        return _MAX_POOL[nd](F.pad(data, spans, value=-math.inf), kernel,
+                             stride)
+    summed = _window_sum(F.pad(data, spans), kernel, stride)
+    if pool_type == "sum":
+        return summed
+    if count_include_pad:
+        return summed / math.prod(kernel)
+    counts = _window_sum(F.pad(torch.ones_like(data), spans), kernel,
+                         stride)
+    return summed / counts
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm (reference: src/operator/nn/batch_norm.cc)
+# ---------------------------------------------------------------------------
+
+def _mean_var_outputs(attrs):
+    return 3 if dict(attrs).get("output_mean_var", False) else 1
+
+
+@register("BatchNorm", num_outputs=_mean_var_outputs,
+          attr_defaults={"eps": 1e-3, "momentum": 0.9, "fix_gamma": True,
+                         "use_global_stats": False, "output_mean_var": False,
+                         "axis": 1, "cudnn_off": False, "train_mode": False})
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1, train_mode=False, **_ignored):
+    """Returns ``out``, or ``(out, mean, var)`` with ``output_mean_var``:
+    the batch's mean and biased variance in training mode, the moving
+    ones otherwise. ``fix_gamma`` uses ones for gamma (its gradient is
+    then zero). Statistics and the affine run in float32, or in float64
+    for float64 data."""
+    axis = axis % data.dim()
+    x = data if axis == 1 else data.movedim(axis, 1)
+    if fix_gamma:
+        gamma = torch.ones_like(gamma)
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    x32 = x.to(ct)
+    train = train_mode and not use_global_stats
+    if train:
+        out = F.batch_norm(x32, None, None, gamma.to(ct), beta.to(ct),
+                           training=True, eps=eps)
+    else:
+        out = F.batch_norm(x32, moving_mean.to(ct), moving_var.to(ct),
+                           gamma.to(ct), beta.to(ct), training=False,
+                           eps=eps)
+    out = out.to(data.dtype)
+    if axis != 1:
+        out = out.movedim(1, axis)
+    if not output_mean_var:
+        return out
+    if train:
+        red = tuple(i for i in range(x32.dim()) if i != 1)
+        var, mean = torch.var_mean(x32, dim=red, correction=0)
+        return out, mean, var
+    return out, moving_mean, moving_var
+
+
+# ---------------------------------------------------------------------------
+# activations / softmax output
+# ---------------------------------------------------------------------------
+
+@register("Activation", attr_defaults={"act_type": "relu"})
+def _activation(data, act_type="relu"):
+    if act_type == "relu":
+        return F.relu(data)
+    if act_type == "sigmoid":
+        return torch.sigmoid(data)
+    if act_type == "tanh":
+        return torch.tanh(data)
+    if act_type == "softrelu":
+        return torch.logaddexp(data, torch.zeros_like(data))
+    if act_type == "softsign":
+        return F.softsign(data)
+    raise MXNetError("unknown act_type %r" % act_type)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax whose gradient is ``(softmax - onehot(label)) * scale``
+    whatever the head gradient (reference:
+    src/operator/softmax_output-inl.h; the JAX op's custom VJP,
+    ``_softmax_output_core`` ops/nn.py:433)."""
+
+    @staticmethod
+    def forward(ctx, data, label, attrs):
+        out = torch.softmax(data, dim=1 if attrs["multi_output"] else -1)
+        ctx.save_for_backward(out, label)
+        ctx.attrs = attrs
+        return out
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        out, label = ctx.saved_tensors
+        a = ctx.attrs
+        axis = 1 if a["multi_output"] else out.dim() - 1
+        depth = out.shape[axis]
+        lab = label.long().unsqueeze(axis)    # astype(int32): truncation
+        classes = torch.arange(depth, device=out.device).view(
+            [depth if i == axis else 1 for i in range(out.dim())])
+        oh = (lab == classes).to(out.dtype)   # out-of-range: all zeros
+        if a["smooth_alpha"]:
+            oh = oh * (1.0 - a["smooth_alpha"]) \
+                + a["smooth_alpha"] / (depth - 1) * (1.0 - oh)
+        grad = out - oh
+        if a["use_ignore"]:
+            keep = (label != a["ignore_label"]).to(out.dtype)
+            if keep.dim() < grad.dim():
+                keep = keep.unsqueeze(axis)
+            grad = grad * keep
+        scale = a["grad_scale"]
+        if a["normalization"] == "batch":
+            scale = scale / out.shape[0]
+        if a["normalization"] == "valid" and a["use_ignore"]:
+            valid = torch.clamp((label != a["ignore_label"]).sum(), min=1)
+            scale = scale / valid
+        return grad * scale, None, None
+
+
+@register("SoftmaxOutput", attr_defaults={
+    "grad_scale": 1.0, "ignore_label": -1.0, "multi_output": False,
+    "use_ignore": False, "preserve_shape": False, "normalization": "null",
+    "out_grad": False, "smooth_alpha": 0.0})
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    multi_output=False, use_ignore=False, preserve_shape=False,
+                    normalization="null", out_grad=False, smooth_alpha=0.0):
+    return _SoftmaxOutput.apply(data, label, {
+        "grad_scale": float(grad_scale), "ignore_label": float(ignore_label),
+        "multi_output": bool(multi_output), "use_ignore": bool(use_ignore),
+        "normalization": str(normalization),
+        "smooth_alpha": float(smooth_alpha)})

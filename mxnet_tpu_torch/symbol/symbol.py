@@ -1,0 +1,520 @@
+"""Symbolic graph API.
+
+Counterpart of the JAX package's ``symbol/symbol.py``: a Symbol is a
+small Python DAG over the op registry. Names, the auto-created input
+variables of ``_apply_op`` (``<node>_<input>``), argument/output/aux
+listings, ``attr_dict`` and the JSON format are the JAX package's, so a
+graph serialized there (``Symbol.tojson()``) loads here with the same
+argument names. Where the JAX package traces the graph into one jitted
+function, here ``_graph_eval_fn`` runs it eagerly on tensors; shape
+inference runs each op on ``device="meta"`` tensors (no memory, no
+compute) where the JAX package uses ``jax.eval_shape``.
+
+Not ported yet (ROADMAP A8.6): composition (``sym(data=...)``),
+``Group``, ``get_internals``, ``infer_type``, arithmetic other than the
+residual ``+``, control-flow subgraphs, ``AttrScope``; group2ctx model
+parallelism is A13.
+"""
+from __future__ import annotations
+
+import inspect
+import json
+import threading
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from ..ops import registry as _reg
+
+__all__ = ["Symbol", "Variable", "load_json"]
+
+# ops whose trailing inputs are auxiliary states (updated by the
+# executor during training, never gradient-trained)
+AUX_STATES = {"BatchNorm": ("moving_mean", "moving_var")}
+
+
+class _NameManager(threading.local):
+    """Auto-naming for anonymous symbols (reference:
+    python/mxnet/name.py NameManager): ``<hint><n>``, n counting per hint
+    from 0 in each thread."""
+
+    def __init__(self):
+        self._counter = {}
+        self.prefix = ""
+
+    def get(self, hint):
+        hint = hint.lower().lstrip("_")
+        idx = self._counter.get(hint, 0)
+        self._counter[hint] = idx + 1
+        return "%s%s%d" % (self.prefix, hint, idx)
+
+
+_name_mgr = _NameManager()
+
+
+def _input_names(op):
+    """Array-input parameter names of an op, from its function's
+    signature: positional parameters that are not attrs, each with
+    whether it has a default."""
+    names = []
+    for p in inspect.signature(op.fn).parameters.values():
+        if p.kind not in (inspect.Parameter.POSITIONAL_OR_KEYWORD,
+                          inspect.Parameter.POSITIONAL_ONLY):
+            continue
+        if p.name == "key" or p.name.startswith("_"):
+            continue
+        if p.name in op.attr_defaults:
+            continue
+        names.append((p.name, p.default is not inspect.Parameter.empty))
+    return names
+
+
+class _Node(object):
+    """One graph node: an op application or a variable (op is None)."""
+
+    __slots__ = ("op", "name", "attrs", "inputs", "is_aux", "in_names")
+
+    def __init__(self, op, name, attrs=None, inputs=(), is_aux=False,
+                 in_names=None):
+        self.op = op
+        self.name = name
+        self.attrs = dict(attrs or {})
+        self.inputs = list(inputs)      # [(_Node, out_index)]
+        self.is_aux = is_aux
+        # names of the op input slots actually wired, aligned with inputs
+        self.in_names = in_names
+
+    @property
+    def is_var(self):
+        return self.op is None
+
+
+def _topo(entries):
+    """Topological order of the nodes reachable from output entries."""
+    seen = set()
+    order = []
+
+    def visit(node):
+        if id(node) in seen:
+            return
+        seen.add(id(node))
+        for n, _i in node.inputs:
+            visit(n)
+        order.append(node)
+
+    for n, _i in entries:
+        visit(n)
+    return order
+
+
+def _n_outputs(node):
+    return _reg.get_op(node.op).n_outputs(node.attrs)
+
+
+def _op_attrs(node):
+    """The attrs an op function takes: annotations (``__x__``) dropped."""
+    return {k: v for k, v in node.attrs.items() if not k.startswith("__")}
+
+
+class Symbol(object):
+    """Symbolic multi-output expression (reference: symbol.py Symbol)."""
+
+    __slots__ = ("_entries",)
+
+    def __init__(self, entries):
+        self._entries = list(entries)
+
+    @property
+    def name(self):
+        if len(self._entries) == 1:
+            return self._entries[0][0].name
+        return None
+
+    def __repr__(self):
+        if len(self._entries) == 1:
+            return "<Symbol %s>" % self._entries[0][0].name
+        return "<Symbol Grouped %s>" % ",".join(
+            n.name for n, _ in self._entries)
+
+    # -- listings ----------------------------------------------------------
+    def list_arguments(self):
+        return [n.name for n in _topo(self._entries)
+                if n.is_var and not n.is_aux]
+
+    def list_outputs(self):
+        outs = []
+        for node, idx in self._entries:
+            if node.is_var:
+                outs.append(node.name)
+            elif _n_outputs(node) == 1:
+                outs.append(node.name + "_output")
+            else:
+                outs.append("%s_output%d" % (node.name, idx))
+        return outs
+
+    def list_auxiliary_states(self):
+        return [n.name for n in _topo(self._entries)
+                if n.is_var and n.is_aux]
+
+    # -- attributes --------------------------------------------------------
+    def attr_dict(self):
+        out = {}
+        for node in _topo(self._entries):
+            if node.attrs:
+                out[node.name] = {k: str(v) for k, v in node.attrs.items()}
+        return out
+
+    def _set_attr(self, **kwargs):
+        for node, _ in self._entries:
+            node.attrs.update(kwargs)
+
+    # -- shape inference ---------------------------------------------------
+    def infer_shape(self, *args, **kwargs):
+        """(arg_shapes, out_shapes, aux_shapes) from known input shapes,
+        in list_arguments / list_outputs / list_auxiliary_states order.
+        Raises :class:`MXNetError` when a shape cannot be inferred."""
+        arg_names = self.list_arguments()
+        aux_names = self.list_auxiliary_states()
+        known = {n: tuple(s) for n, s in zip(arg_names, args)
+                 if s is not None}
+        known.update({k: tuple(v) for k, v in kwargs.items()
+                      if v is not None})
+        try:
+            shapes, outs = _deduce_shapes(self, known)
+        except MXNetError:
+            raise
+        except Exception as e:      # an op refused its input shapes
+            raise MXNetError("infer_shape error: %s" % e) from e
+        out_shapes = [shapes[n.name] if n.is_var else outs[(id(n), oi)]
+                      for n, oi in self._entries]
+        return ([shapes[n] for n in arg_names], out_shapes,
+                [shapes[n] for n in aux_names])
+
+    # -- serialization -----------------------------------------------------
+    def tojson(self):
+        """The JAX package's JSON graph (nodes / arg_nodes / heads)."""
+        nodes = _topo(self._entries)
+        nid = {id(n): i for i, n in enumerate(nodes)}
+        jnodes = []
+        for n in nodes:
+            jnodes.append({
+                "op": "null" if n.is_var else n.op,
+                "name": n.name,
+                "attrs": {k: list(v) if isinstance(v, tuple) else v
+                          for k, v in n.attrs.items()},
+                "inputs": [[nid[id(src)], oi, 0] for src, oi in n.inputs],
+            })
+            if n.is_aux:
+                jnodes[-1]["aux"] = True
+            if n.in_names is not None:
+                jnodes[-1]["in_names"] = list(n.in_names)
+        heads = [[nid[id(n)], oi, 0] for n, oi in self._entries]
+        arg_nodes = [i for i, n in enumerate(nodes) if n.is_var]
+        return json.dumps({"nodes": jnodes, "arg_nodes": arg_nodes,
+                           "heads": heads,
+                           "attrs": {"mxnet_version": ["int", 10300]}},
+                          indent=2)
+
+    def save(self, fname):
+        raise NotImplementedError(
+            "Symbol.save writes checkpoint files, which are not ported yet "
+            "(ROADMAP A8.2); use tojson()")
+
+    # -- binding -----------------------------------------------------------
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    **kwargs):
+        """Allocate zeroed arrays of the inferred shapes on ``ctx``
+        (default ``cuda:0``) and bind them."""
+        from ..context import default_device
+        from ..ndarray.ndarray import zeros
+        ctx = default_device(ctx)
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        type_dict = type_dict or {}
+        args = [zeros(s, ctx=ctx, dtype=type_dict.get(n, np.float32))
+                for n, s in zip(self.list_arguments(), arg_shapes)]
+        aux = [zeros(s, ctx=ctx, dtype=type_dict.get(n, np.float32))
+               for n, s in zip(self.list_auxiliary_states(), aux_shapes)]
+        return self.bind(ctx, args, grad_req=grad_req, aux_states=aux)
+
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        if group2ctx:
+            raise NotImplementedError("group2ctx model parallelism is not "
+                                      "ported yet (ROADMAP A13)")
+        from ..executor import Executor
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+
+    # -- arithmetic --------------------------------------------------------
+    def __add__(self, other):
+        """``elemwise_add`` of two symbols (the residual ``+``); scalar
+        and other arithmetic come with ROADMAP A8.6."""
+        if not isinstance(other, Symbol):
+            raise NotImplementedError("Symbol + %s is not ported yet "
+                                      "(ROADMAP A8.6)" % type(other).__name__)
+        return _apply_op(_reg.get_op("elemwise_add"), (self, other), {},
+                         None)
+
+    def __hash__(self):
+        return object.__hash__(self)
+
+    def __eq__(self, other):
+        return self is other
+
+    def __bool__(self):
+        raise TypeError("Symbol has no truth value")
+
+
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None, **kwargs):
+    """A symbolic variable (reference: symbol.py var)."""
+    if not isinstance(name, str):
+        raise TypeError("Expect a string for variable name")
+    attrs = {"__%s__" % k: v for k, v in dict(attr or {}).items()}
+    if shape is not None:
+        attrs["__shape__"] = tuple(shape)
+    if lr_mult is not None:
+        attrs["__lr_mult__"] = lr_mult
+    if wd_mult is not None:
+        attrs["__wd_mult__"] = wd_mult
+    if dtype is not None:
+        attrs["__dtype__"] = np.dtype(dtype).name
+    if init is not None:
+        attrs["__init__"] = init if isinstance(init, str) else init.dumps()
+    attrs.update(kwargs)
+    return Symbol([(_Node(None, name, attrs), 0)])
+
+
+def load_json(json_str):
+    """A Symbol from the JSON of :meth:`Symbol.tojson` (this package's or
+    the JAX package's)."""
+    data = json.loads(json_str)
+    nodes = []
+    for jn in data["nodes"]:
+        attrs = {k: tuple(v) if isinstance(v, list) else v
+                 for k, v in (jn.get("attrs") or {}).items()}
+        if jn["op"] == "null":
+            node = _Node(None, jn["name"], attrs, is_aux=jn.get("aux", False))
+        else:
+            _reg.get_op(jn["op"])      # raises for an op not ported yet
+            node = _Node(jn["op"], jn["name"], attrs,
+                         in_names=jn.get("in_names"))
+            node.inputs = [(nodes[i], oi) for i, oi, _v in jn["inputs"]]
+        nodes.append(node)
+    return Symbol([(nodes[i], oi) for i, oi, _v in data["heads"]])
+
+
+# ---------------------------------------------------------------------------
+# op application (the symbol-side analog of an eager op call)
+# ---------------------------------------------------------------------------
+
+def _apply_op(op, args, attrs, name):
+    """A graph node applying ``op``; creates ``<name>_<input>`` variables
+    for missing array inputs as the reference's compose does (e.g.
+    ``fc1_weight``), skipping optional ones (bias under ``no_bias``)."""
+    in_names = _input_names(op)
+    inputs = {}
+    kw = dict(attrs)
+    attrs = {}
+    for k, v in kw.items():
+        if isinstance(v, Symbol):
+            inputs[k] = v
+        elif k == "attr" and isinstance(v, dict):
+            attrs.update({"__%s__" % a: b for a, b in v.items()})
+        else:
+            attrs[k] = v
+    pos = 0
+    for a in args:
+        if not isinstance(a, Symbol):
+            raise TypeError("positional args to symbol ops must be Symbols, "
+                            "got %s" % type(a))
+        while pos < len(in_names) and in_names[pos][0] in inputs:
+            pos += 1
+        if pos >= len(in_names):
+            raise MXNetError("too many inputs for op %s" % op.name)
+        inputs[in_names[pos][0]] = a
+        pos += 1
+    unknown = [k for k in inputs if k not in dict(in_names)]
+    if unknown:
+        raise MXNetError("unknown input(s) %s for op %s" % (unknown, op.name))
+
+    if name is None:
+        name = _name_mgr.get(op.name)
+    aux_names = AUX_STATES.get(op.name, ())
+    node_inputs, wired = [], []
+    for in_name, has_default in in_names:
+        if in_name in inputs:
+            sym = inputs[in_name]
+            if len(sym._entries) != 1:
+                raise MXNetError("op inputs must be single-output symbols")
+            ent = sym._entries[0]
+            if in_name in aux_names and ent[0].is_var:
+                ent[0].is_aux = True
+            node_inputs.append(ent)
+            wired.append(in_name)
+            continue
+        if in_name == "bias" and attrs.get("no_bias", False):
+            continue
+        if has_default and in_name not in aux_names and in_name != "bias":
+            continue
+        node_inputs.append((_Node(None, "%s_%s" % (name, in_name),
+                                  is_aux=in_name in aux_names), 0))
+        wired.append(in_name)
+    node = _Node(op.name, name, attrs, node_inputs, in_names=wired)
+    return Symbol([(node, i) for i in range(op.n_outputs(attrs))])
+
+
+# ---------------------------------------------------------------------------
+# graph evaluation: the executor's core
+# ---------------------------------------------------------------------------
+
+def _aux_input_positions(op, node):
+    wired = node.in_names
+    if wired is None:
+        wired = [n for n, _d in _input_names(op)][:len(node.inputs)]
+    missing = [a for a in AUX_STATES[node.op] if a not in wired]
+    if missing:
+        raise MXNetError("cannot locate the aux inputs %s of %s"
+                         % (missing, node.name))
+    return [wired.index(a) for a in AUX_STATES[node.op]]
+
+
+def _graph_eval_fn(symbol, is_train):
+    """``fn(env: name -> tensor) -> (outputs, stats)``.
+
+    ``env`` holds the argument and auxiliary tensors. ``stats`` lists,
+    for each BatchNorm that normalized with batch statistics (training,
+    not ``use_global_stats``), ``(moving_mean_name, moving_var_name,
+    momentum, batch_mean, batch_var)`` with the statistics detached: the
+    executor updates the moving statistics with them, in place,
+    ``new = momentum * old + (1 - momentum) * batch`` (the JAX package's
+    functional update, symbol/symbol.py:796-802, with the biased
+    variance)."""
+    nodes = _topo(symbol._entries)
+
+    def fn(env):
+        values = {}
+        stats = []
+        for node in nodes:
+            if node.is_var:
+                if node.name not in env:
+                    raise MXNetError("unbound variable %r" % node.name)
+                values[(id(node), 0)] = env[node.name]
+                continue
+            op = _reg.get_op(node.op)
+            attrs = _op_attrs(node)
+            if "train_mode" in op.attr_defaults and "train_mode" not in attrs:
+                attrs["train_mode"] = is_train
+            arrs = [values[(id(src), oi)] for src, oi in node.inputs]
+            if (node.op in AUX_STATES and is_train
+                    and not attrs.get("use_global_stats", False)):
+                attrs["output_mean_var"] = True
+                out, mean, var = op.fn(*arrs, **attrs)
+                mm, mv = [node.inputs[i][0].name
+                          for i in _aux_input_positions(op, node)]
+                stats.append((mm, mv, float(attrs.get("momentum", 0.9)),
+                              mean.detach(), var.detach()))
+                outs = (out, mean, var) \
+                    if node.attrs.get("output_mean_var", False) else (out,)
+            else:
+                out = op.fn(*arrs, **attrs)
+                outs = tuple(out) if isinstance(out, (tuple, list)) \
+                    else (out,)
+            for i, o in enumerate(outs):
+                values[(id(node), i)] = o
+        return tuple(values[(id(n), oi)] for n, oi in symbol._entries), stats
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# shape deduction
+# ---------------------------------------------------------------------------
+
+def _deduce_shapes(symbol, known):
+    """Leaf and output shapes. Variables with a ``__shape__`` attr or an
+    entry in ``known`` are fixed; parameter leaves are deduced per
+    consuming op from its data input (``_deduce_params``); each op's
+    outputs come from running it on meta tensors once its inputs are
+    known. Returns ({leaf name: shape}, {(node id, out): shape})."""
+    nodes = _topo(symbol._entries)
+    shapes = dict(known)
+    for n in nodes:
+        if n.is_var and n.name not in shapes and n.attrs.get("__shape__"):
+            shapes[n.name] = tuple(n.attrs["__shape__"])
+    out_shapes = {}
+
+    def entry_shape(src, oi):
+        return shapes.get(src.name) if src.is_var \
+            else out_shapes.get((id(src), oi))
+
+    progress = True
+    while progress:
+        progress = False
+        for node in nodes:
+            if node.is_var or (id(node), 0) in out_shapes:
+                continue
+            in_shapes = [entry_shape(s, oi) for s, oi in node.inputs]
+            if any(s is None for s in in_shapes):
+                if not _deduce_params(node, in_shapes, shapes):
+                    continue
+                progress = True
+                in_shapes = [entry_shape(s, oi) for s, oi in node.inputs]
+                if any(s is None for s in in_shapes):
+                    continue
+            op = _reg.get_op(node.op)
+            attrs = _op_attrs(node)
+            if "train_mode" in op.attr_defaults:
+                attrs["train_mode"] = False
+            metas = [torch.empty(s, device="meta") for s in in_shapes]
+            with torch.no_grad():
+                outs = op.fn(*metas, **attrs)
+            outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+            for i, o in enumerate(outs):
+                out_shapes[(id(node), i)] = tuple(o.shape)
+            progress = True
+    missing = [n.name for n in nodes if n.is_var and n.name not in shapes]
+    if missing:
+        raise MXNetError("cannot infer shapes for %s" % missing)
+    return shapes, out_shapes
+
+
+def _deduce_params(node, in_shapes, shapes):
+    """Fill in missing parameter-leaf shapes of the core NN ops from the
+    data input's shape (each op's FInferShape in the reference)."""
+    ins = node.inputs
+    attrs = node.attrs
+
+    def set_leaf(pos, shape):
+        src, _ = ins[pos]
+        if src.is_var and src.name not in shapes:
+            shapes[src.name] = tuple(int(x) for x in shape)
+            return True
+        return False
+
+    data_shape = in_shapes[0] if in_shapes else None
+    if data_shape is None:
+        return False
+    changed = False
+    if node.op == "FullyConnected":
+        num_hidden = attrs.get("num_hidden")
+        in_dim = (int(np.prod(data_shape[1:])) if attrs.get("flatten", True)
+                  else data_shape[-1])
+        changed |= set_leaf(1, (num_hidden, in_dim))
+        if len(ins) > 2:
+            changed |= set_leaf(2, (num_hidden,))
+    elif node.op == "Convolution":
+        num_filter = attrs.get("num_filter")
+        wshape = ((num_filter, data_shape[1] // attrs.get("num_group", 1))
+                  + tuple(attrs.get("kernel", ())))
+        changed |= set_leaf(1, wshape)
+        if len(ins) > 2:
+            changed |= set_leaf(2, (num_filter,))
+    elif node.op == "BatchNorm":
+        c = data_shape[attrs.get("axis", 1) % len(data_shape)]
+        for pos in range(1, len(ins)):
+            changed |= set_leaf(pos, (c,))
+    elif node.op == "SoftmaxOutput" and len(ins) > 1:
+        # the label of a single-output softmax is one class per row
+        changed |= set_leaf(1, tuple(data_shape[:1]))
+    return changed

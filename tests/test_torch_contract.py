@@ -4,9 +4,11 @@
   the JAX package ``mxnet_tpu`` (AST scan);
 * importing the package pulls in neither ``mxnet_tpu`` nor ``triton``
   and builds or loads no CUDA library (checked in a fresh interpreter);
-* every ``CUDA_KERNELS`` entry has its ``csrc/<kernel>.cu`` source, a
-  plain PyTorch version in the same module, and a CPU test that names
-  both;
+* every ``CUDA_KERNELS`` entry of every kernel module under
+  ``ops/cuda`` has its ``csrc/<source>.cu`` (the kernel's name, or the
+  module's ``SOURCE`` where one file holds several kernels), a plain
+  PyTorch version in the same module, a launch counter, and a CPU test
+  that names both;
 * ``chip_smoke.py`` on a machine without a CUDA device, or alone in a
   directory, exits non-zero and never prints its ``"ok": true`` line.
 """
@@ -19,8 +21,8 @@ import sys
 
 import pytest
 
+from mxnet_tpu_torch.ops import cuda
 from mxnet_tpu_torch.ops.cuda import _build
-from mxnet_tpu_torch.ops.cuda import flash_attention as tfa
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "mxnet_tpu_torch")
@@ -67,14 +69,34 @@ def test_import_pulls_in_no_jax_package_triton_or_cuda_library():
     assert out.stdout.split("\n")[-2] == "[] 0"
 
 
-@pytest.mark.parametrize("kernel", sorted(tfa.CUDA_KERNELS))
-def test_every_cuda_kernel_has_source_plain_version_and_cpu_test(kernel):
-    plain = tfa.CUDA_KERNELS[kernel]
-    assert _build.SOURCES[kernel] == kernel + ".cu"
-    assert os.path.exists(os.path.join(_build.CSRC, kernel + ".cu"))
-    assert callable(getattr(tfa, kernel))
-    assert callable(getattr(tfa, plain))
-    assert kernel in tfa.LAUNCHES
+# (module, kernel) for every CUDA_KERNELS registry of the port
+KERNELS = [(mod, k) for mod in cuda.KERNEL_MODULES
+           for k in sorted(mod.CUDA_KERNELS)]
+
+
+def test_every_kernel_registry_is_checked():
+    """Each module under ops/cuda that defines a CUDA_KERNELS registry is
+    in ops.cuda.KERNEL_MODULES, so the check below sees its kernels."""
+    listed = {m.__name__.rsplit(".", 1)[1] for m in cuda.KERNEL_MODULES}
+    for path in glob.glob(os.path.join(PKG, "ops", "cuda", "*.py")):
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        names = {t.id for node in tree.body if isinstance(node, ast.Assign)
+                 for t in node.targets if isinstance(t, ast.Name)}
+        if "CUDA_KERNELS" in names:
+            assert os.path.basename(path)[:-3] in listed, path
+
+
+@pytest.mark.parametrize("mod,kernel", KERNELS, ids=[k for _, k in KERNELS])
+def test_every_cuda_kernel_has_source_plain_version_and_cpu_test(mod,
+                                                                 kernel):
+    plain = mod.CUDA_KERNELS[kernel]
+    source = getattr(mod, "SOURCE", kernel)     # one .cu may hold several
+    assert _build.SOURCES[source] == source + ".cu"
+    assert os.path.exists(os.path.join(_build.CSRC, source + ".cu"))
+    assert callable(getattr(mod, kernel))
+    assert callable(getattr(mod, plain))
+    assert kernel in mod.LAUNCHES
     here = os.path.abspath(__file__)
     naming = [p for p in glob.glob(os.path.join(ROOT, "tests",
                                                 "test_torch_*.py"))

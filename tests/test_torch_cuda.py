@@ -18,13 +18,22 @@ in both. The engine on the card must give the CPU engine's greedy
 streams, with the kernels launched once per layer per prefill and per
 decode step; the train step on the card must match the CPU's in
 float32, and in bfloat16 its gradients through the kernels must match
-those through the plain attention route.
+those through the plain attention route. The fused optimizer update
+kernel must equal its plain versions bitwise (SGD with and without
+momentum and clip, Adam; aligned and misaligned tensors; one launch per
+list), and a 2-step ResNet ``Module.fit`` on the card must match the
+same fit on the CPU, through one update launch a step: each weight's
+and moving statistic's change within 1e-3 relative RMS, the outputs
+within 1e-4 (float32 sums in another order, which this small network
+does not amplify, with TF32 off for matmuls and convolutions alike).
 """
 import numpy as np
 import pytest
 import torch
 
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.ops.cuda import flash_attention as tfa
+from mxnet_tpu_torch.ops.cuda import fused_update as tfu
 from mxnet_tpu_torch.parallel import transformer as T
 from mxnet_tpu_torch.serve import DecodeConfig, DecodeEngine
 from mxnet_tpu_torch import telemetry as tm
@@ -38,6 +47,7 @@ def card():
         pytest.skip("needs an NVIDIA card and nvcc (CUDA kernels have no "
                     "CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False      # float32 convolutions
     return torch.device("cuda", 0)
 
 
@@ -231,3 +241,95 @@ def test_bf16_train_gradients_match_plain_attention_route(card):
     for (name, _), g, r in zip(params.named_parameters(), runs["auto"][1],
                                runs["einsum"][1]):
         assert _rel_err(g[None, None], r[None, None]) <= 2e-2, name
+
+
+def _update_lists(card, kind, shapes, misaligned, seed):
+    """Weights, grads, states and per-tensor hypers on the card; with
+    ``misaligned`` every tensor starts one float past a 16-byte boundary
+    (the kernel's scalar path)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(shape, scale=1.0):
+        n = int(np.prod(shape))
+        buf = (torch.randn(n + 1, generator=gen) * scale).to(card)
+        return (buf[1:] if misaligned else buf[:n]).view(shape)
+
+    ws = [rnd(s, 0.1) for s in shapes]
+    gs = [rnd(s) for s in shapes]
+    n_state = {"sgd": 0, "sgd_mom": 1, "adam": 2}[kind]
+    states = [tuple(rnd(s, 0.01).abs() for _ in range(n_state))
+              for s in shapes]
+    hypers = []
+    for i in range(len(shapes)):
+        h = {"lr": 0.05 * (i + 1), "wd": 1e-4 * i, "rescale_grad": 0.25,
+             "clip_gradient": 0.3}
+        if kind == "sgd_mom":
+            h["momentum"] = 0.9
+        elif kind == "adam":
+            h.update(beta1=0.9, beta2=0.999, one_minus_beta1=0.1,
+                     one_minus_beta2=1.0 - 0.999, epsilon=1e-8)
+        hypers.append(h)
+    return ws, gs, states, hypers
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("kind", ["sgd_mom", "sgd", "adam"])
+def test_fused_update_kernel_matches_plain_bitwise(card, kind, misaligned):
+    shapes = [(7,), (1000,), (64, 3, 7, 7), (4097,), (2048, 1000)]
+    ws, gs, states, hypers = _update_lists(card, kind, shapes, misaligned,
+                                           12)
+    if misaligned:
+        assert ws[0].data_ptr() % 16 != 0
+    ref_w = [w.clone() for w in ws]
+    ref_s = [tuple(x.clone() for x in st) for st in states]
+    kernel = tfu.adam_fused_update if kind == "adam" \
+        else tfu.sgd_fused_update
+    plain = tfu._adam_fused if kind == "adam" else tfu._sgd_fused
+    n0 = dict(tfu.LAUNCHES)
+    kernel(ws, gs, states, hypers)
+    plain(ref_w, gs, ref_s, hypers)
+    torch.cuda.synchronize()
+    name = "adam_fused_update" if kind == "adam" else "sgd_fused_update"
+    assert tfu.LAUNCHES[name] == n0[name] + 1       # one launch per list
+    for a, b in zip(ws, ref_w):
+        assert torch.equal(a, b)
+    for sa, sb in zip(states, ref_s):
+        for a, b in zip(sa, sb):
+            assert torch.equal(a, b)
+
+
+def test_resnet_fit_on_card_matches_cpu(card):
+    sym = tmx.models.resnet(num_classes=10, num_layers=8,
+                            image_shape=(3, 16, 16), bottle_neck=True)
+    rng = np.random.RandomState(13)
+    x = rng.uniform(-1, 1, (8, 3, 16, 16)).astype(np.float32)
+    y = rng.randint(0, 10, (8,)).astype(np.float32)
+    init = tmx.mod.Module(sym, context=tmx.cpu())
+    init.bind(data_shapes=[("data", (4, 3, 16, 16))],
+              label_shapes=[("softmax_label", (4,))])
+    tmx.random.seed(0)
+    init.init_params(tmx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                     magnitude=2))
+    arg0, aux0 = init.get_params()
+    runs = {}
+    for dev in ("cpu", card):
+        mod = tmx.mod.Module(sym, context=dev)
+        tfu.reset_launches()
+        mod.fit(tmx.io.NDArrayIter(x, y, batch_size=4), num_epoch=1,
+                optimizer="sgd", arg_params=arg0, aux_params=aux0,
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                                  "wd": 1e-4})
+        a, s = mod.get_params()
+        runs[str(dev)] = ({k: v.asnumpy() for k, v in a.items()},
+                          {k: v.asnumpy() for k, v in s.items()},
+                          mod.get_outputs()[0].asnumpy(),
+                          tfu.LAUNCHES["sgd_fused_update"])
+    (ac, sc, oc, _), (ag, sg, og, n) = runs["cpu"], runs[str(card)]
+    assert n == 2
+
+    for got, want, start in ((ag, ac, arg0), (sg, sc, aux0)):
+        for k in start:
+            dg = got[k] - start[k].asnumpy()
+            dc = want[k] - start[k].asnumpy()
+            assert np.linalg.norm(dg - dc) <= 1e-3 * np.linalg.norm(dc), k
+    assert np.linalg.norm(og - oc) <= 1e-4 * np.linalg.norm(oc)
