@@ -69,7 +69,46 @@ Phases, each fatal on failure (no phase's failure is caught):
     against the witness (outputs, each weight's and moving statistic's
     change) held to the CPU float32's own, and a planted BatchNorm
     gradient fault that must fail;
-15. print a ``kernels`` JSON line, the card line, and last
+15. hold the int8 kernels of quantized serving (``int8_matmul``,
+    ``int8_conv_im2col``) against their plain versions, bitwise: the
+    matmul at small ragged shapes (zero-scale channels among them) and
+    at ResNet-50's FC (m 1, 8, 32 x 2048 x 1000), the convolution at
+    every distinct conv shape of ResNet-50 at batch 1 and 32, groups 2
+    and 32, a dilated case and odd H/W tails; then two planted faults
+    (the scale table shifted by one channel, the last 32-deep K chunk
+    dropped) that must fail; and the inference BatchNorm kernel
+    (``batch_norm_inference``) bitwise at every distinct BatchNorm shape
+    of ResNet-50 at batch 1 and 32 and at ragged and misaligned inputs,
+    with two planted faults (the mean shifted by one channel, eps
+    dropped) that must fail;
+16. time the three at the batch-32 shapes (CUDA events, L2 flushed): the
+    conv per distinct shape and summed over a forward's 53 convs, the
+    FC, the BatchNorm per shape and summed over a forward's 51; beside
+    each its bound (int8 operations over 1979 TOP/s, bytes over 3.35
+    TB/s), its plain version and, for the matmul, ``torch._int_mm``, for
+    the BatchNorm ``F.batch_norm`` (no PyTorch call computes an int8
+    conv on the card: its library_ms is null; ``torch._int_mm`` over
+    prebuilt patch matrices is reported beside it);
+17. serve ResNet-50 in int8 at full width (benchmark.py's
+    infer_quantized / quantized_serve route): seeded Xavier weights ->
+    ``model.save_checkpoint`` -> ``quantize.quantize_checkpoint`` (naive
+    calibration over one seeded batch of 32) -> ``QuantizedParams.load``
+    -> ``serving.Predictor`` on the card -> ``serve.InferenceEngine``
+    (max_batch 32, batch_wait 2 ms), warmed, and the fp32 Predictor of
+    the checkpoint under its own engine; a correctness set of 64
+    one-image requests from 16 client threads and 4 requests of 4 rows
+    to each: every request answered, 53 ``int8_conv_im2col`` + 1
+    ``int8_matmul`` (fp32: none) and 51 ``batch_norm_inference``
+    launches per executed batch, repeats of an image bitwise equal
+    (int8); then four timed closed-loop windows of 6 s (int8, fp32,
+    fp32, int8; 16 clients of one-image requests, the same launch
+    checks): img/s and p50/p99 latency; the int8-vs-fp32 drift; one
+    profiled batch-32 int8 forward, and its input's upload timed alone;
+18. the int8 artifact on the card against the port on the CPU at batch
+    2: each of the 54 quantized layers bitwise given the card's input
+    to it, the whole forward within 1e-3 relative RMS, the share of
+    int8 activations that flipped;
+19. print a ``kernels`` JSON line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -80,6 +119,7 @@ import argparse
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -658,11 +698,12 @@ def profile_round(torch, eng, reqs):
     return profile_run(torch, run)
 
 
-def profile_run(torch, run, classify=_kernel_class):
+def profile_run(torch, run, classify=_kernel_class, classify_seq=None):
     """``run()`` under torch.profiler, CUDA activity only: the device's
     busy share of the wall time (union of kernel intervals) and device
-    time by kernel class (``classify(kernel name)``). The profiler slows
-    the host, so this wall is not a measured one."""
+    time by kernel class (``classify(kernel name)``, or
+    ``classify_seq(names in start order)`` giving one class each). The
+    profiler slows the host, so this wall is not a measured one."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -670,12 +711,14 @@ def profile_run(torch, run, classify=_kernel_class):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, device_ms, by_name = [], {}, {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    evs = sorted((ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda ev: ev.time_range.start)
+    classes = (classify_seq([ev.name for ev in evs]) if classify_seq
+               else [classify(ev.name) for ev in evs])
+    for ev, cls in zip(evs, classes):
         start, end = ev.time_range.start, ev.time_range.end
         spans.append((start, end))
-        cls = classify(ev.name)
         device_ms[cls] = device_ms.get(cls, 0.0) + (end - start) / 1e3
         by_name[ev.name] = by_name.get(ev.name, 0.0) + (end - start) / 1e3
     busy_us, cur_s, cur_e = 0.0, None, None
@@ -1564,6 +1607,844 @@ def resnet_vs_cpu(torch, mx, fu):
 
 
 # ---------------------------------------------------------------------------
+# phases 15-18: int8 quantized serving of ResNet-50 and its two kernels
+# ---------------------------------------------------------------------------
+
+INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core peak
+SERVE_BATCH = 32        # benchmark.py infer_quantized: ResNet-50, batch 32
+SERVE_IMAGE = (3, 224, 224)
+SERVE_CLIENTS = 16      # client threads; 64 one-image requests (16 images
+SERVE_IMAGES = 16       # x 4) and 4 requests of 4 rows
+SERVE_WINDOW_S = 6.0    # each timed closed-loop serving window; two a
+                        # Predictor, int8 and fp32 in turn
+INT8_OUT_TOL = 1e-3     # card vs CPU, whole int8 forward, relative RMS:
+                        # an activation whose scaled value lies within an
+                        # ulp of a rounding boundary, where a card's fp32
+                        # layer rounds otherwise than the CPU's (the global
+                        # average pool sums in another order; BatchNorm
+                        # and the residual adds round alike), moves one
+                        # int8 step
+
+
+def graph_layers(mx, op, batch, sym=None, image=SERVE_IMAGE):
+    """[(node, its data input's shape, {argument: shape})] of every
+    ``op`` node of ResNet-50 (or ``sym``) at ``batch``, in graph order,
+    from the port's shape inference."""
+    from mxnet_tpu_torch.symbol.symbol import _topo
+    if sym is None:
+        sym = resnet_symbol(mx)
+    internals = sym.get_internals()
+    _, outs, _ = internals.infer_shape(data=(batch,) + image)
+    shapes = dict(zip(internals.list_outputs(), outs))
+    args = dict(zip(sym.list_arguments(),
+                    sym.infer_shape(data=(batch,) + image)[0]))
+    layers = []
+    for node in _topo(sym._entries):
+        if node.op == op:
+            src = node.inputs[0][0]
+            layers.append((node, tuple(shapes[src.name if src.is_var
+                                              else src.name + "_output"]),
+                           args))
+    return layers
+
+
+def int8_conv_layers(mx, batch, sym=None, image=SERVE_IMAGE):
+    """Every Convolution of ResNet-50 (or ``sym``) at ``batch``, in graph
+    order: (name, data shape, weight shape, stride, dilate, pad,
+    groups)."""
+    layers = []
+    for node, shape, args in graph_layers(mx, "Convolution", batch, sym,
+                                          image):
+        a = node.attrs
+        nd = len(a["kernel"])
+        layers.append((node.name, shape,
+                       tuple(args[node.inputs[1][0].name]),
+                       tuple(a.get("stride") or (1,) * nd),
+                       tuple(a.get("dilate") or (1,) * nd),
+                       tuple(a.get("pad") or (0,) * nd),
+                       int(a.get("num_group", 1))))
+    return layers
+
+
+def bn_layers(mx, batch, sym=None, image=SERVE_IMAGE):
+    """Every BatchNorm of ResNet-50 (or ``sym``) at ``batch``, in graph
+    order: (name, data shape, fix_gamma, eps)."""
+    return [(node.name, shape, bool(node.attrs.get("fix_gamma", True)),
+             float(node.attrs.get("eps", 1e-3)))
+            for node, shape, _ in graph_layers(mx, "BatchNorm", batch, sym,
+                                               image)]
+
+
+def distinct_rows(layers):
+    """[(shape key, count)] of ``int8_conv_layers`` or ``bn_layers``
+    rows, first-seen order; the key is the row without its name."""
+    counts = {}
+    for row in layers:
+        counts[row[1:]] = counts.get(row[1:], 0) + 1
+    return list(counts.items())
+
+
+def conv_cost(key):
+    """(operations, bytes, M, N, K) of one int8 convolution: 2*M*N*K
+    int8 operations; the int8 input, the int8 weights and the f32 output,
+    each once."""
+    (b, c, h, w), (co, cg, kh, kw), st, dl, pd, g = key
+    oh = (h + 2 * pd[0] - (dl[0] * (kh - 1) + 1)) // st[0] + 1
+    ow = (w + 2 * pd[1] - (dl[1] * (kw - 1) + 1)) // st[1] + 1
+    m, k = b * oh * ow, cg * kh * kw
+    return (2.0 * m * co * k, b * c * h * w + co * cg * kh * kw
+            + 4 * m * co, m, co, k)
+
+
+def bound_ms(ops, nbytes):
+    t_ops, t_bytes = ops / INT8_OPS, nbytes / HBM_BPS
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def int8_inputs(torch, rng, key, dev):
+    (b, c, h, w), wshape, st, dl, pd, g = key
+    q = torch.from_numpy(rng.randint(-127, 128, (b, c, h, w)).astype(
+        np.int8)).to(dev)
+    wq = torch.from_numpy(rng.randint(-127, 128, wshape).astype(
+        np.int8)).to(dev)
+    s = torch.from_numpy(rng.rand(wshape[0]).astype(np.float32) * 0.1
+                         + 1e-3).to(dev)
+    return q, wq, s
+
+
+def check_int8(torch, mx, i8):
+    """Phase 15: both int8 kernels against their plain versions on the
+    card, bitwise: ``int8_matmul`` at (1, 8, 4), (5, 37, 11), (16, 256,
+    64), with zero-scale channels, and at the FC of ResNet-50 (m in 1, 8,
+    32 x k 2048 x n 1000); ``int8_conv_im2col`` at every distinct conv
+    shape of ResNet-50 at batch 1 and 32, groups 2 and 32, a dilated case
+    and odd H/W tails. Then two planted faults that must fail: the scale
+    table shifted by one channel, and the last 32-deep K chunk dropped."""
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(15)
+    rows = []
+
+    def hold(kind, shape, got, ref):
+        torch.cuda.synchronize()
+        same, err = torch.equal(got, ref), max_err(got, ref)
+        rows.append({"kernel": kind, "shape": str(shape), "bitwise": same,
+                     "max_abs_err": err})
+        check(same, "%s %s differs from its plain version (max abs err %g)"
+              % (kind, shape, err))
+
+    fc = None
+    for m, k, n in ((1, 8, 4), (5, 37, 11), (16, 256, 64), (1, 2048, 1000),
+                    (8, 2048, 1000), (32, 2048, 1000)):
+        x = torch.from_numpy(rng.randint(-127, 128, (m, k)).astype(
+            np.int8)).to(dev)
+        w = torch.from_numpy(rng.randint(-127, 128, (n, k)).astype(
+            np.int8)).to(dev)
+        s = torch.from_numpy(rng.rand(n).astype(np.float32) * 0.1).to(dev)
+        if (m, k) == (16, 256):
+            s[::7] = 0.0                # zero-scale channels
+        got = i8.int8_matmul(x, w, s)
+        hold("int8_matmul", (m, k, n), got, i8._int8_matmul_plain(x, w, s))
+        if (m, k) == (16, 256):
+            check(bool((got[:, ::7] == 0).all()), "zero-scale channels "
+                  "are not exact zeros")
+        fc = (x, w, s, got)
+    convs = []
+    for batch in (1, SERVE_BATCH):
+        convs += [key for key, _ in distinct_rows(int8_conv_layers(mx,
+                                                                    batch))]
+    convs += [((2, 64, 14, 14), (64, 32, 3, 3), (1, 1), (1, 1), (1, 1), 2),
+              ((2, 64, 10, 10), (64, 2, 3, 3), (1, 1), (1, 1), (1, 1), 32),
+              ((2, 64, 15, 13), (32, 64, 3, 3), (1, 1), (2, 2), (2, 2), 1),
+              ((3, 24, 17, 23), (40, 24, 5, 3), (2, 3), (1, 1), (2, 1), 1)]
+    stem = None
+    for key in convs:
+        q, wq, s = int8_inputs(torch, rng, key, dev)
+        args = key[2:]
+        got = i8.int8_conv_im2col(q, wq, s, *args)
+        hold("int8_conv_im2col", key, got, i8._int8_conv_plain(q, wq, s,
+                                                              *args))
+        if stem is None:
+            stem = (q, wq, s, args, got)   # ResNet-50's 7x7 stem, batch 1
+    log("check int8: %d int8_matmul and %d int8_conv_im2col shapes, all "
+        "bitwise equal to their plain versions" % (
+            sum(r["kernel"] == "int8_matmul" for r in rows),
+            sum(r["kernel"] == "int8_conv_im2col" for r in rows)))
+    # planted faults: the references a broken kernel would match
+    x, w, s, got = fc
+    for label, ref in (
+            ("scale table shifted by one channel",
+             i8._int8_matmul_plain(x, w, torch.roll(s, 1))),
+            ("last K chunk dropped",
+             i8._int8_matmul_plain(x, _drop_last_chunk(w), s))):
+        same = torch.equal(got, ref)
+        log("planted fault (int8_matmul, %s): bitwise %s, max abs err %.3g"
+            % (label, same, max_err(got, ref)))
+        check(not same, "planted fault (%s) passes the int8_matmul check"
+              % label)
+        rows.append({"planted": "int8_matmul: " + label, "bitwise": same})
+    q, wq, s, args, got = stem
+    for label, ref in (
+            ("scale table shifted by one channel",
+             i8._int8_conv_plain(q, wq, torch.roll(s, 1), *args)),
+            ("last K chunk dropped",
+             i8._int8_conv_plain(q, _drop_last_chunk(wq), s, *args))):
+        same = torch.equal(got, ref)
+        log("planted fault (int8_conv_im2col, stem, %s): bitwise %s, max "
+            "abs err %.3g" % (label, same, max_err(got, ref)))
+        check(not same, "planted fault (%s) passes the int8_conv_im2col "
+              "check" % label)
+        rows.append({"planted": "int8_conv_im2col: " + label,
+                     "bitwise": same})
+    return rows
+
+
+def bn_inputs(torch, rng, shape, dev, offset=0):
+    """x (at ``offset`` floats into its buffer), gamma, beta, mean, var:
+    float32 on ``dev``."""
+    c = shape[1]
+    buf = torch.empty(int(np.prod(shape)) + offset, device=dev)
+    x = buf[offset:].view(shape)
+    x.copy_(torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3 + 1))
+    params = [rng.rand(c) + 0.5, rng.randn(c), rng.randn(c),
+              rng.rand(c) * 2 + 0.1]
+    return [x] + [torch.from_numpy(p.astype(np.float32)).to(dev)
+                  for p in params]
+
+
+def check_bn(torch, mx, bnk):
+    """Phase 15, the inference BatchNorm kernel: bitwise equal to its
+    plain version at every distinct BatchNorm shape of ResNet-50 at batch
+    1 and 32 (``fix_gamma`` as the graph has it), and at a misaligned
+    input, a 2-D input and odd planes; then two planted faults (the mean
+    shifted by one channel, ``eps`` dropped) that must fail."""
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(25)
+    cases = []
+    for batch in (1, SERVE_BATCH):
+        cases += [key + (0,) for key, _ in distinct_rows(bn_layers(mx,
+                                                                   batch))]
+    cases += [((3, 5, 7, 9), False, 1e-3, 1), ((7, 10), True, 1e-3, 0),
+              ((2, 6, 3, 5), False, 2e-5, 3)]
+    rows = []
+    for shape, fix_gamma, eps, offset in cases:
+        ins = bn_inputs(torch, rng, shape, dev, offset)
+        got = bnk.batch_norm_inference(*ins, eps, fix_gamma)
+        ref = bnk._batch_norm_inference_plain(*ins, eps, fix_gamma)
+        torch.cuda.synchronize()
+        same, err = torch.equal(got, ref), max_err(got, ref)
+        rows.append({"kernel": "batch_norm_inference", "shape": str(shape),
+                     "fix_gamma": fix_gamma, "offset": offset,
+                     "bitwise": same, "max_abs_err": err})
+        check(same, "batch_norm_inference %s differs from its plain version "
+              "(max abs err %g)" % (shape, err))
+    log("check batch_norm_inference: %d shapes, all bitwise equal to the "
+        "plain version" % len(cases))
+    # planted faults: the references a broken kernel would match
+    x, g, b, m, v = ins
+    for label, ref in (
+            ("mean shifted by one channel", bnk._batch_norm_inference_plain(
+                x, g, b, torch.roll(m, 1), v, eps, fix_gamma)),
+            ("eps dropped", bnk._batch_norm_inference_plain(
+                x, g, b, m, v, 0.0, fix_gamma))):
+        same = torch.equal(got, ref)
+        log("planted fault (batch_norm_inference, %s): bitwise %s, max abs "
+            "err %.3g" % (label, same, max_err(got, ref)))
+        check(not same, "planted fault (%s) passes the batch_norm_inference "
+              "check" % label)
+        rows.append({"planted": "batch_norm_inference: " + label,
+                     "bitwise": same})
+    return rows
+
+
+def time_bn(torch, mx, bnk, timer):
+    """Phase 16, the inference BatchNorm kernel at ResNet-50's batch-32
+    shapes, per distinct shape and summed over a forward's 51 BatchNorms,
+    L2 flushed and a 1 ms device-side hold before every launch (the
+    wrapper's host side outlasts the flush): beside it the bound (x read
+    and y written once, and the four (c,) parameters, over 3.35 TB/s),
+    the plain version and ``F.batch_norm(training=False)``, the library
+    call that computes the same function (not the same bits).
+    max_abs_err: the timed kernel's output against the plain version's
+    on the same inputs."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(26)
+    layers = bn_layers(mx, SERVE_BATCH)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    err, shapes = 0.0, []
+    for (shape, fix_gamma, eps), count in distinct_rows(layers):
+        x, g, b, m, v = bn_inputs(torch, rng, shape, dev)
+        gl = torch.ones_like(g) if fix_gamma else g
+        nbytes = 8 * x.numel() + 16 * shape[1]
+        row = {"shape": str(shape), "count": count,
+               "ms": timer(lambda: bnk.batch_norm_inference(
+                   x, g, b, m, v, eps, fix_gamma), hold_ms=1.0),
+               "plain_ms": timer(lambda: bnk._batch_norm_inference_plain(
+                   x, g, b, m, v, eps, fix_gamma), hold_ms=1.0),
+               "library_ms": timer(lambda: F.batch_norm(
+                   x, m, v, gl, b, training=False, eps=eps), hold_ms=1.0),
+               "bound_ms": nbytes / HBM_BPS * 1e3}
+        got = bnk.batch_norm_inference(x, g, b, m, v, eps, fix_gamma)
+        ref = bnk._batch_norm_inference_plain(x, g, b, m, v, eps, fix_gamma)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), "batch_norm_inference %s differs from "
+              "its plain version" % (shape,))
+        err = max(err, max_err(got, ref))
+        for f in tot:
+            tot[f] += count * row[f]
+        shapes.append(row)
+        log("time batch_norm_inference %s x%d: ms=%.4f plain_ms=%.4f "
+            "library_ms=%.4f bound_ms=%.4f (bytes) %.0f GB/s"
+            % (shape, count, row["ms"], row["plain_ms"], row["library_ms"],
+               row["bound_ms"], nbytes / (row["ms"] * 1e-3) / 1e9))
+        del x, got, ref
+    row = dict(tot, name="batch_norm_inference", bound_by="bytes",
+               max_abs_err=err, shapes=shapes,
+               shape="ResNet-50 batch 32: the 51 BatchNorms of a forward")
+    log("time batch_norm_inference %s: ms=%.4f plain_ms=%.4f "
+        "library_ms=%.4f bound_ms=%.4f (bytes) max_abs_err=%.3g"
+        % (row["shape"], row["ms"], row["plain_ms"], row["library_ms"],
+           row["bound_ms"], err))
+    return row
+
+
+def _drop_last_chunk(w):
+    """``w`` with the last 32-deep chunk of its contraction (K in the
+    (cin, kh, kw) order) zeroed: what a kernel that skipped its last
+    stage would compute."""
+    flat = w.reshape(w.shape[0], -1).clone()
+    flat[:, 32 * ((flat.shape[1] - 1) // 32):] = 0
+    return flat.reshape(w.shape)
+
+
+def _held(torch, got, ref, what):
+    """max abs error of ``got`` against ``ref``, which must be bitwise
+    equal (the int8 kernels against their plain versions)."""
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    check(torch.equal(got, ref), "%s differs from its plain version (max "
+          "abs err %g)" % (what, err))
+    return err
+
+
+def time_int8(torch, mx, i8, timer):
+    """Phase 16: both kernels at the batch-32 shapes, L2 flushed before
+    every launch: ``int8_conv_im2col`` per distinct conv shape of
+    ResNet-50 and summed over one forward's 53 convolutions,
+    ``int8_matmul`` at the FC (32 x 2048 x 1000). Beside each: the bound
+    (max of the int8 operations over 1979 TOP/s and the bytes over 3.35
+    TB/s), the plain version's time and, for the matmul,
+    ``torch._int_mm`` followed by the scale multiply. No single PyTorch
+    call computes an int8 convolution on the card, so the conv's
+    library_ms is null; ``int_mm_patch_ms`` is ``torch._int_mm`` over a
+    prebuilt patch matrix (the explicit im2col, built untimed) for the
+    shapes it takes (K and N multiples of 8: all but the stem).
+    max_abs_err: each timed kernel's output against its plain version's
+    on the same inputs (bitwise, so 0)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(16)
+    layers = int8_conv_layers(mx, SERVE_BATCH)
+    check(len(layers) == 53, "ResNet-50 has %d convolutions, not 53"
+          % len(layers))
+    shapes, err = [], 0.0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
+           "bytes_ms": 0.0, "int_mm_patch_ms": 0.0, "int_mm_shapes": 0}
+    for key, count in distinct_rows(layers):
+        q, wq, s = int8_inputs(torch, rng, key, dev)
+        args = key[2:]
+        err = max(err, _held(torch, i8.int8_conv_im2col(q, wq, s, *args),
+                             i8._int8_conv_plain(q, wq, s, *args),
+                             "int8_conv_im2col %s" % (key,)))
+        ops, nbytes, m, n, k = conv_cost(key)
+        bms, by = bound_ms(ops, nbytes)
+        row = {"shape": str(key), "count": count, "m": m, "n": n, "k": k,
+               "ms": timer(lambda: i8.int8_conv_im2col(q, wq, s, *args)),
+               "plain_ms": timer(lambda: i8._int8_conv_plain(q, wq, s,
+                                                             *args),
+                                 iters=3),
+               "bound_ms": bms, "bound_by": by, "int_mm_patch_ms": None}
+        if k % 8 == 0 and n % 8 == 0 and key[5] == 1:
+            (kh, kw) = key[1][2:]
+            patches = F.unfold(q.float(), (kh, kw), dilation=args[1],
+                               padding=args[2], stride=args[0])
+            patches = patches.transpose(1, 2).reshape(m, k).to(
+                torch.int8).contiguous()
+            wmat = wq.reshape(n, k)
+            row["int_mm_patch_ms"] = timer(
+                lambda: torch._int_mm(patches, wmat.t()).float() * s)
+            tot["int_mm_patch_ms"] += count * row["int_mm_patch_ms"]
+            tot["int_mm_shapes"] += count
+            del patches
+        shapes.append(row)
+        for f in ("ms", "plain_ms", "bound_ms"):
+            tot[f] += count * row[f]
+        tot["ops_ms"] += count * ops / INT8_OPS * 1e3
+        tot["bytes_ms"] += count * nbytes / HBM_BPS * 1e3
+        log("time int8_conv_im2col %s x%d: ms=%.4f plain_ms=%.3f "
+            "bound_ms=%.4f (%s) %.1f TOP/s int_mm_patch_ms=%s"
+            % (key, count, row["ms"], row["plain_ms"], bms, by,
+               ops / (row["ms"] * 1e-3) / 1e12,
+               "%.4f" % row["int_mm_patch_ms"]
+               if row["int_mm_patch_ms"] is not None else "n/a"))
+        del q, wq, s
+    conv = {"name": "int8_conv_im2col",
+            "shape": "ResNet-50 batch 32: the 53 convolutions of a forward",
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
+                         else "bytes"),
+            "library_ms": None, "max_abs_err": err,
+            "int_mm_patch_ms": tot["int_mm_patch_ms"],
+            "int_mm_patch_convs": tot["int_mm_shapes"], "shapes": shapes}
+    x = torch.from_numpy(rng.randint(-127, 128, (SERVE_BATCH, 2048)).astype(
+        np.int8)).to(dev)
+    w = torch.from_numpy(rng.randint(-127, 128, (1000, 2048)).astype(
+        np.int8)).to(dev)
+    s = torch.from_numpy(rng.rand(1000).astype(np.float32) * 0.1).to(dev)
+    ops = 2.0 * SERVE_BATCH * 1000 * 2048
+    nbytes = SERVE_BATCH * 2048 + 1000 * 2048 + 4 * SERVE_BATCH * 1000
+    bms, by = bound_ms(ops, nbytes)
+    fc = {"name": "int8_matmul", "shape": "ResNet-50 FC: 32 x 2048 x 1000",
+          "ms": timer(lambda: i8.int8_matmul(x, w, s)),
+          "plain_ms": timer(lambda: i8._int8_matmul_plain(x, w, s)),
+          "library_ms": timer(
+              lambda: torch._int_mm(x, w.t()).float() * s[None, :]),
+          "bound_ms": bms, "bound_by": by,
+          "max_abs_err": _held(torch, i8.int8_matmul(x, w, s),
+                               i8._int8_matmul_plain(x, w, s),
+                               "int8_matmul (FC)")}
+    for r in (conv, fc):
+        log("time %-17s %s: ms=%.4f plain_ms=%.3f library_ms=%s "
+            "bound_ms=%.4f (%s) max_abs_err=%.3g%s" % (
+                r["name"], r["shape"], r["ms"], r["plain_ms"],
+                "null" if r["library_ms"] is None
+                else "%.4f" % r["library_ms"], r["bound_ms"], r["bound_by"],
+                r["max_abs_err"],
+                "; torch._int_mm over prebuilt patch matrices of %d of the "
+                "53 convs: %.4f ms" % (r["int_mm_patch_convs"],
+                                       r["int_mm_patch_ms"])
+                if r is conv else ""))
+    return [conv, fc]
+
+
+def _int8_classes(names):
+    """Classes of a profiled int8 forward's kernels, in launch order. The
+    activation quantizer is four kernels launched in a row: the multiply
+    by the act scale, the round, the clip, the cast to int8; the clip's
+    kernel is also ReLU's, so a kernel belongs to the quantizer by its
+    place around a round kernel, not by its name."""
+    classes = []
+    for name in names:
+        low = name.lower()
+        if "int8_conv_kernel" in low:
+            cls = "int8_conv_im2col"
+        elif "int8_matmul_kernel" in low:
+            cls = "int8_matmul"
+        elif "bn_inference_kernel" in low:
+            cls = "batch_norm_inference"
+        elif "memcpy" in low:
+            cls = "input_copy"
+        elif any(k in low for k in ("pool", "clamp", "threshold", "add",
+                                    "mul", "binaryfunctor")):
+            cls = "relu_pool_add"
+        else:
+            cls = "other"
+        classes.append(cls)
+    for i, name in enumerate(names):
+        if "round_kernel" in name.lower():
+            for j in range(max(0, i - 1), min(len(names), i + 3)):
+                classes[j] = "act_quantize"
+    return classes
+
+
+def serve_traffic(eng, pool):
+    """The correctness set: 64 one-image requests from SERVE_CLIENTS
+    threads (thread t sends images (t + 3j) % 16, j = 0..3: every image 4
+    times) and 4 requests of 4 rows (images 4r..4r+3, from threads 0-3
+    after their singles). Returns per-request results and the image
+    count (too few requests to time the server: see serve_window)."""
+    import threading
+    out, errors = {}, []
+    lock = threading.Lock()
+
+    def client(t):
+        try:
+            jobs = [((t + 3 * j) % SERVE_IMAGES,) for j in range(4)]
+            if t < 4:
+                jobs.append(tuple(range(4 * t, 4 * t + 4)))
+            for j, idx in enumerate(jobs):
+                res = eng.predict(pool[list(idx)])[0]
+                with lock:
+                    out[(t, j)] = (idx, res)
+        except Exception as e:          # noqa: BLE001 (reported, fatal)
+            with lock:
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "a client hung")
+    check(not errors, "requests failed: %s" % errors[:3])
+    check(len(out) == 68, "%d of 68 requests answered" % len(out))
+    return {"results": out,
+            "images": sum(len(v[0]) for v in out.values())}
+
+
+def serve_window(eng, pool, seconds):
+    """A timed closed loop: SERVE_CLIENTS threads each send one-image
+    requests (thread t images (t + 3j) % 16), each waiting for its answer
+    before the next, until ``seconds`` have passed. img/s over the wall
+    from the first send to the last answer; p50/p99 over every
+    request."""
+    import threading
+    lats = [[] for _ in range(SERVE_CLIENTS)]
+    errors = []
+    start = threading.Event()
+    stop = [0.0]
+
+    def client(t):
+        start.wait()
+        j = 0
+        try:
+            while time.perf_counter() < stop[0]:
+                i = (t + 3 * j) % SERVE_IMAGES
+                t0 = time.perf_counter()
+                eng.predict(pool[i:i + 1])
+                lats[t].append(time.perf_counter() - t0)
+                j += 1
+        except Exception as e:          # noqa: BLE001 (reported, fatal)
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    stop[0] = t0 + seconds
+    start.set()
+    for t in threads:
+        t.join(timeout=seconds + 600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a client hung")
+    check(not errors, "requests failed: %s" % errors[:3])
+    lat = np.concatenate([np.array(l) for l in lats])
+    return {"requests": int(lat.size), "wall_s": wall,
+            "img_per_s": lat.size / wall,
+            "p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "p99_ms": float(np.percentile(lat, 99) * 1e3)}
+
+
+def _per_image(served, classes):
+    """image index -> list of its output rows over every request."""
+    per = {}
+    for idx, res in served["results"].values():
+        check(res.shape == (len(idx), classes) and np.isfinite(res).all(),
+              "output %s not finite of shape (%d, %d)" % (res.shape,
+                                                          len(idx),
+                                                          classes))
+        check(np.allclose(res.sum(1), 1.0, atol=1e-4), "outputs are not "
+              "probabilities")
+        for i, r in zip(idx, res):
+            per.setdefault(i, []).append(r)
+    return per
+
+
+def serve_int8(torch, mx, i8, bnk, workdir, dev, num_layers=50,
+               image=SERVE_IMAGE, classes=1000, batch=SERVE_BATCH,
+               window_s=SERVE_WINDOW_S):
+    """Phase 17: int8 serving of ResNet-50 at full width on ``dev``:
+    seeded Xavier weights (fit.py's initializer) -> model.save_checkpoint
+    -> quantize_checkpoint(calib_mode="naive") over one seeded batch of
+    32 (benchmark.py infer_quantized's calibration) -> QuantizedParams.load
+    -> Predictor -> InferenceEngine(max_batch 32, batch_wait 2 ms),
+    warmed; the fp32 Predictor of the same checkpoint under its own
+    engine beside it. For each, the correctness set of ``serve_traffic``:
+    every request answered, 53 + 1 int8 kernel launches (0 in fp32) and
+    51 BatchNorm launches per executed batch (counts 0 just before, read
+    just after), every repeat of an image bitwise equal (int8). Then
+    timed closed-loop windows of ``window_s`` seconds, int8 and fp32 in
+    turn (int8, fp32, fp32, int8), with the same launch checks: img/s
+    and p50/p99 latency. The int8-vs-fp32 drift; one profiled batch-32
+    int8 forward, and the input's upload timed by CUDA events. A smaller
+    ``num_layers`` / ``image`` / ``window_s`` rehearses the phase on the
+    CPU (no launches there)."""
+    on_card = dev.type == "cuda"
+    sym = mx.models.resnet(num_classes=classes, num_layers=num_layers,
+                           image_shape=image)
+    n_convs = len(int8_conv_layers(mx, 1, sym, image))
+    n_bns = len(bn_layers(mx, 1, sym, image))
+    os.makedirs(workdir, exist_ok=True)
+    prefix = os.path.join(workdir, "resnet%d" % num_layers)
+    t0 = time.perf_counter()
+    mod = mx.mod.Module(sym, context=dev)
+    mod.bind(data_shapes=[("data", (batch,) + image)],
+             label_shapes=[("softmax_label", (batch,))], for_training=False)
+    mx.random.seed(0)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    arg, aux = mod.get_params()
+    mx.model.save_checkpoint(prefix, 0, sym, arg, aux)
+    del mod, arg, aux
+    t_ckpt = time.perf_counter() - t0
+    calib = np.random.RandomState(0).randn(batch, *image).astype(np.float32)
+    t0 = time.perf_counter()
+    qp = mx.quantize.quantize_checkpoint(prefix, [calib], calib_mode="naive",
+                                         ctx=dev)
+    t_quant = time.perf_counter() - t0
+    check(len(qp.meta) == n_convs + 1, "quantized %d layers, expected %d"
+          % (len(qp.meta), n_convs + 1))
+    qp = mx.quantize.QuantizedParams.load(qp.prefix)
+    dev_type = None if on_card else 1
+    cfg = mx.serve.ServeConfig(max_batch=batch, batch_wait_ms=2)
+    pool = np.random.RandomState(17).randn(SERVE_IMAGES, *image).astype(
+        np.float32)
+    with open(prefix + "-0000.params", "rb") as f:
+        fp32_blob = f.read()
+
+    def counted(kind, eng, run):
+        """``run()`` with every count 0 just before and read just after;
+        checks the launches per executed batch on the card."""
+        snap0 = mx.telemetry.snapshot()
+        i8.reset_launches()
+        bnk.reset_launches()
+        out = run()
+        launches = dict(i8.LAUNCHES, **bnk.LAUNCHES)
+        batches = mx.telemetry.snapshot().get("serving/batches_total", 0) \
+            - snap0.get("serving/batches_total", 0)
+        if on_card:
+            want = {"int8_conv_im2col": n_convs * batches * (kind == "int8"),
+                    "int8_matmul": batches * (kind == "int8"),
+                    "batch_norm_inference": n_bns * batches}
+            check(batches >= 1 and launches == want,
+                  "%s serving: launches %s over %d batches, expected %s"
+                  % (kind, launches, batches, want))
+        return out, launches, batches
+
+    runs, engines = {}, {}
+    for kind in ("int8", "fp32"):
+        pred = mx.serving.Predictor(
+            *((qp.symbol_json, qp.param_bytes()) if kind == "int8"
+              else (sym.tojson(), fp32_blob)),
+            dev_type=dev_type, input_shapes={"data": (1,) + image})
+        t0 = time.perf_counter()
+        eng = engines[kind] = mx.serve.InferenceEngine(pred, cfg).start() \
+            .warmup()
+        t_warm = time.perf_counter() - t0
+        check(eng.ready, "%s engine not ready after warmup" % kind)
+        served, launches, batches = counted(kind, eng,
+                                            lambda: serve_traffic(eng, pool))
+        per = _per_image(served, classes)
+        repeats_equal = all(all(np.array_equal(r, rs[0]) for r in rs)
+                            for rs in per.values())
+        # the same image alone, twice: the same bucket, the same bits
+        alone = [eng.predict(pool[3:4])[0] for _ in range(2)]
+        runs[kind] = {"correctness_set": {
+            "requests": len(served["results"]), "images": served["images"],
+            "batches": batches},
+            "launches": launches, "warmup_s": t_warm,
+            "repeats_bitwise": repeats_equal,
+            "alone_bitwise": bool(np.array_equal(*alone)),
+            "per_image": {i: rs[0] for i, rs in per.items()}, "windows": []}
+        log("serve %s, correctness set: %d requests (%d images) answered in "
+            "%d batches; launches %s; warmup %.2fs; repeats bitwise %s, "
+            "alone twice bitwise %s"
+            % (kind, len(served["results"]), served["images"], batches,
+               launches, t_warm, repeats_equal, runs[kind]["alone_bitwise"]))
+        if kind == "int8":
+            check(runs[kind]["alone_bitwise"], "the same image alone twice "
+                  "gave different int8 outputs")
+            check(repeats_equal, "repeats of an image differ between "
+                  "batches in the int8 path")
+    for kind in ("int8", "fp32", "fp32", "int8"):
+        win, launches, batches = counted(
+            kind, engines[kind],
+            lambda: serve_window(engines[kind], pool, window_s))
+        win.update(batches=batches, launches=launches)
+        runs[kind]["windows"].append(win)
+        log("serve %s, timed window %d: %d requests in %.3fs: %.1f img/s, "
+            "p50 %.2f ms, p99 %.2f ms; %d batches (%.1f images each)"
+            % (kind, len(runs[kind]["windows"]), win["requests"],
+               win["wall_s"], win["img_per_s"], win["p50_ms"], win["p99_ms"],
+               batches, win["requests"] / max(batches, 1)))
+    for kind in ("int8", "fp32"):
+        r = runs[kind]
+        r["img_per_s"] = sum(w["requests"] for w in r["windows"]) \
+            / sum(w["wall_s"] for w in r["windows"])
+        log("serve %s, %d timed windows: %.1f img/s (windows %s)"
+            % (kind, len(r["windows"]), r["img_per_s"],
+               ["%.1f" % w["img_per_s"] for w in r["windows"]]))
+    if on_card:
+        runs["int8"]["profiled_forward"] = profile_int8(
+            torch, i8, bnk, engines["int8"]._bucket_pred(batch), dev, batch,
+            image, n_convs, n_bns)
+    for eng in engines.values():
+        eng.close()
+    del engines, eng, pred
+    # drift over the served probabilities and over the logits (the FC's
+    # output, through Predictors of the graphs cut there)
+    fc = [n for n in qp.meta if qp.meta[n]["op"] == "FullyConnected"][-1]
+    logits = {}
+    for kind, graph, blob in (
+            ("int8", qp.symbol.get_internals()[fc + "_int8_output"],
+             qp.param_bytes()),
+            ("fp32", sym.get_internals()[fc + "_output"], fp32_blob)):
+        pred = mx.serving.Predictor(
+            graph.tojson(), blob, dev_type=dev_type,
+            input_shapes={"data": (SERVE_IMAGES,) + image})
+        pred.set_input("data", pool.tobytes())
+        pred.forward()
+        logits[kind] = np.frombuffer(pred.get_output(0), np.float32).reshape(
+            SERVE_IMAGES, classes)
+    drift = {}
+    for what, a, b in (
+            ("probabilities",
+             np.stack([runs["int8"]["per_image"][i]
+                       for i in range(SERVE_IMAGES)]),
+             np.stack([runs["fp32"]["per_image"][i]
+                       for i in range(SERVE_IMAGES)])),
+            ("logits", logits["int8"], logits["fp32"])):
+        drift[what] = {
+            "max_abs": float(np.abs(a - b).max()),
+            "rel_rms": rel_rms(a, b),
+            "top1_agree": float((a.argmax(1) == b.argmax(1)).mean()),
+            "fp32_abs_max": float(np.abs(b).max())}
+        log("int8 vs fp32 %s over %d images: max abs %.3g (fp32 |max| "
+            "%.3g), relative RMS %.3g, top-1 agreement %.3f"
+            % (what, SERVE_IMAGES, drift[what]["max_abs"],
+               drift[what]["fp32_abs_max"], drift[what]["rel_rms"],
+               drift[what]["top1_agree"]))
+    for r in runs.values():
+        del r["per_image"]
+    return {"checkpoint_s": t_ckpt, "quantize_s": t_quant,
+            "quantized_layers": len(qp.meta), "runs": runs,
+            "drift": drift, "artifact": qp}
+
+
+def profile_int8(torch, i8, bnk, pred, dev, batch, image, n_convs, n_bns):
+    """One batch-32 int8 forward of the served bucket under torch.profiler
+    (busy share and device ms by class, the input's upload included as
+    the profiler records it), and that upload alone, timed by CUDA events
+    and by the host's clock: the executor's own copy of a pageable host
+    array, five times, the median."""
+    feed = np.random.RandomState(19).randn(batch, *image).astype(np.float32)
+    i8.reset_launches()
+    bnk.reset_launches()
+    prof = profile_run(torch, lambda: [
+        o.asnumpy() for o in pred._exe.forward(is_train=False, data=feed)],
+        classify_seq=_int8_classes)
+    check(dict(i8.LAUNCHES, **bnk.LAUNCHES) == {
+        "int8_conv_im2col": n_convs, "int8_matmul": 1,
+        "batch_norm_inference": n_bns},
+        "profiled forward launched %s, %s" % (i8.LAUNCHES, bnk.LAUNCHES))
+    ev_ms, host_ms = [], []
+    for _ in range(5):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.record()
+        torch.as_tensor(feed).to(dev)
+        e.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(s.elapsed_time(e))
+    prof["upload"] = {"bytes": feed.nbytes,
+                      "event_ms": float(np.median(ev_ms)),
+                      "host_ms": float(np.median(host_ms))}
+    log("int8 profiled batch-%d forward: wall %.4fs, device busy %s, %d "
+        "kernels and copies, %.3f device ms, by class %s; the input's "
+        "upload (%d bytes, pageable) alone: %.3f ms by CUDA events, %.3f ms "
+        "by the host clock"
+        % (batch, prof["wall_s"], "not measured" if prof["busy_share"] is None
+           else "%.1f%%" % (100 * prof["busy_share"]), prof["kernels"],
+           sum(prof["device_ms"].values()),
+           {k: round(v, 3) for k, v in sorted(prof["device_ms"].items())},
+           feed.nbytes, prof["upload"]["event_ms"],
+           prof["upload"]["host_ms"]))
+    for name, ms in prof["top_kernels_ms"]:
+        log("int8 profiled forward: %8.3f ms  %s" % (ms, name))
+    return prof
+
+
+def int8_vs_cpu(torch, mx, qp, dev, batch=2, image=SERVE_IMAGE):
+    """Phase 18: the int8 artifact on ``dev`` against the port on the CPU
+    (plain versions) at batch 2. Each of the 54 quantized layers, given
+    the card's input to it, must give the card's int8 activations and
+    output bitwise on the CPU; the whole forward (the FC's logits and the
+    served probabilities) within INT8_OUT_TOL relative RMS; the share of
+    int8 activations that differ between the two independent forwards
+    is printed."""
+    from mxnet_tpu_torch.ops import registry as reg
+    from mxnet_tpu_torch.ops.quantization_ops import _quantize_act
+    from mxnet_tpu_torch.symbol.symbol import _topo
+    x = np.random.RandomState(18).randn(batch, *image).astype(np.float32)
+    internals = qp.symbol.get_internals()
+    names = internals.list_outputs()
+    types = {k: v.dtype for k, v in qp.arg_params.items()}
+
+    def run(d):
+        exe = internals.simple_bind(ctx=d, grad_req="null", type_dict=types,
+                                    data=(batch,) + image)
+        exe.copy_params_from(qp.arg_params, qp.aux_params,
+                             allow_extra_params=True)
+        return dict(zip(names, exe.forward(is_train=False, data=x)))
+
+    t0 = time.perf_counter()
+    card = run(dev)
+    cpu = run(torch.device("cpu"))
+    layers = [n for n in _topo(qp.symbol._entries)
+              if n.op in ("_contrib_quantized_conv_int8",
+                          "_contrib_quantized_fc_int8")]
+    check(len(layers) == 54 or image != SERVE_IMAGE,
+          "%d quantized layers, not 54" % len(layers))
+    flips = total = 0
+    for node in layers:
+        src = node.inputs[0][0]
+        src = src.name if src.is_var else src.name + "_output"
+        attrs = {k: v for k, v in node.attrs.items()
+                 if not k.startswith("__")}
+        x_card = card[src]._data
+        q_card = _quantize_act(x_card, attrs["act_scale"]).cpu()
+        q_cpu = _quantize_act(x_card.cpu(), attrs["act_scale"])
+        out_cpu = reg.get_op(node.op).fn(
+            x_card.cpu(), *[qp.arg_params[n.name]._data
+                            for n, _ in node.inputs[1:]], **attrs)
+        out_card = card[node.name + "_output"]._data.cpu()
+        check(torch.equal(q_card, q_cpu), "%s: int8 activations differ "
+              "between the card and the CPU on the same input" % node.name)
+        check(torch.equal(out_card, out_cpu), "%s: output differs between "
+              "the card and the CPU on the same input (max abs err %g)"
+              % (node.name, max_err(out_card, out_cpu)))
+        q_chain = _quantize_act(cpu[src]._data, attrs["act_scale"])
+        flips += int((q_card != q_chain).sum())
+        total += q_chain.numel()
+    errs = {}
+    logits = layers[-1].name + "_output"
+    for name in (logits, names[-1]):
+        got = card[name].asnumpy()
+        ref = cpu[name].asnumpy()
+        check(np.isfinite(got).all(), "%s not finite on the card" % name)
+        errs[name] = rel_rms(got, ref)
+    res = {"layers": len(layers), "layers_bitwise": True,
+           "rel_rms": errs, "flipped": flips, "activations": total,
+           "flip_share": flips / total, "wall_s": time.perf_counter() - t0}
+    log("int8 card vs CPU, batch %d: %d layers bitwise on the same inputs; "
+        "whole forward relative RMS %s (tol %g); %d of %d int8 activations "
+        "flipped (%.3g)"
+        % (batch, len(layers), {k: "%.3g" % v for k, v in errs.items()},
+           INT8_OUT_TOL, flips, total, flips / total))
+    for name, err in errs.items():
+        check(err <= INT8_OUT_TOL, "int8 forward %s: card vs CPU relative "
+              "RMS %g > %g" % (name, err, INT8_OUT_TOL))
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the card against the CPU, f32
 # ---------------------------------------------------------------------------
 
@@ -1621,8 +2502,10 @@ def main():
     sys.path.insert(0, root)
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops.cuda import _build
+    from mxnet_tpu_torch.ops.cuda import batch_norm as bnk
     from mxnet_tpu_torch.ops.cuda import flash_attention as fa
     from mxnet_tpu_torch.ops.cuda import fused_update as fu
+    from mxnet_tpu_torch.ops.cuda import int8_matmul as i8
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.time()
@@ -1658,6 +2541,19 @@ def main():
     del timer
     fitted = resnet_fit(torch, mx, fu, fa)
     resnet_cpu = resnet_vs_cpu(torch, mx, fu)
+    int8_checks = check_int8(torch, mx, i8) + check_bn(torch, mx, bnk)
+    timer = Timer(torch)
+    int8_rows = time_int8(torch, mx, i8, timer) + [time_bn(torch, mx, bnk,
+                                                           timer)]
+    del timer
+    workdir = os.path.join(root, "build", "chip_smoke_int8")
+    try:
+        served_int8 = serve_int8(torch, mx, i8, bnk, workdir,
+                                 torch.device("cuda"))
+        int8_cpu = int8_vs_cpu(torch, mx, served_int8.pop("artifact"),
+                               torch.device("cuda"))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     sources = {"paged_decode_attention": (
         "mxnet_tpu_torch/ops/cuda/csrc/paged_decode_attention.cu",
@@ -1678,7 +2574,18 @@ def main():
         "mxnet_tpu/ops/pallas/fused_update.py:65"),
         "adam_fused_update": (
         "mxnet_tpu_torch/ops/cuda/csrc/fused_update.cu",
-        "mxnet_tpu/ops/pallas/fused_update.py:65")}
+        "mxnet_tpu/ops/pallas/fused_update.py:65"),
+        "int8_matmul": (
+        "mxnet_tpu_torch/ops/cuda/csrc/int8_matmul.cu",
+        "mxnet_tpu/ops/pallas/int8_matmul.py:56"),
+        # on the TPU: _im2col, then the int8_matmul kernel per group
+        "int8_conv_im2col": (
+        "mxnet_tpu_torch/ops/cuda/csrc/int8_conv_im2col.cu",
+        "mxnet_tpu/ops/pallas/int8_matmul.py:197"),
+        # XLA on the TPU: the inference branch of the BatchNorm op
+        "batch_norm_inference": (
+        "mxnet_tpu_torch/ops/cuda/csrc/batch_norm_inference.cu",
+        "mxnet_tpu/ops/nn.py:234")}
     # launches: the serving kernels' from the served round, the training
     # kernels' from the first timed train call (8 steps), the update
     # kernels' from the ResNet-50 fits (48 SGD steps; 4 Adam steps)
@@ -1687,8 +2594,11 @@ def main():
         launches[name] = trained["calls"][1]["launches"][name]
     launches["sgd_fused_update"] = fitted["launches"]["sgd_fused_update"]
     launches["adam_fused_update"] = fitted["adam_launches"]
+    # the int8 and BatchNorm kernels' from the int8 correctness set of
+    # phase 17
+    launches.update(served_int8["runs"]["int8"]["launches"])
     kernels = []
-    for r in main_rows + flash_rows + fused_rows:
+    for r in main_rows + flash_rows + fused_rows + int8_rows:
         src, rep = sources[r["name"]]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": src,
@@ -1704,7 +2614,9 @@ def main():
               "train_vs_cpu": train_cpu, "train_bf16_routes": routes,
               "fused_update_checks": fused_checks,
               "fused_update_timings": fused_rows, "resnet_fit": fitted,
-              "resnet_vs_cpu": resnet_cpu, "kernels": kernels,
+              "resnet_vs_cpu": resnet_cpu, "int8_checks": int8_checks,
+              "int8_timings": int8_rows, "int8_serve": served_int8,
+              "int8_vs_cpu": int8_cpu, "kernels": kernels,
               "wall_s": time.time() - t_all}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

@@ -20,14 +20,21 @@ Ported so far:
   ``initializer``, ``executor``, ``optimizer`` (SGD, Adam),
   ``lr_scheduler``, ``io``, ``metric``, ``callback``, ``model`` and
   ``module``; the ``sgd_fused_update`` / ``adam_fused_update`` kernel
-  updates every parameter in one launch a step.
+  updates every parameter in one launch a step;
+- int8 quantized serving: checkpoint files (``ndarray.utils`` save/load
+  in both of the JAX package's layouts, ``checkpoint``,
+  ``model.save_checkpoint``), ``quantize`` (calibration, per-channel
+  PTQ, the ``QuantizedParams`` artifact), the quantization ops,
+  ``serving.Predictor`` and ``serve.InferenceEngine``; kernels
+  ``int8_matmul`` and ``int8_conv_im2col``.
 
 Importing the package imports no triton, loads no CUDA library and
 touches no GPU.
 """
-from . import (callback, config, context, convert, executor, initializer,
-               io, lr_scheduler, metric, model, models, module, ndarray,
-               ops, optimizer, parallel, random, serve, symbol, telemetry)
+from . import (callback, checkpoint, config, context, convert, executor,
+               initializer, io, lr_scheduler, metric, model, models, module,
+               ndarray, ops, optimizer, parallel, quantize, random, serve,
+               serving, symbol, telemetry)
 from .base import MXNetError
 from .context import cpu, default_device, gpu
 
@@ -37,7 +44,8 @@ mod = module
 init = initializer
 
 __all__ = ["MXNetError", "cpu", "gpu", "default_device", "callback",
-           "config", "context", "convert", "executor", "init", "initializer",
-           "io", "lr_scheduler", "metric", "mod", "model", "models", "module",
-           "nd", "ndarray", "ops", "optimizer", "parallel", "random", "serve",
-           "sym", "symbol", "telemetry"]
+           "checkpoint", "config", "context", "convert", "executor", "init",
+           "initializer", "io", "lr_scheduler", "metric", "mod", "model",
+           "models", "module", "nd", "ndarray", "ops", "optimizer",
+           "parallel", "quantize", "random", "serve", "serving", "sym",
+           "symbol", "telemetry"]

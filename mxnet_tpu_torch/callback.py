@@ -1,6 +1,7 @@
 """Training callbacks (the JAX package's ``callback.py``): ``Speedometer``.
-The checkpoint callbacks write checkpoint files, which come with
-ROADMAP A8.2; until then they raise."""
+The checkpoint callbacks come with the rest of ROADMAP A8.2 (fit's
+checkpoint_prefix and resume, optimizer-state files); until then they
+raise."""
 from __future__ import annotations
 
 import logging
@@ -10,13 +11,13 @@ __all__ = ["Speedometer", "do_checkpoint", "module_checkpoint"]
 
 
 def do_checkpoint(prefix, period=1):
-    raise NotImplementedError("do_checkpoint writes checkpoint files, which "
-                              "are not ported yet (ROADMAP A8.2)")
+    raise NotImplementedError("do_checkpoint is not ported yet (ROADMAP "
+                              "A8.2; model.save_checkpoint is)")
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
-    raise NotImplementedError("module_checkpoint writes checkpoint files, "
-                              "which are not ported yet (ROADMAP A8.2)")
+    raise NotImplementedError("module_checkpoint is not ported yet "
+                              "(ROADMAP A8.2; model.save_checkpoint is)")
 
 
 class Speedometer(object):

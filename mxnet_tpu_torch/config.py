@@ -10,10 +10,46 @@ __all__ = ["get", "VARS"]
 # name -> (type, default, doc)
 VARS = {
     "MXNET_SERVE_WORKER_RESTARTS": (int, 16,
-                                    "Restart budget for a crashed decode "
-                                    "scheduler thread (counted in "
-                                    "decode/worker_restarts_total). Past "
-                                    "it the scheduler stays down."),
+                                    "Restart budget for crashed serve "
+                                    "worker threads (shared across an "
+                                    "InferenceEngine's crew, counted in "
+                                    "serving/worker_restarts_total) and "
+                                    "for a crashed decode scheduler thread "
+                                    "(decode/worker_restarts_total). Past "
+                                    "it the worker stays down."),
+    "MXNET_SERVE_MAX_BATCH": (int, 8,
+                              "Largest serving batch bucket "
+                              "(serve.InferenceEngine). Buckets default "
+                              "to the power-of-two ladder 1..max; one "
+                              "bound executor per bucket."),
+    "MXNET_SERVE_BUCKETS": (str, "", "Explicit serving batch buckets as "
+                            "a comma list (e.g. '1,4,16'); empty = "
+                            "power-of-two ladder up to "
+                            "MXNET_SERVE_MAX_BATCH."),
+    "MXNET_SERVE_QUEUE_DEPTH": (int, 64,
+                                "Serve admission-control bound: requests "
+                                "beyond this many queued are rejected "
+                                "immediately, never queued into unbounded "
+                                "latency."),
+    "MXNET_SERVE_BATCH_WAIT_MS": (int, 2,
+                                  "How long the micro-batcher holds the "
+                                  "first queued request open for "
+                                  "coalescing (higher = bigger batches, "
+                                  "more latency floor)."),
+    "MXNET_SERVE_DEADLINE_MS": (int, 2000,
+                                "Default per-request serving deadline; "
+                                "expired requests fail before they reach "
+                                "the device. 0 disables."),
+    "MXNET_SERVE_WORKERS": (int, 1,
+                            "Serve worker threads pulling batches off "
+                            "the queue. >1 overlaps host pad/unpad with "
+                            "device compute (per-bucket executors are "
+                            "lock-guarded)."),
+    "MXNET_QUANT_PERCENTILE": (float, 99.99,
+                               "Percentile of |x| the percentile/"
+                               "entropy calibration observer clips "
+                               "activation ranges at "
+                               "(quantize.calibrate.PercentileObserver)."),
     "MXNET_DECODE_SLOTS": (int, 8,
                            "Concurrent sequences the decode engine "
                            "(serve.DecodeEngine) schedules per step; "

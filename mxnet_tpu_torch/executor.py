@@ -11,6 +11,8 @@ in-place update of the BatchNorm moving statistics. Where the JAX
 package donates the weight and state buffers to one XLA program, here
 the kernel writes them in place after autograd has returned and the
 graph is gone, so no saved tensor of the graph sees the new values.
+Arguments keep the type they were bound with (int8 weights of a quantized
+graph included): inputs staged by ``forward(**kwargs)`` are cast to it.
 """
 from __future__ import annotations
 
@@ -216,6 +218,21 @@ class Executor(object):
         return self.outputs
 
     # -- parameter management ---------------------------------------------
+    def alias_args(self, other, names):
+        """Share argument / auxiliary NDArray objects with executor
+        ``other`` (the reference's shared-executor memory): both then read
+        the same tensors, as the bucket ladder of ``Predictor.reshape``
+        does with the weights."""
+        for n in names:
+            if n in other.arg_dict:
+                shared = other.arg_dict[n]
+                self.arg_arrays[self._arg_names.index(n)] = shared
+                self.arg_dict[n] = shared
+            elif n in other.aux_dict:
+                shared = other.aux_dict[n]
+                self.aux_arrays[self._aux_names.index(n)] = shared
+                self.aux_dict[n] = shared
+
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):
         """Copy values into the bound arrays, in place (reference:

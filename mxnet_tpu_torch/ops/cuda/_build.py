@@ -32,15 +32,19 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(_HERE))),
     "build", "mxnet_tpu_torch_kernels")
 
-# kernel name -> its translation unit; every unit includes common.cuh
+# kernel name -> its translation unit; the attention and update units
+# include common.cuh, the int8 units int8_gemm.cuh
 SOURCES = {
     "paged_decode_attention": "paged_decode_attention.cu",
     "flash_prefill_paged": "flash_prefill_paged.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "fused_update": "fused_update.cu",
+    "int8_matmul": "int8_matmul.cu",
+    "int8_conv_im2col": "int8_conv_im2col.cu",
+    "batch_norm_inference": "batch_norm_inference.cu",
 }
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "int8_gemm.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

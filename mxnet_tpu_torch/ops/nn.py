@@ -9,7 +9,8 @@ Convolutions and matrix products go to cuDNN/cuBLAS through
 ``torch.nn.functional``, as the JAX package left them to XLA; BatchNorm
 in training mode to ``F.batch_norm`` without running buffers (its batch
 variance is the biased one the JAX op uses; the moving statistics are
-updated by the graph evaluator, as in the JAX package).
+updated by the graph evaluator, as in the JAX package); with the moving
+statistics to the ``batch_norm_inference`` kernel (``cuda/batch_norm.py``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from .cuda.batch_norm import _batch_norm_inference_plain, batch_norm_inference
 from .registry import register
 
 
@@ -165,21 +167,30 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     the batch's mean and biased variance in training mode, the moving
     ones otherwise. ``fix_gamma`` uses ones for gamma (its gradient is
     then zero). Statistics and the affine run in float32, or in float64
-    for float64 data."""
+    for float64 data.
+
+    With the moving statistics (inference, ``use_global_stats``) the
+    output is ``x * a + b`` per channel, ``a = gamma / sqrt(var + eps)``
+    and ``b = beta - mean * a``, each operation correctly rounded: the
+    ``batch_norm_inference`` kernel on the card, its plain version on the
+    CPU (and for float64), the same bits on both (cuDNN's inference
+    kernel does not give them), which keeps a quantized network's int8
+    activations the same on both."""
     axis = axis % data.dim()
     x = data if axis == 1 else data.movedim(axis, 1)
-    if fix_gamma:
-        gamma = torch.ones_like(gamma)
     ct = torch.float64 if x.dtype == torch.float64 else torch.float32
     x32 = x.to(ct)
     train = train_mode and not use_global_stats
     if train:
+        if fix_gamma:
+            gamma = torch.ones_like(gamma)
         out = F.batch_norm(x32, None, None, gamma.to(ct), beta.to(ct),
                            training=True, eps=eps)
     else:
-        out = F.batch_norm(x32, moving_mean.to(ct), moving_var.to(ct),
-                           gamma.to(ct), beta.to(ct), training=False,
-                           eps=eps)
+        bn = batch_norm_inference if ct == torch.float32 \
+            else _batch_norm_inference_plain
+        out = bn(x32.contiguous(), gamma.to(ct), beta.to(ct),
+                 moving_mean.to(ct), moving_var.to(ct), eps, fix_gamma)
     out = out.to(data.dtype)
     if axis != 1:
         out = out.movedim(1, axis)

@@ -12,7 +12,7 @@ import threading
 
 import torch
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "get_state"]
 
 _lock = threading.Lock()
 _state = {"seed": 0, "gens": {}}
@@ -40,3 +40,15 @@ def generator(device):
             gen.manual_seed(_state["seed"])
             _state["gens"][dev] = gen
         return gen
+
+
+def get_state():
+    """This package's random state as JSON-ready data: the seed and each
+    generator created since, by device, its state in hex: what a
+    checkpoint manifest records (restoring it comes with resume, ROADMAP
+    A8.2)."""
+    with _lock:
+        return {"seed": int(_state["seed"]),
+                "generators": {str(dev): bytes(gen.get_state().tolist()).hex()
+                               for dev, gen in _state["gens"].items()}}
+

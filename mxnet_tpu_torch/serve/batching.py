@@ -3,7 +3,8 @@ from __future__ import annotations
 
 from ..base import MXNetError
 
-__all__ = ["power_of_two_buckets", "pick_bucket"]
+__all__ = ["power_of_two_buckets", "parse_buckets", "validate_buckets",
+           "pick_bucket"]
 
 
 def power_of_two_buckets(max_batch):
@@ -19,6 +20,43 @@ def power_of_two_buckets(max_batch):
         b *= 2
     buckets.append(max_batch)
     return tuple(buckets)
+
+
+def validate_buckets(buckets, spec=None):
+    """An explicit bucket ladder, strictly increasing positive sizes, as
+    a tuple. Unsorted, duplicate or non-positive entries raise naming the
+    spec: a ladder an operator wrote down is config, and reordering it
+    silently would hide the typo it almost certainly is."""
+    name = repr(spec) if spec is not None else repr(list(buckets))
+    buckets = tuple(int(b) for b in buckets)
+    if not buckets:
+        raise MXNetError("bucket spec %s is empty" % name)
+    for b in buckets:
+        if b < 1:
+            raise MXNetError("bucket spec %s: sizes must be >= 1 (got %d)"
+                             % (name, b))
+    for prev, cur in zip(buckets, buckets[1:]):
+        if cur == prev:
+            raise MXNetError("bucket spec %s has duplicate bucket %d"
+                             % (name, cur))
+        if cur < prev:
+            raise MXNetError("bucket spec %s is not sorted ascending "
+                             "(%d after %d)" % (name, cur, prev))
+    return buckets
+
+
+def parse_buckets(spec, max_batch):
+    """Buckets from a config spec: a comma list (``"1,4,16"``,
+    MXNET_SERVE_BUCKETS) checked by :func:`validate_buckets`, or, when
+    empty, the power-of-two ladder up to ``max_batch``."""
+    if not spec:
+        return power_of_two_buckets(max_batch)
+    try:
+        buckets = [int(tok) for tok in str(spec).split(",") if tok.strip()]
+    except ValueError:
+        raise MXNetError("bad bucket spec %r (want e.g. '1,2,4,8')"
+                         % (spec,)) from None
+    return validate_buckets(buckets, spec)
 
 
 def pick_bucket(n, buckets):

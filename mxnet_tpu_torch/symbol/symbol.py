@@ -10,10 +10,17 @@ function, here ``_graph_eval_fn`` runs it eagerly on tensors; shape
 inference runs each op on ``device="meta"`` tensors (no memory, no
 compute) where the JAX package uses ``jax.eval_shape``.
 
+Variables may carry a type (``Variable(dtype="int8")``, the ``__dtype__``
+attr, as the quantized serving graphs' int8 weights do): shape inference
+gives them meta tensors of that type, and ``simple_bind(type_dict=...)``
+binds such buffers in it. ``get_internals`` groups every node's outputs,
+variables included, in the JAX package's order; ``sym[i]`` picks one
+output; ``save`` / ``load`` write and read the JSON file atomically.
+
 Not ported yet (ROADMAP A8.6): composition (``sym(data=...)``),
-``Group``, ``get_internals``, ``infer_type``, arithmetic other than the
-residual ``+``, control-flow subgraphs, ``AttrScope``; group2ctx model
-parallelism is A13.
+``Group``, ``infer_type``, arithmetic other than the residual ``+``,
+control-flow subgraphs, ``AttrScope``; group2ctx model parallelism is
+A13.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import torch
 from ..base import MXNetError
 from ..ops import registry as _reg
 
-__all__ = ["Symbol", "Variable", "load_json"]
+__all__ = ["Symbol", "Variable", "load", "load_json"]
 
 # ops whose trailing inputs are auxiliary states (updated by the
 # executor during training, never gradient-trained)
@@ -137,6 +144,32 @@ class Symbol(object):
         return "<Symbol Grouped %s>" % ",".join(
             n.name for n, _ in self._entries)
 
+    def __getitem__(self, index):
+        """One output, by position or by name (``fc1`` or
+        ``fc1_output``)."""
+        outputs = self.list_outputs()
+        if isinstance(index, str):
+            matches = [i for i, n in enumerate(outputs)
+                       if n == index or n == index + "_output"]
+            if not matches:
+                raise ValueError("cannot find output %r" % index)
+            index = matches[0]
+        if not 0 <= index < len(outputs):
+            raise IndexError("index %d out of range" % index)
+        return Symbol([self._entries[index]])
+
+    def get_internals(self):
+        """Every node's outputs as one grouped symbol, variables
+        included, in topological order (reference: symbol.py
+        get_internals)."""
+        entries = []
+        for node in _topo(self._entries):
+            if node.is_var:
+                entries.append((node, 0))
+            else:
+                entries.extend((node, i) for i in range(_n_outputs(node)))
+        return Symbol(entries)
+
     # -- listings ----------------------------------------------------------
     def list_arguments(self):
         return [n.name for n in _topo(self._entries)
@@ -217,15 +250,18 @@ class Symbol(object):
                           indent=2)
 
     def save(self, fname):
-        raise NotImplementedError(
-            "Symbol.save writes checkpoint files, which are not ported yet "
-            "(ROADMAP A8.2); use tojson()")
+        """Write :meth:`tojson` to ``fname``, atomically: a crash mid-save
+        never tears an existing symbol file."""
+        from ..checkpoint import atomic_writer
+        with atomic_writer(fname, "w") as f:
+            f.write(self.tojson())
 
     # -- binding -----------------------------------------------------------
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
                     **kwargs):
         """Allocate zeroed arrays of the inferred shapes on ``ctx``
-        (default ``cuda:0``) and bind them."""
+        (default ``cuda:0``) and bind them; ``type_dict`` maps argument
+        and auxiliary names to their types (float32 otherwise)."""
         from ..context import default_device
         from ..ndarray.ndarray import zeros
         ctx = default_device(ctx)
@@ -283,6 +319,13 @@ def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
         attrs["__init__"] = init if isinstance(init, str) else init.dumps()
     attrs.update(kwargs)
     return Symbol([(_Node(None, name, attrs), 0)])
+
+
+def load(fname):
+    """A Symbol from a JSON file written by :meth:`Symbol.save` (this
+    package's or the JAX package's)."""
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def load_json(json_str):
@@ -466,7 +509,8 @@ def _deduce_shapes(symbol, known):
             attrs = _op_attrs(node)
             if "train_mode" in op.attr_defaults:
                 attrs["train_mode"] = False
-            metas = [torch.empty(s, device="meta") for s in in_shapes]
+            metas = [torch.empty(s, device="meta", dtype=_var_dtype(src))
+                     for s, (src, _oi) in zip(in_shapes, node.inputs)]
             with torch.no_grad():
                 outs = op.fn(*metas, **attrs)
             outs = outs if isinstance(outs, (tuple, list)) else (outs,)
@@ -477,6 +521,14 @@ def _deduce_shapes(symbol, known):
     if missing:
         raise MXNetError("cannot infer shapes for %s" % missing)
     return shapes, out_shapes
+
+
+def _var_dtype(node):
+    """The torch type of a variable's ``__dtype__`` attr (float32 for
+    an untyped variable or an op output)."""
+    from ..ndarray.ndarray import to_torch_dtype
+    dtype = node.attrs.get("__dtype__") if node.is_var else None
+    return to_torch_dtype(dtype) if dtype else torch.float32
 
 
 def _deduce_params(node, in_shapes, shapes):

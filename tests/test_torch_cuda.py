@@ -26,14 +26,26 @@ same fit on the CPU, through one update launch a step: each weight's
 and moving statistic's change within 1e-3 relative RMS, the outputs
 within 1e-4 (float32 sums in another order, which this small network
 does not amplify, with TF32 off for matmuls and convolutions alike).
+The int8 kernels (``int8_matmul``, ``int8_conv_im2col``) must equal their
+plain versions bitwise, the quantized FC and convolution ops on the card
+the same ops on the CPU bitwise, and an int8 ResNet served on the card
+runs 13 ``int8_conv_im2col`` and 1 ``int8_matmul`` launches a forward,
+each of its int8 layers equal, given the layer's input on the card, to
+the same layer on the CPU. The inference BatchNorm kernel must equal its
+plain version, and the BatchNorm op on the card the op on the CPU,
+bitwise (16-byte and scalar paths, ``fix_gamma``), and its gradients
+with ``use_global_stats`` the plain version's.
 """
 import numpy as np
 import pytest
 import torch
 
 import mxnet_tpu_torch as tmx
+from mxnet_tpu_torch.ops.cuda import batch_norm as tbn
 from mxnet_tpu_torch.ops.cuda import flash_attention as tfa
 from mxnet_tpu_torch.ops.cuda import fused_update as tfu
+from mxnet_tpu_torch.ops.cuda import int8_matmul as ti8
+from mxnet_tpu_torch.ops import registry as treg
 from mxnet_tpu_torch.parallel import transformer as T
 from mxnet_tpu_torch.serve import DecodeConfig, DecodeEngine
 from mxnet_tpu_torch import telemetry as tm
@@ -333,3 +345,179 @@ def test_resnet_fit_on_card_matches_cpu(card):
             dc = want[k] - start[k].asnumpy()
             assert np.linalg.norm(dg - dc) <= 1e-3 * np.linalg.norm(dc), k
     assert np.linalg.norm(og - oc) <= 1e-4 * np.linalg.norm(oc)
+
+
+def _i8(rng, *shape):
+    return torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 8, 4), (5, 37, 11), (16, 256, 64),
+                                   (1, 2048, 1000), (32, 2048, 1000),
+                                   (200, 147, 70)])
+def test_int8_matmul_kernel_matches_plain_bitwise(card, m, k, n):
+    rng = np.random.RandomState(m + k)
+    x, w = _i8(rng, m, k).to(card), _i8(rng, n, k).to(card)
+    s = torch.from_numpy(rng.rand(n).astype(np.float32) * 0.1).to(card)
+    s[0] = 0.0                                  # a zero-scale channel
+    n0 = ti8.LAUNCHES["int8_matmul"]
+    got = ti8.int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert ti8.LAUNCHES["int8_matmul"] == n0 + 1
+    assert torch.equal(got, ti8._int8_matmul_plain(x, w, s))
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 3, 33, 31, 64, 1, 7, 7, (2, 2), (1, 1), (3, 3)),   # the stem
+    (2, 64, 14, 14, 64, 1, 3, 3, (1, 1), (1, 1), (1, 1)),
+    (2, 256, 13, 15, 512, 1, 1, 1, (2, 2), (1, 1), (0, 0)),
+    (3, 8, 9, 11, 12, 2, 3, 3, (2, 1), (2, 2), (2, 1)),    # groups, dilate
+    (2, 64, 10, 10, 64, 32, 3, 3, (1, 1), (1, 1), (1, 1)),
+])
+def test_int8_conv_kernel_matches_plain_bitwise(card, shape):
+    b, c, h, w, co, g, kh, kw, st, dl, pd = shape
+    rng = np.random.RandomState(c + co)
+    q, wq = _i8(rng, b, c, h, w).to(card), _i8(rng, co, c // g, kh,
+                                                kw).to(card)
+    s = torch.from_numpy(rng.rand(co).astype(np.float32) * 0.1).to(card)
+    n0 = ti8.LAUNCHES["int8_conv_im2col"]
+    got = ti8.int8_conv_im2col(q, wq, s, st, dl, pd, g)
+    torch.cuda.synchronize()
+    assert ti8.LAUNCHES["int8_conv_im2col"] == n0 + 1
+    assert torch.equal(got, ti8._int8_conv_plain(q, wq, s, st, dl, pd, g))
+
+
+@pytest.mark.parametrize("op,nd", [("_contrib_quantized_fc_int8", 0),
+                                   ("_contrib_quantized_conv_int8", 1),
+                                   ("_contrib_quantized_conv_int8", 2),
+                                   ("_contrib_quantized_conv_int8", 3)])
+def test_quantized_ops_on_card_match_cpu_bitwise(card, op, nd):
+    rng = np.random.RandomState(nd)
+    if nd == 0:
+        arrays = [rng.randn(6, 48).astype(np.float32),
+                  rng.randint(-127, 128, (10, 48)).astype(np.int8)]
+        attrs = {"num_hidden": 10}
+    else:
+        space = {1: (13,), 2: (9, 11), 3: (5, 6, 7)}[nd]
+        arrays = [rng.randn(2, 4, *space).astype(np.float32),
+                  rng.randint(-127, 128, (10, 2) + (3,) * nd).astype(
+                      np.int8)]
+        attrs = {"kernel": (3,) * nd, "stride": (2,) + (1,) * (nd - 1),
+                 "pad": (1,) * nd, "num_filter": 10, "num_group": 2}
+    arrays += [rng.rand(10).astype(np.float32) * 0.1,
+               rng.randn(10).astype(np.float32)]
+    attrs["act_scale"] = 127.0 / 2.71
+    fn = treg.get_op(op).fn
+    cpu = fn(*[torch.from_numpy(a) for a in arrays], **attrs)
+    ti8.reset_launches()
+    got = fn(*[torch.from_numpy(a).to(card) for a in arrays], **attrs)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), cpu)
+    kernel = "int8_matmul" if nd == 0 else "int8_conv_im2col"
+    assert ti8.LAUNCHES[kernel] == (1 if nd in (0, 2) else 0)
+
+
+def test_int8_resnet_served_on_card_matches_cpu(card, tmp_path):
+    shape = (3, 16, 16)
+    sym = tmx.models.resnet(num_classes=10, num_layers=8, image_shape=shape,
+                            bottle_neck=True)
+    mod = tmx.mod.Module(sym, context=tmx.cpu())
+    mod.bind(data_shapes=[("data", (4,) + shape)],
+             label_shapes=[("softmax_label", (4,))])
+    tmx.random.seed(0)
+    mod.init_params(tmx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                    magnitude=2))
+    prefix = str(tmp_path / "r8")
+    tmx.model.save_checkpoint(prefix, 0, sym, *mod.get_params())
+    x = np.random.RandomState(1).uniform(-1, 1, (8,) + shape).astype(
+        np.float32)
+    qp = tmx.quantize.quantize_checkpoint(prefix, [x], calib_mode="naive",
+                                          ctx=card)
+    pred = tmx.serving.Predictor(qp.symbol_json, qp.param_bytes(),
+                                 input_shapes={"data": (8,) + shape})
+    ti8.reset_launches()
+    tbn.reset_launches()
+    pred.set_input("data", x.tobytes())
+    pred.forward()
+    out = np.frombuffer(pred.get_output(0), np.float32)
+    assert dict(ti8.LAUNCHES) == {"int8_conv_im2col": 13, "int8_matmul": 1}
+    from mxnet_tpu_torch.symbol.symbol import _topo
+    assert tbn.LAUNCHES["batch_norm_inference"] == sum(
+        n.op == "BatchNorm" for n in _topo(qp.symbol._entries))
+    assert out.shape == (80,) and np.isfinite(out).all()
+    # each int8 layer on the card, given its input there, equals the same
+    # layer on the CPU given that input
+    internals = qp.symbol.get_internals()
+    exe = internals.simple_bind(ctx=card, grad_req="null",
+                                type_dict={k: v.dtype for k, v in
+                                           qp.arg_params.items()},
+                                data=(8,) + shape)
+    exe.copy_params_from(qp.arg_params, qp.aux_params,
+                         allow_extra_params=True)
+    vals = dict(zip(internals.list_outputs(),
+                    exe.forward(is_train=False, data=x)))
+    layers = [n for n in _topo(qp.symbol._entries)
+              if n.op and n.op.startswith("_contrib_quantized")]
+    assert len(layers) == 14
+    for node in layers:
+        src = node.inputs[0][0]
+        data = vals[src.name if src.is_var else src.name + "_output"]
+        args = [qp.arg_params[n.name]._data for n, _ in node.inputs[1:]]
+        attrs = {k: v for k, v in node.attrs.items()
+                 if not k.startswith("__")}
+        cpu = treg.get_op(node.op).fn(data._data.cpu(), *args, **attrs)
+        assert torch.equal(vals[node.name + "_output"]._data.cpu(), cpu), \
+            node.name
+
+
+@pytest.mark.parametrize("fix_gamma", [False, True])
+@pytest.mark.parametrize("shape,offset", [
+    ((32, 64, 56, 56), 0),      # 16-byte path
+    ((32, 2048, 7, 7), 0),      # a plane of 49 floats: scalar path
+    ((3, 5, 4, 4), 1),          # misaligned: scalar path
+    ((7, 10), 0),               # 2-D
+])
+def test_batch_norm_kernel_matches_plain_and_cpu_bitwise(card, shape, offset,
+                                                         fix_gamma):
+    rng = np.random.RandomState(21)
+    c = shape[1]
+    x = rng.randn(*shape).astype(np.float32) * 3 + 1
+    params = [rng.rand(c).astype(np.float32) + 0.5,
+              rng.randn(c).astype(np.float32),
+              rng.randn(c).astype(np.float32),
+              rng.rand(c).astype(np.float32) * 2 + 0.1]
+    buf = torch.zeros(x.size + offset, device=card)
+    xd = buf[offset:].view(shape)
+    xd.copy_(torch.from_numpy(x))
+    pd = [torch.from_numpy(p).to(card) for p in params]
+    tbn.reset_launches()
+    got = tbn.batch_norm_inference(xd, *pd, 1e-3, fix_gamma)
+    torch.cuda.synchronize()
+    assert tbn.LAUNCHES == {"batch_norm_inference": 1}
+    assert torch.equal(got, tbn._batch_norm_inference_plain(
+        xd, *pd, 1e-3, fix_gamma))
+    attrs = {"fix_gamma": fix_gamma, "use_global_stats": True}
+    cpu = treg.get_op("BatchNorm").fn(
+        *map(torch.from_numpy, [x] + params), **attrs)
+    assert torch.equal(treg.get_op("BatchNorm").fn(xd, *pd, **attrs).cpu(),
+                       cpu)
+
+
+def test_batch_norm_kernel_gradients_are_the_plain_versions(card):
+    rng = np.random.RandomState(22)
+    arrays = [rng.randn(4, 6, 5, 5).astype(np.float32),
+              rng.rand(6).astype(np.float32) + 0.5,
+              rng.randn(6).astype(np.float32), rng.randn(6).astype(np.float32),
+              rng.rand(6).astype(np.float32) + 0.1]
+    dy = torch.from_numpy(rng.randn(4, 6, 5, 5).astype(np.float32)).to(card)
+    grads = {}
+    for route in ("kernel", "plain"):
+        ts = [torch.from_numpy(a).to(card).requires_grad_(i < 3)
+              for i, a in enumerate(arrays)]
+        tbn.reset_launches()
+        fn = tbn.batch_norm_inference if route == "kernel" \
+            else tbn._batch_norm_inference_plain
+        out = fn(*ts, 1e-3)
+        grads[route] = torch.autograd.grad(out, ts[:3], dy)
+        assert tbn.LAUNCHES["batch_norm_inference"] == (route == "kernel")
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        assert torch.equal(a, b)
