@@ -108,7 +108,41 @@ Phases, each fatal on failure (no phase's failure is caught):
     2: each of the 54 quantized layers bitwise given the card's input
     to it, the whole forward within 1e-3 relative RMS, the share of
     int8 activations that flipped;
-19. print a ``kernels`` JSON line, the card line, and last
+19. ``rtc``: compile CUDA C at run time through ``rtc.CudaModule``
+    (NVRTC, sm_90a), each source timed cold and then cached; hold every
+    runtime kernel against its PyTorch expression on the card (doubler,
+    addone, a template ``scale_t`` through ``exports``: bitwise; axpy
+    within 2 ulps, for FMA contraction; a row sum over 64 KB of dynamic
+    shared memory within 2e-6 of the sum of |x|); launch from a second
+    thread (and show that a driver launch there without the primary
+    context fails); a compile error (NVRTC's log in the message), a
+    float64 array for ``float *``, a written array aliasing a ``const``
+    one, CPU arrays and a 2048-thread block must raise ``MXNetError``;
+    a planted fault (the kernel's bound drops the last element) must
+    fail;
+20. time ``axpy`` at 2^26 float32 elements (L2 flushed) beside its byte
+    bound (12 B an element over 3.35 TB/s), ``y += a * x`` (plain) and
+    ``y.add_(x, alpha=a)`` (library), and the host time of a ``launch``
+    of a one-element kernel against a one-element PyTorch op;
+21. the ``scaled_square`` custom op with rtc kernels for its forward and
+    backward: ``nd.Custom`` under ``autograd.record()`` and ``backward``
+    on a 32x256x56x56 float32 activation, output and ``x.grad`` equal
+    to the PyTorch expression bitwise, in exactly 2 rtc launches;
+22. train ``gluon.model_zoo.vision.get_model("resnet50_v1",
+    classes=1000)``, hybridized, at batch 32 of float32 3x224x224 (TF32
+    off) with ``SoftmaxCrossEntropyLoss`` and ``Trainer("sgd", lr 0.1,
+    momentum 0.9, wd 1e-4)``: 8 warm and 24 timed steps, finite loss,
+    weights and running statistics changed, ``sgd_fused_update`` once a
+    ``trainer.step`` and its plain version never; 4 Adam steps
+    (``adam_fused_update`` once each); img/s, ms/step, MFU over the zoo
+    net's own conv and FC FLOPs, the ratio to phase 13's img/s, one
+    profiled step;
+23. two chained Gluon ``trainer.step``s of resnet50_v1 at batch 2 on the
+    card (f32), the CPU (f32) and the CPU in float64 (the witness), held
+    by phase 14's ratio rule, and a planted BatchNorm fault (gamma's
+    gradient doubled) that must fail it;
+24. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
+    20, its launches from phase 21), the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -119,6 +153,7 @@ import argparse
 import copy
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1483,7 +1518,8 @@ def resnet_vs_f64(torch, mx, fu, batch=2, steps=2, sides=(
     rng = np.random.RandomState(1)
     x = rng.uniform(-1, 1, (batch, 3, 224, 224)).astype(np.float32)
     y = rng.randint(0, 1000, (batch,)).astype(np.float32)
-    data = mx.io.DataBatch([mx.nd.array(x)], [mx.nd.array(y)])
+    data = mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu())],
+                         [mx.nd.array(y, ctx=mx.cpu())])
     mx.random.seed(1)
     init = mx.mod.Module(sym, context=mx.cpu())
     init.bind(data_shapes=[("data", x.shape)],
@@ -1536,7 +1572,7 @@ def resnet_vs_f64(torch, mx, fu, batch=2, steps=2, sides=(
                 out = mod.get_outputs()[0].asnumpy()
             check(np.isfinite(out).all() and out.shape == (batch, 1000),
                   "resnet vs f64: %s outputs %s" % (side, out.shape,))
-            dw = {k: rel_rms(v - a0[k], a_w[k] - a0[k]) for k, v in a.items()}
+            dw = {k: rel_rms(a[k] - a0[k], a_w[k] - a0[k]) for k in a0}
             ds = {k: rel_rms(v - x0[k], s_w[k] - x0[k]) for k, v in s.items()}
             row[side] = {"out_rel": rel_rms(out, o_w), "dw": dw, "ds": ds,
                          "dw_max": max(dw.values()),
@@ -2490,6 +2526,694 @@ def path_vs_cpu(torch):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phases 19-21: rtc, runtime-compiled CUDA kernels over NVRTC
+# ---------------------------------------------------------------------------
+
+# the runtime kernels phase 19 compiles; one source each, so each compile
+# is timed on its own. doubler / addone are tests/test_custom_op_rtc.py's
+# Pallas bodies in CUDA C, axpy the reference's example, scale_t a template
+# reached through ``exports``, row_sum a reduction over dynamic shared
+# memory (above the 48 KB default), sq_fwd / sq_bwd the scaled_square
+# custom op of the same test, addone_short a planted fault (its bound drops
+# the last element)
+RTC_SOURCES = {
+    "doubler": r'''
+extern "C" __global__ void doubler(const float *x, float *y, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = x[i] * 2.0f;
+}''',
+    "addone": r'''
+extern "C" __global__ void addone(const float *x, float *y, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = x[i] + 1.0f;
+}''',
+    "axpy": r'''
+extern "C" __global__ void axpy(const float *x, float *y, float a, int n) {
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+         i += gridDim.x * blockDim.x)
+        y[i] += a * x[i];
+}''',
+    "scale_t": r'''
+template <typename T>
+__global__ void scale_t(const T *x, T *y, T s, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = x[i] * s;
+}''',
+    "row_sum": r'''
+extern "C" __global__ void row_sum(const float *x, float *y, int cols) {
+    extern __shared__ float row[];
+    const float *src = x + (size_t)blockIdx.x * cols;
+    for (int c = threadIdx.x; c < cols; c += blockDim.x) row[c] = src[c];
+    __syncthreads();
+    for (int c = threadIdx.x + blockDim.x; c < cols; c += blockDim.x)
+        row[threadIdx.x] += row[c];
+    __syncthreads();
+    for (int w = blockDim.x / 2; w > 0; w /= 2) {
+        if (threadIdx.x < w) row[threadIdx.x] += row[threadIdx.x + w];
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) y[blockIdx.x] = row[0];
+}''',
+    "scaled_square": r'''
+extern "C" __global__ void sq_fwd(const float *x, float *y, float s, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = x[i] * x[i] * s;
+}
+extern "C" __global__ void sq_bwd(const float *g, const float *x, float *dx,
+                                  float s, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) dx[i] = g[i] * 2.0f * s * x[i];
+}''',
+    "addone_short": r'''
+extern "C" __global__ void addone_short(const float *x, float *y, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n - 1) y[i] = x[i] + 1.0f;
+}''',
+}
+RTC_SIGS = {
+    "doubler": "const float *x, float *y, int n",
+    "addone": "const float *x, float *y, int n",
+    "addone_short": "const float *x, float *y, int n",
+    "axpy": "const float *x, float *y, float a, int n",
+    "scale_t<float>": "const float *x, float *y, float s, int n",
+    "scale_t<double>": "const double *x, double *y, double s, int n",
+    "row_sum": "const float *x, float *y, int cols",
+    "sq_fwd": "const float *x, float *y, float s, int n",
+    "sq_bwd": "const float *g, const float *x, float *dx, float s, int n",
+}
+RTC_AXPY_N = 1 << 26        # phase 20: 2^26 float32 elements
+RTC_ROW_COLS = 16384        # row_sum: 64 KB of dynamic shared memory a row
+RTC_ULP_TOL = 2.4e-7        # axpy against y.add_(x, alpha=a): NVRTC may
+                            # contract a * x + y into one FMA (one rounding)
+                            # where PyTorch rounds the product: 2 ulps
+RTC_SUM_TOL = 2e-6          # row_sum against torch.sum: 16384 terms summed
+                            # in another order (relative to the sum of |x|)
+
+
+def _grid(n, block=256):
+    return (-(-n // block), 1, 1), (block, 1, 1)
+
+
+def rtc_modules(mx):
+    """NVRTC compile of every source, timed: cold (a new source), then the
+    same source again (the cached cubin)."""
+    rtc = mx.rtc
+    mods, times = {}, {}
+    for name, src in RTC_SOURCES.items():
+        exports = ("scale_t<float>", "scale_t<double>") \
+            if name == "scale_t" else ()
+        t0 = time.perf_counter()
+        mods[name] = rtc.CudaModule(src, exports=exports)
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = rtc.CudaModule(src, exports=exports)
+        cached = time.perf_counter() - t0
+        check(again._lowered == mods[name]._lowered, "rtc: %s cached module "
+              "differs" % name)
+        times[name] = {"cold_ms": cold * 1e3, "cached_ms": cached * 1e3}
+    return mods, times
+
+
+def _kernel(mods, name):
+    mod = {"scale_t<float>": "scale_t", "scale_t<double>": "scale_t",
+           "sq_fwd": "scaled_square", "sq_bwd": "scaled_square"}.get(
+               name, name)
+    return mods[mod].get_kernel(name, RTC_SIGS[name])
+
+
+def _on_card(mx, torch, t):
+    return mx.nd.NDArray(t.to("cuda").contiguous())
+
+
+def check_rtc(torch, mx, mods):
+    """Phase 19: every runtime kernel against its PyTorch expression on
+    the card (bitwise where the arithmetic is the same operations, else
+    the stated tolerance), a launch from a second thread, the errors that
+    must raise, and the planted fault."""
+    import ctypes
+    import threading
+    from mxnet_tpu_torch.ops.cuda import _nvrtc
+    rtc = mx.rtc
+    gen = torch.Generator().manual_seed(19)
+    dev = mx.gpu(0)
+    rows = []
+
+    def rnd(*shape, dtype=torch.float32):
+        return _on_card(mx, torch, torch.randn(*shape, generator=gen,
+                                               dtype=dtype))
+
+    def held(name, got, ref, tol=0.0, scale=None):
+        err = max_err(got, ref)
+        bound = tol * (float(ref.abs().max()) if scale is None else scale)
+        rows.append({"kernel": name, "max_abs_err": err, "tol": bound,
+                     "bitwise": tol == 0.0})
+        check(err <= bound, "rtc: %s differs from its PyTorch expression by "
+              "%g (tol %g)" % (name, err, bound))
+
+    for n in (1, 1000, 4097, 1 << 20):
+        x = rnd(n)
+        for name, expr in (("doubler", lambda t: t * 2.0),
+                           ("addone", lambda t: t + 1.0)):
+            y = mx.nd.NDArray(torch.empty_like(x._data))
+            _kernel(mods, name).launch([x, y, n], dev, *_grid(n))
+            torch.cuda.synchronize()
+            held("%s n=%d" % (name, n), y._data, expr(x._data))
+        for name, dt in (("scale_t<float>", torch.float32),
+                         ("scale_t<double>", torch.float64)):
+            xd = rnd(n, dtype=dt)
+            y = mx.nd.NDArray(torch.empty_like(xd._data))
+            _kernel(mods, name).launch([xd, y, 0.75, n], dev, *_grid(n))
+            torch.cuda.synchronize()
+            held("%s n=%d" % (name, n), y._data, xd._data * 0.75)
+        x, y = rnd(n), rnd(n)
+        ref = y._data.clone().add_(x._data, alpha=1.5)
+        _kernel(mods, "axpy").launch([x, y, 1.5, n], dev, (min(
+            -(-n // 256), 1024), 1, 1), (256, 1, 1))
+        torch.cuda.synchronize()
+        held("axpy n=%d" % n, y._data, ref, RTC_ULP_TOL)
+    for rows_n in (1, 7, 64):
+        x = rnd(rows_n, RTC_ROW_COLS)
+        y = mx.nd.NDArray(torch.empty(rows_n, device="cuda"))
+        _kernel(mods, "row_sum").launch(
+            [x, y, RTC_ROW_COLS], dev, (rows_n, 1, 1), (256, 1, 1),
+            shared_mem=4 * RTC_ROW_COLS)
+        torch.cuda.synchronize()
+        held("row_sum %dx%d" % (rows_n, RTC_ROW_COLS), y._data,
+             x._data.sum(dim=1), RTC_SUM_TOL,
+             scale=float(x._data.abs().sum(dim=1).max()))
+    # a launch from a second thread (which never touched CUDA): rtc makes
+    # the device's primary context current; a raw driver launch without
+    # it must fail
+    x = rnd(4096)
+    y = mx.nd.NDArray(torch.empty_like(x._data))
+    k = _kernel(mods, "doubler")
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+
+    k.launch([x, y, 4096], dev, *_grid(4096))      # loads the function
+    torch.cuda.synchronize()
+    y._data.zero_()
+    values = k._pack([x, y, 4096], torch.device("cuda", 0))
+    params = (ctypes.c_void_p * 3)(*[ctypes.cast(ctypes.byref(v),
+                                                 ctypes.c_void_p)
+                                     for v in values])
+
+    def worker():
+        # first the raw driver launch, while this thread has no current
+        # context; then rtc's launch, which makes it current
+        rc = _nvrtc._driver().cuLaunchKernel(
+            k._funcs[0][0], 16, 1, 1, 256, 1, 1, 0, ctypes.c_void_p(stream),
+            params, None)
+        out["raw"] = "launched" if rc == 0 else "CUDA error %d" % rc
+        try:
+            k.launch([x, y, 4096], dev, *_grid(4096))
+            out["rtc"] = "ok"
+        except Exception as e:              # reported below, then fatal
+            out["rtc"] = repr(e)
+
+    th = threading.Thread(target=worker)
+    th.start()
+    th.join()
+    torch.cuda.synchronize()
+    check(out["rtc"] == "ok", "rtc: a launch from a second thread failed: %s"
+          % out["rtc"])
+    held("doubler from a second thread", y._data, x._data * 2.0)
+    check(out["raw"] != "launched", "rtc: a driver launch without the "
+          "context in a second thread did not fail")
+    raised = {"raw launch without the context": out["raw"]}
+    # errors that must raise MXNetError, none reaching the card
+    before = dict(rtc.LAUNCHES)
+    bad_src = "extern \"C\" __global__ void broken(float *y) { y[0] = " \
+        "undeclared_name; }"
+    for what, fn, needle in (
+            ("compile error", lambda: rtc.CudaModule(bad_src),
+             "undeclared_name"),
+            ("float64 array for float *", lambda: _kernel(
+                mods, "doubler").launch([rnd(8, dtype=torch.float64), y, 8],
+                                        dev, (1, 1, 1), (8, 1, 1)),
+             "float64"),
+            ("written array aliasing a const one", lambda: _kernel(
+                mods, "axpy").launch([x, x, 1.0, 8], dev, (1, 1, 1),
+                                     (8, 1, 1)), "shares memory"),
+            ("CPU arrays", lambda: _kernel(mods, "doubler").launch(
+                [mx.nd.array(np.ones(8, np.float32), ctx=mx.cpu()),
+                 mx.nd.array(np.ones(8, np.float32), ctx=mx.cpu()), 8], dev,
+                (1, 1, 1), (8, 1, 1)), "CUDA card")):
+        try:
+            fn()
+            raised[what] = None
+        except mx.MXNetError as e:
+            raised[what] = str(e)
+        check(raised[what] is not None and needle in raised[what],
+              "rtc: %s did not raise MXNetError naming %r: %r"
+              % (what, needle, raised[what]))
+    check(rtc.LAUNCHES == before, "rtc: a refused launch was counted")
+    # a launch error: more threads a block than the card takes
+    try:
+        _kernel(mods, "doubler").launch([x, y, 4096], dev, (2, 1, 1),
+                                        (2048, 1, 1))
+        raised["launch error"] = None
+    except mx.MXNetError as e:
+        raised["launch error"] = str(e)
+    check(raised["launch error"] is not None
+          and "cuLaunchKernel" in raised["launch error"],
+          "rtc: a 2048-thread block did not raise: %r"
+          % raised["launch error"])
+    # the planted fault must fail the check
+    n = 4097
+    x = rnd(n)
+    y = mx.nd.NDArray(torch.zeros(n, device="cuda"))
+    _kernel(mods, "addone_short").launch([x, y, n], dev, *_grid(n))
+    torch.cuda.synchronize()
+    planted = max_err(y._data, x._data + 1.0)
+    check(planted > 0, "rtc: the planted fault (last element dropped) "
+          "passes")
+    log("rtc: %d checks held (%d bitwise); raised: %s; planted fault "
+        "max_abs_err %.3g" % (len(rows), sum(r["bitwise"] for r in rows),
+                              {k: (v or "")[:80] for k, v in raised.items()},
+                              planted))
+    return {"checks": rows, "raised": raised, "planted_max_abs_err": planted}
+
+
+def time_rtc(torch, mx, mods, timer):
+    """Phase 20: axpy at 2^26 float32 elements, L2 flushed, beside its
+    byte bound (12 bytes an element over 3.35 TB/s), the plain PyTorch
+    expression (``y += a * x``: two kernels) and the one PyTorch call
+    ``y.add_(x, alpha=a)``; and the host time of a ``launch`` of a
+    one-element kernel against a one-element PyTorch op."""
+    n = RTC_AXPY_N
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    x = mx.nd.NDArray(torch.randn(n, device="cuda", generator=gen))
+    y = mx.nd.NDArray(torch.randn(n, device="cuda", generator=gen))
+    k = _kernel(mods, "axpy")
+    dev = mx.gpu(0)
+    grid = (132 * 16, 1, 1)            # grid-stride: 16 blocks an SM
+    y0 = y._data.clone()
+    k.launch([x, y, 0.5, n], dev, grid, (256, 1, 1))
+    ref = y0.add_(x._data, alpha=0.5)
+    err = max_err(y._data, ref)
+    check(err <= RTC_ULP_TOL * float(ref.abs().max()),
+          "rtc axpy at 2^26: max_abs_err %g" % err)
+    ms = timer(lambda: k.launch([x, y, 0.5, n], dev, grid, (256, 1, 1)))
+    plain_ms = timer(lambda: y._data.__iadd__(0.5 * x._data))
+    lib_ms = timer(lambda: y._data.add_(x._data, alpha=0.5))
+    one_x = mx.nd.NDArray(torch.ones(1, device="cuda"))
+    one_y = mx.nd.NDArray(torch.ones(1, device="cuda"))
+    t = one_y._data
+    host = {}
+    for what, fn in (("rtc_launch", lambda: k.launch(
+            [one_x, one_y, 0.5, 1], dev, (1, 1, 1), (32, 1, 1))),
+                     ("torch_op", lambda: t.add_(1.0))):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        host[what] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    nbytes = 12 * n
+    t_bytes, t_ops = nbytes / HBM_BPS, 2.0 * n / F32_FLOPS
+    row = {"name": "rtc", "shape": "axpy, %d float32" % n, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "max_abs_err": err,
+           "host_us_per_launch": host["rtc_launch"],
+           "host_us_per_torch_op": host["torch_op"]}
+    log("time rtc axpy %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
+        "bound_ms=%.4f (%s) %.0f GB/s; host us a launch: rtc %.2f, torch "
+        "op %.2f; max_abs_err=%.3g"
+        % (row["shape"], ms, plain_ms, lib_ms, row["bound_ms"],
+           row["bound_by"], nbytes / (ms * 1e-3) / 1e9, host["rtc_launch"],
+           host["torch_op"], err))
+    return row
+
+
+CUSTOM_SHAPE = (32, 256, 56, 56)    # a ResNet-50 activation (stage 1)
+
+
+def rtc_custom_op(torch, mx, mods):
+    """Phase 21: the scaled_square custom op with rtc kernels for its
+    forward and backward, ``nd.Custom`` under ``autograd.record()`` then
+    ``backward`` on a 32x256x56x56 float32 activation: the output and
+    ``x.grad`` equal the PyTorch expression bitwise, in exactly 2 rtc
+    launches."""
+    fwd, bwd = _kernel(mods, "sq_fwd"), _kernel(mods, "sq_bwd")
+    scale = 1.25
+
+    @mx.operator.register("rtc_scaled_square")
+    class _Prop(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class _Op(mx.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    n = in_data[0].size
+                    fwd.launch([in_data[0], out_data[0], scale, n],
+                               in_data[0].context, *_grid(n))
+
+                def backward(self, req, out_grad, in_data, out_data,
+                             in_grad, aux):
+                    n = in_data[0].size
+                    bwd.launch([out_grad[0], in_data[0], in_grad[0], scale,
+                                n], in_data[0].context, *_grid(n))
+            return _Op()
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = mx.nd.NDArray(torch.randn(CUSTOM_SHAPE, device="cuda",
+                                  generator=gen))
+    x.attach_grad()
+    mx.rtc.reset_launches()
+    with mx.autograd.record():
+        y = mx.nd.Custom(x, op_type="rtc_scaled_square")
+    y.backward()
+    torch.cuda.synchronize()
+    launches = sum(mx.rtc.LAUNCHES.values())
+    xt = x._data.detach()
+    y_ref = xt * xt * scale
+    g_ref = torch.ones_like(xt) * 2.0 * scale * xt
+    errs = (max_err(y._data.detach(), y_ref), max_err(x.grad._data, g_ref))
+    check(launches == 2, "custom op: %d rtc launches (%s), expected 2"
+          % (launches, mx.rtc.LAUNCHES))
+    check(errs == (0.0, 0.0), "custom op: output / x.grad differ from the "
+          "PyTorch expression: %s" % (errs,))
+    log("rtc custom op %s: output and x.grad bitwise, launches %s"
+        % ("x".join(map(str, CUSTOM_SHAPE)), dict(mx.rtc.LAUNCHES)))
+    return {"shape": CUSTOM_SHAPE, "launches": launches,
+            "by_kernel": dict(mx.rtc.LAUNCHES), "max_abs_err": max(errs)}
+
+
+# ---------------------------------------------------------------------------
+# phases 22-23: Gluon training of model_zoo ResNet-50 v1
+# ---------------------------------------------------------------------------
+
+GLUON_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+GLUON_WARM, GLUON_TIMED = 8, 24
+GLUON_PLANT = 2.0       # phase 23's planted fault: BatchNorm's gamma
+                        # gradient doubled
+
+
+def gluon_flops(mx, net):
+    """Training FLOP an image of the zoo net: 2 x multiply-adds of every
+    conv and FC at batch 1 (their shapes, by forward hooks), x3 for
+    forward + backward."""
+    from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
+    macs = []
+
+    def hook(block, inputs, out):
+        w = block.weight.data()
+        if isinstance(block, _Conv):
+            macs.append(out.size * int(np.prod(w.shape[1:])))
+        else:
+            macs.append(out.size * w.shape[1])
+
+    def attach(block):
+        if isinstance(block, (_Conv, mx.gluon.nn.Dense)):
+            block.register_forward_hook(hook)
+        for child in block._children.values():
+            attach(child)
+
+    attach(net)
+    with mx.autograd.predict_mode():
+        net(mx.nd.array(np.zeros((1, 3, 224, 224), np.float32),
+                        ctx=mx.gpu(0)))
+    net.apply(lambda b: b._forward_hooks.clear())
+    return 3 * 2 * sum(macs), len(macs)
+
+
+def gluon_fit(torch, mx, fu, module_img_s):
+    """Phase 22: ``gluon.model_zoo.vision.get_model("resnet50_v1",
+    classes=1000)``, hybridized, trained at full width on the card: batch
+    32 of float32 3x224x224 (TF32 off), SoftmaxCrossEntropyLoss,
+    ``Trainer(net.collect_params(), "sgd", lr 0.1, momentum 0.9, wd
+    1e-4)``: 8 warm steps, then 24 timed (host clock, synchronized at
+    both ends). ``sgd_fused_update`` launches once a step and its plain
+    version never; 4 steps with Adam launch ``adam_fused_update`` once
+    each; one profiled step."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    mx.random.seed(22)
+    net = mx.gluon.model_zoo.vision.get_model("resnet50_v1", classes=1000)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=mx.gpu(0))
+    flop, n_layers = gluon_flops(mx, net)
+    net.hybridize()
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.uniform(-1, 1, (RESNET_BATCH, 3, 224, 224)).astype(
+        np.float32), ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 1000, (RESNET_BATCH,)).astype(
+        np.float32), ctx=mx.gpu(0))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    params = net.collect_params()
+    n_trained = sum(p.grad_req != "null" for p in params.values())
+
+    def run(trainer, steps):
+        for _ in range(steps):
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(RESNET_BATCH)
+        return loss
+
+    trainer = mx.gluon.Trainer(params, "sgd", GLUON_OPT)
+    snap0 = {k: p.data().asnumpy() for k, p in params.items()}
+    plain_calls = [0]
+    real_plain = fu._sgd_fused
+
+    def spy(*args):
+        plain_calls[0] += 1
+        return real_plain(*args)
+
+    fu.reset_launches()
+    fu._sgd_fused = spy
+    try:
+        run(trainer, GLUON_WARM)
+        torch.cuda.synchronize()
+        snap1 = {k: p.data().asnumpy() for k, p in params.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = run(trainer, GLUON_TIMED)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        fu._sgd_fused = real_plain
+    launches = dict(fu.LAUNCHES)
+    steps = GLUON_WARM + GLUON_TIMED
+    check(launches["sgd_fused_update"] == steps,
+          "gluon: sgd_fused_update launched %d times for %d steps"
+          % (launches["sgd_fused_update"], steps))
+    check(plain_calls[0] == 0, "gluon: the plain SGD rule ran %d times"
+          % plain_calls[0])
+    loss_v = loss.asnumpy()
+    check(loss_v.shape == (RESNET_BATCH,) and np.isfinite(loss_v).all(),
+          "gluon: loss %s" % (loss_v,))
+    snap2 = {k: p.data().asnumpy() for k, p in params.items()}
+    w_moved = max(float(np.abs(snap2[k] - snap1[k]).max()) for k in snap2
+                  if "running" not in k)
+    s_moved = max(float(np.abs(snap2[k] - snap1[k]).max()) for k in snap2
+                  if "running" in k)
+    s_from_init = min(float(np.abs(snap2[k] - snap0[k]).max())
+                      for k in snap2 if "running" in k)
+    check(w_moved > 0 and s_moved > 0 and s_from_init > 0,
+          "gluon: weights (%g) or running statistics (%g, every one %g) did "
+          "not change" % (w_moved, s_moved, s_from_init))
+    check(all(np.isfinite(v).all() for v in snap2.values()),
+          "gluon: non-finite weights")
+    img_s = RESNET_BATCH * GLUON_TIMED / dt
+    mfu = img_s * flop / F32_FLOPS
+    check(mfu <= 1.05, "gluon: %.0f img/s implies MFU %.2f > 1"
+          % (img_s, mfu))
+    fu.reset_launches()
+
+    def one_step():
+        run(trainer, 1)
+
+    prof = profile_run(torch, one_step, _resnet_class)
+    check(fu.LAUNCHES["sgd_fused_update"] == 1, "gluon: profiled step "
+          "launched sgd_fused_update %d times"
+          % fu.LAUNCHES["sgd_fused_update"])
+    adam = mx.gluon.Trainer(params, "adam", {"learning_rate": 1e-3,
+                                             "wd": 1e-4})
+    fu.reset_launches()
+    run(adam, 4)
+    torch.cuda.synchronize()
+    adam_launches = fu.LAUNCHES["adam_fused_update"]
+    check(adam_launches == 4 and fu.LAUNCHES["sgd_fused_update"] == 0,
+          "gluon adam: launches %s for 4 steps" % fu.LAUNCHES)
+    check(all(np.isfinite(p.data().asnumpy()).all()
+              for p in params.values()), "gluon adam: non-finite weights")
+    res = {"batch": RESNET_BATCH, "warm_steps": GLUON_WARM,
+           "timed_steps": GLUON_TIMED, "timed_s": dt, "img_per_s": img_s,
+           "ms_per_step": dt * 1e3 / GLUON_TIMED, "mfu": mfu,
+           "train_flop_per_img": flop, "conv_fc_layers": n_layers,
+           "params_trained": n_trained, "loss_mean": float(loss_v.mean()),
+           "weights_moved": w_moved, "stats_moved": s_moved,
+           "launches": launches, "adam_launches": adam_launches,
+           "module_fit_img_per_s": module_img_s,
+           "ratio_to_module_fit": img_s / module_img_s,
+           "profiled_step": prof}
+    log("gluon resnet50_v1: %d steps (%d warm); %.1f img/s, %.2f ms/step, "
+        "MFU %.3f (%.2f GFLOP/img from its %d conv/FC shapes, 67 TFLOP/s "
+        "f32 peak); %.3fx Module.fit's %.1f img/s; loss %.4f; launches %s "
+        "(%d tensors a launch); adam run %d launches"
+        % (steps, GLUON_WARM, img_s, res["ms_per_step"], mfu, flop / 1e9,
+           n_layers, res["ratio_to_module_fit"], module_img_s,
+           res["loss_mean"], launches, n_trained, adam_launches))
+    log("gluon profiled step: wall %.3fs, device busy %s, %d kernels, "
+        "device ms by class %s"
+        % (prof["wall_s"], "not measured" if prof["busy_share"] is None
+           else "%.1f%%" % (100 * prof["busy_share"]), prof["kernels"],
+           {k: round(v, 3) for k, v in prof["device_ms"].items()}))
+    for name, ms in prof["top_kernels_ms"]:
+        log("gluon profiled step: %8.3f ms  %s" % (ms, name))
+    return res
+
+
+def gamma_grad_scaled(torch, real, factor):
+    """A planted fault for phase 23: BatchNorm whose gamma gradient is
+    ``factor`` times the sound one (its forward value is the sound
+    op's)."""
+    def fn(data, gamma, beta, *rest, **attrs):
+        g = gamma * factor - (gamma * (factor - 1)).detach()
+        return real(data, g, beta, *rest, **attrs)
+    return fn
+
+
+class _GluonSide(object):
+    """One side of phase 23: the zoo's resnet50_v1 made from a common
+    state on ``ctx`` in ``dtype``, stepped by ``Trainer`` (float32) or, in
+    float64, by the plain SGD rule with the hypers an SGD optimizer
+    gives (the kernel and ``Trainer`` take float32 only)."""
+
+    def __init__(self, torch, mx, fu, state, x, y, ctx, dtype="float32"):
+        self.torch, self.mx, self.fu = torch, mx, fu
+        self.net = mx.gluon.model_zoo.vision.get_model(
+            "resnet50_v1", classes=1000, prefix="g23_")
+        self.params = self.net.collect_params()
+        mx.convert.gluon_params_from_jax(state, self.params, ctx=ctx)
+        if dtype == "float64":
+            self.net.cast("float64")
+        self.x = mx.nd.array(x, ctx=ctx, dtype=dtype)
+        self.y = mx.nd.array(y, ctx=ctx, dtype=dtype)
+        self.loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        self.f64 = dtype == "float64"
+        opt = dict(GLUON_OPT)
+        if self.f64:
+            self.opt = mx.optimizer.create("sgd", **opt)
+            self.trained = [p for p in self.params.values()
+                            if p.grad_req != "null"]
+            self.opt.param_dict = dict(enumerate(self.trained))
+            self.opt.rescale_grad = 1.0 / x.shape[0]
+            self.mom = [torch.zeros_like(p.data()._data)
+                        for p in self.trained]
+        else:
+            self.trainer = mx.gluon.Trainer(self.params, "sgd", opt)
+
+    def step(self):
+        mx, torch = self.mx, self.torch
+        with mx.autograd.record():
+            out = self.net(self.x)
+            loss = self.loss_fn(out, self.y)
+        loss.backward()
+        if self.f64:
+            hyper = [self.opt.fused_hyper(i)
+                     for i in range(len(self.trained))]
+            with torch.no_grad():
+                self.fu._sgd_fused([p.data()._data for p in self.trained],
+                                   [p.grad()._data for p in self.trained],
+                                   [(m,) for m in self.mom], hyper)
+        else:
+            self.trainer.step(self.x.shape[0])
+        return (out.asnumpy().astype(np.float64),
+                {k: p.data().asnumpy().astype(np.float64)
+                 for k, p in self.params.items() if "running" not in k},
+                {k: p.data().asnumpy().astype(np.float64)
+                 for k, p in self.params.items() if "running" in k})
+
+
+def gluon_vs_cpu(torch, mx, fu, batch=2, steps=2):
+    """Phase 23: two chained Gluon ``trainer.step``s of resnet50_v1 at
+    batch 2 from one state, on the card (float32), on the CPU (float32)
+    and on the CPU in float64 (the witness), held by phase 14's rule
+    (``resnet_misses``: the card's errors against the witness within
+    RESNET_RATIO_TOL times the CPU's own, step 1's outputs and running
+    statistics absolutely), with the planted fault (BatchNorm's gamma
+    gradient doubled) on the card that must miss it."""
+    from mxnet_tpu_torch.ops import registry as reg
+    rng = np.random.RandomState(23)
+    x = rng.uniform(-1, 1, (batch, 3, 224, 224)).astype(np.float32)
+    y = rng.randint(0, 1000, (batch,)).astype(np.float32)
+    mx.random.seed(23)
+    init = mx.gluon.model_zoo.vision.get_model("resnet50_v1", classes=1000,
+                                               prefix="g23_")
+    init.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2), ctx=mx.cpu())
+    with mx.autograd.predict_mode():
+        init(mx.nd.array(x, ctx=mx.cpu()))
+    state = mx.convert.gluon_params_to_numpy(init)
+    del init
+    sides = {"witness": _GluonSide(torch, mx, fu, state, x, y, mx.cpu(),
+                                   "float64"),
+             "cpu": _GluonSide(torch, mx, fu, state, x, y, mx.cpu()),
+             "dev": _GluonSide(torch, mx, fu, state, x, y, mx.gpu(0)),
+             "planted": _GluonSide(torch, mx, fu, state, x, y, mx.gpu(0))}
+    # the v1 bottleneck's 1x1 convs carry biases, each followed by a
+    # BatchNorm in training mode: their gradient is zero in exact
+    # arithmetic, so the witness moves them by rounding only and a
+    # relative error of their change means nothing; they are left out
+    zero_grad = re.compile(r"conv2d\d+_bias$")
+    a0 = {k: v.astype(np.float64) for k, v in state.items()
+          if "running" not in k and not zero_grad.search(k)}
+    x0 = {k: v.astype(np.float64) for k, v in state.items()
+          if "running" in k}
+    bn = reg.get_op("BatchNorm")
+    sound = bn.fn
+    rows, planted = [], []
+    for step in range(1, steps + 1):
+        t0 = time.time()
+        o_w, a_w, s_w = sides["witness"].step()
+        row = {"step": step, "witness_s": time.time() - t0}
+        for side in ("cpu", "dev", "planted"):
+            fu.reset_launches()
+            if side == "planted":
+                bn.fn = gamma_grad_scaled(torch, sound, GLUON_PLANT)
+            try:
+                out, a, s = sides[side].step()
+            finally:
+                bn.fn = sound
+            check(side == "cpu" or fu.LAUNCHES["sgd_fused_update"] == 1,
+                  "gluon vs cpu: %d launches in one %s step"
+                  % (fu.LAUNCHES["sgd_fused_update"], side))
+            check(np.isfinite(out).all() and out.shape == (batch, 1000),
+                  "gluon vs cpu: %s outputs %s" % (side, out.shape))
+            dw = {k: rel_rms(a[k] - a0[k], a_w[k] - a0[k]) for k in a0}
+            ds = {k: rel_rms(v - x0[k], s_w[k] - x0[k]) for k, v in s.items()}
+            row[side] = {"out_rel": rel_rms(out, o_w),
+                         "dw_median": float(np.median(list(dw.values()))),
+                         "dw_max": max(dw.values()),
+                         "dw_worst": max(dw, key=dw.get),
+                         "ds_max": max(ds.values()),
+                         "ds_worst": max(ds, key=ds.get)}
+        misses = resnet_misses(row["dev"], row["cpu"], step)
+        check(not misses, "gluon vs f64 step %d: the card is off: %s"
+              % (step, "; ".join(misses)))
+        planted += resnet_misses(row["planted"], row["cpu"], step)
+        row["weights_held"] = len(a0)
+        rows.append(row)
+        log("gluon vs f64 (batch %d) step %d (witness %.1fs): %s" % (
+            batch, step, row["witness_s"], "; ".join(
+                "%s outputs %.2e, weight change median %.2e max %.2e (%s), "
+                "running-stat change max %.2e (%s)"
+                % (side, r["out_rel"], r["dw_median"], r["dw_max"],
+                   r["dw_worst"], r["ds_max"], r["ds_worst"])
+                for side, r in ((k, row[k]) for k in ("cpu", "dev",
+                                                      "planted")))))
+    log("gluon vs f64: the planted gamma-gradient fault misses %s"
+        % (planted or "nothing"))
+    check(planted, "gluon vs f64: the planted BatchNorm fault passes")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="write the full report here (JSON)")
@@ -2554,6 +3278,17 @@ def main():
                                torch.device("cuda"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    rtc_mods, rtc_compile = rtc_modules(mx)
+    log("rtc NVRTC compile ms (cold / cached): %s" % ", ".join(
+        "%s %.1f / %.3f" % (k, v["cold_ms"], v["cached_ms"])
+        for k, v in rtc_compile.items()))
+    rtc_checks = check_rtc(torch, mx, rtc_mods)
+    timer = Timer(torch)
+    rtc_row = time_rtc(torch, mx, rtc_mods, timer)
+    del timer
+    custom = rtc_custom_op(torch, mx, rtc_mods)
+    gluon = gluon_fit(torch, mx, fu, fitted["img_per_s"])
+    gluon_cpu = gluon_vs_cpu(torch, mx, fu)
 
     sources = {"paged_decode_attention": (
         "mxnet_tpu_torch/ops/cuda/csrc/paged_decode_attention.cu",
@@ -2585,7 +3320,9 @@ def main():
         # XLA on the TPU: the inference branch of the BatchNorm op
         "batch_norm_inference": (
         "mxnet_tpu_torch/ops/cuda/csrc/batch_norm_inference.cu",
-        "mxnet_tpu/ops/nn.py:234")}
+        "mxnet_tpu/ops/nn.py:234"),
+        # the user's kernel, compiled at run time: NVRTC for Pallas
+        "rtc": ("mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:90")}
     # launches: the serving kernels' from the served round, the training
     # kernels' from the first timed train call (8 steps), the update
     # kernels' from the ResNet-50 fits (48 SGD steps; 4 Adam steps)
@@ -2597,8 +3334,10 @@ def main():
     # the int8 and BatchNorm kernels' from the int8 correctness set of
     # phase 17
     launches.update(served_int8["runs"]["int8"]["launches"])
+    # rtc's from the custom op of phase 21 (its forward and backward)
+    launches["rtc"] = custom["launches"]
     kernels = []
-    for r in main_rows + flash_rows + fused_rows + int8_rows:
+    for r in main_rows + flash_rows + fused_rows + int8_rows + [rtc_row]:
         src, rep = sources[r["name"]]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": src,
@@ -2616,13 +3355,25 @@ def main():
               "fused_update_timings": fused_rows, "resnet_fit": fitted,
               "resnet_vs_cpu": resnet_cpu, "int8_checks": int8_checks,
               "int8_timings": int8_rows, "int8_serve": served_int8,
-              "int8_vs_cpu": int8_cpu, "kernels": kernels,
+              "int8_vs_cpu": int8_cpu, "rtc_compile": rtc_compile,
+              "rtc_checks": rtc_checks, "rtc_timing": rtc_row,
+              "rtc_custom_op": custom, "gluon_fit": gluon,
+              "gluon_vs_cpu": gluon_cpu, "kernels": kernels,
+              "update_launches": {
+                  "module_fit": launches["sgd_fused_update"],
+                  "gluon_fit": gluon["launches"]["sgd_fused_update"],
+                  "gluon_adam": gluon["adam_launches"]},
               "wall_s": time.time() - t_all}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
                     exist_ok=True)
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
+    log("sgd_fused_update launches: Module.fit %d, Gluon fit %d; "
+        "adam_fused_update: Module.fit %d, Gluon %d"
+        % (launches["sgd_fused_update"],
+           gluon["launches"]["sgd_fused_update"],
+           launches["adam_fused_update"], gluon["adam_launches"]))
     log("wall_s %.1f" % report["wall_s"])
     log(json.dumps({"kernels": kernels}))
     log(card_line())

@@ -26,15 +26,24 @@ Ported so far:
   ``model.save_checkpoint``), ``quantize`` (calibration, per-channel
   PTQ, the ``QuantizedParams`` artifact), the quantization ops,
   ``serving.Predictor`` and ``serve.InferenceEngine``; kernels
-  ``int8_matmul`` and ``int8_conv_im2col``.
+  ``int8_matmul`` and ``int8_conv_im2col``;
+- the imperative API and Gluon: NDArray arithmetic and the generated
+  ``nd.<op>`` functions, ``autograd`` (over ``torch.autograd``),
+  ``operator`` (custom ops, ``nd.Custom`` / ``sym.Custom``), ``rtc``
+  (CUDA C compiled at run time by NVRTC, ``CudaModule``: the port of the
+  JAX package's runtime Pallas launcher), and ``gluon`` (Block,
+  Parameter, nn, loss, Trainer, utils, data, the ResNet model zoo), whose
+  ``Trainer.step`` runs the fused update kernel once a step.
 
-Importing the package imports no triton, loads no CUDA library and
-touches no GPU.
+Importing the package imports no triton, loads no CUDA library (nor
+NVRTC) and touches no GPU.
 """
-from . import (callback, checkpoint, config, context, convert, executor,
-               initializer, io, lr_scheduler, metric, model, models, module,
-               ndarray, ops, optimizer, parallel, quantize, random, serve,
-               serving, symbol, telemetry)
+from . import (autograd, callback, checkpoint, config, context, convert,
+               executor, initializer, io, lr_scheduler, metric, model,
+               models, module, ndarray, ops, optimizer, parallel, quantize,
+               random, serve, serving, symbol, telemetry)
+from . import operator, rtc  # after ndarray and symbol: adds Custom
+from . import gluon
 from .base import MXNetError
 from .context import cpu, default_device, gpu
 
@@ -43,9 +52,9 @@ sym = symbol
 mod = module
 init = initializer
 
-__all__ = ["MXNetError", "cpu", "gpu", "default_device", "callback",
-           "checkpoint", "config", "context", "convert", "executor", "init",
-           "initializer", "io", "lr_scheduler", "metric", "mod", "model",
-           "models", "module", "nd", "ndarray", "ops", "optimizer",
-           "parallel", "quantize", "random", "serve", "serving", "sym",
-           "symbol", "telemetry"]
+__all__ = ["MXNetError", "cpu", "gpu", "default_device", "autograd",
+           "callback", "checkpoint", "config", "context", "convert",
+           "executor", "gluon", "init", "initializer", "io", "lr_scheduler",
+           "metric", "mod", "model", "models", "module", "nd", "ndarray",
+           "operator", "ops", "optimizer", "parallel", "quantize", "random",
+           "rtc", "serve", "serving", "sym", "symbol", "telemetry"]

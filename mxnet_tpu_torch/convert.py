@@ -5,7 +5,8 @@ whose layer stacks lead with ``(pp, layers_per_stage)``; this package
 keeps them in a :class:`~.parallel.transformer.TransformerParams` with
 the stacks flattened to ``(n_layers, ...)``. Module parameters: name ->
 array dicts on both sides, with the same names (``Module.get_params()``
-there, ``Module.set_params`` / ``fit(arg_params=...)`` here). The caller
+there, ``Module.set_params`` / ``fit(arg_params=...)`` here); Gluon
+parameters likewise, by name (``gluon_params_from_jax``). The caller
 turns the JAX arrays into numpy first (``np.asarray`` /
 ``NDArray.asnumpy()``), so this module never imports JAX.
 """
@@ -21,7 +22,8 @@ from .parallel.transformer import (LAYER_KEYS, TransformerParams,
                                    _validate, expected_shapes)
 
 __all__ = ["params_from_jax", "params_to_numpy", "module_params_from_numpy",
-           "module_params_to_numpy"]
+           "module_params_to_numpy", "gluon_params_from_jax",
+           "gluon_params_to_numpy"]
 
 
 def _to_torch(arr, dtype, device):
@@ -118,3 +120,42 @@ def module_params_to_numpy(arg_params, aux_params):
     dicts, what the JAX package's ``nd.array`` takes back."""
     return ({n: a.asnumpy() for n, a in arg_params.items()},
             {n: a.asnumpy() for n, a in aux_params.items()})
+
+
+def gluon_params_from_jax(jax_params, params, ctx=None):
+    """Copy the JAX package's Gluon parameters into the port's, by name.
+
+    ``jax_params`` maps names to values: the JAX ``ParameterDict``
+    (``net.collect_params()``, whose Parameters give ``.data().asnumpy()``)
+    or name -> numpy arrays. ``params`` is the port's ``ParameterDict``
+    or Block (its ``collect_params()``). The two nets are made under the
+    same prefix, so the names match; a missing or extra name raises. A
+    port parameter without a value is initialized on ``ctx`` (default
+    ``cuda:0``) with the array's shape. Returns the port's
+    ``ParameterDict``."""
+    from .gluon import Block
+    from .gluon.parameter import _load_into
+    if isinstance(params, Block):
+        params = params.collect_params()
+    loaded = {}
+    for name, value in jax_params.items():
+        if not isinstance(value, np.ndarray) and callable(
+                getattr(value, "data", None)):
+            value = value.data().asnumpy()
+        loaded[name] = NDArray(_to_torch(value, torch.float32, "cpu"))
+    missing = sorted(set(params.keys()) - set(loaded))
+    extra = sorted(set(loaded) - set(params.keys()))
+    if missing or extra:
+        raise MXNetError("gluon parameters: missing %s, extra %s"
+                         % (missing, extra))
+    _load_into(dict(params.items()), loaded, "<jax params>", ctx, False,
+               False)
+    return params
+
+
+def gluon_params_to_numpy(net):
+    """The port's Gluon parameters (a Block or ``ParameterDict``) as
+    name -> numpy arrays, what the JAX package's ``Parameter.set_data``
+    takes back."""
+    params = net.collect_params() if hasattr(net, "collect_params") else net
+    return {name: p.data().asnumpy() for name, p in params.items()}

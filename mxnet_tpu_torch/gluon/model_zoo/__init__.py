@@ -1,0 +1,3 @@
+"""Gluon model zoo (reference: python/mxnet/gluon/model_zoo/)."""
+from . import vision  # noqa: F401
+from .vision import get_model  # noqa: F401

@@ -1,0 +1,4 @@
+"""Gluon layers (reference: python/mxnet/gluon/nn/)."""
+from .basic_layers import *  # noqa: F401,F403
+from .conv_layers import *   # noqa: F401,F403
+from . import basic_layers, conv_layers  # noqa: F401

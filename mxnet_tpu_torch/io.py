@@ -16,6 +16,8 @@ import numpy as np
 from .base import MXNetError
 from .ndarray.ndarray import NDArray, array
 
+_HOST = "cpu"       # batches are staged on the host; executors copy them
+
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter"]
 
 
@@ -170,11 +172,11 @@ class NDArrayIter(DataIter):
     def _batchify(self, source):
         end = self.cursor + self.batch_size
         if end <= self.num_data:
-            return [array(v[self.cursor:end]) for _, v in source]
+            return [array(v[self.cursor:end], ctx=_HOST) for _, v in source]
         # pad: wrap the short tail with the epoch's leading samples
         pad = end - self.num_data
         return [array(np.concatenate((v[self.cursor:self.num_data],
-                                      v[:pad]), axis=0))
+                                      v[:pad]), axis=0), ctx=_HOST)
                 for _, v in source]
 
     def getdata(self):

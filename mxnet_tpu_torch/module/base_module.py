@@ -123,7 +123,7 @@ class BaseModule(object):
         assert self.binded and self.params_initialized
         if isinstance(eval_data, (NDArray, np.ndarray)):
             if isinstance(eval_data, np.ndarray):
-                eval_data = array(eval_data)
+                eval_data = array(eval_data, ctx="cpu")
             self.forward(_io.DataBatch([eval_data]))
             return self.get_outputs()[0]
         if not isinstance(eval_data, _io.DataIter):
@@ -143,7 +143,8 @@ class BaseModule(object):
         if merge_batches:
             num_outputs = len(output_list[0])
             merged = [array(np.concatenate([out[i].asnumpy()
-                                            for out in output_list]))
+                                            for out in output_list]),
+                            ctx="cpu")
                       for i in range(num_outputs)]
             if num_outputs == 1 and not always_output_list:
                 return merged[0]

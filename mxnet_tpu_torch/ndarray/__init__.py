@@ -1,9 +1,15 @@
 """NDArray package (reference: python/mxnet/ndarray/__init__.py): the
-array wrapper, creation helpers, random sampling and ``save`` / ``load``
-(``utils``; the reference binary layout in ``mxnet_format``)."""
-from .ndarray import NDArray, array, empty, ones, zeros
+array wrapper, creation helpers, random sampling, ``save`` / ``load``
+(``utils``; the reference binary layout in ``mxnet_format``) and one
+function per registered op (``nd.relu``, ``nd.sum``, ...; ``register``),
+``nd.Custom`` among them."""
+from .ndarray import NDArray, array, empty, invoke_op, ones, zeros
 from . import random
 from .utils import load, save
+from .. import ops as _ops  # noqa: F401  (fills the op registry)
+from . import register as _register
 
-__all__ = ["NDArray", "array", "empty", "load", "ones", "random", "save",
-           "zeros"]
+_register.populate(__name__)
+
+__all__ = ["NDArray", "array", "empty", "invoke_op", "load", "ones",
+           "random", "save", "zeros"]

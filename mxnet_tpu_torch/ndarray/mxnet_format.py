@@ -125,7 +125,7 @@ def _parse_all(buf, dim64, ctx):
     for _ in range(n):
         data = _read_array(cur, dim64)
         arrays.append(None if data is None
-                      else array(data, ctx=ctx, dtype=data.dtype))
+                      else array(data, ctx=ctx or "cpu", dtype=data.dtype))
     k = cur.u64()
     if k not in (0, n):
         raise MXNetError("key count %d != array count %d" % (k, n))

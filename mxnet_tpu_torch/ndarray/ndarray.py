@@ -1,26 +1,35 @@
 """NDArray: a thin wrapper over one :class:`torch.Tensor`.
 
-The subset of the JAX package's ``ndarray/ndarray.py`` that the Module
-training path uses: shape/dtype/context, host copies, ``copy``/
-``copyto``/``astype``, basic slicing and whole-array assignment, and the
-creation helpers. As in the JAX package, ``_data`` is the backing array
-and ``_set_data`` rebinds it. Unlike JAX arrays a tensor can be written
-in place: whole-array assignment (``arr[:] = v``) fills the existing
-tensor, and the executor's parameters are updated in place by the fused
-optimizer kernel. The imperative op namespace (``nd.relu(...)``,
-arithmetic between arrays) and autograd come with ROADMAP A12.
+Counterpart of the JAX package's ``ndarray/ndarray.py``: shape, dtype,
+context, host copies, ``copy``/``copyto``/``astype``, slicing and
+assignment; the arithmetic, comparison and in-place operators, the
+methods (``reshape``, ``sum``, ``mean``, ...) and the generated
+``nd.<op>`` functions (``register.py``), all through :func:`invoke_op`
+and the op registry; and autograd (``attach_grad``, ``.grad``,
+``backward``; ``autograd.py`` maps the tape onto ``torch.autograd``).
+``_data`` is the backing tensor and ``_set_data`` rebinds it.
 
-Creation helpers default to the host (``cpu``), as MXNet's own default
-context is; pass ``ctx=gpu(0)`` for the card.
+Unlike a JAX array a tensor can be written in place: whole-array
+assignment (``arr[:] = v``) fills the existing tensor, an in-place
+operator (``x += y``) outside ``autograd.record()`` updates it, and the
+optimizer kernels write parameters in place.
+
+Creation helpers (``array``, ``zeros``, ``ones``, ``empty``) put the
+array on ``cuda:0`` unless the caller passes ``ctx`` (``cpu()`` for the
+host); without a card and without ``ctx`` they raise.
 """
 from __future__ import annotations
+
+import numbers
 
 import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..context import default_device
 
-__all__ = ["NDArray", "array", "zeros", "ones", "empty", "to_torch_dtype"]
+__all__ = ["NDArray", "array", "zeros", "ones", "empty", "invoke_op",
+           "to_torch_dtype"]
 
 _DTYPES = {
     np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64,
@@ -46,21 +55,56 @@ def to_torch_dtype(dtype):
 
 
 def _device(ctx):
-    if ctx is None:
-        return torch.device("cpu")
-    return torch.device(ctx)
+    """Where a new array goes: ``ctx``, else ``cuda:0``."""
+    return default_device(ctx)
+
+
+def invoke_op(name, inputs, attrs=None, out=None):
+    """Apply the registered op ``name`` to ``inputs`` (NDArrays, or
+    tensors) with ``attrs``; the analog of the reference's
+    ``MXImperativeInvokeEx``. Ops with a ``train_mode`` attr get
+    ``autograd.is_training()`` unless ``attrs`` has it; the op runs with
+    torch's grad mode on exactly while ``autograd.record()`` is. With
+    ``out`` the result is bound into that NDArray (or list)."""
+    from .. import autograd
+    from ..ops.registry import get_op
+    op = get_op(name)
+    attrs = dict(attrs or {})
+    if "train_mode" in op.attr_defaults and "train_mode" not in attrs:
+        attrs["train_mode"] = autograd.is_training()
+    tensors = [x._data if isinstance(x, NDArray) else x for x in inputs]
+    with torch.set_grad_enabled(autograd.is_recording()):
+        res = op.fn(*tensors, **attrs)
+    outs = [NDArray(t) for t in
+            (res if isinstance(res, (tuple, list)) else (res,))]
+    if out is not None:
+        targets = out if isinstance(out, (list, tuple)) else [out]
+        for t, o in zip(targets, outs):
+            t._set_data(o._data)
+        return out
+    return outs[0] if len(outs) == 1 else outs
+
+
+def _binop(a, b, op, scalar_op):
+    if isinstance(b, NDArray):
+        return invoke_op(op, [a, b])
+    if isinstance(b, numbers.Number):
+        return invoke_op(scalar_op, [a], {"scalar": b})
+    return NotImplemented
 
 
 class NDArray(object):
     """A multi-dimensional array on a device (reference: ndarray.h:82)."""
 
-    __slots__ = ("_data", "__weakref__")
+    __slots__ = ("_data", "_grad", "_grad_req", "__weakref__")
 
     def __init__(self, data):
         if not isinstance(data, torch.Tensor):
             raise MXNetError("NDArray wraps a torch.Tensor, got %s"
                              % type(data).__name__)
         self._data = data
+        self._grad = None
+        self._grad_req = None
 
     # -- basic properties --------------------------------------------------
     @property
@@ -86,31 +130,70 @@ class NDArray(object):
 
     ctx = context
 
+    @property
+    def stype(self):
+        return "default"
+
+    @property
+    def T(self):
+        return invoke_op("transpose", [self])
+
     # -- host transfer (the sync point) -------------------------------------
     def asnumpy(self):
-        return self._data.detach().cpu().numpy()
+        """A host copy (never a view of a host tensor, which later
+        in-place writes would change)."""
+        t = self._data.detach()
+        return t.numpy().copy() if t.device.type == "cpu" \
+            else t.cpu().numpy()
 
     def asscalar(self):
         if self.size != 1:
             raise MXNetError("The current array is not a scalar")
         return self.asnumpy().reshape(())[()]
 
+    def item(self):
+        return self.asscalar()
+
+    def __float__(self):
+        return float(self.asscalar())
+
+    def __int__(self):
+        return int(self.asscalar())
+
+    def __bool__(self):
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise MXNetError("ambiguous truth value of multi-element NDArray")
+
     def __len__(self):
         if self.ndim == 0:
             raise TypeError("len() of unsized object")
         return self.shape[0]
+
+    def __iter__(self):
+        for i in range(self.shape[0]):
+            yield self[i]
 
     def __repr__(self):
         return "\n%s\n<NDArray %s @%s>" % (
             self.asnumpy(), "x".join(str(s) for s in self.shape),
             self.context)
 
+    def wait_to_read(self):
+        """Block until the work writing this array is done (reference:
+        WaitToRead): the device's current stream is synchronized."""
+        if self._data.is_cuda:
+            torch.cuda.current_stream(self._data.device).synchronize()
+        return self
+
+    wait_to_write = wait_to_read
+
     # -- dtype / device movement ------------------------------------------
     def astype(self, dtype, copy=True):
         dt = to_torch_dtype(dtype)
         if not copy and self._data.dtype == dt:
             return self
-        return NDArray(self._data.to(dt, copy=True))
+        return invoke_op("Cast", [self], {"dtype": dt})
 
     def copy(self):
         return NDArray(self._data.detach().clone())
@@ -122,24 +205,227 @@ class NDArray(object):
             if other.shape != self.shape:
                 raise MXNetError("copyto: shape %s into %s"
                                  % (self.shape, other.shape))
-            other._data.copy_(self._data)
+            with torch.no_grad():
+                other._data.copy_(self._data)
             return other
-        return NDArray(self._data.detach().to(_device(other), copy=True))
+        return NDArray(self._data.detach().to(torch.device(other),
+                                              copy=True))
+
+    def as_in_context(self, ctx):
+        if torch.device(ctx) == self._data.device:
+            return self
+        return self.copyto(ctx)
+
+    as_in_ctx = as_in_context
+
+    def detach(self):
+        """The same data, outside any recorded graph."""
+        return NDArray(self._data.detach())
 
     def _set_data(self, new_tensor):
         self._data = new_tensor
 
+    # -- autograd ----------------------------------------------------------
+    @property
+    def grad(self):
+        return self._grad
+
+    @grad.setter
+    def grad(self, value):
+        self._grad = value
+
+    def attach_grad(self, grad_req="write", stype=None):
+        """Give this array a gradient buffer (reference:
+        ndarray.py:164 attach_grad, autograd.mark_variables)."""
+        from .. import autograd
+        autograd.mark_variables([self], grad_reqs=grad_req)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        """Gradients of this array with respect to the marked variables
+        (reference: ndarray.py:169)."""
+        from .. import autograd
+        autograd.backward([self], None if out_grad is None else [out_grad],
+                          retain_graph=retain_graph, train_mode=train_mode)
+
+    # -- shape ops ---------------------------------------------------------
+    def reshape(self, *shape, **kwargs):
+        if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
+            shape = tuple(shape[0])
+        return invoke_op("Reshape", [self], {
+            "shape": shape, "reverse": kwargs.get("reverse", False)})
+
+    def reshape_like(self, other):
+        return invoke_op("reshape_like", [self, other])
+
+    def expand_dims(self, axis):
+        return invoke_op("expand_dims", [self], {"axis": axis})
+
+    def flatten(self):
+        return invoke_op("Flatten", [self])
+
+    def transpose(self, axes=None):
+        return invoke_op("transpose", [self], {"axes": axes})
+
+    def slice_axis(self, axis, begin, end):
+        return invoke_op("slice_axis", [self],
+                         {"axis": axis, "begin": begin, "end": end})
+
+    # -- reductions and elementwise methods ----------------------------------
+    def sum(self, axis=None, keepdims=False, exclude=False):
+        return invoke_op("sum", [self], {"axis": axis, "keepdims": keepdims,
+                                         "exclude": exclude})
+
+    def mean(self, axis=None, keepdims=False, exclude=False):
+        return invoke_op("mean", [self], {"axis": axis,
+                                          "keepdims": keepdims,
+                                          "exclude": exclude})
+
+    def max(self, axis=None, keepdims=False):
+        return invoke_op("max", [self], {"axis": axis, "keepdims": keepdims})
+
+    def min(self, axis=None, keepdims=False):
+        return invoke_op("min", [self], {"axis": axis, "keepdims": keepdims})
+
+    def norm(self, ord=2, axis=None, keepdims=False):
+        return invoke_op("norm", [self], {"ord": ord, "axis": axis,
+                                          "keepdims": keepdims})
+
+    def clip(self, a_min, a_max):
+        return invoke_op("clip", [self], {"a_min": a_min, "a_max": a_max})
+
+    def softmax(self, axis=-1):
+        return invoke_op("softmax", [self], {"axis": axis})
+
+    def log_softmax(self, axis=-1):
+        return invoke_op("log_softmax", [self], {"axis": axis})
+
+    def _unary(name):
+        def method(self):
+            return invoke_op(name, [self])
+        method.__name__ = name
+        return method
+
+    abs = _unary("abs")
+    sqrt = _unary("sqrt")
+    square = _unary("square")
+    exp = _unary("exp")
+    log = _unary("log")
+    relu = _unary("relu")
+    sigmoid = _unary("sigmoid")
+    tanh = _unary("tanh")
+    zeros_like = _unary("zeros_like")
+    ones_like = _unary("ones_like")
+    del _unary
+
+    # -- arithmetic and comparison operators -------------------------------
+    def __add__(self, other):
+        return _binop(self, other, "broadcast_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return _binop(self, other, "broadcast_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return _binop(self, other, "broadcast_sub", "_rminus_scalar")
+
+    def __mul__(self, other):
+        return _binop(self, other, "broadcast_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return _binop(self, other, "broadcast_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return _binop(self, other, "broadcast_div", "_rdiv_scalar")
+
+    def __mod__(self, other):
+        return _binop(self, other, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, other):
+        return _binop(self, other, "broadcast_mod", "_rmod_scalar")
+
+    def __pow__(self, other):
+        return _binop(self, other, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, other):
+        return _binop(self, other, "broadcast_power", "_rpower_scalar")
+
+    def __neg__(self):
+        return invoke_op("negative", [self])
+
+    def __abs__(self):
+        return invoke_op("abs", [self])
+
+    def __eq__(self, other):
+        if other is None:
+            return False
+        return _binop(self, other, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, other):
+        if other is None:
+            return True
+        return _binop(self, other, "broadcast_not_equal", "_not_equal_scalar")
+
+    def __gt__(self, other):
+        return _binop(self, other, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return _binop(self, other, "broadcast_greater_equal",
+                      "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return _binop(self, other, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return _binop(self, other, "broadcast_lesser_equal",
+                      "_lesser_equal_scalar")
+
+    __hash__ = object.__hash__
+
+    def _inplace(self, other, op):
+        """``self op= other``: in place outside ``autograd.record()``;
+        while recording, the result is rebound (a new graph node), as the
+        JAX package rebinds its buffer."""
+        from .. import autograd
+        out = op(self, other)
+        if out is NotImplemented:
+            return out
+        if autograd.is_recording():
+            self._set_data(out._data)
+        else:
+            with torch.no_grad():
+                self._data.copy_(out._data)
+        return self
+
+    def __iadd__(self, other):
+        return self._inplace(other, NDArray.__add__)
+
+    def __isub__(self, other):
+        return self._inplace(other, NDArray.__sub__)
+
+    def __imul__(self, other):
+        return self._inplace(other, NDArray.__mul__)
+
+    def __itruediv__(self, other):
+        return self._inplace(other, NDArray.__truediv__)
+
     # -- indexing ----------------------------------------------------------
     def __getitem__(self, key):
+        from .. import autograd
         if isinstance(key, NDArray):
             key = key._data.long()
-        return NDArray(self._data[key])
+        with torch.set_grad_enabled(autograd.is_recording()):
+            return NDArray(self._data[key])
 
     def __setitem__(self, key, value):
         if isinstance(value, NDArray):
             value = value._data
         elif isinstance(value, np.ndarray):
             value = torch.from_numpy(np.ascontiguousarray(value))
+        if isinstance(key, NDArray):
+            key = key._data.long()
         with torch.no_grad():
             if isinstance(value, torch.Tensor):
                 self._data[key] = value.to(self._data.device,
@@ -149,8 +435,9 @@ class NDArray(object):
 
 
 def array(source_array, ctx=None, dtype=None):
-    """A new NDArray holding a copy of ``source_array``; dtype follows a
-    typed source (float64 becomes float32), else float32."""
+    """A new NDArray holding a copy of ``source_array`` on ``ctx``
+    (default ``cuda:0``); dtype follows a typed source (float64 becomes
+    float32), else float32."""
     if isinstance(source_array, NDArray):
         source_array = source_array.asnumpy()
     typed = isinstance(source_array, np.ndarray)

@@ -143,7 +143,7 @@ def load_bytes(blob, ctx=None, name="<bytes>"):
                     out_items.append((key, NDArray(t.to(
                         torch.device("cpu") if ctx is None else ctx))))
                 else:
-                    out_items.append((key, array(arr, ctx=ctx,
+                    out_items.append((key, array(arr, ctx=ctx or "cpu",
                                                  dtype=arr.dtype)))
     except MXNetError:
         raise

@@ -1,10 +1,13 @@
 """Operators of the PyTorch/CUDA package: the registry, the ResNet op
-set and the quantization ops (importing this package populates the
-registry), and ``ops.cuda``, the kernels written by hand for Hopper."""
+set, the elementwise, shape and reduction ops of the imperative API and
+Gluon's losses, and the quantization ops (importing this package
+populates the registry), and ``ops.cuda``, the kernels written by hand
+for Hopper."""
 from . import registry
 from . import elemwise  # noqa: F401
 from . import matrix    # noqa: F401
 from . import nn        # noqa: F401
+from . import reduce    # noqa: F401
 from . import quantization_ops  # noqa: F401
 from . import cuda
 from .registry import OpDef, alias, get_op, invoke, list_ops, register

@@ -2,9 +2,10 @@
 
 Counterpart of the JAX package's ``ops/nn.py`` (FullyConnected :32,
 Convolution :62, Pooling :136, BatchNorm :230, Activation :353,
-SoftmaxOutput :475), with the same names, input slots, attrs and
-defaults, so that symbols built here get the same auto-created variables
-(``fc1_weight``, ``bn0_moving_mean``) and load the JAX package's JSON.
+softmax / log_softmax :387-400, SoftmaxOutput :475), with the same
+names, input slots, attrs and defaults, so that symbols built here get
+the same auto-created variables (``fc1_weight``, ``bn0_moving_mean``)
+and load the JAX package's JSON.
 Convolutions and matrix products go to cuDNN/cuBLAS through
 ``torch.nn.functional``, as the JAX package left them to XLA; BatchNorm
 in training mode to ``F.batch_norm`` without running buffers (its batch
@@ -220,6 +221,20 @@ def _activation(data, act_type="relu"):
     if act_type == "softsign":
         return F.softsign(data)
     raise MXNetError("unknown act_type %r" % act_type)
+
+
+@register("softmax", attr_defaults={"axis": -1, "temperature": None})
+def _softmax(data, axis=-1, temperature=None):
+    if temperature:
+        data = data / temperature
+    return torch.softmax(data, dim=axis)
+
+
+@register("log_softmax", attr_defaults={"axis": -1, "temperature": None})
+def _log_softmax(data, axis=-1, temperature=None):
+    if temperature:
+        data = data / temperature
+    return torch.log_softmax(data, dim=axis)
 
 
 class _SoftmaxOutput(torch.autograd.Function):

@@ -23,6 +23,7 @@ from __future__ import annotations
 import logging
 
 import numpy
+import torch
 
 from .base import MXNetError
 from .config import get as _cfg
@@ -30,7 +31,7 @@ from .ndarray.ndarray import NDArray, zeros
 from .ops.cuda import fused_update as _fu
 
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
-           "register", "fused_state_arrays"]
+           "register", "fused_state_arrays", "fused_apply"]
 
 
 def fused_state_arrays(state):
@@ -283,3 +284,26 @@ class Updater(object):
 
 def get_updater(optimizer):
     return Updater(optimizer)
+
+
+def fused_apply(optimizer, items):
+    """Update every ``(index, weight, grad, state)`` of ``items`` in place
+    through ONE call of ``optimizer.fused_rule()``: one launch of the
+    update kernel on CUDA tensors, the plain version on CPU tensors
+    (reference: the JAX package's ``optimizer.fused_apply``, one donated
+    XLA program; Gluon's ``Trainer.step`` calls it)."""
+    rule = optimizer.fused_rule()
+    if rule is None:
+        raise NotImplementedError("%s has no update rule"
+                                  % type(optimizer).__name__)
+    for _i, w, _g, _s in items:
+        if w.dtype != numpy.float32:
+            raise MXNetError("%s: weight dtype %s; mxnet_tpu_torch updates "
+                             "float32 weights only (ROADMAP A8.4)"
+                             % (type(optimizer).__name__, w.dtype))
+    hypers = [optimizer.fused_hyper(i) for i, _w, _g, _s in items]
+    with torch.no_grad():       # the weights are autograd leaves
+        rule([w._data for _i, w, _g, _s in items],
+             [g._data for _i, _w, g, _s in items],
+             [tuple(a._data for a in fused_state_arrays(s))
+              for _i, _w, _g, s in items], hypers)

@@ -139,8 +139,9 @@ def quantize_symbol(symbol, arg_params, act_ranges, excluded_sym_names=(),
         wq, wscale = _per_channel_quantize(_host(arg_params[wsrc.name]))
         act = _act_scale(rng)
         qparams.pop(wsrc.name, None)
-        qparams[node.name + "_weight_q"] = nd_array(wq, dtype=np.int8)
-        qparams[node.name + "_w_scale"] = nd_array(wscale)
+        qparams[node.name + "_weight_q"] = nd_array(wq, ctx="cpu",
+                                                    dtype=np.int8)
+        qparams[node.name + "_w_scale"] = nd_array(wscale, ctx="cpu")
         wq_sym = _S.Variable(node.name + "_weight_q", shape=wq.shape,
                              dtype="int8")
         ws_sym = _S.Variable(node.name + "_w_scale", shape=wscale.shape)

@@ -17,6 +17,10 @@ binds such buffers in it. ``get_internals`` groups every node's outputs,
 variables included, in the JAX package's order; ``sym[i]`` picks one
 output; ``save`` / ``load`` write and read the JSON file atomically.
 
+An op whose function takes ``*args`` (``Custom``) gets an input slot for
+each further positional Symbol and each keyword Symbol, as in the JAX
+package.
+
 Not ported yet (ROADMAP A8.6): composition (``sym(data=...)``),
 ``Group``, ``infer_type``, arithmetic other than the residual ``+``,
 control-flow subgraphs, ``AttrScope``; group2ctx model parallelism is
@@ -366,6 +370,8 @@ def _apply_op(op, args, attrs, name):
             attrs.update({"__%s__" % a: b for a, b in v.items()})
         else:
             attrs[k] = v
+    variadic = any(p.kind is inspect.Parameter.VAR_POSITIONAL
+                   for p in inspect.signature(op.fn).parameters.values())
     pos = 0
     for a in args:
         if not isinstance(a, Symbol):
@@ -374,12 +380,20 @@ def _apply_op(op, args, attrs, name):
         while pos < len(in_names) and in_names[pos][0] in inputs:
             pos += 1
         if pos >= len(in_names):
-            raise MXNetError("too many inputs for op %s" % op.name)
+            if not variadic:
+                raise MXNetError("too many inputs for op %s" % op.name)
+            # *args ops (Custom): an input slot per extra Symbol
+            in_names = list(in_names) + [("arg%d" % pos, False)]
         inputs[in_names[pos][0]] = a
         pos += 1
     unknown = [k for k in inputs if k not in dict(in_names)]
     if unknown:
-        raise MXNetError("unknown input(s) %s for op %s" % (unknown, op.name))
+        if not variadic:
+            raise MXNetError("unknown input(s) %s for op %s"
+                             % (unknown, op.name))
+        # keyword Symbols of a *args op (sym.Custom(data=x, ...)) are
+        # further inputs, in keyword order
+        in_names = list(in_names) + [(k, False) for k in unknown]
 
     if name is None:
         name = _name_mgr.get(op.name)

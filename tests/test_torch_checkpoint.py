@@ -12,6 +12,7 @@ ways. A torn or corrupt params file is detected, and
 """
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -42,7 +43,8 @@ def _bf16_bits(t):
 
 
 def _port_dict(arrs, with_bf16):
-    out = {k: tmx.nd.array(v, dtype=v.dtype) for k, v in arrs.items()
+    out = {k: tmx.nd.array(v, dtype=v.dtype, ctx=tmx.cpu())
+           for k, v in arrs.items()
            if k != "bf16"}
     if with_bf16:
         out["bf16"] = tmx.nd.NDArray(torch.from_numpy(arrs["bf16"]).to(
@@ -100,8 +102,9 @@ def test_jax_writes_what_port_loads(tmp_path, fmt):
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_lists_round_trip_in_the_port(tmp_path, fmt):
     path = str(tmp_path / "l.params")
-    arrs = [tmx.nd.array(np.arange(6, dtype=np.float32).reshape(2, 3)),
-            tmx.nd.array(np.ones(4, np.int8), dtype=np.int8)]
+    arrs = [tmx.nd.array(np.arange(6, dtype=np.float32).reshape(2, 3),
+                         ctx=tmx.cpu()),
+            tmx.nd.array(np.ones(4, np.int8), dtype=np.int8, ctx=tmx.cpu())]
     tmx.nd.save(path, arrs, format=fmt)
     back = tmx.nd.load(path)
     assert isinstance(back, list) and len(back) == 2
@@ -121,7 +124,8 @@ def test_mxnet_format_refuses_bfloat16_and_scalars(tmp_path):
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_torn_params_file_is_reported(tmp_path, fmt):
     path = str(tmp_path / "t.params")
-    tmx.nd.save(path, {"x": tmx.nd.array(np.ones((64, 64), np.float32))},
+    tmx.nd.save(path, {"x": tmx.nd.array(np.ones((64, 64), np.float32),
+                                         ctx=tmx.cpu())},
                 format=fmt)
     with open(path, "rb") as f:
         blob = f.read()
@@ -133,7 +137,8 @@ def test_torn_params_file_is_reported(tmp_path, fmt):
 
 def test_save_is_atomic_when_the_write_fails(tmp_path):
     path = str(tmp_path / "keep.params")
-    tmx.nd.save(path, {"x": tmx.nd.array(np.ones(3, np.float32))})
+    tmx.nd.save(path, {"x": tmx.nd.array(np.ones(3, np.float32),
+                                         ctx=tmx.cpu())})
     before = open(path, "rb").read()
 
     class Boom(object):
@@ -173,7 +178,8 @@ def test_port_checkpoint_loads_and_verifies_in_jax(tmp_path):
     prefix = str(tmp_path / "p")
     params = _params()
     tmx.model.save_checkpoint(prefix, 3, _mlp(tmx),
-                              {k: tmx.nd.array(v) for k, v in params.items()},
+                              {k: tmx.nd.array(v, ctx=tmx.cpu())
+                               for k, v in params.items()},
                               {})
     man = jmx.checkpoint.verify_checkpoint(prefix, 3)
     assert man["epoch"] == 3 and set(man["files"]) == {"params", "symbol"}
@@ -210,7 +216,8 @@ def test_load_latest_valid_falls_back_past_a_damaged_checkpoint(tmp_path,
     for epoch in (1, 2):
         tmx.model.save_checkpoint(
             prefix, epoch, sym,
-            {k: tmx.nd.array(v) for k, v in _params(epoch).items()}, {})
+            {k: tmx.nd.array(v, ctx=tmx.cpu())
+             for k, v in _params(epoch).items()}, {})
     path = "%s-0002.params" % prefix
     blob = open(path, "rb").read()
     if damage == "truncate":
@@ -237,7 +244,7 @@ def test_load_latest_valid_falls_back_past_a_damaged_checkpoint(tmp_path,
 def test_every_checkpoint_damaged_raises(tmp_path):
     prefix = str(tmp_path / "bad")
     tmx.model.save_checkpoint(prefix, 0, None, {"w": tmx.nd.array(
-        np.ones(3, np.float32))}, {})
+        np.ones(3, np.float32), ctx=tmx.cpu())}, {})
     open("%s-0000.params" % prefix, "wb").write(b"junk")
     with pytest.raises(tck.CheckpointCorruptError, match="every checkpoint"):
         tck.load_latest_valid(prefix)
@@ -248,7 +255,7 @@ def test_list_checkpoints_takes_the_prefix_literally(tmp_path):
     prefix = str(tmp_path / "run[1]")
     for e in (0, 12):
         tmx.model.save_checkpoint(prefix, e, None, {"w": tmx.nd.array(
-            np.ones(2, np.float32))}, {})
+            np.ones(2, np.float32), ctx=tmx.cpu())}, {})
     assert tck.list_checkpoints(prefix) == [0, 12]
 
 
@@ -286,10 +293,18 @@ def test_symbol_files_with_int8_variables_load_both_ways(tmp_path):
 
 def test_get_internals_matches_jax_order(tmp_path):
     internals = {}
-    for mx in (tmx, jmx):
+
+    def build(mx):
         sym = mx.models.resnet(num_classes=10, num_layers=8,
                                image_shape=(3, 16, 16), bottle_neck=True)
         internals[mx] = sym.get_internals().list_outputs()
+
+    # each package's auto-namer counts per thread: a fresh thread gives
+    # both the same counters, whatever symbols earlier tests made
+    for mx in (tmx, jmx):
+        th = threading.Thread(target=build, args=(mx,))
+        th.start()
+        th.join()
     assert internals[tmx] == internals[jmx]
     assert internals[tmx][0] == "data"
     sym = _mlp(tmx)
@@ -306,7 +321,7 @@ def _artifact(tmp_path):
     prefix = str(tmp_path / "mlp")
     tmx.model.save_checkpoint(
         prefix, 0, _mlp(tmx),
-        {k: tmx.nd.array(v) for k, v in _params(2).items()}, {})
+        {k: tmx.nd.array(v, ctx=tmx.cpu()) for k, v in _params(2).items()}, {})
     x = np.random.RandomState(3).randn(6, 5).astype(np.float32)
     return prefix, tmx.quantize.quantize_checkpoint(
         prefix, [x], calib_mode="naive", ctx=tmx.cpu())

@@ -3,7 +3,9 @@
 * no file of the package, and not chip_smoke.py, imports ``jax`` or
   the JAX package ``mxnet_tpu`` (AST scan);
 * importing the package pulls in neither ``mxnet_tpu`` nor ``triton``
-  and builds or loads no CUDA library (checked in a fresh interpreter);
+  and builds or loads no CUDA library: no kernel library, and neither
+  ``libnvrtc`` nor ``libcuda`` through ``rtc``'s bindings (checked in a
+  fresh interpreter);
 * every ``CUDA_KERNELS`` entry of every kernel module under
   ``ops/cuda`` has its ``csrc/<source>.cu`` (the kernel's name, or the
   module's ``SOURCE`` where one file holds several kernels), a plain
@@ -60,13 +62,15 @@ def test_port_never_imports_jax_or_the_jax_package(path):
 
 def test_import_pulls_in_no_jax_package_triton_or_cuda_library():
     code = ("import sys, mxnet_tpu_torch\n"
-            "from mxnet_tpu_torch.ops.cuda import _build\n"
+            "from mxnet_tpu_torch.ops.cuda import _build, _nvrtc\n"
             "print(sorted(m for m in ('mxnet_tpu', 'triton') "
-            "if m in sys.modules), len(_build._loaded))\n")
+            "if m in sys.modules), len(_build._loaded), "
+            "sorted(_nvrtc._LIBS))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split("\n")[-2] == "[] 0"
+    # neither libnvrtc nor libcuda is opened by rtc's bindings
+    assert out.stdout.split("\n")[-2] == "[] 0 []"
 
 
 # (module, kernel) for every CUDA_KERNELS registry of the port

@@ -34,7 +34,13 @@ each of its int8 layers equal, given the layer's input on the card, to
 the same layer on the CPU. The inference BatchNorm kernel must equal its
 plain version, and the BatchNorm op on the card the op on the CPU,
 bitwise (16-byte and scalar paths, ``fix_gamma``), and its gradients
-with ``use_global_stats`` the plain version's.
+with ``use_global_stats`` the plain version's. Kernels compiled at run
+time through ``rtc.CudaModule`` (NVRTC) must equal PyTorch's result: a
+template kernel through ``exports`` bitwise, a row sum over 64 KB of
+dynamic shared memory within 2e-6 of the sum of |x|, a launch from a
+second thread too; a compile error and a launch error raise. One Gluon
+``Trainer`` step on the card must match the CPU's through one update
+launch (changes within 1e-3 relative RMS).
 """
 import numpy as np
 import pytest
@@ -521,3 +527,137 @@ def test_batch_norm_kernel_gradients_are_the_plain_versions(card):
         assert tbn.LAUNCHES["batch_norm_inference"] == (route == "kernel")
     for a, b in zip(grads["kernel"], grads["plain"]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# rtc: runtime-compiled CUDA kernels, and a Gluon step on the card
+# ---------------------------------------------------------------------------
+
+RTC_SRC = r'''
+template <typename T>
+__global__ void scale_t(const T *x, T *y, T s, int n) {
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = x[i] * s;
+}
+extern "C" __global__ void row_sum(const float *x, float *y, int cols) {
+    extern __shared__ float row[];
+    const float *src = x + (size_t)blockIdx.x * cols;
+    for (int c = threadIdx.x; c < cols; c += blockDim.x) row[c] = src[c];
+    __syncthreads();
+    for (int c = threadIdx.x + blockDim.x; c < cols; c += blockDim.x)
+        row[threadIdx.x] += row[c];
+    __syncthreads();
+    for (int w = blockDim.x / 2; w > 0; w /= 2) {
+        if (threadIdx.x < w) row[threadIdx.x] += row[threadIdx.x + w];
+        __syncthreads();
+    }
+    if (threadIdx.x == 0) y[blockIdx.x] = row[0];
+}
+'''
+
+
+@pytest.fixture
+def rtc_mod(card):
+    return tmx.rtc.CudaModule(RTC_SRC, exports=["scale_t<float>",
+                                                "scale_t<double>"])
+
+
+def test_rtc_template_kernels_through_exports(card, rtc_mod):
+    """A template kernel found by its exported name, in two types,
+    bitwise against PyTorch's multiply."""
+    for name, dt in (("float", torch.float32), ("double", torch.float64)):
+        k = rtc_mod.get_kernel("scale_t<%s>" % name, "const %s *x, %s *y, "
+                               "%s s, int n" % (name, name, name))
+        x = tmx.nd.NDArray(torch.randn(1000, dtype=dt, device=card))
+        y = tmx.nd.NDArray(torch.empty_like(x._data))
+        k.launch([x, y, 0.75, 1000], card, (4, 1, 1), (256, 1, 1))
+        torch.cuda.synchronize()
+        assert torch.equal(y._data, x._data * 0.75)
+
+
+def test_rtc_dynamic_shared_memory_above_48kb(card, rtc_mod):
+    """64 KB of dynamic shared memory a block (cuFuncSetAttribute), the
+    row sums within 2e-6 of the sum of |x| (another summation order)."""
+    cols = 16384
+    k = rtc_mod.get_kernel("row_sum", "const float *x, float *y, int cols")
+    x = tmx.nd.NDArray(torch.randn(5, cols, device=card))
+    y = tmx.nd.NDArray(torch.empty(5, device=card))
+    k.launch([x, y, cols], card, (5, 1, 1), (256, 1, 1), shared_mem=4 * cols)
+    torch.cuda.synchronize()
+    err = (y._data - x._data.sum(dim=1)).abs().max()
+    assert err <= 2e-6 * x._data.abs().sum(dim=1).max()
+
+
+def test_rtc_launch_from_a_second_thread(card, rtc_mod):
+    """A thread that never touched CUDA: the launcher makes the device's
+    primary context current, and the kernel runs on PyTorch's stream."""
+    import threading
+    k = rtc_mod.get_kernel("scale_t<float>", "const float *x, float *y, "
+                           "float s, int n")
+    x = tmx.nd.NDArray(torch.randn(4096, device=card))
+    y = tmx.nd.NDArray(torch.zeros(4096, device=card))
+    errors = []
+
+    def run():
+        try:
+            k.launch([x, y, 2.0, 4096], card, (16, 1, 1), (256, 1, 1))
+        except Exception as e:          # reported by the assert below
+            errors.append(e)
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    torch.cuda.synchronize()
+    assert not errors
+    assert torch.equal(y._data, x._data * 2.0)
+
+
+def test_rtc_compile_and_launch_errors_raise(card, rtc_mod):
+    with pytest.raises(tmx.MXNetError, match="undeclared_name"):
+        tmx.rtc.CudaModule('extern "C" __global__ void f(float *y) '
+                           '{ y[0] = undeclared_name; }')
+    k = rtc_mod.get_kernel("row_sum", "const float *x, float *y, int cols")
+    x = tmx.nd.NDArray(torch.randn(2, 8, device=card))
+    y = tmx.nd.NDArray(torch.empty(2, device=card))
+    with pytest.raises(tmx.MXNetError, match="cuLaunchKernel"):
+        k.launch([x, y, 8], card, (2, 1, 1), (2048, 1, 1))
+
+
+def test_gluon_step_on_card_matches_cpu(card):
+    """One Trainer step of a small Gluon net (conv, BatchNorm, dense) on
+    the card and on the CPU from one state: one sgd_fused_update launch,
+    the weights' and running statistics' changes within 1e-3 relative
+    RMS of the CPU's (float32 sums in another order; TF32 off)."""
+    def build():
+        net = tmx.gluon.nn.HybridSequential(prefix="cs_")
+        with net.name_scope():
+            net.add(tmx.gluon.nn.Conv2D(8, 3, padding=1, use_bias=False),
+                    tmx.gluon.nn.BatchNorm(), tmx.gluon.nn.Activation("relu"),
+                    tmx.gluon.nn.GlobalAvgPool2D(), tmx.gluon.nn.Dense(5))
+        return net
+
+    rng = np.random.RandomState(3)
+    x = rng.uniform(-1, 1, (4, 3, 8, 8)).astype(np.float32)
+    y = rng.randint(0, 5, (4,)).astype(np.float32)
+    ref = build()
+    ref.initialize(tmx.init.Xavier(), ctx=tmx.cpu())
+    ref(tmx.nd.array(x, ctx=tmx.cpu()))
+    state = tmx.convert.gluon_params_to_numpy(ref)
+    runs = {}
+    for dev in (tmx.cpu(), card):
+        net = build()
+        tmx.convert.gluon_params_from_jax(state, net, ctx=dev)
+        trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                    {"learning_rate": 0.1, "momentum": 0.9})
+        tfu.reset_launches()
+        with tmx.autograd.record():
+            loss = tmx.gluon.loss.SoftmaxCrossEntropyLoss()(
+                net(tmx.nd.array(x, ctx=dev)), tmx.nd.array(y, ctx=dev))
+        loss.backward()
+        trainer.step(4)
+        runs[dev.type] = (tmx.convert.gluon_params_to_numpy(net),
+                          tfu.LAUNCHES["sgd_fused_update"])
+    assert runs["cuda"][1] == 1
+    for k, v in state.items():
+        dg, dc = runs["cuda"][0][k] - v, runs["cpu"][0][k] - v
+        assert np.linalg.norm(dg - dc) <= 1e-3 * np.linalg.norm(dc), k

@@ -1,0 +1,555 @@
+"""The port's Gluon against the JAX package's.
+
+Every net is made by both packages under the same explicit prefix, so
+its parameters have the same names; the JAX package initializes it, and
+``convert.gluon_params_from_jax`` carries the values across. Inputs are
+numpy-seeded. Held:
+
+* every layer of ``nn`` that the port has (Dense, Activation, BatchNorm
+  in training and inference mode, Flatten, the lambdas, the sequential
+  containers, Swish, Conv1D/2D/3D, the max / average / global pools)
+  and every loss but CTCLoss: outputs and the input's gradient under
+  ``autograd.record()`` within 1e-5 of each tensor's largest magnitude;
+  the parameters' gradients and values (BatchNorm's running statistics)
+  within 1e-5 of the largest among them (float32 sums in another order;
+  a gradient that is zero in exact arithmetic, as a convolution's bias
+  before a BatchNorm in training mode, is float32 noise);
+* ``resnet18_v1`` and ``resnet50_v1`` forward at 32x32, batch 2, within
+  1e-5 of the largest logit;
+* 4 ``Trainer`` steps of ``resnet18_v1`` (10 classes, batch 4, SGD with
+  momentum and wd; Adam), hybridized and not. ResNet-18's gradients at
+  initialization are ill-conditioned in float32 whatever the package: a
+  1e-6 relative nudge (a few ulps) of the port's own starting weights
+  changes some weights' updates by 30-100% within 4 steps, and the JAX
+  package differs from itself, hybridized against not, by percents. So
+  the port is held to float32's own error on this problem: at every
+  step, the change of every weight and running statistic since the
+  start, against the JAX package's (the largest relative RMS error over
+  the tensors), is at most ``RATIO`` times what the nudge makes of it;
+  a planted fault (BatchNorm's gamma gradient scaled by 1.5) must break
+  that rule, and the first step's loss is held within 1e-5. The first
+  step is the sharp one (SGD: 1e-4 against a floor of 4e-4; the fault
+  5e-1);
+* ``save_parameters`` files load in the other package; ``DataLoader``
+  batches are equal; what the port does not have raises.
+"""
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+import mxnet_tpu as jmx  # noqa: E402
+
+import mxnet_tpu_torch as tmx  # noqa: E402
+from mxnet_tpu_torch.base import MXNetError  # noqa: E402
+from mxnet_tpu_torch.convert import (gluon_params_from_jax,  # noqa: E402
+                                     gluon_params_to_numpy)
+
+TOL = 1e-5
+RATIO = 4.0
+NUDGE = 1e-6     # relative nudge of every starting weight (a few ulps)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The port's CPU convolutions on 2 threads while this module runs:
+    its small tensors gain nothing from more, and the test workers share
+    the machine's cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(min(prev, 2))
+    yield
+    torch.set_num_threads(prev)
+
+
+def _rel(got, want):
+    """Largest error relative to the reference's largest magnitude."""
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _arr(mx, a):
+    return mx.nd.array(a, ctx=mx.cpu())
+
+
+def _pair(build, x, init=None):
+    """(JAX net, port net) made by ``build(mx)`` under one prefix, with
+    the JAX package's initialization carried across."""
+    jnet = build(jmx)
+    jnet.initialize(init(jmx) if init else jmx.init.Xavier(), ctx=jmx.cpu())
+    with jmx.autograd.predict_mode():
+        jnet(*[_arr(jmx, a) for a in x])      # finishes deferred shapes
+    tnet = build(tmx)
+    gluon_params_from_jax(jnet.collect_params(), tnet, ctx=tmx.cpu())
+    return jnet, tnet
+
+
+def _run(mx, net, x, train):
+    """Outputs, input gradients and parameter gradients (by name) of
+    ``net`` on ``x``, the loss being the outputs weighted by a fixed
+    pattern; and the parameters afterwards."""
+    xs = [_arr(mx, a) for a in x]
+    for a in xs:
+        a.attach_grad()
+    with mx.autograd.record(train_mode=train):
+        out = net(*xs)
+        w = _arr(mx, np.linspace(-1, 1, out.size, dtype=np.float32)
+                 .reshape(out.shape))
+        loss = (out * w).sum()
+    loss.backward()
+    grads = {k: p.grad().asnumpy() for k, p in net.collect_params().items()
+             if p.grad_req != "null"}
+    params = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    return [out.asnumpy()] + [a.grad.asnumpy() for a in xs], grads, params
+
+
+def _hold(build, x, train=True, init=None):
+    jnet, tnet = _pair(build, x, init)
+    want = _run(jmx, jnet, x, train)
+    got = _run(tmx, tnet, x, train)
+    for w, g in zip(want[0], got[0]):
+        assert w.shape == g.shape
+        assert _rel(g, w) <= TOL
+    for d in (1, 2):
+        assert sorted(got[d]) == sorted(want[d])
+        scale = max([np.abs(v).max() for v in want[d].values()] + [1e-30])
+        for k in want[d]:
+            assert np.abs(got[d][k] - want[d][k]).max() <= TOL * scale, k
+
+
+RNG = np.random.RandomState(0)
+X2 = RNG.uniform(-1, 1, (4, 6)).astype(np.float32)
+X4 = RNG.uniform(-1, 1, (2, 3, 9, 9)).astype(np.float32)
+X3 = RNG.uniform(-1, 1, (2, 3, 11)).astype(np.float32)
+X5 = RNG.uniform(-1, 1, (2, 2, 5, 6, 7)).astype(np.float32)
+
+
+def _dense(mx):
+    net = mx.gluon.nn.HybridSequential(prefix="d_")
+    with net.name_scope():
+        net.add(mx.gluon.nn.Dense(5, activation="tanh"),
+                mx.gluon.nn.Dense(3, use_bias=False, in_units=5),
+                mx.gluon.nn.Activation("sigmoid"))
+    return net
+
+
+def _dense_noflat(mx):
+    net = mx.gluon.nn.Sequential(prefix="df_")
+    with net.name_scope():
+        net.add(mx.gluon.nn.Dense(4, flatten=False),
+                mx.gluon.nn.Lambda(lambda x: x * 2),
+                mx.gluon.nn.HybridLambda(lambda F, x: F.relu(x)),
+                mx.gluon.nn.HybridLambda("tanh"),
+                mx.gluon.nn.Swish(beta=1.5), mx.gluon.nn.Flatten(),
+                mx.gluon.nn.Activation("softrelu"))
+    return net
+
+
+def _batchnorm(mx):
+    net = mx.gluon.nn.HybridSequential(prefix="bn_")
+    with net.name_scope():
+        net.add(mx.gluon.nn.Conv2D(4, 3, padding=1),
+                mx.gluon.nn.BatchNorm(momentum=0.8),
+                mx.gluon.nn.Activation("relu"),
+                mx.gluon.nn.BatchNorm(scale=False, center=False, epsilon=1e-3))
+    return net
+
+
+def _conv2d(mx):
+    net = mx.gluon.nn.HybridSequential(prefix="c2_")
+    with net.name_scope():
+        net.add(mx.gluon.nn.Conv2D(6, (3, 2), strides=(2, 1), padding=(1, 0),
+                                   dilation=(1, 2), activation="relu"),
+                mx.gluon.nn.Conv2D(4, 1, groups=2, use_bias=False),
+                mx.gluon.nn.MaxPool2D(3, 2, 1),
+                mx.gluon.nn.Conv2D(4, 3, padding=1, in_channels=4),
+                mx.gluon.nn.AvgPool2D(2, ceil_mode=True),
+                mx.gluon.nn.GlobalAvgPool2D(), mx.gluon.nn.Flatten())
+    return net
+
+
+def _pools2d(mx):
+    net = mx.gluon.nn.HybridSequential(prefix="p2_")
+    with net.name_scope():
+        net.add(mx.gluon.nn.Conv2D(4, 3),
+                mx.gluon.nn.AvgPool2D(3, 2, 1, count_include_pad=False),
+                mx.gluon.nn.MaxPool2D(ceil_mode=True),
+                mx.gluon.nn.GlobalMaxPool2D())
+    return net
+
+
+def _conv1d(mx):
+    net = mx.gluon.nn.HybridSequential(prefix="c1_")
+    with net.name_scope():
+        net.add(mx.gluon.nn.Conv1D(5, 3, strides=2, padding=1),
+                mx.gluon.nn.MaxPool1D(2), mx.gluon.nn.AvgPool1D(2, 1),
+                mx.gluon.nn.Conv1D(3, 1), mx.gluon.nn.GlobalMaxPool1D(),
+                mx.gluon.nn.GlobalAvgPool1D())
+    return net
+
+
+def _conv3d(mx):
+    net = mx.gluon.nn.HybridSequential(prefix="c3_")
+    with net.name_scope():
+        net.add(mx.gluon.nn.Conv3D(3, (3, 2, 3), padding=(1, 0, 1)),
+                mx.gluon.nn.MaxPool3D(2), mx.gluon.nn.AvgPool3D(
+                    (1, 2, 2), strides=1), mx.gluon.nn.GlobalAvgPool3D(),
+                mx.gluon.nn.GlobalMaxPool3D())
+    return net
+
+
+LAYERS = [(_dense, X2), (_dense_noflat, X4[:, 0]), (_batchnorm, X4),
+          (_conv2d, X4), (_pools2d, X4), (_conv1d, X3), (_conv3d, X5)]
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "predict"])
+@pytest.mark.parametrize("build,x", LAYERS, ids=[b.__name__[1:]
+                                                 for b, _ in LAYERS])
+def test_layers_match_jax(build, x, train):
+    _hold(build, [x], train=train)
+
+
+def test_batchnorm_running_statistics_follow_training_mode():
+    jnet, tnet = _pair(_batchnorm, [X4])
+    for train in (True, False, True):
+        for mx, net in ((jmx, jnet), (tmx, tnet)):
+            with mx.autograd.record(train_mode=train):
+                net(_arr(mx, X4))
+    want = {k: p.data().asnumpy() for k, p in jnet.collect_params().items()}
+    got = gluon_params_to_numpy(tnet)
+    for k in want:
+        assert _rel(got[k], want[k]) <= TOL, k
+    moved = [k for k in got if "running" in k
+             and np.abs(got[k] - (0.0 if "mean" in k else 1.0)).max() > 0]
+    assert len(moved) == 4
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+P = RNG.uniform(-2, 2, (4, 5)).astype(np.float32)
+LAB = RNG.randint(0, 5, (4,)).astype(np.float32)
+SIGNED = np.sign(RNG.uniform(-1, 1, (4, 5))).astype(np.float32)
+BIN = (SIGNED > 0).astype(np.float32)
+PROB = RNG.uniform(0.05, 0.95, (4, 5)).astype(np.float32)
+SW = RNG.uniform(0, 1, (4, 1)).astype(np.float32)
+DIST = np.exp(P) / np.exp(P).sum(axis=1, keepdims=True)
+LDIST = PROB / PROB.sum(axis=1, keepdims=True)     # a label distribution
+
+LOSSES = [
+    ("L2Loss", {}, [P, PROB], True), ("L2Loss", {"weight": 0.5}, [P, PROB],
+                                      False),
+    ("L1Loss", {}, [P, PROB], True),
+    ("SigmoidBinaryCrossEntropyLoss", {}, [P, BIN], True),
+    ("SigmoidBinaryCrossEntropyLoss", {"from_sigmoid": True}, [PROB, BIN],
+     False),
+    ("SoftmaxCrossEntropyLoss", {}, [P, LAB], True),
+    ("SoftmaxCrossEntropyLoss", {"sparse_label": False}, [P, LDIST],
+     False),
+    ("SoftmaxCrossEntropyLoss", {"from_logits": True, "axis": 1},
+     [np.log(DIST), LAB], False),
+    ("KLDivLoss", {}, [np.log(DIST), PROB], True),
+    ("KLDivLoss", {"from_logits": False}, [P, LDIST], False),
+    ("HuberLoss", {"rho": 0.7}, [P, PROB], True),
+    ("HingeLoss", {}, [P, SIGNED], True),
+    ("SquaredHingeLoss", {"margin": 0.5}, [P, SIGNED], False),
+    ("LogisticLoss", {}, [P, SIGNED], True),
+    ("LogisticLoss", {"label_format": "binary"}, [P, BIN], False),
+    ("TripletLoss", {"margin": 0.3}, [P, PROB, DIST], False),
+    ("PoissonNLLLoss", {}, [P, PROB * 3], False),
+    ("PoissonNLLLoss", {"from_logits": False, "compute_full": True},
+     [PROB, PROB * 3], False),
+    ("CosineEmbeddingLoss", {"margin": 0.1}, [P, DIST, np.array(
+        [1, -1, 1, -1], np.float32)], False),
+]
+
+
+@pytest.mark.parametrize("name,kw,args,weighted", LOSSES,
+                         ids=["%s-%d" % (c[0], i)
+                              for i, c in enumerate(LOSSES)])
+def test_losses_match_jax(name, kw, args, weighted):
+    res = []
+    for mx in (jmx, tmx):
+        loss_fn = getattr(mx.gluon.loss, name)(**kw)
+        xs = [_arr(mx, a) for a in args]
+        xs[0].attach_grad()
+        if weighted:
+            xs.append(_arr(mx, SW))
+        with mx.autograd.record():
+            out = loss_fn(*xs)
+        out.backward()
+        res.append((out.asnumpy(), xs[0].grad.asnumpy()))
+    (lw, gw), (lg, gg) = res
+    assert lw.shape == lg.shape
+    assert _rel(lg, lw) <= TOL and _rel(gg, gw) <= TOL
+
+
+def test_ctc_loss_raises_naming_its_item():
+    with pytest.raises(NotImplementedError, match="A12.2"):
+        tmx.gluon.loss.CTCLoss()
+
+
+# ---------------------------------------------------------------------------
+# model zoo
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["resnet18_v1", "resnet50_v1"])
+def test_resnet_forward_matches_jax(name):
+    x = RNG.uniform(-1, 1, (2, 3, 32, 32)).astype(np.float32)
+
+    def build(mx):
+        return mx.gluon.model_zoo.vision.get_model(name, classes=10,
+                                                   prefix="zoo_")
+
+    jnet, tnet = _pair(build, [x])
+    want = jnet(_arr(jmx, x)).asnumpy()
+    got = tnet(_arr(tmx, x)).asnumpy()
+    assert got.shape == (2, 10) and _rel(got, want) <= TOL
+    assert list(jnet.collect_params()) == list(tnet.collect_params())
+
+
+def test_zoo_pretrained_and_other_families_raise():
+    vision = tmx.gluon.model_zoo.vision
+    with pytest.raises(NotImplementedError, match="no weights"):
+        vision.get_model("resnet18_v2", pretrained=True)
+    with pytest.raises(NotImplementedError, match="A12.3"):
+        vision.get_model("vgg16")
+    net = vision.get_model("resnet34_v2", classes=7)
+    net.initialize(ctx=tmx.cpu())
+    assert net(_arr(tmx, X4[:, :, :8, :8])).shape == (2, 7)
+
+
+# ---------------------------------------------------------------------------
+# Trainer: 4 steps of resnet18_v1
+# ---------------------------------------------------------------------------
+
+TX = RNG.uniform(-1, 1, (4, 3, 32, 32)).astype(np.float32)
+TY = RNG.randint(0, 10, (4,)).astype(np.float32)
+OPTS = {"sgd": {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+        "adam": {"learning_rate": 0.01, "wd": 1e-4}}
+STEPS = 4
+
+
+def _zoo18(mx):
+    return mx.gluon.model_zoo.vision.get_model("resnet18_v1", classes=10,
+                                               prefix="tr_")
+
+
+def _fit_init(mx):
+    return mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                          magnitude=2)
+
+
+def _train(mx, net, opt, hybridize, steps=STEPS):
+    """Losses and parameters (name -> numpy) after each step."""
+    if hybridize:
+        net.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), opt, OPTS[opt])
+    x, y = _arr(mx, TX), _arr(mx, TY)
+    out = []
+    for _ in range(steps):
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(TX.shape[0])
+        out.append((loss.asnumpy(), {k: p.data().asnumpy() for k, p in
+                                     net.collect_params().items()}))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_init():
+    jnet, _ = _pair(_zoo18, [TX], init=_fit_init)
+    return {k: p.data().asnumpy() for k, p in jnet.collect_params().items()}
+
+
+def _jax_run(init, opt, hybridize):
+    jnet = _zoo18(jmx)
+    jnet.initialize(ctx=jmx.cpu())
+    jnet(_arr(jmx, TX))
+    for k, p in jnet.collect_params().items():
+        p.set_data(_arr(jmx, init[k]))
+    return _train(jmx, jnet, opt, hybridize)
+
+
+def _port_run(init, opt, hybridize, nudge=0.0, planted=False, steps=STEPS):
+    tnet = _zoo18(tmx)
+    gluon_params_from_jax(init, tnet, ctx=tmx.cpu())
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in tnet.collect_params().values():
+            t = p.data()._data
+            t.mul_(1 + nudge * torch.randn(t.shape, generator=gen))
+    if not planted:
+        return _train(tmx, tnet, opt, hybridize, steps)
+    op = tmx.ops.registry.get_op("BatchNorm")
+    sound = op.fn
+    op.fn = gamma_grad_scaled(sound, 1.5)
+    try:
+        return _train(tmx, tnet, opt, hybridize, steps)
+    finally:
+        op.fn = sound
+
+
+def gamma_grad_scaled(real, factor):
+    """A planted fault: BatchNorm whose gamma gradient is ``factor``
+    times the sound one (its forward value is the sound op's)."""
+    def fn(data, gamma, beta, *rest, **attrs):
+        g = gamma * factor - (gamma * (factor - 1)).detach()
+        return real(data, g, beta, *rest, **attrs)
+    return fn
+
+
+def _rel_rms(got, want):
+    den = np.linalg.norm(want)
+    return float(np.linalg.norm(got - want) / den) if den > 0 else \
+        float(np.linalg.norm(got - want))
+
+
+def _step_errors(a, b, init):
+    """Per step, the largest relative RMS error over the tensors of
+    ``a``'s change since ``init`` against ``b``'s."""
+    return [max(_rel_rms(pa[k] - init[k], pb[k] - init[k]) for k in pb)
+            for (_, pa), (_, pb) in zip(a, b)]
+
+
+@pytest.mark.parametrize("hybridize", [False, True], ids=["eager",
+                                                          "hybridized"])
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+def test_trainer_steps_match_jax(jax_init, opt, hybridize):
+    want = _jax_run(jax_init, opt, hybridize)
+    got = _port_run(jax_init, opt, hybridize)
+    floor = _step_errors(_port_run(jax_init, opt, hybridize, nudge=NUDGE),
+                         got, jax_init)
+    errs = _step_errors(got, want, jax_init)
+    assert _rel(got[0][0], want[0][0]) <= TOL
+    for step, (e, f) in enumerate(zip(errs, floor)):
+        assert e <= RATIO * f, (step, errs, floor)
+    assert all(np.isfinite(v).all() for v in got[-1][1].values())
+    moved = [k for k in got[-1][1] if "running" in k
+             and np.abs(got[-1][1][k] - jax_init[k]).max() > 0]
+    assert len(moved) == 2 * 20          # every BatchNorm's statistics
+    if opt == "sgd" and not hybridize:
+        bad = _step_errors(_port_run(jax_init, opt, hybridize,
+                                     planted=True), want, jax_init)
+        assert any(b > RATIO * f for b, f in zip(bad, floor)), (bad, floor)
+
+
+def test_trainer_states_round_trip(tmp_path, jax_init):
+    """A step, save_states, a new Trainer that loads them and takes a
+    second: the same weights as two steps in one go."""
+    ref = _port_run(jax_init, "adam", False, steps=2)
+    tnet = _zoo18(tmx)
+    gluon_params_from_jax(jax_init, tnet, ctx=tmx.cpu())
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = _arr(tmx, TX), _arr(tmx, TY)
+    for half in range(2):
+        trainer = tmx.gluon.Trainer(tnet.collect_params(), "adam",
+                                    OPTS["adam"])
+        if half:
+            trainer.load_states(str(tmp_path / "t.states"))
+        with tmx.autograd.record():
+            loss = loss_fn(tnet(x), y)
+        loss.backward()
+        trainer.step(4)
+        trainer.save_states(str(tmp_path / "t.states"))
+    got = gluon_params_to_numpy(tnet)
+    for k, v in ref[-1][1].items():
+        np.testing.assert_array_equal(got[k], v)
+
+
+def test_trainer_refuses_other_kvstores():
+    net = tmx.gluon.nn.Dense(2, in_units=3)
+    net.initialize(ctx=tmx.cpu())
+    with pytest.raises(MXNetError, match="A13"):
+        tmx.gluon.Trainer(net.collect_params(), "sgd", kvstore="dist_sync")
+
+
+# ---------------------------------------------------------------------------
+# files, data, utilities
+# ---------------------------------------------------------------------------
+
+def test_save_parameters_load_in_the_other_package(tmp_path):
+    jnet, tnet = _pair(_batchnorm, [X4])
+    with tmx.autograd.record():
+        tnet(_arr(tmx, X4))                 # move the port's statistics
+    tnet.save_parameters(str(tmp_path / "port.params"))
+    back = _batchnorm(jmx)
+    back.load_parameters(str(tmp_path / "port.params"), ctx=jmx.cpu())
+    want = gluon_params_to_numpy(tnet)
+    got = {k: p.data().asnumpy() for k, p in back.collect_params().items()}
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    jnet.save_parameters(str(tmp_path / "jax.params"))
+    again = _batchnorm(tmx)
+    again.load_parameters(str(tmp_path / "jax.params"), ctx=tmx.cpu())
+    got = gluon_params_to_numpy(again)
+    for k, p in jnet.collect_params().items():
+        np.testing.assert_array_equal(got[k], p.data().asnumpy())
+    with pytest.raises(IOError, match="missing"):
+        _dense(tmx).load_parameters(str(tmp_path / "jax.params"),
+                                    ctx=tmx.cpu())
+
+
+@pytest.mark.parametrize("last_batch", ["keep", "discard", "rollover"])
+def test_dataloader_batches_match_jax(last_batch):
+    data = RNG.uniform(-1, 1, (11, 3, 2)).astype(np.float32)
+    label = np.arange(11, dtype=np.float32)
+    res = []
+    for mx in (jmx, tmx):
+        ds = mx.gluon.data.ArrayDataset(data, label)
+        ds = ds.transform_first(lambda x: x * 2)
+        loader = mx.gluon.data.DataLoader(ds, batch_size=4,
+                                          last_batch=last_batch)
+        res.append([[b.asnumpy() for b in batch]
+                    for _ in range(2) for batch in loader])
+        res.append(len(loader))
+    assert res[1] == res[3]
+    assert len(res[0]) == len(res[2])
+    for bw, bg in zip(res[0], res[2]):
+        for w, g in zip(bw, bg):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_utils_match_jax():
+    arrs = [RNG.uniform(-1, 1, s).astype(np.float32) for s in ((3, 4), (5,))]
+    res = []
+    for mx in (jmx, tmx):
+        nds = [_arr(mx, a) for a in arrs]
+        norm = mx.gluon.utils.clip_global_norm(nds, 1.0)
+        res.append((norm, [a.asnumpy() for a in nds]))
+    assert abs(res[0][0] - res[1][0]) <= TOL * res[0][0]
+    for w, g in zip(res[0][1], res[1][1]):
+        assert _rel(g, w) <= TOL
+    (one,) = tmx.gluon.utils.split_and_load(X2, [tmx.cpu()])
+    np.testing.assert_array_equal(one.asnumpy(), X2)
+    with pytest.raises(MXNetError, match="A12.6"):
+        tmx.gluon.utils.split_and_load(X2, [tmx.cpu(), tmx.cpu()])
+
+
+@pytest.mark.parametrize("layer", ["Dropout", "Embedding", "LayerNorm",
+                                   "InstanceNorm", "LeakyReLU", "PReLU",
+                                   "Conv2DTranspose", "ReflectionPad2D"])
+def test_layers_without_their_op_raise(layer):
+    with pytest.raises(NotImplementedError, match="A12.2"):
+        getattr(tmx.gluon.nn, layer)(1)
+
+
+def test_trace_and_symbol_block_raise_naming_their_item():
+    net = _dense(tmx)
+    net.hybridize()
+    with pytest.raises(NotImplementedError, match="A12.1"):
+        net.export("x")
+    with pytest.raises(NotImplementedError, match="A12.1"):
+        tmx.gluon.SymbolBlock(None, None)
+
+
+def test_initialize_defaults_to_the_card():
+    net = tmx.gluon.nn.Dense(2, in_units=3)
+    if torch.cuda.is_available():
+        net.initialize()
+        assert net.weight.data().context.type == "cuda"
+    else:
+        with pytest.raises(MXNetError, match="no CUDA device"):
+            net.initialize()

@@ -245,12 +245,12 @@ def test_refused_contexts_weights_and_callbacks():
 
 def test_xavier_and_name_dispatch():
     tmx.random.seed(3)
-    w = tmx.nd.zeros((256, 32, 3, 3))
+    w = tmx.nd.zeros((256, 32, 3, 3), ctx=tmx.cpu())
     tmx.init.Xavier(rnd_type="gaussian", factor_type="in",
                     magnitude=2)("conv_weight", w)
     std = float(w.asnumpy().std())
     assert abs(std / np.sqrt(2.0 / (32 * 9)) - 1) <= 0.05
-    u = tmx.nd.zeros((64, 100))
+    u = tmx.nd.zeros((64, 100), ctx=tmx.cpu())
     tmx.init.Xavier()("fc_weight", u)    # uniform, factor avg, magnitude 3
     bound = np.sqrt(3.0 / ((100 + 64) / 2.0))
     assert np.abs(u.asnumpy()).max() <= bound
@@ -258,13 +258,13 @@ def test_xavier_and_name_dispatch():
     for name, value in (("fc_bias", 0.0), ("bn_beta", 0.0),
                         ("bn_moving_mean", 0.0), ("bn_gamma", 1.0),
                         ("bn_moving_var", 1.0)):
-        arr = tmx.nd.array(np.full((3,), 7.0, np.float32))
+        arr = tmx.nd.array(np.full((3,), 7.0, np.float32), ctx=tmx.cpu())
         init(name, arr)
         assert (arr.asnumpy() == value).all(), name
     with pytest.raises(ValueError, match="Unknown initialization"):
-        init("mystery", tmx.nd.zeros((2,)))
+        init("mystery", tmx.nd.zeros((2,), ctx=tmx.cpu()))
     tmx.random.seed(3)
-    again = tmx.nd.zeros((256, 32, 3, 3))
+    again = tmx.nd.zeros((256, 32, 3, 3), ctx=tmx.cpu())
     tmx.init.Xavier(rnd_type="gaussian", factor_type="in",
                     magnitude=2)("conv_weight", again)
     assert np.array_equal(again.asnumpy(), w.asnumpy())   # seeded

@@ -185,7 +185,8 @@ def _internals(mx, qp, rows):
             exe.arg_dict[k][:] = v
     for k, v in qp.aux_params.items():
         exe.aux_dict[k][:] = v
-    outs = exe.forward(is_train=False, data=mx.nd.array(X[:rows]))
+    outs = exe.forward(is_train=False,
+                       data=mx.nd.array(X[:rows], ctx=mx.cpu()))
     return dict(zip(sym.list_outputs(), (o.asnumpy() for o in outs)))
 
 

@@ -49,7 +49,7 @@ def artifact(tmp_path_factory):
               "fc2_bias": rng.randn(5).astype(np.float32) * 0.1}
     prefix = str(tmp_path_factory.mktemp("s") / "mlp")
     tmx.model.save_checkpoint(prefix, 0, _mlp(), {
-        k: tmx.nd.array(v) for k, v in params.items()}, {})
+        k: tmx.nd.array(v, ctx=tmx.cpu()) for k, v in params.items()}, {})
     qp = tmx.quantize.quantize_checkpoint(prefix, [X[:16], X[16:32]],
                                           calib_mode="naive", ctx=tmx.cpu())
     assert sorted(qp.meta) == ["fc1", "fc2"]
