@@ -6,7 +6,8 @@
 Phases, each fatal on failure (no phase's failure is caught):
 
 1. print the card's name and power limit; build the CUDA kernels from
-   ``mxnet_tpu_torch/ops/cuda/csrc`` with nvcc (sm_90a), timed;
+   ``mxnet_tpu_torch/ops/cuda/csrc`` with nvcc (sm_90a), timed, and
+   print each kernel's registers and spilled bytes (``-Xptxas -v``);
 2. hold each kernel against its plain PyTorch version on the card, at
    the serving widths (decode: 1-8 rows, 4 kv heads x group 4, head_dim
    64, 16-token pages; prefill: batch 1, buckets 16-256, 16 heads over 4
@@ -28,12 +29,16 @@ Phases, each fatal on failure (no phase's failure is caught):
 6. hold the training kernels, ``flash_attention`` (o, lse) and
    ``flash_attention_bwd`` (dq, dk, dv), against their plain versions
    by relative RMS error per (batch, head) slice: the train path's
-   shape (8, 16, 1024, 64), a small head_dim-32 shape and two tails
-   (s = 200, s = 40), causal and full, f32 and bf16; then show that
-   two planted faults (a dropped key tile, a shifted lse) fail;
+   shape (8, 16, 1024, 64), a small head_dim-32 shape and three tails
+   (s = 200 with one head and with b * heads = 6, s = 40), causal and
+   full, f32 and bf16; at the train shape in bf16 run both kernels a
+   second time and require all five outputs bitwise equal (the
+   backward is deterministic); then show that two planted faults (a
+   dropped key tile, a shifted lse) fail;
 7. time both at the train path's shape (bf16, causal), L2 flushed,
    beside their bound, plain version and scaled_dot_product_attention
-   (its backward through torch.autograd.grad);
+   (its backward through torch.autograd.grad): the ratio to it, the
+   TFLOP/s of both, the share of the bound;
 8. train the repo's transformer LM config at full width
    (benchmark.py's train_transformer_lm: vocab 32768, d_model 1024, 16
    heads, 12 layers, d_ff 4096, learned positions, bf16, 185.6M
@@ -243,6 +248,46 @@ class Timer(object):
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+def kernel_label(mangled):
+    """``flash_fwd_bf16_kernel<64>`` from a mangled entry name: the last
+    length-prefixed identifier that ends in ``kernel``, and its integer
+    template argument if it has one."""
+    best = None
+    for i in range(len(mangled)):
+        for j in range(i + 1, min(i + 4, len(mangled))):
+            if not mangled[i:j].isdigit():
+                break
+            ident = mangled[j:j + int(mangled[i:j])]
+            if (len(ident) == int(mangled[i:j])
+                    and re.fullmatch(r"[A-Za-z_]\w*kernel", ident)):
+                best = (ident, j + len(ident))
+    if best is None:
+        return mangled
+    arg = re.match(r"ILi(\d+)E", mangled[best[1]:])
+    return best[0] + ("<%s>" % arg.group(1) if arg else "")
+
+
+def ptxas_summary(out):
+    """One "name: registers, spills" entry per kernel from nvcc's
+    ``-Xptxas -v`` output, and ptxas's C75xx performance warnings."""
+    rows, name, spills = [], None, "?"
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_label(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append("%s %s regs %s B spilled" % (name, m.group(1),
+                                                     spills))
+        m = re.search(r"\((C75\d\d)\)", line)
+        if m:
+            rows.append("ptxas %s" % m.group(1))
+    return rows
+
+
 def max_err(got, ref):
     return float((got.float() - ref.float()).abs().max())
 
@@ -440,9 +485,11 @@ def time_kernels(torch, fa, timer):
 # ---------------------------------------------------------------------------
 
 # (b, heads, s, head_dim): the train path's, a small one with head_dim
-# 32, and tails: s not a multiple of the 64-row tile, s below one tile
+# 32, and tails: s not a multiple of the 128-row tile (one head, and
+# several, where a tile's rows past s would be the next head's rows but
+# for the TMA maps' zero fill), s below one tile
 FLASH_SHAPES = [(8, 16, 1024, 64), (2, 4, 128, 32), (1, 3, 200, 64),
-                (2, 2, 40, 32)]
+                (2, 3, 200, 64), (2, 2, 40, 32)]
 
 
 def attn_inputs(torch, gen, shape, dtype):
@@ -508,13 +555,33 @@ def planted_faults(torch, fa, q, k, v, do, ref, scale):
     return res
 
 
+def flash_repeat(torch, fa, q, k, v, do, causal, first):
+    """Both kernels once more on the same inputs: each output must equal
+    ``first`` (o, lse, dq, dk, dv) bitwise. The backward sums every
+    element in a fixed order (no atomics), so a second run differs only
+    if that breaks."""
+    o, lse = fa._flash_fwd(q, k, v, causal)
+    again = (o, lse) + tuple(fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    causal))
+    torch.cuda.synchronize()
+    differ = [n for n, a, b in zip(FLASH_OUTS, first, again)
+              if not torch.equal(a, b)]
+    log("flash repeat %s causal=%d: %s" % (tuple(q.shape), causal,
+                                           "bitwise equal" if not differ
+                                           else "differ in %s" % differ))
+    check(not differ, "flash kernels not deterministic: a second run on "
+          "the same inputs differs in %s" % differ)
+    return not differ
+
+
 def check_flash(torch, fa):
     """Phase 6: flash_attention (o, lse) and flash_attention_bwd (dq,
     dk, dv) against their plain versions (plain_flash), causal and full,
     f32 and bf16 (bf16: the plain version in f32 on the same inputs),
-    by rel_err; then the planted faults at the train path's shape."""
+    by rel_err; at the train path's shape in bf16 a second run of both
+    kernels bitwise equal to the first; then the planted faults there."""
     gen = torch.Generator().manual_seed(2)
-    rows, planted = [], None
+    rows, planted, repeats = [], None, []
     for dtype in (torch.float32, torch.bfloat16):
         lim = flash_limits(dtype, torch)
         for shape in FLASH_SHAPES:
@@ -539,11 +606,14 @@ def check_flash(torch, fa):
                 bad = {n: e for n, e in errs.items() if e > lim[n]}
                 check(not bad, "flash_attention %s %s causal=%s: %s over "
                       "the limits %s" % (dtype, shape, causal, bad, lim))
-                if (dtype == torch.bfloat16 and causal
-                        and shape == FLASH_SHAPES[0]):
-                    planted = planted_faults(torch, fa, q, k, v, do, ref,
-                                             scale)
-    return {"rows": rows, "planted": planted}
+                if dtype == torch.bfloat16 and shape == FLASH_SHAPES[0]:
+                    repeats.append(flash_repeat(torch, fa, q, k, v, do,
+                                                causal,
+                                                (o, lse, dq, dk, dv)))
+                    if causal:
+                        planted = planted_faults(torch, fa, q, k, v, do,
+                                                 ref, scale)
+    return {"rows": rows, "planted": planted, "bitwise_repeat": repeats}
 
 
 def time_flash(torch, fa, timer):
@@ -593,11 +663,16 @@ def time_flash(torch, fa, timer):
             "flops": flops, "bytes": nbytes, "max_abs_err": err})
     for r in rows:
         r["tflops"] = r["flops"] / (r["ms"] * 1e-3) / 1e12
+        r["library_tflops"] = r["flops"] / (r["library_ms"] * 1e-3) / 1e12
+        r["vs_library"] = r["ms"] / r["library_ms"]
+        r["of_bound"] = r["bound_ms"] / r["ms"]
         log("time %-20s %s ms=%.4f plain_ms=%.4f library_ms=%.4f "
-            "bound_ms=%.4f (%s) %.1f TFLOP/s max_abs_err=%.3g"
+            "(kernel/SDPA %.2fx) bound_ms=%.4f (%s; %.0f%% of it) "
+            "%.1f TFLOP/s (SDPA %.1f) max_abs_err=%.3g"
             % (r["name"], r["shape"], r["ms"], r["plain_ms"],
-               r["library_ms"], r["bound_ms"], r["bound_by"], r["tflops"],
-               r["max_abs_err"]))
+               r["library_ms"], r["vs_library"], r["bound_ms"],
+               r["bound_by"], 100 * r["of_bound"], r["tflops"],
+               r["library_tflops"], r["max_abs_err"]))
     return rows
 
 
@@ -3244,9 +3319,7 @@ def main():
     log("build_s %.2f (%s)" % (time.time() - t0, ", ".join(sorted(logs))
                                or "cached"))
     for name in sorted(logs):
-        regs = [l.strip() for l in logs[name].splitlines()
-                if "registers" in l]
-        log("ptxas %s: %s" % (name, " | ".join(regs)))
+        log("ptxas %s: %s" % (name, "; ".join(ptxas_summary(logs[name]))))
 
     timer = Timer(torch)
     checks = check_kernels(torch, fa)

@@ -64,10 +64,10 @@ class Trainer(object):
 
     @property
     def learning_rate(self):
-        return self._optimizer.lr
+        return self._optimizer.learning_rate
 
     def set_learning_rate(self, lr):
-        self._optimizer.lr = lr
+        self._optimizer.set_learning_rate(lr)
 
     @property
     def optimizer(self):

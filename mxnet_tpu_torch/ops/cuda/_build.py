@@ -33,7 +33,8 @@ BUILD_DIR = os.path.join(
     "build", "mxnet_tpu_torch_kernels")
 
 # kernel name -> its translation unit; the attention and update units
-# include common.cuh, the int8 units int8_gemm.cuh
+# include common.cuh (the bf16 flash attention units also hopper.cuh),
+# the int8 units int8_gemm.cuh
 SOURCES = {
     "paged_decode_attention": "paged_decode_attention.cu",
     "flash_prefill_paged": "flash_prefill_paged.cu",
@@ -44,7 +45,7 @@ SOURCES = {
     "int8_conv_im2col": "int8_conv_im2col.cu",
     "batch_norm_inference": "batch_norm_inference.cu",
 }
-_HEADERS = ("common.cuh", "int8_gemm.cuh")
+_HEADERS = ("common.cuh", "hopper.cuh", "int8_gemm.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

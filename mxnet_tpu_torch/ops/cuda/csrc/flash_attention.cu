@@ -29,22 +29,35 @@
 // q/k/v/o plus the lse (20 us at 3.35 TB/s): the two bounds are close,
 // memory slightly ahead.
 //
-// Design, bfloat16: one CTA of 4 warps per (64-row q tile, b * head);
-// each warp owns 16 query rows and keeps their q fragments, the running
-// max/sum and the 16 x head_dim float32 output in registers. Per 64-key
-// tile the CTA stages k row-major and v transposed in shared memory
-// (16-byte loads, rows padded by 8 bf16 so fragment loads hit distinct
-// banks); S = q k^T and o += p v run as mma.sync m16n8k16 bf16 products
-// with float32 sums, and p goes from the S accumulators to the next A
-// fragment in registers (rounded to bf16, as the tensor cores take it).
-// Causal CTAs are issued last-q-tile first so the longest ones start
-// first. No cp.async/TMA pipelining and no wgmma yet: later work.
+// Design, bfloat16 (wgmma fed by a TMA ring): one CTA of 288 threads
+// per (128-row q tile, b * head), two consumer warpgroups of 64 query
+// rows each and one producer warp. The producer's one thread loads the
+// q tile and then 64-key k and v tiles into a three-stage ring in
+// shared memory by TMA (3-D tensor maps over (b * heads, s, head_dim):
+// keys and rows past s read as zeros, never the next head's; 128-byte
+// swizzle for head_dim 64, 64-byte for 32), each stage guarded by a
+// full and an empty mbarrier, so later tiles load while this one
+// computes. Each consumer warpgroup runs S = q k^T as wgmma m64n64k16
+// with both operands read from shared memory (K-major), keeps the
+// online softmax in registers, rounds p to bf16 in registers as the A
+// operand of o += p v (wgmma m64n{head_dim}k16, v read MN-major through
+// the transpose bit: nothing is transposed by hand), and keeps the
+// 64 x head_dim float32 o in registers. Two CTAs share an SM (64 KB of
+// shared memory each at head_dim 64; at most 112 registers a thread:
+// ptxas gives 94, and 83 at head_dim 32, no spills), so one warpgroup's
+// softmax overlaps another's products. Only the causal diagonal and a
+// key tile past s mask; tiles above the diagonal are not loaded;
+// causal CTAs are issued last-q-tile first, across all heads, so the
+// longest start first. o and lse are stored from registers. exp is
+// ex2.approx of x * log2(e) (relative error ~2^-22, far below the bf16
+// rounding of p).
 //
 // Design, float32 (the exact reference path; the tensor cores have no
 // full-precision float32 product): one CTA per (16-row q tile, b *
 // head), scalar FMAs over tiles staged in shared memory, as in
 // flash_prefill_paged.cu.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -54,124 +67,162 @@ using bf16 = __nv_bfloat16;
 // bfloat16: tensor cores
 // -------------------------------------------------------------------------
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBQ = 16 * kWarps;  // query rows per CTA
-constexpr int kBK = 64;           // keys per tile
+namespace sm90 = mxt::sm90;
+
+constexpr int kBM = 128;          // query rows per CTA (two warpgroups)
+constexpr int kBN = 64;           // keys per tile
+constexpr int kStages = 3;        // k/v ring depth
+constexpr int kConsumers = 256;   // two consumer warpgroups
+constexpr int kFwdThreads = kConsumers + 32;  // + the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int s, int causal,
-                      float sm_scale) {
-  constexpr int LD = D + 8;      // row stride of q/k tiles
-  constexpr int LDT = kBK + 8;   // row stride of the transposed v tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // kBK x LD (q staging)
-  bf16* vt_s = k_s + kBK * LD;                    // D x LDT
+constexpr size_t fwd_smem() {
+  return size_t(D) * 2 * (kBM + 2 * kStages * kBN) + 64 + 1024;
+}
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, c = lane & 3;
-  const int qi = gridDim.x - 1 - blockIdx.x;
-  const size_t base = static_cast<size_t>(blockIdx.y) * s;
-  const int q_start = qi * kBQ;
-  const int row0 = q_start + warp * 16 + g;  // and row0 + 8
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      bf16* __restrict__ o, float* __restrict__ lse, int s,
+                      int causal, float sm_scale) {
+  using Sw = sm90::Swz<D>;
+  constexpr uint32_t kTile = kBN * D * 2;  // bytes of a k or v tile
+  constexpr uint32_t kQTile = kBM * D * 2;  // bytes of the q tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = sm90::align_smem(smem_raw);
+  unsigned char* q_s = sm;
+  unsigned char* kv_s = sm + kQTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kv_s + kTile * 2 * kStages);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-  // q fragments of this warp's 16 rows, staged through k_s
-  mxt::stage_tile<kBQ, D, kThreads>(k_s, LD, nullptr, 0, q + base * D, q_start,
-      s);
+  const int bh = blockIdx.x;
+  const int qi = gridDim.y - 1 - blockIdx.y;  // longest causal CTAs first
+  const int q_start = qi * kBM;
+  const int n_kv = (s + kBN - 1) / kBN;
+  const int n_tiles = causal ? min(n_kv, (q_start + kBM) / kBN) : n_kv;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      sm90::mbar_init(&full[i], 1);
+      sm90::mbar_init(&empty[i], kConsumers);
+    }
+    sm90::mbar_fence_init();
+  }
   __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    mxt::ld_a_frag(qf[kk], k_s, LD, warp * 16, kk * 16, lane);
 
-  float acc[D / 8][4];
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread issues every load
+    if (threadIdx.x == kConsumers) {
+      sm90::mbar_expect_tx(q_full, kQTile);
+      sm90::tma_load_3d(q_s, &tq, q_full, 0, q_start, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        sm90::mbar_wait(&empty[st], ((t / kStages) & 1) ^ 1);
+        sm90::mbar_expect_tx(&full[st], 2 * kTile);
+        unsigned char* k_dst = kv_s + st * 2 * kTile;
+        sm90::tma_load_3d(k_dst, &tk, &full[st], 0, t * kBN, bh);
+        sm90::tma_load_3d(k_dst + kTile, &tv, &full[st], 0, t * kBN, bh);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int row0 = q_start + wg * 64 + warp * 16 + g;  // and row0 + 8
+  const uint32_t q_tile = sm90::smem_u32(q_s) + wg * 64 * Sw::kRowBytes;
+
+  float acc[D / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {mxt::kNegInf, mxt::kNegInf};
   float l[2] = {0.f, 0.f};  // this thread's partial row sums
 
-  const int k_end = causal ? min(s, q_start + kBQ) : s;
-  for (int k_start = 0; k_start < k_end; k_start += kBK) {
-    __syncthreads();  // every warp is done with the previous tile
-    mxt::stage_tile<kBK, D, kThreads>(k_s, LD, nullptr, 0, k + base * D,
-        k_start, s);
-    mxt::stage_tile<kBK, D, kThreads>(nullptr, 0, vt_s, LDT, v + base * D,
-        k_start, s);
-    __syncthreads();
+  sm90::mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    sm90::mbar_wait(&full[st], (t / kStages) & 1);
+    const uint32_t k_tile = sm90::smem_u32(kv_s + st * 2 * kTile);
+    const uint32_t v_tile = k_tile + kTile;
 
-    // S = q k^T for 16 rows x kBK keys
-    float sc[kBK / 8][4];
+    // S = q k^T: 64 rows x kBN keys
+    float sc[kBN / 2];
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+    for (int i = 0; i < kBN / 2; ++i) sc[i] = 0.f;
+    sm90::fence_regs(sc);
+    sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b0, b1;
-        mxt::ld_bt_frag(b0, b1, k_s, LD, j * 8, kk * 16, lane);
-        mxt::mma_bf16(sc[j], qf[kk], b0, b1);
-      }
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss_n64<0>(sc, Sw::kmajor(q_tile, kk),
+                            Sw::kmajor(k_tile, kk), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
 
-    // scale, mask, online softmax (rows row0 and row0 + 8)
+    // scale, mask (the tiles that reach the diagonal or past s only),
+    // online softmax over rows row0 and row0 + 8
+    const int k_start = t * kBN;
+    const bool edge =
+        (causal && k_start + kBN > q_start) || k_start + kBN > s;
     float mx[2] = {mxt::kNegInf, mxt::kNegInf};
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k_start + j * 8 + 2 * c + (e & 1);
-        const int row = row0 + (e >> 1) * 8;
-        const bool ok = col < s && (!causal || col <= row);
-        const float x = ok ? sc[j][e] * sm_scale : mxt::kNegInf;
-        sc[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    for (int i = 0; i < kBN / 2; ++i) {
+      float x = sc[i] * sm_scale;
+      if (edge) {
+        const int col = k_start + 8 * (i >> 2) + 2 * c + (i & 1);
+        const int row = row0 + 8 * ((i >> 1) & 1);
+        if (col >= s || (causal && col > row)) x = mxt::kNegInf;
       }
+      sc[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
     }
-    float alpha[2];
+    float alpha[2], mb[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
       const float m_new = fmaxf(m[h], mx[h]);
-      alpha[h] = expf(m[h] - m_new);
+      alpha[h] = sm90::ex2((m[h] - m_new) * kLog2e);
       m[h] = m_new;
+      mb[h] = m_new * kLog2e;
     }
     float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sc[j][e] - m[e >> 1]);
-        sc[j][e] = p;
-        sum[e >> 1] += p;
-      }
+    for (int i = 0; i < kBN / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      const float p = sm90::ex2(fmaf(sc[i], kLog2e, -mb[h]));
+      sc[i] = p;
+      sum[h] += p;
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = alpha[h] * l[h] + sum[h];
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
-    // o += p v
+    // o += p v, p rounded to bf16 in registers
+    uint32_t pa[kBN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4];
-      mxt::c_to_a_frag(a, sc[2 * kk], sc[2 * kk + 1]);
+    for (int kk = 0; kk < kBN / 16; ++kk) sm90::acc_to_a(pa[kk], sc, kk);
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        uint32_t b0, b1;
-        mxt::ld_bt_frag(b0, b1, vt_s, LDT, j * 8, kk * 16, lane);
-        mxt::mma_bf16(acc[j], a, b0, b1);
-      }
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      if constexpr (D == 64)
+        sm90::wgmma_rs_n64<1>(acc, pa[kk], Sw::mnmajor(v_tile, kk), 1);
+      else
+        sm90::wgmma_rs_n32<1>(acc, pa[kk], Sw::mnmajor(v_tile, kk), 1);
     }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::mbar_arrive(&empty[st]);
   }
 
 #pragma unroll
@@ -182,12 +233,14 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = row0 + h * 8;
     if (row < s) {
       const float inv = 1.f / l_safe;
-      bf16* orow = o + (base + row) * D;
+      bf16* orow = o + (static_cast<size_t>(bh) * s + row) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * c) =
-            mxt::pack_bf16(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
-      if (c == 0) lse[base + row] = m[h] + logf(l_safe);
+            sm90::pack_bf16(acc[4 * j + 2 * h] * inv,
+                            acc[4 * j + 2 * h + 1] * inv);
+      if (c == 0) lse[static_cast<size_t>(bh) * s + row] =
+          m[h] + logf(l_safe);
     }
   }
 }
@@ -196,6 +249,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // float32: CUDA cores
 // -------------------------------------------------------------------------
 
+constexpr int kThreads = 128;
 constexpr int kBQf = 16;
 constexpr int kBKf = 16;
 
@@ -301,14 +355,18 @@ template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* lse, int bh, int s, int causal, float sm_scale,
                 cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (kBK * (D + 8) + D * (kBK + 8));
+  CUtensorMap tq, tk, tv;
+  if (!sm90::map_rows<D>(&tq, q, bh, s, kBM) ||
+      !sm90::map_rows<D>(&tk, k, bh, s, kBN) ||
+      !sm90::map_rows<D>(&tv, v, bh, s, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fwd_smem<D>();
   cudaError_t err = mxt::allow_smem(flash_fwd_bf16_kernel<D>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s + kBQ - 1) / kBQ, bh);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), s, causal, sm_scale);
+  const dim3 grid(bh, (s + kBM - 1) / kBM);
+  flash_fwd_bf16_kernel<D><<<grid, kFwdThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), s, causal,
+      sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

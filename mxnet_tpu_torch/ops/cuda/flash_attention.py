@@ -365,9 +365,13 @@ def _check_attention(fn, float_args, lse=None):
     if dev.type == "cuda":
         _check(shape[3] in HEAD_DIMS, "%s: head_dim %d has no kernel "
                "(built for %s)", fn, shape[3], HEAD_DIMS)
-        # b * heads is the grid's y dimension
+        # b * heads is the float32 grid's y dimension; the bf16 kernels'
+        # TMA coordinates into the (b * heads * s) lse are 32-bit
         _check(shape[0] * shape[1] <= 65535, "%s: b * heads = %d exceeds "
                "65535", fn, shape[0] * shape[1])
+        _check(shape[0] * shape[1] * shape[2] < 2 ** 31, "%s: b * heads * "
+               "seq = %d exceeds 2^31 - 1", fn,
+               shape[0] * shape[1] * shape[2])
         for name, t in float_args:
             _check(t.data_ptr() % 16 == 0, "%s: %s storage is not 16-byte "
                    "aligned", fn, name)
@@ -410,8 +414,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
     """Gradients ``(dq, dk, dv)`` of attention from the forward's ``o``
     and ``lse`` and the output gradient ``do`` (FlashAttention-2
     recompute, the JAX package's ``_flash_bwd``). One launch of the
-    ``flash_attention_bwd`` kernel entry (delta pre-pass, dk/dv pass, dq
-    pass) for CUDA tensors; CPU tensors take :func:`_flash_bwd_torch`."""
+    ``flash_attention_bwd`` kernel entry for CUDA tensors (bfloat16: a
+    dq pass that also computes delta, then a dk/dv pass; float32: a
+    delta pre-pass, then the two), deterministic: no atomics, every sum
+    in a fixed order. CPU tensors take :func:`_flash_bwd_torch`."""
     fn = "flash_attention_bwd"
     dev, (b, h, s, hd) = _check_attention(
         fn, [("q", q), ("k", k), ("v", v), ("o", o), ("do", do)], lse=lse)

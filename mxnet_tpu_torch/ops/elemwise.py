@@ -144,8 +144,21 @@ def _ones_like(x):
 
 @register("Cast", attr_defaults={"dtype": "float32"})
 def _cast(x, dtype="float32"):
+    """``x`` as ``dtype`` with the reference's conversions (XLA's
+    convert): a float becomes an integer by truncation toward zero,
+    saturated to the type's range, NaN to 0; integers wrap, as there;
+    bool and the float types among themselves as ``Tensor.to``."""
     from ..ndarray.ndarray import to_torch_dtype
-    return x.to(to_torch_dtype(dtype))
+    dt = to_torch_dtype(dtype)
+    if not x.is_floating_point() or dt.is_floating_point or dt == torch.bool:
+        return x.to(dt)
+    info = torch.iinfo(dt)
+    # float64 holds every 32-bit integer exactly, so the clamp is exact
+    y = torch.nan_to_num(torch.trunc(x.double()), nan=0.0)
+    out = y.clamp(info.min, info.max).to(dt)
+    if info.bits == 64:     # int64's max rounds up to 2^63 in float64
+        out = torch.where(y >= 2.0 ** 63, info.max, out)
+    return out
 
 
 alias("cast", "Cast")

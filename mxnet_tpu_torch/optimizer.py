@@ -100,6 +100,24 @@ class Optimizer(object):
         self.set_lr_mult({})
         self.set_wd_mult({})
 
+    @property
+    def learning_rate(self):
+        """The current learning rate, the scheduler's at ``num_update``
+        when one is set (reference: optimizer.py learning_rate)."""
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
+        return self.lr
+
+    def set_learning_rate(self, lr):
+        """Set the learning rate; refused while a scheduler sets it."""
+        if self.lr_scheduler is not None:
+            raise UserWarning(
+                "LRScheduler of the optimizer has already been defined. "
+                "Note that set_learning_rate can mutate the value of the "
+                "learning rate of the optimizer only when the LRScheduler "
+                "of the optimizer is undefined.")
+        self.lr = lr
+
     def create_state(self, index, weight):
         """Create the state for ``weight``. Override."""
 

@@ -14,12 +14,13 @@ attention kernels (forward and backward) are held by relative RMS error
 backward fed the plain o and lse: o, dq, dk, dv within 1e-5 in float32
 and 1e-2 in bfloat16 (one bf16 rounding is 1.7e-3 RMS; the kernels
 round p and ds for the tensor cores and their outputs), lse within 1e-5
-in both. The engine on the card must give the CPU engine's greedy
-streams, with the kernels launched once per layer per prefill and per
-decode step; the train step on the card must match the CPU's in
-float32, and in bfloat16 its gradients through the kernels must match
-those through the plain attention route. The fused optimizer update
-kernel must equal its plain versions bitwise (SGD with and without
+in both, and a second run of both equals the first bitwise (the backward
+sums in a fixed order, no atomics). The engine on the card must give the
+CPU engine's greedy streams, with the kernels launched once per layer
+per prefill and per decode step; the train step on the card must match
+the CPU's in float32, and in bfloat16 its gradients through the kernels
+must match those through the plain attention route. The fused optimizer
+update kernel must equal its plain versions bitwise (SGD with and without
 momentum and clip, Adam; aligned and misaligned tensors; one launch per
 list), and a 2-step ResNet ``Module.fit`` on the card must match the
 same fit on the CPU, through one update launch a step: each weight's
@@ -178,6 +179,7 @@ def _rel_err(got, ref):
 @pytest.mark.parametrize("shape", [
     (2, 16, 256, 64),            # the train path's heads and head_dim
     (1, 3, 200, 32),             # head_dim 32, a ragged last tile
+    (2, 3, 200, 64),             # a ragged last tile in every head
 ])
 def test_flash_attention_kernels_match_plain(card, dtype, causal, shape):
     rng = np.random.RandomState(8)
@@ -201,6 +203,12 @@ def test_flash_attention_kernels_match_plain(card, dtype, causal, shape):
                               (o, lse) + tuple(grads), (ro, rl) + tuple(rg)):
         assert got.dtype == (torch.float32 if got is lse else dt)
         assert _rel_err(got, ref) <= (1e-5 if got is lse else tol), name
+    # a second run on the same inputs is bitwise the first (no atomics)
+    o2, lse2 = tfa._flash_fwd(q, k, v, causal)
+    grads2 = tfa.flash_attention_bwd(q, k, v, o2, lse2, do, causal)
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"),
+                          (o, lse) + tuple(grads), (o2, lse2) + tuple(grads2)):
+        assert torch.equal(a, b), name
 
 
 def test_flash_attention_rejects_head_dim_without_kernel(card):

@@ -1,0 +1,112 @@
+"""Two faults of the port against the JAX package, held on the CPU.
+
+* ``Trainer.learning_rate`` follows the optimizer's lr scheduler, and
+  ``set_learning_rate`` is refused while a scheduler sets the rate
+  (reference: ``gluon/trainer.py`` ``learning_rate`` →
+  ``optimizer.py`` ``Optimizer.learning_rate``).
+* ``Cast`` (``nd.cast``, ``NDArray.astype``) converts as the JAX
+  package's op does: a float becomes an integer by truncation toward
+  zero, saturated to the type's range, NaN to 0; int32 to a narrower
+  integer wraps. The JAX package's result is the expected value.
+"""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+
+import mxnet_tpu as jmx  # noqa: E402
+
+import mxnet_tpu_torch as tmx  # noqa: E402
+
+
+def _train_steps(mx, steps, scheduler=True):
+    """``steps`` Trainer steps of a 2-layer Dense net on seeded data,
+    base lr 0.2 halved every update when ``scheduler``; the trainer."""
+    ctx = mx.cpu()
+    net = mx.gluon.nn.Sequential()
+    net.add(mx.gluon.nn.Dense(8, activation="relu"), mx.gluon.nn.Dense(2))
+    net.initialize(ctx=ctx)
+    params = {"learning_rate": 0.2}
+    if scheduler:
+        params["lr_scheduler"] = mx.lr_scheduler.FactorScheduler(
+            step=1, factor=0.5)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", params)
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.randn(4, 5).astype(np.float32), ctx=ctx)
+    for _ in range(steps):
+        with mx.autograd.record():
+            loss = (net(x) ** 2).sum()
+        loss.backward()
+        trainer.step(4)
+    return trainer
+
+
+@pytest.mark.parametrize("steps", [0, 1, 4])
+def test_trainer_learning_rate_follows_scheduler(steps):
+    want = _train_steps(jmx, steps).learning_rate
+    got = _train_steps(tmx, steps).learning_rate
+    assert got == pytest.approx(want, rel=1e-12)
+    if steps == 4:
+        assert got == pytest.approx(0.025, rel=1e-12)
+
+
+@pytest.mark.parametrize("mx", [jmx, tmx], ids=["jax", "torch"])
+def test_set_learning_rate(mx):
+    trainer = _train_steps(mx, 1)
+    with pytest.raises(UserWarning):
+        trainer.set_learning_rate(0.1)
+    with pytest.raises(UserWarning):
+        trainer.optimizer.set_learning_rate(0.1)
+    plain = _train_steps(mx, 1, scheduler=False)
+    assert plain.learning_rate == pytest.approx(0.2)
+    plain.set_learning_rate(0.05)
+    assert plain.learning_rate == pytest.approx(0.05)
+    assert plain.optimizer.learning_rate == pytest.approx(0.05)
+
+
+CAST_FLOATS = [-1.7, 300.0, 255.5, -129.5, np.inf, -np.inf, np.nan, 0.0,
+               3.9, -3.9, 127.4, -128.6, 0.5, 2.5e9, -2.5e9]
+CAST_INTS = [300, -1, 128, -129, 255, 256, 70000, -70000, 0, 127]
+
+
+def _cast_both(src, dtype, via):
+    out = []
+    for mx in (jmx, tmx):
+        a = mx.nd.array(src, dtype=str(src.dtype), ctx=mx.cpu())
+        r = (mx.nd.cast(a, dtype=dtype) if via == "cast"
+             else a.astype(dtype))
+        out.append(r.asnumpy())
+    return out
+
+
+@pytest.mark.parametrize("via", ["cast", "astype"])
+@pytest.mark.parametrize("dtype", ["uint8", "int8", "int32"])
+@pytest.mark.parametrize("value", CAST_FLOATS)
+def test_cast_float32_to_int_matches_jax(value, dtype, via):
+    src = np.array([value], np.float32)
+    want, got = _cast_both(src, dtype, via)
+    assert got.dtype == want.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("via", ["cast", "astype"])
+@pytest.mark.parametrize("dtype", ["uint8", "int8"])
+def test_cast_int32_to_narrower_wraps_as_jax(dtype, via):
+    src = np.array(CAST_INTS, np.int32)
+    want, got = _cast_both(src, dtype, via)
+    assert got.dtype == want.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, src.astype(dtype))   # two's compl.
+
+
+@pytest.mark.parametrize("dtype", ["bool", "float16", "bfloat16"])
+def test_cast_float32_to_bool_and_floats_matches_jax(dtype):
+    """Read back through a second cast to float32 (the port's
+    ``asnumpy`` has no bfloat16)."""
+    src = np.array(CAST_FLOATS, np.float32)
+    out = []
+    for mx in (jmx, tmx):
+        a = mx.nd.array(src, ctx=mx.cpu())
+        out.append(mx.nd.cast(mx.nd.cast(a, dtype=dtype),
+                              dtype="float32").asnumpy())
+    np.testing.assert_array_equal(out[1], out[0])
