@@ -75,25 +75,33 @@ Phases, each fatal on failure (no phase's failure is caught):
     change) held to the CPU float32's own, and a planted BatchNorm
     gradient fault that must fail;
 15. hold the int8 kernels of quantized serving (``int8_matmul``,
-    ``int8_conv_im2col``) against their plain versions, bitwise: the
-    matmul at small ragged shapes (zero-scale channels among them) and
-    at ResNet-50's FC (m 1, 8, 32 x 2048 x 1000), the convolution at
-    every distinct conv shape of ResNet-50 at batch 1 and 32, groups 2
-    and 32, a dilated case and odd H/W tails; then two planted faults
-    (the scale table shifted by one channel, the last 32-deep K chunk
-    dropped) that must fail; and the inference BatchNorm kernel
+    ``int8_conv_im2col``) against their plain versions, bitwise, each
+    on the route (wgmma or mma.sync) its wrapper's route function picks,
+    asserted from the per-route launch counts: the matmul at small
+    ragged shapes (zero-scale channels among them), a large m, a
+    misaligned x and ResNet-50's FC (m 1, 8, 32 x 2048 x 1000; the
+    split-K FC twice, bitwise equal), the convolution at every distinct
+    conv shape of ResNet-50 at batch 1 and 32, groups 2 and 32, a
+    dilated case and odd H/W tails, each with channels-last and with
+    contiguous operands; then planted faults that must fail (the scale
+    table shifted by one channel, the last 32-deep K chunk dropped, one
+    K slice of the split-K FC dropped, one tap of a 3x3 conv zeroed);
+    and the inference BatchNorm kernel
     (``batch_norm_inference``) bitwise at every distinct BatchNorm shape
     of ResNet-50 at batch 1 and 32 and at ragged and misaligned inputs,
     with two planted faults (the mean shifted by one channel, eps
     dropped) that must fail;
 16. time the three at the batch-32 shapes (CUDA events, L2 flushed): the
-    conv per distinct shape and summed over a forward's 53 convs, the
-    FC, the BatchNorm per shape and summed over a forward's 51; beside
-    each its bound (int8 operations over 1979 TOP/s, bytes over 3.35
-    TB/s), its plain version and, for the matmul, ``torch._int_mm``, for
+    conv per distinct shape (channels-last operands, as serving gives
+    them; the route each takes) and summed over a forward's 53 convs,
+    the FC, the BatchNorm per shape and summed over a forward's 51;
+    beside each its bound (int8 operations over 1979 TOP/s, bytes over
+    3.35 TB/s) and share of it, its plain version, the first design
+    (the mma.sync route) and, for the matmul, ``torch._int_mm``, for
     the BatchNorm ``F.batch_norm`` (no PyTorch call computes an int8
     conv on the card: its library_ms is null; ``torch._int_mm`` over
-    prebuilt patch matrices is reported beside it);
+    prebuilt patch matrices is reported beside it); the host
+    microseconds of a wrapper call on each route;
 17. serve ResNet-50 in int8 at full width (benchmark.py's
     infer_quantized / quantized_serve route): seeded Xavier weights ->
     ``model.save_checkpoint`` -> ``quantize.quantize_checkpoint`` (naive
@@ -104,11 +112,14 @@ Phases, each fatal on failure (no phase's failure is caught):
     one-image requests from 16 client threads and 4 requests of 4 rows
     to each: every request answered, 53 ``int8_conv_im2col`` + 1
     ``int8_matmul`` (fp32: none) and 51 ``batch_norm_inference``
-    launches per executed batch, repeats of an image bitwise equal
+    launches per executed batch, the FC and 52 convs on the wgmma route
+    and the stem on mma.sync with no operand copied to another memory
+    format, repeats of an image bitwise equal
     (int8); then four timed closed-loop windows of 6 s (int8, fp32,
     fp32, int8; 16 clients of one-image requests, the same launch
     checks): img/s and p50/p99 latency; the int8-vs-fp32 drift; one
-    profiled batch-32 int8 forward, and its input's upload timed alone;
+    profiled batch-32 int8 forward (device ms by class, busy share, the
+    conv's share), and its input's upload timed alone;
 18. the int8 artifact on the card against the port on the CPU at batch
     2: each of the 54 quantized layers bitwise given the card's input
     to it, the whole forward within 1e-3 relative RMS, the share of
@@ -1824,90 +1835,167 @@ def int8_inputs(torch, rng, key, dev):
     return q, wq, s
 
 
+def _routed(i8, kind, fn):
+    """``fn()`` and the routes of ``kind`` that it launched (from the
+    per-route counts)."""
+    before = dict(i8.ROUTES[kind])
+    out = fn()
+    return out, [r for r, n in i8.ROUTES[kind].items() if n != before[r]]
+
+
+def _in_format(torch, t, fmt):
+    return t.contiguous(memory_format=torch.channels_last
+                        if fmt == "channels_last" else torch.contiguous_format)
+
+
+def int8_conv_cases(mx):
+    """Phase 15's convolutions: every distinct conv shape of ResNet-50 at
+    batch 1 and 32, groups 2 and 32, a dilated case, odd H/W tails, a
+    1 x 1 input (one position an image), 8 output channels, and 200
+    (not a multiple of 64)."""
+    convs = []
+    for batch in (1, SERVE_BATCH):
+        convs += [key for key, _ in distinct_rows(int8_conv_layers(mx,
+                                                                    batch))]
+    return convs + [
+        ((2, 64, 14, 14), (64, 32, 3, 3), (1, 1), (1, 1), (1, 1), 2),
+        ((2, 64, 10, 10), (64, 2, 3, 3), (1, 1), (1, 1), (1, 1), 32),
+        ((2, 64, 15, 13), (32, 64, 3, 3), (1, 1), (2, 2), (2, 2), 1),
+        ((3, 24, 17, 23), (40, 24, 5, 3), (2, 3), (1, 1), (2, 1), 1),
+        ((3, 96, 17, 23), (40, 96, 5, 3), (2, 3), (1, 1), (2, 1), 1),
+        ((1, 32, 1, 1), (16, 32, 3, 3), (1, 1), (1, 1), (1, 1), 1),
+        ((2, 64, 3, 2), (8, 64, 1, 1), (1, 1), (1, 1), (0, 0), 1),
+        ((3, 128, 5, 5), (200, 128, 3, 3), (2, 2), (1, 1), (1, 1), 1)]
+
+
+# (m, k, n) of phase 15's matmuls: ragged (mma.sync), small and large m
+# on the wgmma route, ResNet-50's FC at m 1, 8, 32, and a misaligned x
+INT8_MATMULS = [(1, 8, 4), (5, 37, 11), (16, 256, 64), (200, 512, 130),
+                (1, 2048, 1000), (8, 2048, 1000), (32, 2048, 1000)]
+
+
 def check_int8(torch, mx, i8):
     """Phase 15: both int8 kernels against their plain versions on the
-    card, bitwise: ``int8_matmul`` at (1, 8, 4), (5, 37, 11), (16, 256,
-    64), with zero-scale channels, and at the FC of ResNet-50 (m in 1, 8,
-    32 x k 2048 x n 1000); ``int8_conv_im2col`` at every distinct conv
-    shape of ResNet-50 at batch 1 and 32, groups 2 and 32, a dilated case
-    and odd H/W tails. Then two planted faults that must fail: the scale
-    table shifted by one channel, and the last 32-deep K chunk dropped."""
+    card, bitwise, each on the route the wrapper's route function picks
+    for it, asserted from the per-route launch counts: ``int8_matmul`` at
+    INT8_MATMULS (zero-scale channels at (16, 256, 64)) and with x 1 byte
+    off alignment; ``int8_conv_im2col`` at ``int8_conv_cases``, each with
+    q and wq in channels-last memory and again contiguous. The split-K FC
+    twice, bitwise equal. Then planted faults that must fail: the scale
+    table shifted by one channel and the last 32-deep K chunk dropped
+    (the FC, and the stem on the mma.sync route), one K slice of the
+    split-K FC dropped, one tap of a 3x3 conv zeroed (wgmma route)."""
     dev = torch.device("cuda")
     rng = np.random.RandomState(15)
     rows = []
 
-    def hold(kind, shape, got, ref):
+    def hold(kind, shape, route, got, ref):
         torch.cuda.synchronize()
         same, err = torch.equal(got, ref), max_err(got, ref)
-        rows.append({"kernel": kind, "shape": str(shape), "bitwise": same,
-                     "max_abs_err": err})
-        check(same, "%s %s differs from its plain version (max abs err %g)"
-              % (kind, shape, err))
+        rows.append({"kernel": kind, "shape": str(shape), "route": route,
+                     "bitwise": same, "max_abs_err": err})
+        check(same, "%s %s (%s) differs from its plain version (max abs "
+              "err %g)" % (kind, shape, route, err))
 
     fc = None
-    for m, k, n in ((1, 8, 4), (5, 37, 11), (16, 256, 64), (1, 2048, 1000),
-                    (8, 2048, 1000), (32, 2048, 1000)):
+    for m, k, n in INT8_MATMULS + [(9, 64, 24)]:
         x = torch.from_numpy(rng.randint(-127, 128, (m, k)).astype(
             np.int8)).to(dev)
+        if (m, k) == (9, 64):           # x 1 byte off alignment
+            x = torch.empty(m * k + 1, dtype=torch.int8,
+                            device=dev)[1:].view(m, k).copy_(x)
         w = torch.from_numpy(rng.randint(-127, 128, (n, k)).astype(
             np.int8)).to(dev)
         s = torch.from_numpy(rng.rand(n).astype(np.float32) * 0.1).to(dev)
         if (m, k) == (16, 256):
             s[::7] = 0.0                # zero-scale channels
-        got = i8.int8_matmul(x, w, s)
-        hold("int8_matmul", (m, k, n), got, i8._int8_matmul_plain(x, w, s))
+        want = i8.matmul_route(m, n, k, x.data_ptr() % 16 == 0)
+        got, routes = _routed(i8, "int8_matmul",
+                              lambda: i8.int8_matmul(x, w, s))
+        check(routes == [want[0]], "int8_matmul %s launched %s, its route "
+              "is %s" % ((m, k, n), routes, want[0]))
+        hold("int8_matmul", (m, k, n) + want[1:], want[0], got,
+             i8._int8_matmul_plain(x, w, s))
         if (m, k) == (16, 256):
             check(bool((got[:, ::7] == 0).all()), "zero-scale channels "
                   "are not exact zeros")
-        fc = (x, w, s, got)
-    convs = []
-    for batch in (1, SERVE_BATCH):
-        convs += [key for key, _ in distinct_rows(int8_conv_layers(mx,
-                                                                    batch))]
-    convs += [((2, 64, 14, 14), (64, 32, 3, 3), (1, 1), (1, 1), (1, 1), 2),
-              ((2, 64, 10, 10), (64, 2, 3, 3), (1, 1), (1, 1), (1, 1), 32),
-              ((2, 64, 15, 13), (32, 64, 3, 3), (1, 1), (2, 2), (2, 2), 1),
-              ((3, 24, 17, 23), (40, 24, 5, 3), (2, 3), (1, 1), (2, 1), 1)]
-    stem = None
-    for key in convs:
-        q, wq, s = int8_inputs(torch, rng, key, dev)
+        if (m, k, n) == (32, 2048, 1000):
+            check(want[2] > 1 and -(-n // 64) * want[2] >= 128,
+                  "the FC's split-K grid has %d slices" % want[2])
+            again = i8.int8_matmul(x, w, s)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), "two runs of the split-K FC "
+                  "differ")
+            rows.append({"repeat": "int8_matmul split-K FC", "bitwise":
+                         True})
+            fc = (x, w, s, got, want)
+    stem = tap = None
+    routes_seen = {"wgmma": 0, "mma_sync": 0}
+    for key in int8_conv_cases(mx):
+        q0, wq0, s = int8_inputs(torch, rng, key, dev)
         args = key[2:]
-        got = i8.int8_conv_im2col(q, wq, s, *args)
-        hold("int8_conv_im2col", key, got, i8._int8_conv_plain(q, wq, s,
-                                                              *args))
-        if stem is None:
-            stem = (q, wq, s, args, got)   # ResNet-50's 7x7 stem, batch 1
-    log("check int8: %d int8_matmul and %d int8_conv_im2col shapes, all "
-        "bitwise equal to their plain versions" % (
-            sum(r["kernel"] == "int8_matmul" for r in rows),
-            sum(r["kernel"] == "int8_conv_im2col" for r in rows)))
+        for fmt in ("channels_last", "contiguous"):
+            q, wq = _in_format(torch, q0, fmt), _in_format(torch, wq0, fmt)
+            # (a 1 x 1 input's memory is channels-last either way)
+            want = i8.conv_route(q.shape, wq.shape, *args,
+                                 channels_last=q.is_contiguous(
+                                     memory_format=torch.channels_last))
+            got, routes = _routed(i8, "int8_conv_im2col", lambda:
+                                  i8.int8_conv_im2col(q, wq, s, *args))
+            check(routes == [want[0]], "int8_conv_im2col %s (%s) launched "
+                  "%s, its route is %s" % (key, fmt, routes, want[0]))
+            routes_seen[want[0]] += 1
+            hold("int8_conv_im2col", key + (fmt,), want[0], got,
+                 i8._int8_conv_plain(q, wq, s, *args))
+            if stem is None:
+                stem = (q, wq, s, args, got)   # ResNet-50's 7x7 stem
+            if tap is None and want[0] == "wgmma" and key[1][2:] == (3, 3):
+                tap = (q, wq, s, args, got)
+    check(tap is not None, "no 3x3 conv took the wgmma route")
+    log("check int8: %d int8_matmul and %d int8_conv_im2col cases (convs: "
+        "%d wgmma, %d mma_sync), all bitwise equal to their plain versions "
+        "on the route their route function picks" % (
+            sum(r.get("kernel") == "int8_matmul" for r in rows),
+            sum(r.get("kernel") == "int8_conv_im2col" for r in rows),
+            routes_seen["wgmma"], routes_seen["mma_sync"]))
     # planted faults: the references a broken kernel would match
-    x, w, s, got = fc
-    for label, ref in (
-            ("scale table shifted by one channel",
-             i8._int8_matmul_plain(x, w, torch.roll(s, 1))),
-            ("last K chunk dropped",
-             i8._int8_matmul_plain(x, _drop_last_chunk(w), s))):
-        same = torch.equal(got, ref)
-        log("planted fault (int8_matmul, %s): bitwise %s, max abs err %.3g"
-            % (label, same, max_err(got, ref)))
-        check(not same, "planted fault (%s) passes the int8_matmul check"
-              % label)
-        rows.append({"planted": "int8_matmul: " + label, "bitwise": same})
+    x, w, s, got, (_, bn, splits) = fc
+    per = -(-w.shape[1] // i8.WG_BK) // splits * i8.WG_BK
+    faults = [
+        ("int8_matmul", "scale table shifted by one channel", got,
+         i8._int8_matmul_plain(x, w, torch.roll(s, 1))),
+        ("int8_matmul", "last K chunk dropped", got,
+         i8._int8_matmul_plain(x, _drop_last_chunk(w), s)),
+        ("int8_matmul", "one K slice of the split-K FC dropped", got,
+         i8._int8_matmul_plain(x, _zero_k(w, per, 2 * per), s))]
     q, wq, s, args, got = stem
-    for label, ref in (
-            ("scale table shifted by one channel",
-             i8._int8_conv_plain(q, wq, torch.roll(s, 1), *args)),
-            ("last K chunk dropped",
-             i8._int8_conv_plain(q, _drop_last_chunk(wq), s, *args))):
+    faults += [
+        ("int8_conv_im2col", "stem, scale table shifted by one channel",
+         got, i8._int8_conv_plain(q, wq, torch.roll(s, 1), *args)),
+        ("int8_conv_im2col", "stem, last K chunk dropped", got,
+         i8._int8_conv_plain(q, _drop_last_chunk(wq), s, *args))]
+    q, wq, s, args, got = tap
+    wz = wq.clone()
+    wz[:, :, 1, 2] = 0
+    faults.append(("int8_conv_im2col", "one tap of a 3x3 conv zeroed (%s)"
+                   % (tuple(q.shape),), got,
+                   i8._int8_conv_plain(q, wz, s, *args)))
+    for kind, label, got, ref in faults:
         same = torch.equal(got, ref)
-        log("planted fault (int8_conv_im2col, stem, %s): bitwise %s, max "
-            "abs err %.3g" % (label, same, max_err(got, ref)))
-        check(not same, "planted fault (%s) passes the int8_conv_im2col "
-              "check" % label)
-        rows.append({"planted": "int8_conv_im2col: " + label,
-                     "bitwise": same})
+        log("planted fault (%s, %s): bitwise %s, max abs err %.3g"
+            % (kind, label, same, max_err(got, ref)))
+        check(not same, "planted fault (%s) passes the %s check"
+              % (label, kind))
+        rows.append({"planted": "%s: %s" % (kind, label), "bitwise": same})
     return rows
+
+
+def _zero_k(w, k0, k1):
+    """``w`` (n, k) with columns k0..k1 zeroed: what a split-K kernel
+    that lost one slice would compute."""
+    w = w.clone()
+    w[:, k0:k1] = 0
+    return w
 
 
 def bn_inputs(torch, rng, shape, dev, offset=0):
@@ -2039,20 +2127,59 @@ def _held(torch, got, ref, what):
     return err
 
 
+def _mma_sync_matmul(torch, i8, x, w, s):
+    """The FC on the mma.sync route (the first design), which the wrapper
+    no longer picks for it: the library's entry called directly, counted
+    nowhere (a yardstick, as the plain version)."""
+    from mxnet_tpu_torch.ops.cuda import _build
+    out = torch.empty((x.shape[0], w.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    lib = _build.load("int8_matmul", i8._SYMBOLS["int8_matmul"])
+    err = lib.int8_matmul(x.data_ptr(), w.data_ptr(), s.data_ptr(),
+                          out.data_ptr(), x.shape[0], w.shape[0], x.shape[1],
+                          torch.cuda.current_stream().cuda_stream)
+    check(err == 0, "int8_matmul mma.sync launch failed (%d)" % err)
+    return out
+
+
+def host_us(torch, fn, n=1000, reps=3):
+    """Host microseconds a call of ``fn`` (a wrapper that launches one
+    kernel): the least over ``reps`` runs of ``n`` calls enqueued back to
+    back, each followed by a synchronise outside the clock (the host's
+    clock varies with its other load)."""
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        best = t if best is None else min(best, t)
+    return best
+
+
 def time_int8(torch, mx, i8, timer):
-    """Phase 16: both kernels at the batch-32 shapes, L2 flushed before
-    every launch: ``int8_conv_im2col`` per distinct conv shape of
-    ResNet-50 and summed over one forward's 53 convolutions,
-    ``int8_matmul`` at the FC (32 x 2048 x 1000). Beside each: the bound
-    (max of the int8 operations over 1979 TOP/s and the bytes over 3.35
-    TB/s), the plain version's time and, for the matmul,
+    """Phase 16: both kernels at the batch-32 shapes, L2 flushed and a
+    0.5 ms device-side hold before every launch (the wrappers' host side
+    may outlast the flush): ``int8_conv_im2col`` per distinct conv shape of
+    ResNet-50 and summed over one forward's 53 convolutions, with q and
+    wq in channels-last memory as quantized serving gives them (the route
+    each takes is recorded), ``int8_matmul`` at the FC (32 x 2048 x 1000).
+    Beside each: the bound (max of the int8 operations over 1979 TOP/s
+    and the bytes over 3.35 TB/s) and the share of it reached, the plain
+    version's time, the first design's (the mma.sync route: the conv on
+    contiguous inputs, the FC through its entry) and, for the matmul,
     ``torch._int_mm`` followed by the scale multiply. No single PyTorch
     call computes an int8 convolution on the card, so the conv's
     library_ms is null; ``int_mm_patch_ms`` is ``torch._int_mm`` over a
     prebuilt patch matrix (the explicit im2col, built untimed) for the
-    shapes it takes (K and N multiples of 8: all but the stem).
-    max_abs_err: each timed kernel's output against its plain version's
-    on the same inputs (bitwise, so 0)."""
+    shapes it takes (K and N multiples of 8: all but the stem). Then the
+    host microseconds a wrapper call takes on each route (the FC aligned
+    and with x 1 byte off; the first 3x3 conv channels-last and
+    contiguous). max_abs_err: each timed kernel's output against its
+    plain version's on the same inputs (bitwise, so 0)."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     rng = np.random.RandomState(16)
@@ -2061,49 +2188,66 @@ def time_int8(torch, mx, i8, timer):
           % len(layers))
     shapes, err = [], 0.0
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_ms": 0.0,
-           "bytes_ms": 0.0, "int_mm_patch_ms": 0.0, "int_mm_shapes": 0}
+           "bytes_ms": 0.0, "mma_sync_ms": 0.0, "int_mm_patch_ms": 0.0,
+           "int_mm_shapes": 0}
+    conv3 = None
     for key, count in distinct_rows(layers):
-        q, wq, s = int8_inputs(torch, rng, key, dev)
+        q0, wq0, s = int8_inputs(torch, rng, key, dev)
+        q = q0.contiguous(memory_format=torch.channels_last)
+        wq = wq0.contiguous(memory_format=torch.channels_last)
         args = key[2:]
-        err = max(err, _held(torch, i8.int8_conv_im2col(q, wq, s, *args),
-                             i8._int8_conv_plain(q, wq, s, *args),
+        (got, routes) = _routed(i8, "int8_conv_im2col", lambda:
+                                i8.int8_conv_im2col(q, wq, s, *args))
+        err = max(err, _held(torch, got, i8._int8_conv_plain(q, wq, s,
+                                                             *args),
                              "int8_conv_im2col %s" % (key,)))
         ops, nbytes, m, n, k = conv_cost(key)
         bms, by = bound_ms(ops, nbytes)
         row = {"shape": str(key), "count": count, "m": m, "n": n, "k": k,
-               "ms": timer(lambda: i8.int8_conv_im2col(q, wq, s, *args)),
+               "route": routes[0],
+               "ms": timer(lambda: i8.int8_conv_im2col(q, wq, s, *args),
+                           hold_ms=0.5),
+               "mma_sync_ms": timer(lambda: i8.int8_conv_im2col(q0, wq0, s,
+                                                           *args),
+                               hold_ms=0.5),
                "plain_ms": timer(lambda: i8._int8_conv_plain(q, wq, s,
                                                              *args),
                                  iters=3),
                "bound_ms": bms, "bound_by": by, "int_mm_patch_ms": None}
+        row["share_of_bound"] = bms / row["ms"]
+        if routes[0] == "wgmma" and key[1][2:] == (3, 3) and conv3 is None:
+            conv3 = (q, wq, q0, wq0, s, args)
         if k % 8 == 0 and n % 8 == 0 and key[5] == 1:
             (kh, kw) = key[1][2:]
-            patches = F.unfold(q.float(), (kh, kw), dilation=args[1],
+            patches = F.unfold(q0.float(), (kh, kw), dilation=args[1],
                                padding=args[2], stride=args[0])
             patches = patches.transpose(1, 2).reshape(m, k).to(
                 torch.int8).contiguous()
-            wmat = wq.reshape(n, k)
+            wmat = wq0.reshape(n, k)
             row["int_mm_patch_ms"] = timer(
-                lambda: torch._int_mm(patches, wmat.t()).float() * s)
+                lambda: torch._int_mm(patches, wmat.t()).float() * s,
+                hold_ms=0.5)
             tot["int_mm_patch_ms"] += count * row["int_mm_patch_ms"]
             tot["int_mm_shapes"] += count
             del patches
         shapes.append(row)
-        for f in ("ms", "plain_ms", "bound_ms"):
+        for f in ("ms", "plain_ms", "bound_ms", "mma_sync_ms"):
             tot[f] += count * row[f]
         tot["ops_ms"] += count * ops / INT8_OPS * 1e3
         tot["bytes_ms"] += count * nbytes / HBM_BPS * 1e3
-        log("time int8_conv_im2col %s x%d: ms=%.4f plain_ms=%.3f "
-            "bound_ms=%.4f (%s) %.1f TOP/s int_mm_patch_ms=%s"
-            % (key, count, row["ms"], row["plain_ms"], bms, by,
+        log("time int8_conv_im2col %s x%d (%s): ms=%.4f mma_sync_ms=%.4f "
+            "plain_ms=%.3f bound_ms=%.4f (%s) share %.3f %.1f TOP/s "
+            "int_mm_patch_ms=%s"
+            % (key, count, routes[0], row["ms"], row["mma_sync_ms"],
+               row["plain_ms"], bms, by, row["share_of_bound"],
                ops / (row["ms"] * 1e-3) / 1e12,
                "%.4f" % row["int_mm_patch_ms"]
                if row["int_mm_patch_ms"] is not None else "n/a"))
-        del q, wq, s
+        del q, wq, q0, wq0, s
     conv = {"name": "int8_conv_im2col",
             "shape": "ResNet-50 batch 32: the 53 convolutions of a forward",
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"],
+            "mma_sync_ms": tot["mma_sync_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": ("operations" if tot["ops_ms"] >= tot["bytes_ms"]
                          else "bytes"),
             "library_ms": None, "max_abs_err": err,
@@ -2117,26 +2261,54 @@ def time_int8(torch, mx, i8, timer):
     ops = 2.0 * SERVE_BATCH * 1000 * 2048
     nbytes = SERVE_BATCH * 2048 + 1000 * 2048 + 4 * SERVE_BATCH * 1000
     bms, by = bound_ms(ops, nbytes)
+    _held(torch, _mma_sync_matmul(torch, i8, x, w, s),
+          i8._int8_matmul_plain(x, w, s), "int8_matmul mma.sync (FC)")
     fc = {"name": "int8_matmul", "shape": "ResNet-50 FC: 32 x 2048 x 1000",
-          "ms": timer(lambda: i8.int8_matmul(x, w, s)),
+          "route": "wgmma",
+          "ms": timer(lambda: i8.int8_matmul(x, w, s), hold_ms=0.5),
+          "mma_sync_ms": timer(lambda: _mma_sync_matmul(torch, i8, x, w, s),
+                          hold_ms=0.5),
           "plain_ms": timer(lambda: i8._int8_matmul_plain(x, w, s)),
           "library_ms": timer(
-              lambda: torch._int_mm(x, w.t()).float() * s[None, :]),
+              lambda: torch._int_mm(x, w.t()).float() * s[None, :],
+              hold_ms=0.5),
           "bound_ms": bms, "bound_by": by,
           "max_abs_err": _held(torch, i8.int8_matmul(x, w, s),
                                i8._int8_matmul_plain(x, w, s),
                                "int8_matmul (FC)")}
+    fc["share_of_bound"] = bms / fc["ms"]
+    # host microseconds a wrapper call, each route
+    xu = torch.empty(x.numel() + 1, dtype=torch.int8,
+                     device=dev)[1:].view(x.shape).copy_(x)
+    q, wq, q0, wq0, cs, args = conv3
+    host = {"int8_matmul": {
+        "wgmma": host_us(torch, lambda: i8.int8_matmul(x, w, s)),
+        "mma_sync": host_us(torch, lambda: i8.int8_matmul(xu, w, s))},
+        "int8_conv_im2col": {
+        "wgmma": host_us(torch, lambda: i8.int8_conv_im2col(q, wq, cs,
+                                                             *args)),
+        "mma_sync": host_us(torch, lambda: i8.int8_conv_im2col(q0, wq0, cs,
+                                                                *args))},
+        "torch_op": host_us(torch, lambda: torch.mul(s, 2.0))}
     for r in (conv, fc):
-        log("time %-17s %s: ms=%.4f plain_ms=%.3f library_ms=%s "
-            "bound_ms=%.4f (%s) max_abs_err=%.3g%s" % (
-                r["name"], r["shape"], r["ms"], r["plain_ms"],
-                "null" if r["library_ms"] is None
-                else "%.4f" % r["library_ms"], r["bound_ms"], r["bound_by"],
-                r["max_abs_err"],
-                "; torch._int_mm over prebuilt patch matrices of %d of the "
-                "53 convs: %.4f ms" % (r["int_mm_patch_convs"],
-                                       r["int_mm_patch_ms"])
-                if r is conv else ""))
+        r["host_us"] = host[r["name"]]
+        log("time %-17s %s: ms=%.4f mma_sync_ms=%.4f plain_ms=%.3f "
+            "library_ms=%s bound_ms=%.4f (%s) share %.3f max_abs_err=%.3g%s"
+            % (r["name"], r["shape"], r["ms"], r["mma_sync_ms"],
+               r["plain_ms"],
+               "null" if r["library_ms"] is None
+               else "%.4f" % r["library_ms"], r["bound_ms"], r["bound_by"],
+               r["bound_ms"] / r["ms"], r["max_abs_err"],
+               "; torch._int_mm over prebuilt patch matrices of %d of the "
+               "53 convs: %.4f ms" % (r["int_mm_patch_convs"],
+                                      r["int_mm_patch_ms"])
+               if r is conv else ""))
+    log("host us a wrapper call: int8_matmul wgmma %.2f, mma_sync %.2f; "
+        "int8_conv_im2col wgmma %.2f, mma_sync %.2f; a one-op torch call "
+        "%.2f" % (host["int8_matmul"]["wgmma"],
+                  host["int8_matmul"]["mma_sync"],
+                  host["int8_conv_im2col"]["wgmma"],
+                  host["int8_conv_im2col"]["mma_sync"], host["torch_op"]))
     return [conv, fc]
 
 
@@ -2149,9 +2321,9 @@ def _int8_classes(names):
     classes = []
     for name in names:
         low = name.lower()
-        if "int8_conv_kernel" in low:
+        if "int8_conv" in low:
             cls = "int8_conv_im2col"
-        elif "int8_matmul_kernel" in low:
+        elif "int8_matmul" in low:
             cls = "int8_matmul"
         elif "bn_inference_kernel" in low:
             cls = "batch_norm_inference"
@@ -2287,7 +2459,13 @@ def serve_int8(torch, mx, i8, bnk, workdir, dev, num_layers=50,
     on_card = dev.type == "cuda"
     sym = mx.models.resnet(num_classes=classes, num_layers=num_layers,
                            image_shape=image)
-    n_convs = len(int8_conv_layers(mx, 1, sym, image))
+    convs = int8_conv_layers(mx, 1, sym, image)
+    n_convs = len(convs)
+    # the convs whose shape the wgmma route takes: in serving their
+    # activations and weights come channels-last, so they take it
+    n_wgmma = sum(i8.conv_wgmma_shape_ok(*row[2:]) for row in convs)
+    check(n_wgmma == n_convs - 1 or num_layers != 50, "%d of ResNet-50's "
+          "convs take the wgmma route, not 52" % n_wgmma)
     n_bns = len(bn_layers(mx, 1, sym, image))
     os.makedirs(workdir, exist_ok=True)
     prefix = os.path.join(workdir, "resnet%d" % num_layers)
@@ -2319,22 +2497,34 @@ def serve_int8(torch, mx, i8, bnk, workdir, dev, num_layers=50,
 
     def counted(kind, eng, run):
         """``run()`` with every count 0 just before and read just after;
-        checks the launches per executed batch on the card."""
+        checks the launches per executed batch on the card, and the int8
+        kernels' routes: the FC and the wgmma-shaped convs on the wgmma
+        route, the rest on mma.sync, no operand copied to another memory
+        format."""
         snap0 = mx.telemetry.snapshot()
         i8.reset_launches()
         bnk.reset_launches()
         out = run()
         launches = dict(i8.LAUNCHES, **bnk.LAUNCHES)
+        routes = {k: dict(v) for k, v in i8.ROUTES.items()}
+        conversions = i8.CONVERSIONS["int8_conv_im2col"]
         batches = mx.telemetry.snapshot().get("serving/batches_total", 0) \
             - snap0.get("serving/batches_total", 0)
         if on_card:
-            want = {"int8_conv_im2col": n_convs * batches * (kind == "int8"),
-                    "int8_matmul": batches * (kind == "int8"),
+            n = batches * (kind == "int8")
+            want = {"int8_conv_im2col": n_convs * n, "int8_matmul": n,
                     "batch_norm_inference": n_bns * batches}
             check(batches >= 1 and launches == want,
                   "%s serving: launches %s over %d batches, expected %s"
                   % (kind, launches, batches, want))
-        return out, launches, batches
+            want = {"int8_conv_im2col": {"wgmma": n_wgmma * n,
+                                         "mma_sync": (n_convs - n_wgmma) * n},
+                    "int8_matmul": {"wgmma": n, "mma_sync": 0}}
+            check(routes == want and conversions == 0, "%s serving: routes "
+                  "%s and %d operand copies over %d batches, expected %s and "
+                  "none" % (kind, routes, conversions, batches, want))
+        return out, dict(launches, routes=routes,
+                         conversions=conversions), batches
 
     runs, engines = {}, {}
     for kind in ("int8", "fp32"):
@@ -2392,7 +2582,7 @@ def serve_int8(torch, mx, i8, bnk, workdir, dev, num_layers=50,
     if on_card:
         runs["int8"]["profiled_forward"] = profile_int8(
             torch, i8, bnk, engines["int8"]._bucket_pred(batch), dev, batch,
-            image, n_convs, n_bns)
+            image, n_convs, n_bns, n_wgmma)
     for eng in engines.values():
         eng.close()
     del engines, eng, pred
@@ -2436,12 +2626,14 @@ def serve_int8(torch, mx, i8, bnk, workdir, dev, num_layers=50,
             "drift": drift, "artifact": qp}
 
 
-def profile_int8(torch, i8, bnk, pred, dev, batch, image, n_convs, n_bns):
+def profile_int8(torch, i8, bnk, pred, dev, batch, image, n_convs, n_bns,
+                 n_wgmma):
     """One batch-32 int8 forward of the served bucket under torch.profiler
     (busy share and device ms by class, the input's upload included as
-    the profiler records it), and that upload alone, timed by CUDA events
-    and by the host's clock: the executor's own copy of a pageable host
-    array, five times, the median."""
+    the profiler records it; the conv's share of device time), and that
+    upload alone, timed by CUDA events and by the host's clock: the
+    executor's own copy of a pageable host array, five times, the
+    median."""
     feed = np.random.RandomState(19).randn(batch, *image).astype(np.float32)
     i8.reset_launches()
     bnk.reset_launches()
@@ -2450,8 +2642,14 @@ def profile_int8(torch, i8, bnk, pred, dev, batch, image, n_convs, n_bns):
         classify_seq=_int8_classes)
     check(dict(i8.LAUNCHES, **bnk.LAUNCHES) == {
         "int8_conv_im2col": n_convs, "int8_matmul": 1,
-        "batch_norm_inference": n_bns},
-        "profiled forward launched %s, %s" % (i8.LAUNCHES, bnk.LAUNCHES))
+        "batch_norm_inference": n_bns} and i8.ROUTES == {
+        "int8_conv_im2col": {"wgmma": n_wgmma, "mma_sync": n_convs - n_wgmma},
+        "int8_matmul": {"wgmma": 1, "mma_sync": 0}},
+        "profiled forward launched %s, %s, routes %s" % (
+            i8.LAUNCHES, bnk.LAUNCHES, i8.ROUTES))
+    dev_ms = sum(prof["device_ms"].values())
+    prof["conv_share"] = prof["device_ms"].get("int8_conv_im2col", 0.0) \
+        / dev_ms if dev_ms else None
     ev_ms, host_ms = [], []
     for _ in range(5):
         s = torch.cuda.Event(enable_timing=True)
@@ -2468,13 +2666,15 @@ def profile_int8(torch, i8, bnk, pred, dev, batch, image, n_convs, n_bns):
                       "event_ms": float(np.median(ev_ms)),
                       "host_ms": float(np.median(host_ms))}
     log("int8 profiled batch-%d forward: wall %.4fs, device busy %s, %d "
-        "kernels and copies, %.3f device ms, by class %s; the input's "
-        "upload (%d bytes, pageable) alone: %.3f ms by CUDA events, %.3f ms "
-        "by the host clock"
+        "kernels and copies, %.3f device ms, by class %s (conv share %s); "
+        "the input's upload (%d bytes, pageable) alone: %.3f ms by CUDA "
+        "events, %.3f ms by the host clock"
         % (batch, prof["wall_s"], "not measured" if prof["busy_share"] is None
            else "%.1f%%" % (100 * prof["busy_share"]), prof["kernels"],
-           sum(prof["device_ms"].values()),
+           dev_ms,
            {k: round(v, 3) for k, v in sorted(prof["device_ms"].items())},
+           "not measured" if prof["conv_share"] is None
+           else "%.1f%%" % (100 * prof["conv_share"]),
            feed.nbytes, prof["upload"]["event_ms"],
            prof["upload"]["host_ms"]))
     for name, ms in prof["top_kernels_ms"]:

@@ -141,8 +141,15 @@ class NDArray(object):
     # -- host transfer (the sync point) -------------------------------------
     def asnumpy(self):
         """A host copy (never a view of a host tensor, which later
-        in-place writes would change)."""
+        in-place writes would change). A bfloat16 array comes back as the
+        reference's does, a numpy array of ``ml_dtypes.bfloat16`` with the
+        same bits (numpy has no bfloat16 of its own; ``ml_dtypes`` is
+        imported for that case alone)."""
         t = self._data.detach()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            return t.view(torch.int16).cpu().numpy().view(
+                ml_dtypes.bfloat16)
         return t.numpy().copy() if t.device.type == "cpu" \
             else t.cpu().numpy()
 

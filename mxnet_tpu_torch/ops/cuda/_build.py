@@ -34,7 +34,9 @@ BUILD_DIR = os.path.join(
 
 # kernel name -> its translation unit; the attention and update units
 # include common.cuh (the bf16 flash attention units also hopper.cuh),
-# the int8 units int8_gemm.cuh
+# the int8 units common.cuh, int8_gemm.cuh and int8_wgmma.cuh (which
+# includes hopper.cuh). Every header of csrc/ is in _HEADERS, so that an
+# edit of any of them rebuilds every library.
 SOURCES = {
     "paged_decode_attention": "paged_decode_attention.cu",
     "flash_prefill_paged": "flash_prefill_paged.cu",
@@ -45,7 +47,7 @@ SOURCES = {
     "int8_conv_im2col": "int8_conv_im2col.cu",
     "batch_norm_inference": "batch_norm_inference.cu",
 }
-_HEADERS = ("common.cuh", "hopper.cuh", "int8_gemm.cuh")
+_HEADERS = ("common.cuh", "hopper.cuh", "int8_gemm.cuh", "int8_wgmma.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,5 +1,6 @@
-// The int8 tensor-core tile shared by int8_matmul.cu and
-// int8_conv_im2col.cu.
+// The int8 tensor-core tile of the mma.sync routes of int8_matmul.cu and
+// int8_conv_im2col.cu (their wgmma routes are built on int8_wgmma.cuh),
+// and the rescale both routes share.
 //
 // A block of 128 threads (4 warps, 2 x 2) computes a 64 x 64 tile of
 // C[m, n] = sum_k A[m, k] * B[n, k] (int8 operands, exact int32 sums) and

@@ -64,8 +64,11 @@ def _range_scale(min_r, max_r):
     return _safe_div(torch.full_like(amax, _INT8_MAX), amax)
 
 
-def _to_int8(x):
-    return torch.clamp(torch.round(x), _INT8_MIN, _INT8_MAX).to(torch.int8)
+def _to_int8(x, memory_format=torch.contiguous_format):
+    """``clip(round(x), -127, 127)`` as int8, written in ``memory_format``
+    (the cast and the layout change are one copy either way)."""
+    return torch.clamp(torch.round(x), _INT8_MIN, _INT8_MAX).to(
+        torch.int8, memory_format=memory_format)
 
 
 def _to_int32(x):
@@ -213,10 +216,13 @@ def _quantized_flatten(data, min_data, max_data):
 # per-channel serving ops (quantize/ptq.py artifacts)
 # ---------------------------------------------------------------------------
 
-def _quantize_act(data, act_scale):
+def _quantize_act(data, act_scale, memory_format=torch.contiguous_format):
     """fp32 activations -> int8 with a static calibrated scale:
-    ``clip(round(x * f32(act_scale)), -127, 127)``, half to even."""
-    return _to_int8(data.float() * float(np.float32(act_scale)))
+    ``clip(round(x * f32(act_scale)), -127, 127)``, half to even, written
+    in ``memory_format`` (``torch.channels_last`` for the convolutions
+    that the wgmma route of ``int8_conv_im2col`` takes)."""
+    return _to_int8(data.float() * float(np.float32(act_scale)),
+                    memory_format)
 
 
 def _out_scale(scale, act_scale):
@@ -260,17 +266,25 @@ def _quantized_conv_int8(data, weight, scale, bias=None, kernel=(),
     """Per-channel INT8 convolution for quantized serving (NCHW-family
     layouts; channel = filter axis 0), the scale contract of
     ``_contrib_quantized_fc_int8``. 2-D: the ``int8_conv_im2col`` kernel
-    with the rescale in its epilogue."""
+    with the rescale in its epilogue. Where its wgmma route takes the
+    shape, the activations are quantized into channels-last memory and
+    the weights are used in the memory format they come in (the
+    Predictor binds them channels-last), so neither is copied again."""
     nd = len(kernel)
     stride, dilate, pad = _conv_attrs(kernel, stride, dilate, pad)
-    q = _quantize_act(data, act_scale)
-    wq = weight.to(torch.int8).contiguous()
+    wq = weight.to(torch.int8)
+    fmt = torch.contiguous_format
+    if nd == 2 and _i8.conv_wgmma_shape_ok(wq.shape, stride, dilate, pad,
+                                           num_group):
+        fmt = torch.channels_last
+    q = _quantize_act(data, act_scale, fmt)
     out_scale = _out_scale(scale, act_scale)
     chan = (1, -1) + (1,) * nd
     if nd == 2:
         out = _i8.int8_conv_im2col(q, wq, out_scale, stride, dilate, pad,
                                    num_group)
     else:
+        wq = wq.contiguous()
         acc = _i8.exact_conv(q, wq, stride, dilate, pad, num_group)
         out = acc.float() * out_scale.reshape(chan)
     if bias is not None and not no_bias:

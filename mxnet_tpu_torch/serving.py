@@ -11,7 +11,10 @@ bucket for the price of one copy of the weights.
 The params blob is ``nd.save``'s format (either layout, from either
 package); keys carry the reference's ``arg:`` / ``aux:`` prefixes (raw
 names count as arguments). Every buffer binds in its checkpoint's type,
-so the int8 weights of a quantized artifact stay int8. ``dev_type`` is
+so the int8 weights of a quantized artifact stay int8; the int8
+convolution weights that ``int8_conv_im2col``'s wgmma route takes are
+bound once in channels-last memory (OHWI, K-major), so that no forward
+copies them (the artifact's format is unchanged). ``dev_type`` is
 the C API's: None (the default) or 2 binds on the card ``dev_id``, 1 on
 the host. The telemetry endpoint (``serve_metrics``) is not ported yet
 (ROADMAP A16).
@@ -35,6 +38,28 @@ def _device(dev_type, dev_id):
         return _ctx.cpu()
     raise MXNetError("dev_type %r: 1 (cpu), 2 (gpu) or None (gpu)"
                      % (dev_type,))
+
+
+def _bind_conv_weights_channels_last(sym, exe):
+    """Rebind, in channels-last memory, each int8 weight of a 2-D
+    ``_contrib_quantized_conv_int8`` whose shape the wgmma route of
+    ``int8_conv_im2col`` takes (idempotent: a weight already so stays)."""
+    from .ops.cuda.int8_matmul import conv_wgmma_shape_ok
+    from .symbol.symbol import _topo
+    for node in _topo(sym._entries):
+        if node.op != "_contrib_quantized_conv_int8" or len(node.inputs) < 2:
+            continue
+        arr = exe.arg_dict.get(node.inputs[1][0].name)
+        a = node.attrs
+        if arr is None or arr._data.dtype != torch.int8 \
+                or arr._data.dim() != 4 or len(a.get("kernel") or ()) != 2:
+            continue
+        if conv_wgmma_shape_ok(arr.shape, tuple(a.get("stride") or (1, 1)),
+                               tuple(a.get("dilate") or (1, 1)),
+                               tuple(a.get("pad") or (0, 0)),
+                               int(a.get("num_group", 1))):
+            arr._set_data(arr._data.contiguous(
+                memory_format=torch.channels_last))
 
 
 class Predictor(object):
@@ -70,6 +95,7 @@ class Predictor(object):
         for k, v in aux_params.items():
             if k in self._exe.aux_dict:
                 self._exe.aux_dict[k][:] = v
+        _bind_conv_weights_channels_last(sym, self._exe)
         self._input_names = list(shapes)
         self._outputs = None
 
@@ -165,6 +191,7 @@ class Predictor(object):
         for k, v in self._aux_params.items():
             if k in new._exe.aux_dict and k not in resident:
                 new._exe.aux_dict[k][:] = v
+        _bind_conv_weights_channels_last(self._sym, new._exe)
         new._input_names = list(input_shapes) + [
             n for n in self._input_names if n not in input_shapes]
         new._outputs = None

@@ -1,11 +1,15 @@
 """Contracts of the PyTorch/CUDA package (mxnet_tpu_torch).
 
-* no file of the package, and not chip_smoke.py, imports ``jax`` or
-  the JAX package ``mxnet_tpu`` (AST scan);
+* no file of the package, and not chip_smoke.py or the port's tools
+  (``tools/torch_*.py``), imports ``jax`` or the JAX package
+  ``mxnet_tpu`` (AST scan);
 * importing the package pulls in neither ``mxnet_tpu`` nor ``triton``
   and builds or loads no CUDA library: no kernel library, and neither
   ``libnvrtc`` nor ``libcuda`` through ``rtc``'s bindings (checked in a
   fresh interpreter);
+* every header under ``ops/cuda/csrc`` is hashed into every kernel
+  library's file name (``_build._HEADERS``), so an edit of any header
+  rebuilds;
 * every ``CUDA_KERNELS`` entry of every kernel module under
   ``ops/cuda`` has its ``csrc/<source>.cu`` (the kernel's name, or the
   module's ``SOURCE`` where one file holds several kernels), a plain
@@ -34,7 +38,8 @@ FORBIDDEN = ("jax", "mxnet_tpu")
 def _port_files():
     files = sorted(glob.glob(os.path.join(PKG, "**", "*.py"),
                              recursive=True))
-    return files + [os.path.join(ROOT, "chip_smoke.py")]
+    return files + [os.path.join(ROOT, "chip_smoke.py")] + sorted(
+        glob.glob(os.path.join(ROOT, "tools", "torch_*.py")))
 
 
 def _imported_roots(path):
@@ -71,6 +76,12 @@ def test_import_pulls_in_no_jax_package_triton_or_cuda_library():
     assert out.returncode == 0, out.stderr
     # neither libnvrtc nor libcuda is opened by rtc's bindings
     assert out.stdout.split("\n")[-2] == "[] 0 []"
+
+
+def test_every_header_is_in_the_build_hash():
+    headers = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(_build.CSRC, "*.cuh")))
+    assert headers and sorted(_build._HEADERS) == headers
 
 
 # (module, kernel) for every CUDA_KERNELS registry of the port

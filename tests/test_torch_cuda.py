@@ -400,6 +400,48 @@ def test_int8_conv_kernel_matches_plain_bitwise(card, shape):
     assert torch.equal(got, ti8._int8_conv_plain(q, wq, s, st, dl, pd, g))
 
 
+@pytest.mark.parametrize("shape", [
+    (2, 64, 14, 14, 64, 1, 3, 3, (1, 1), (1, 1), (1, 1)),
+    (2, 256, 13, 15, 512, 1, 1, 1, (2, 2), (1, 1), (0, 0)),
+    (3, 96, 17, 23, 40, 1, 5, 3, (2, 3), (1, 1), (2, 1)),
+    (2, 64, 15, 13, 32, 2, 3, 3, (1, 1), (2, 2), (2, 2)),
+    (1, 32, 1, 1, 16, 1, 3, 3, (1, 1), (1, 1), (1, 1)),
+    (3, 128, 5, 5, 200, 1, 3, 3, (2, 2), (1, 1), (1, 1)),
+])
+def test_int8_conv_wgmma_route_matches_plain_bitwise(card, shape):
+    """Channels-last operands take the wgmma route where its shape holds
+    (64- and 32-channel chunks, odd tails, dilation, groups, one position
+    an image, a channel count off the 64-row tiles)."""
+    b, c, h, w, co, g, kh, kw, st, dl, pd = shape
+    rng = np.random.RandomState(c + co)
+    cl = torch.channels_last
+    q = _i8(rng, b, c, h, w).to(card).contiguous(memory_format=cl)
+    wq = _i8(rng, co, c // g, kh, kw).to(card).contiguous(memory_format=cl)
+    s = torch.from_numpy(rng.rand(co).astype(np.float32) * 0.1).to(card)
+    ti8.reset_launches()
+    got = ti8.int8_conv_im2col(q, wq, s, st, dl, pd, g)
+    torch.cuda.synchronize()
+    assert ti8.ROUTES["int8_conv_im2col"] == {"wgmma": 1, "mma_sync": 0}
+    assert ti8.CONVERSIONS["int8_conv_im2col"] == 0
+    assert torch.equal(got, ti8._int8_conv_plain(q, wq, s, st, dl, pd, g))
+
+
+@pytest.mark.parametrize("m", [1, 7, 32, 300])
+def test_int8_matmul_wgmma_route_repeats_bitwise(card, m):
+    """The split-K FC (and a large m, one slice) on the wgmma route, twice:
+    the same bits, the workspace left zero between launches."""
+    rng = np.random.RandomState(m)
+    x, w = _i8(rng, m, 2048).to(card), _i8(rng, 1000, 2048).to(card)
+    s = torch.from_numpy(rng.rand(1000).astype(np.float32) * 0.1).to(card)
+    ti8.reset_launches()
+    first, second = ti8.int8_matmul(x, w, s), ti8.int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert ti8.ROUTES["int8_matmul"] == {"wgmma": 2, "mma_sync": 0}
+    assert torch.equal(first, second)
+    assert torch.equal(first, ti8._int8_matmul_plain(x, w, s))
+    assert all(int(ws.abs().max()) == 0 for ws in ti8._workspaces.values())
+
+
 @pytest.mark.parametrize("op,nd", [("_contrib_quantized_fc_int8", 0),
                                    ("_contrib_quantized_conv_int8", 1),
                                    ("_contrib_quantized_conv_int8", 2),

@@ -1,4 +1,4 @@
-"""Two faults of the port against the JAX package, held on the CPU.
+"""Three faults of the port against the JAX package, held on the CPU.
 
 * ``Trainer.learning_rate`` follows the optimizer's lr scheduler, and
   ``set_learning_rate`` is refused while a scheduler sets the rate
@@ -8,6 +8,9 @@
   package's op does: a float becomes an integer by truncation toward
   zero, saturated to the type's range, NaN to 0; int32 to a narrower
   integer wraps. The JAX package's result is the expected value.
+* ``NDArray.asnumpy`` (and ``asscalar``) of a bfloat16 array returns
+  what the JAX package's does: numpy's ``ml_dtypes.bfloat16``, the same
+  bits.
 """
 import numpy as np
 import pytest
@@ -110,3 +113,42 @@ def test_cast_float32_to_bool_and_floats_matches_jax(dtype):
         out.append(mx.nd.cast(mx.nd.cast(a, dtype=dtype),
                               dtype="float32").asnumpy())
     np.testing.assert_array_equal(out[1], out[0])
+
+
+# +-0, subnormals, +-inf, NaN, values bfloat16 holds exactly, a tie that
+# rounds to even, values that round; rounded to bfloat16 once, by
+# ml_dtypes, so that both packages hold the same bits (their float32 ->
+# bfloat16 casts give NaN different payloads)
+BF16_VALUES = [0.0, -0.0, 1e-40, -3e-39, np.inf, -np.inf, np.nan, 1.0,
+               -2.5, 1.00390625, 1.0 + 3 * 2.0 ** -9, 3.14159265, 65504.0,
+               -1e38, 3e38]
+
+
+def _bf16_arrays():
+    import jax.numpy as jnp
+    import ml_dtypes
+    import torch
+    bits = np.array(BF16_VALUES, np.float32).astype(ml_dtypes.bfloat16)
+    return bits, {
+        "jax": jmx.nd.NDArray(jnp.asarray(bits)),
+        "torch": tmx.nd.NDArray(torch.from_numpy(
+            bits.view(np.int16).copy()).view(torch.bfloat16))}
+
+
+@pytest.mark.parametrize("via", ["asnumpy", "asscalar"])
+def test_asnumpy_bfloat16_matches_jax(via):
+    bits, arrays = _bf16_arrays()
+    out = {}
+    for name, a in arrays.items():
+        if via == "asnumpy":
+            out[name] = a.asnumpy()
+        else:
+            out[name] = np.array([a[i].asscalar() for i in range(a.size)])
+    want, got = out["jax"], out["torch"]
+    assert str(want.dtype) == "bfloat16"
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.view(np.uint16).tolist() == want.view(np.uint16).tolist()
+    assert got.view(np.uint16).tolist() == bits.view(np.uint16).tolist()
+    # 1 + 2^-8 ties to 1.0; -0 keeps its sign
+    assert got.view(np.uint16)[9] == 0x3F80
+    assert got.view(np.uint16)[1] == 0x8000
