@@ -8,20 +8,31 @@ Phases, each fatal on failure (no phase's failure is caught):
 1. print the card's name and power limit; build the CUDA kernels from
    ``mxnet_tpu_torch/ops/cuda/csrc`` with nvcc (sm_90a), timed, and
    print each kernel's registers and spilled bytes (``-Xptxas -v``);
-2. hold each kernel against its plain PyTorch version on the card, at
-   the serving widths (decode: 1-8 rows, 4 kv heads x group 4, head_dim
-   64, 16-token pages; prefill: batch 1, buckets 16-256, 16 heads over 4
-   kv heads) plus ragged cases (lengths off page multiples, 3 kv heads,
-   a tail q tile), in float32 and bfloat16; the prefill kernel's pages
-   must equal the plain version's bitwise (page 0 excepted);
-3. time each kernel (CUDA events, L2 flushed before every launch)
-   beside its bound, its plain version and one PyTorch library call
-   (scaled_dot_product_attention) that computes the same function;
+2. hold each serving kernel route against its plain PyTorch version on
+   the card, float32 and bfloat16: decode at the serving widths (1-8
+   rows, 4 kv heads x group 4, head_dim 64, 16-token pages) and one batch
+   of lengths 0, 1, 15, 16, 17 and 256 at group 1, 2, 4 and 8 and head
+   dims 32, 64 and 128 (the "cluster" route; a row of length 0 must give
+   zeros, the kernels' result, where the plain version averages V), 3
+   kv heads with 8-token pages, and head dims 12 / 6 (the "serial"
+   route); a second decode call bitwise equal to the first; prefill at
+   buckets 16-256 over 4 kv heads and over kv_heads = n_heads, group 8
+   and 16, head dims 32 and 128, and ragged cases (3 kv heads, a tail q
+   tile), bfloat16 on the "mma" route and float32 on "fma"; the
+   prefill kernel's pages must equal the plain version's bitwise (page
+   0 excepted); every launch's route is read from the route counts;
+3. time each kernel (CUDA events, L2 flushed and a 0.5 ms device-side
+   hold before every launch) on its redesigned route and on its first
+   design (the old route, in turns new, old, old, new) beside its bound,
+   its plain version and one PyTorch library call
+   (scaled_dot_product_attention) that computes the same function, and
+   the host microseconds of a wrapper call on each route;
 4. serve 16 requests of the decode_serve mix through
    ``serve.DecodeEngine`` at the full width of the repo's decode config
    (vocab 32768, d_model 1024, 16 heads / 4 kv heads, 12 layers, d_ff
    4096, RoPE, bf16, seeded weights), and check every session's token
-   count and that the kernels ran 12 times per prefill and per step;
+   count, that the kernels ran 12 times per prefill and per step, and
+   that every launch took the redesigned route ("cluster", "mma");
    then the same requests once more under torch.profiler for the
    device's busy share and device time by kernel class;
 5. hold the whole path on the card against the port on the CPU in
@@ -167,6 +178,7 @@ the package beside it. ``--report PATH`` also writes every measurement
 """
 import argparse
 import copy
+import functools
 import json
 import os
 import re
@@ -355,8 +367,83 @@ def decode_cost(q, block_tables, lengths):
     return nbytes, 4.0 * g * hd * kvh * keys
 
 
+class forced_route(object):
+    """``with forced_route(fa, "decode_route", ("serial", None)):`` makes
+    the wrapper take that route whatever the shapes (the first designs
+    stay routes of the same libraries, so old and new run in one call)."""
+
+    def __init__(self, fa, fn_name, route):
+        self.fa, self.fn_name, self.route = fa, fn_name, route
+
+    def __enter__(self):
+        self.saved = getattr(self.fa, self.fn_name)
+        route = self.route
+        setattr(self.fa, self.fn_name, lambda *a, **k: route)
+
+    def __exit__(self, *exc):
+        setattr(self.fa, self.fn_name, self.saved)
+
+
+def _serve_routed(fa, name, fn):
+    """``fn()``'s result and the one route its single launch took."""
+    before = dict(fa.ROUTES[name])
+    out = fn()
+    taken = [r for r, n in fa.ROUTES[name].items() if n != before[r]]
+    check(len(taken) == 1 and sum(fa.ROUTES[name].values())
+          == sum(before.values()) + 1, "%s: one launch on one route "
+          "expected, routes %s -> %s" % (name, before, fa.ROUTES[name]))
+    return out, taken[0]
+
+
+# phase 2's decode cases: (lengths, kv heads, group, head_dim, page
+# size, pages a row); lengths 0, 1, a page edge and the whole table in
+# one batch; group 1-16; head dims 32-128 (cluster route), 12 and 6
+# (serial route, not whole 16-byte segments in bf16 / f32 rows)
+DECODE_CHECKS = (
+    [([0, 1, 15, 16, 17, 256], 4, g, 64, 16, 16) for g in (1, 2, 4, 8)]
+    + [([0, 1, 15, 16, 17, 256], 4, 4, hd, 16, 16) for hd in (32, 128)]
+    + [([5, 33, 64, 200], 3, 2, 64, 8, 32),
+       ([0, 1, 17, 256], 1, 16, 64, 16, 16)])    # two head blocks
+# phase 2's prefill cases: (b, s, n_heads, kv_heads, page size, head_dim)
+PREFILL_CHECKS = (
+    [(1, s, 16, 4, 16, 64) for s in (16, 32, 64, 128, 256)]
+    + [(1, s, 16, 16, 16, 64) for s in (16, 32, 64, 128, 256)]   # kvh = nh
+    + [(1, 128, 16, 2, 16, 64), (1, 64, 16, 1, 16, 64),          # group 8, 16
+       (1, 64, 8, 2, 16, 32), (1, 64, 8, 2, 16, 128),            # head dims
+       (2, 48, 12, 3, 16, 64), (2, 40, 6, 3, 8, 64)])            # ragged
+
+
+def check_decode_case(torch, fa, gen, dtype, lengths, kvh, g, hd, ps, pps,
+                      want):
+    """One decode call against the plain version (rows of length 0
+    against zeros); returns (max abs err, route, output)."""
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    b = len(lengths)
+    q, kp, vp, bt, ln = decode_inputs(torch, gen, b, lengths, dtype, kvh=kvh,
+                                      g=g, hd=hd, ps=ps, pps=pps)
+    got, route = _serve_routed(fa, "paged_decode_attention",
+                               lambda: fa.paged_decode_attention(q, kp, vp,
+                                                                 bt, ln))
+    torch.cuda.synchronize()
+    check(route == want, "paged_decode_attention %s hd=%d took the %s route"
+          % (dtype, hd, route))
+    # bf16: the plain version in f32 on the same bf16 inputs
+    ref = fa._paged_decode_torch(q.float(), kp.float(), vp.float(), bt, ln,
+                                 1.0 / hd ** 0.5)
+    live = ln > 0
+    ref[~live] = 0.0          # the kernels' (and the TPU kernel's) zeros
+    check(not got[~live].any(), "paged_decode_attention: a row of length "
+          "0 is not zero")
+    err = max_err(got, ref)
+    check(within(got, ref, tol), "paged_decode_attention %s lengths=%s "
+          "kvh=%d g=%d hd=%d: max err %g > tol %g"
+          % (dtype, lengths, kvh, g, hd, err, tol))
+    return err, route, (q, kp, vp, bt, ln, got)
+
+
 def check_kernels(torch, fa):
-    """Phase 2: every kernel against its plain version on the card."""
+    """Phase 2: every serving kernel route against its plain version on
+    the card."""
     gen = torch.Generator().manual_seed(0)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -364,76 +451,140 @@ def check_kernels(torch, fa):
         for b in (1, 2, 4, 8):
             lengths = [int(x) for x in
                        torch.randint(1, 257, (b,), generator=gen)]
-            q, kp, vp, bt, ln = decode_inputs(torch, gen, b, lengths, dtype)
-            got = fa.paged_decode_attention(q, kp, vp, bt, ln)
-            torch.cuda.synchronize()
-            # bf16: the plain version in f32 on the same bf16 inputs
-            ref = fa._paged_decode_torch(q.float(), kp.float(), vp.float(),
-                                         bt, ln, 1.0 / 8.0)
-            err = max_err(got, ref)
-            rows.append(("paged_decode_attention", str(dtype), "b=%d" % b,
+            err, route, _ = check_decode_case(torch, fa, gen, dtype, lengths,
+                                              4, 4, 64, 16, 16, "cluster")
+            rows.append(("paged_decode_attention", str(dtype),
+                         "b=%d %s" % (b, route), lengths, err))
+        for lengths, kvh, g, hd, ps, pps in DECODE_CHECKS:
+            err, route, args = check_decode_case(
+                torch, fa, gen, dtype, lengths, kvh, g, hd, ps, pps,
+                "cluster")
+            rows.append(("paged_decode_attention", str(dtype),
+                         "kvh=%d g=%d hd=%d ps=%d %s" % (kvh, g, hd, ps,
+                                                         route),
                          lengths, err))
-            check(within(got, ref, tol), "paged_decode_attention %s b=%d "
-                  "lengths=%s: max err %g > tol %g"
-                  % (dtype, b, lengths, err, tol))
-        cases = [(1, s, 16, 4, 16) for s in (16, 32, 64, 128, 256)]
-        cases += [(2, 48, 12, 3, 16), (2, 40, 6, 3, 8)]   # ragged
-        for b, s, nh, kvh, ps in cases:
+            if g == 4 and hd == 64:
+                # a second call repeats the first bitwise (rank-order
+                # combine, no atomics)
+                again = fa.paged_decode_attention(*args[:5])
+                check(torch.equal(again, args[5]), "paged_decode_attention "
+                      "%s: a second call differs from the first" % dtype)
+        # the serial route: rows that are not whole 16-byte segments
+        hd = 12 if dtype == torch.bfloat16 else 6
+        err, route, _ = check_decode_case(
+            torch, fa, gen, dtype, [0, 1, 17, 256], 4, 4, hd, 16, 16,
+            "serial")
+        rows.append(("paged_decode_attention", str(dtype),
+                     "hd=%d %s" % (hd, route), None, err))
+        for b, s, nh, kvh, ps, hd in PREFILL_CHECKS:
             q, kg, vg, kp, vp, bt = prefill_inputs(torch, gen, b, s, nh,
-                                                   kvh, dtype, ps=ps)
+                                                   kvh, dtype, hd=hd, ps=ps)
             kp_ref, vp_ref = kp.clone(), vp.clone()
-            o, kp, vp = fa.flash_prefill_paged(q, kg, vg, kp, vp, bt)
+            (o, kp, vp), route = _serve_routed(
+                fa, "flash_prefill_paged",
+                lambda: fa.flash_prefill_paged(q, kg, vg, kp, vp, bt))
             torch.cuda.synchronize()
+            want = "mma" if dtype == torch.bfloat16 else "fma"
+            check(route == want, "flash_prefill_paged %s took the %s route"
+                  % (dtype, route))
             ro, _, _ = fa._flash_prefill_torch(
                 q.float(), kg.float(), vg.float(), kp_ref.float(),
                 vp_ref.float(), bt)
             fa._flash_prefill_torch(q, kg, vg, kp_ref, vp_ref, bt)
             err = max_err(o, ro)
             rows.append(("flash_prefill_paged", str(dtype),
-                         "b=%d s=%d nh=%d kvh=%d ps=%d" % (b, s, nh, kvh, ps),
-                         None, err))
+                         "b=%d s=%d nh=%d kvh=%d ps=%d hd=%d %s"
+                         % (b, s, nh, kvh, ps, hd, route), None, err))
             check(within(o, ro, tol), "flash_prefill_paged %s s=%d nh=%d "
-                  "kvh=%d: max err %g > tol %g" % (dtype, s, nh, kvh, err,
-                                                   tol))
+                  "kvh=%d hd=%d: max err %g > tol %g"
+                  % (dtype, s, nh, kvh, hd, err, tol))
             check(torch.equal(kp[1:], kp_ref[1:])
                   and torch.equal(vp[1:], vp_ref[1:]),
                   "flash_prefill_paged %s s=%d: pages differ from the "
                   "plain version's" % (dtype, s))
     for r in rows:
-        log("check %-24s %-15s %-30s max_abs_err=%.3g" % (r[0], r[1], r[2],
+        log("check %-24s %-15s %-40s max_abs_err=%.3g" % (r[0], r[1], r[2],
                                                           r[4]))
     return rows
 
 
-def time_kernels(torch, fa, timer):
-    """Phase 3: kernel vs bound vs plain vs library, bf16, serving
-    shapes. Returns (json entries of the main-path shapes, full table)."""
+def library_decode(torch, q, kp, vp, bt, ln):
+    """The decode call's library yardstick: the row's pages gathered,
+    then scaled_dot_product_attention with the length mask."""
     import torch.nn.functional as F
+    b, kvh, g, hd = q.shape
+    kc = kp[bt.long()].reshape(b, -1, kvh, hd).transpose(1, 2)
+    vc = vp[bt.long()].reshape(b, -1, kvh, hd).transpose(1, 2)
+    L = kc.shape[2]
+    mask = (torch.arange(L, device=q.device)[None, :]
+            < ln[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q.reshape(b, kvh * g, 1, hd), kc.repeat_interleave(g, 1),
+        vc.repeat_interleave(g, 1), attn_mask=mask)
+
+
+def library_prefill(torch, q, kg, vg, kp, vp, bt):
+    """The prefill call's library yardstick: causal
+    scaled_dot_product_attention over the expanded K/V, then the page
+    scatter."""
+    import torch.nn.functional as F
+    b, s, nh, hd = q.shape
+    kvh, ps = kg.shape[2], kp.shape[1]
+    grp = nh // kvh
+    o = F.scaled_dot_product_attention(
+        q.transpose(1, 2), kg.repeat_interleave(grp, 2).transpose(1, 2),
+        vg.repeat_interleave(grp, 2).transpose(1, 2), is_causal=True)
+    kp[bt.long()] = kg.reshape(b, s // ps, ps, kvh, hd)
+    vp[bt.long()] = vg.reshape(b, s // ps, ps, kvh, hd)
+    return o.transpose(1, 2)
+
+
+def prefill_cost(q, kg, bt):
+    """(bytes, flops) of a prefill call: q, kg, vg read and o written
+    once, the page rows (kg + vg bytes again) written once; QK^T and PV
+    over the causal half."""
+    b, s, nh, hd = q.shape
+    item = q.element_size()
+    nbytes = (2 * q.numel() + 4 * kg.numel()) * item + 4 * bt.numel()
+    return nbytes, 2.0 * b * nh * hd * s * (s + 1)
+
+
+def bound_of(nbytes, flops):
+    """(bound ms, what bounds it): bf16 operations over 989 TFLOP/s or
+    bytes over 3.35 TB/s, the larger."""
+    t_b, t_o = nbytes / HBM_BPS, flops / BF16_FLOPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+OLD_ROUTES = {"paged_decode_attention": ("decode_route", ("serial", None)),
+              "flash_prefill_paged": ("prefill_route", "fma")}
+
+
+def time_kernels(torch, fa, timer):
+    """Phase 3: kernel (its new route) vs its first design (the old
+    route, same call) vs bound vs plain vs library, bf16, serving
+    shapes; the host microseconds of a wrapper call on each route.
+    Returns (json entries of the main-path shapes, full table)."""
     gen = torch.Generator().manual_seed(1)
     bf16 = torch.bfloat16
     table = []
+    sdpa_decode = functools.partial(library_decode, torch)
+    sdpa_prefill = functools.partial(library_prefill, torch)
 
-    def sdpa_decode(q, kp, vp, bt, ln):
-        b, kvh, g, hd = q.shape
-        kc = kp[bt.long()].reshape(b, -1, kvh, hd).transpose(1, 2)
-        vc = vp[bt.long()].reshape(b, -1, kvh, hd).transpose(1, 2)
-        L = kc.shape[2]
-        mask = (torch.arange(L, device="cuda")[None, :]
-                < ln[:, None])[:, None, None, :]
-        return F.scaled_dot_product_attention(
-            q.reshape(b, kvh * g, 1, hd), kc.repeat_interleave(g, 1),
-            vc.repeat_interleave(g, 1), attn_mask=mask)
-
-    def sdpa_prefill(q, kg, vg, kp, vp, bt):
-        b, s, nh, hd = q.shape
-        kvh, ps = kg.shape[2], kp.shape[1]
-        grp = nh // kvh
-        o = F.scaled_dot_product_attention(
-            q.transpose(1, 2), kg.repeat_interleave(grp, 2).transpose(1, 2),
-            vg.repeat_interleave(grp, 2).transpose(1, 2), is_causal=True)
-        kp[bt.long()] = kg.reshape(b, s // ps, ps, kvh, hd)
-        vp[bt.long()] = vg.reshape(b, s // ps, ps, kvh, hd)
-        return o.transpose(1, 2)
+    def timed(name, call, plain, library):
+        """new, old, old, new in turns (kernel ms at the hold that keeps
+        the wrapper's host time off the device clock)"""
+        fn_name, old = OLD_ROUTES[name]
+        turns = []
+        for version in ("new", "old", "old", "new"):
+            if version == "new":
+                turns.append(timer(call, hold_ms=0.5))
+            else:
+                with forced_route(fa, fn_name, old):
+                    turns.append(timer(call, hold_ms=0.5))
+        return {"ms": min(turns[0], turns[3]),
+                "old_ms": min(turns[1], turns[2]), "turns_ms": turns,
+                "plain_ms": timer(plain), "library_ms": timer(library)}
 
     for b in (1, 2, 4, 8):
         # serving depths: prompt + generated of the decode_serve mix
@@ -441,50 +592,55 @@ def time_kernels(torch, fa, timer):
                                                  generator=gen)]
         args = decode_inputs(torch, gen, b, lengths, bf16)
         q, _, _, bt, ln = args
-        nbytes, flops = decode_cost(q, bt, ln)
-        bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+        bound, bound_by = bound_of(*decode_cost(q, bt, ln))
         got = fa.paged_decode_attention(*args)
         ref = fa._paged_decode_torch(*[a.float() if a.is_floating_point()
                                        else a for a in args], 1.0 / 8.0)
-        table.append({
-            "name": "paged_decode_attention", "shape": "b=%d" % b,
-            "lengths": lengths,
-            "ms": timer(lambda: fa.paged_decode_attention(*args)),
-            "plain_ms": timer(lambda: fa._paged_decode_torch(*args,
-                                                             1.0 / 8.0)),
-            "library_ms": timer(lambda: sdpa_decode(*args)),
-            "bound_ms": bound,
-            "bound_by": ("bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS
-                         else "operations"),
-            "max_abs_err": max_err(got, ref)})
+        row = {"name": "paged_decode_attention", "shape": "b=%d" % b,
+               "lengths": lengths, "bound_ms": bound, "bound_by": bound_by,
+               "max_abs_err": max_err(got, ref)}
+        row.update(timed("paged_decode_attention",
+                         lambda: fa.paged_decode_attention(*args),
+                         lambda: fa._paged_decode_torch(*args, 1.0 / 8.0),
+                         lambda: sdpa_decode(*args)))
+        if b == 8:
+            row["host_us"] = host_us(
+                torch, lambda: fa.paged_decode_attention(*args))
+            with forced_route(fa, *OLD_ROUTES["paged_decode_attention"]):
+                row["old_host_us"] = host_us(
+                    torch, lambda: fa.paged_decode_attention(*args))
+        table.append(row)
     for s in (16, 32, 64, 128, 256):
         nh, kvh, hd = 16, 4, 64
         args = prefill_inputs(torch, gen, 1, s, nh, kvh, bf16)
         q, kg, vg, kp, vp, bt = args
-        item = q.element_size()
-        # q, kg, vg read and o written once, the page rows (kg + vg
-        # bytes again) written once; QK^T and PV over the causal half
-        nbytes = (2 * q.numel() + 4 * kg.numel()) * item + 4 * bt.numel()
-        flops = 2.0 * nh * hd * s * (s + 1)
-        bound = max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3
+        bound, bound_by = bound_of(*prefill_cost(q, kg, bt))
         o, _, _ = fa.flash_prefill_paged(*args)
         ro, _, _ = fa._flash_prefill_torch(q.float(), kg.float(), vg.float(),
                                            kp.float(), vp.float(), bt)
-        table.append({
-            "name": "flash_prefill_paged", "shape": "b=1 s=%d" % s,
-            "ms": timer(lambda: fa.flash_prefill_paged(*args)),
-            "plain_ms": timer(lambda: fa._flash_prefill_torch(*args)),
-            "library_ms": timer(lambda: sdpa_prefill(*args)),
-            "bound_ms": bound,
-            "bound_by": ("bytes" if nbytes / HBM_BPS >= flops / BF16_FLOPS
-                         else "operations"),
-            "max_abs_err": max_err(o, ro)})
+        row = {"name": "flash_prefill_paged", "shape": "b=1 s=%d" % s,
+               "bound_ms": bound, "bound_by": bound_by,
+               "max_abs_err": max_err(o, ro)}
+        row.update(timed("flash_prefill_paged",
+                         lambda: fa.flash_prefill_paged(*args),
+                         lambda: fa._flash_prefill_torch(*args),
+                         lambda: sdpa_prefill(*args)))
+        if s == 128:
+            row["host_us"] = host_us(
+                torch, lambda: fa.flash_prefill_paged(*args))
+            with forced_route(fa, *OLD_ROUTES["flash_prefill_paged"]):
+                row["old_host_us"] = host_us(
+                    torch, lambda: fa.flash_prefill_paged(*args))
+        table.append(row)
     for r in table:
-        log("time %-24s %-10s ms=%.4f plain_ms=%.4f library_ms=%.4f "
-            "bound_ms=%.5f (%s) max_abs_err=%.3g"
-            % (r["name"], r["shape"], r["ms"], r["plain_ms"],
+        log("time %-24s %-10s ms=%.4f old_ms=%.4f plain_ms=%.4f "
+            "library_ms=%.4f bound_ms=%.5f (%s) max_abs_err=%.3g%s"
+            % (r["name"], r["shape"], r["ms"], r["old_ms"], r["plain_ms"],
                r["library_ms"], r["bound_ms"], r["bound_by"],
-               r["max_abs_err"]))
+               r["max_abs_err"],
+               " host_us=%.2f old_host_us=%.2f" % (r["host_us"],
+                                                   r["old_host_us"])
+               if "host_us" in r else ""))
     # the JSON line carries the main path's busiest shapes: the full
     # 8-slot decode bucket and the 128-token prefill bucket
     main = [r for r in table if r["shape"] in ("b=8", "b=1 s=128")]
@@ -735,6 +891,7 @@ def serve(torch, fa):
         outs = [s.result() for s in sessions]
         wall = telemetry.monotonic() - t_start
         launches = dict(fa.LAUNCHES)
+        routes = {k: dict(v) for k, v in fa.ROUTES.items()}
         n_pre = hist_count("decode/prefill_seconds") - n_pre0
         n_step = hist_count("decode/step_seconds") - n_step0
         step = telemetry.snapshot()["decode/step_seconds"]
@@ -765,6 +922,12 @@ def serve(torch, fa):
           "paged_decode_attention launched %d times for %d steps x %d "
           "layers" % (launches["paged_decode_attention"], n_step,
                       cfg.n_layers))
+    # every serving launch on the redesigned routes
+    check(routes["paged_decode_attention"]["cluster"]
+          == launches["paged_decode_attention"]
+          and routes["flash_prefill_paged"]["mma"]
+          == launches["flash_prefill_paged"],
+          "a serving launch took a first-design route: %s" % routes)
     tokens = sum(len(o) for o in outs)
     ttft = [s.t_first - t_start for s in sessions]
     itl = [(s.t_done - s.t_first) / (len(o) - 1)
@@ -777,13 +940,13 @@ def serve(torch, fa):
            "prefills": n_pre, "decode_steps": n_step,
            "step_mean_ms": step["sum"] / max(1, step["count"]) * 1e3,
            "short_requests": sum(1 for p, _ in reqs if len(p) < 24),
-           "launches": launches, "profiled_round": prof}
+           "launches": launches, "routes": routes, "profiled_round": prof}
     log("serve: %d requests, %d tokens in %.3fs: %.1f tokens/s, TTFT "
         "p50 %.1f ms p99 %.1f ms, ITL p50 %.2f ms, step mean %.2f ms; "
-        "%d prefills, %d decode steps; launches %s"
+        "%d prefills, %d decode steps; launches %s, routes %s"
         % (len(reqs), tokens, wall, res["tokens_per_s"],
            res["ttft_p50_ms"], res["ttft_p99_ms"], res["itl_p50_ms"],
-           res["step_mean_ms"], n_pre, n_step, launches))
+           res["step_mean_ms"], n_pre, n_step, launches, routes))
     log("serve profiled round: wall %.3fs, device busy %s, %d kernels "
         "(%.0f per decode step), device ms by class %s"
         % (prof["wall_s"], "not measured" if prof["busy_share"] is None
@@ -797,9 +960,11 @@ def serve(torch, fa):
 
 def _kernel_class(name):
     low = name.lower()
-    if "paged_decode_kernel" in low:
+    # paged_decode_split_kernel / paged_decode_kernel (the two routes)
+    if "paged_decode_" in low:
         return "paged_decode_attention"
-    if "flash_prefill_kernel" in low:
+    # flash_prefill_mma_kernel / flash_prefill_kernel
+    if "flash_prefill_" in low:
         return "flash_prefill_paged"
     if "flash_fwd_" in low:
         return "flash_attention"

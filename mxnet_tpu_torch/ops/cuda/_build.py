@@ -13,6 +13,7 @@ Nothing here runs at import: importing this module neither looks for
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +24,7 @@ import threading
 from ...base import MXNetError
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "build_all", "load",
-           "library_path"]
+           "library_path", "on_device"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -139,3 +140,13 @@ def load(name, symbols):
             _loaded[name] = lib
         return lib
 
+
+def on_device(device):
+    """``torch.cuda.device(device)`` for a launch, or nothing where that
+    device is current already (entering the guard costs host
+    microseconds a launch). A kernel library's runtime launches on the
+    calling thread's current device."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

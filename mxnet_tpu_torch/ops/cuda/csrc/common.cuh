@@ -4,7 +4,7 @@
 // __nv_bfloat16), load through to_f32, accumulate in float32 and store
 // through from_f32 (round to nearest even, as torch's casts). The bf16
 // flash attention kernels run their products on the tensor cores through
-// hopper.cuh.
+// hopper.cuh. cp_async16 stages 16-byte rows of the paged serving kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +38,25 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // does rather than fault on a bad id
 __device__ __forceinline__ int clamp_page(int page, int num_pages) {
   return page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
+}
+
+// 16-byte asynchronous copy global -> shared (cp.async, L2 only); with
+// src_bytes 0 it writes 16 zero bytes and reads nothing
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes = 16) {
+  const uint32_t s =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // dynamic shared memory above 48 KB needs a per-kernel opt-in

@@ -8,15 +8,31 @@ layouts, each backed by a CUDA C++ kernel for Hopper (``csrc/*.cu``) and
 beside it a plain PyTorch version of the same function, op for op the
 JAX package's XLA twin.
 
+The two serving kernels each have two routes, picked before the launch
+from dtype, shapes and alignment alone (:func:`decode_route`,
+:func:`prefill_route`, memoised); a failed launch raises and nothing
+retries on the other route. ``paged_decode_attention``: "cluster" splits
+each (row, kv head) over a thread-block cluster of up to
+:data:`DECODE_CLUSTER` CTAs, each owning a contiguous range of the row's
+live pages (:func:`decode_split_pages`), combined in rank order over
+distributed shared memory within the one launch; "serial" is the first
+design (one CTA walking the pages), for head dims the cluster route does
+not take. ``flash_prefill_paged``: "mma" runs bfloat16 on the tensor
+cores (mma.sync), one CTA per (q tile, kv head) for every query head of
+the group; "fma" is the first design, float32 FMAs on the CUDA cores,
+for float32 (where tensor cores would mean TF32) and other shapes.
+
 A wrapper launches its kernel for CUDA tensors, on
 ``torch.cuda.current_stream()``, and raises when the launch returns a
 CUDA error. It takes the plain version only because the tensors it was
 given lie on the CPU; nothing falls back to it. Every kernel launch adds
-one to :data:`LAUNCHES` (plain calls do not).
+one to :data:`LAUNCHES` and, for the serving kernels, to its route's
+count in :data:`ROUTES` (plain calls do not).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -25,8 +41,10 @@ from ...base import MXNetError
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_bwd", "paged_decode_attention",
-           "flash_prefill_paged", "CUDA_KERNELS", "LAUNCHES", "reset_launches",
-           "NEG_INF", "HEAD_DIMS"]
+           "flash_prefill_paged", "CUDA_KERNELS", "LAUNCHES", "ROUTES",
+           "reset_launches", "decode_route", "decode_split_pages",
+           "live_pages", "prefill_route", "NEG_INF", "HEAD_DIMS",
+           "DECODE_CLUSTER", "PREFILL_HEAD_DIMS", "PREFILL_MAX_GROUP"]
 
 # kernel-contract registry: every CUDA kernel maps to its plain PyTorch
 # version in this module (tests/test_torch_contract.py checks each has
@@ -38,8 +56,11 @@ CUDA_KERNELS = {
     "flash_attention_bwd": "_flash_bwd_torch",
 }
 
-# kernel launches since the last reset_launches(), by kernel name
+# kernel launches since the last reset_launches(), by kernel name, and
+# the serving kernels' by route
 LAUNCHES = {name: 0 for name in CUDA_KERNELS}
+ROUTES = {"paged_decode_attention": {"cluster": 0, "serial": 0},
+          "flash_prefill_paged": {"mma": 0, "fma": 0}}
 
 NEG_INF = -1e30
 
@@ -48,14 +69,36 @@ _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # head dims the flash_attention kernels are built for (CUDA tensors only)
 HEAD_DIMS = (32, 64)
 
+# the decode "cluster" route: the most CTAs a (row, kv head) is split over
+# (the portable thread-block cluster size)
+DECODE_CLUSTER = 8
+# the prefill "mma" route: its head dims and largest group (8 warps of a
+# CTA hold 8 positions x 16 query heads)
+PREFILL_HEAD_DIMS = (32, 64, 128)
+PREFILL_MAX_GROUP = 16
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SYMBOLS = {
+# the serving kernels' libraries: every entry point, by route and dtype
+_DECODE_ARGS = [_P] * 6 + [_I] * 7 + [_F, _P]
+_PREFILL_ARGS = [_P] * 7 + [_I] * 8 + [_F, _P]
+_ROUTE_SYMBOLS = {
     # q, k_pages, v_pages, block_tables, lengths, out, b, kvh, group, hd,
-    # num_pages, page_size, pages_per_seq, sm_scale, stream
-    "paged_decode_attention": [_P] * 6 + [_I] * 7 + [_F, _P],
+    # num_pages, page_size, pages_per_seq[, splits], sm_scale, stream
+    "paged_decode_attention": {
+        ("serial", "f32"): ("paged_decode_attention_f32", _DECODE_ARGS),
+        ("serial", "bf16"): ("paged_decode_attention_bf16", _DECODE_ARGS),
+        ("cluster", "f32"): ("paged_decode_split_f32",
+                             [_P] * 6 + [_I] * 8 + [_F, _P]),
+        ("cluster", "bf16"): ("paged_decode_split_bf16",
+                              [_P] * 6 + [_I] * 8 + [_F, _P])},
     # q, kg, vg, k_pages, v_pages, block_tables, out, b, s, nh, kvh, hd,
     # num_pages, page_size, bt_stride, sm_scale, stream
-    "flash_prefill_paged": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "flash_prefill_paged": {
+        ("fma", "f32"): ("flash_prefill_paged_f32", _PREFILL_ARGS),
+        ("fma", "bf16"): ("flash_prefill_paged_bf16", _PREFILL_ARGS),
+        ("mma", "bf16"): ("flash_prefill_mma_bf16", _PREFILL_ARGS)},
+}
+_SYMBOLS = {
     # q, k, v, o, lse, b*h, s, hd, causal, sm_scale, stream
     "flash_attention": [_P] * 5 + [_I] * 4 + [_F, _P],
     # q, k, v, o, lse, do, dq, dk, dv, delta, b*h, s, hd, causal,
@@ -65,9 +108,12 @@ _SYMBOLS = {
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count and route count to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in ROUTES.values():
+        for route in counts:
+            counts[route] = 0
 
 
 def _kernel_fn(name, dtype):
@@ -75,6 +121,38 @@ def _kernel_fn(name, dtype):
         "%s_%s" % (name, tag): _SYMBOLS[name]
         for tag in _KERNEL_DTYPES.values()})
     return getattr(lib, "%s_%s" % (name, _KERNEL_DTYPES[dtype]))
+
+
+_route_fns = {}   # (kernel, route, dtype) -> ctypes function
+
+
+def _route_fn(name, route, dtype):
+    """The C entry point of ``name``'s ``route`` for ``dtype`` (the
+    library built and loaded on first use)."""
+    key = (name, route, dtype)
+    fn = _route_fns.get(key)
+    if fn is None:
+        lib = _build.load(name, dict(_ROUTE_SYMBOLS[name].values()))
+        fn = _route_fns[key] = getattr(
+            lib, _ROUTE_SYMBOLS[name][(route, _KERNEL_DTYPES[dtype])][0])
+    return fn
+
+
+def _launch(name, dev, fn, args, route=None):
+    """``fn(*args, stream)`` with ``dev``'s current stream, read at call
+    time (inside autograd's backward, the stream the engine runs the
+    node on) and ``dev`` the current device (the library's runtime
+    launches there); count the launch, and on ``route`` if given, or
+    raise."""
+    with _build.on_device(dev):
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise MXNetError("%s: CUDA kernel launch failed%s (cudaError_t %d)"
+                         % (name, "" if route is None
+                            else " on the %s route" % route, err))
+    LAUNCHES[name] += 1
+    if route is not None:
+        ROUTES[name][route] += 1
 
 
 def _check(cond, fmt, *args):
@@ -107,17 +185,6 @@ def _check_tensors(fn, float_args, int_args):
     return dev
 
 
-def _launch(name, dev, fn, args):
-    # the library's runtime launches on the calling thread's current
-    # device; make it the tensors' device
-    with torch.cuda.device(dev):
-        err = fn(*args)
-    if err != 0:
-        raise MXNetError("%s: CUDA kernel launch failed (cudaError_t %d)"
-                         % (name, err))
-    LAUNCHES[name] += 1
-
-
 # ---------------------------------------------------------------------------
 # paged decode attention
 # ---------------------------------------------------------------------------
@@ -142,6 +209,36 @@ def _paged_decode_torch(q, k_pages, v_pages, block_tables, lengths,
     return o.to(q.dtype)
 
 
+def live_pages(length, page_size, pages_per_seq):
+    """Pages a row of ``length`` keys reaches: ceil(length / page_size),
+    at most ``pages_per_seq`` (none for a length <= 0)."""
+    return min(-(-max(int(length), 0) // page_size), pages_per_seq)
+
+
+def decode_split_pages(n_live, splits):
+    """``[(p0, p1), ...]``: the contiguous live pages ``[p0, p1)`` that
+    cluster rank ``r`` of the "cluster" route owns out of a row's
+    ``n_live``, ``r * n_live // splits`` to ``(r + 1) * n_live //
+    splits`` (the kernel's own rule); a rank may own none."""
+    return [(r * n_live // splits, (r + 1) * n_live // splits)
+            for r in range(splits)]
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_route(dtype, head_dim, pages_per_seq, aligned=True):
+    """``("cluster", splits)`` or ``("serial", None)`` for a decode call
+    in ``dtype`` (float32 or bfloat16). The cluster route takes a
+    head_dim of at most 256 whose rows are whole 16-byte segments (a
+    multiple of 8 in bfloat16, of 4 in float32) and 16-byte aligned
+    tensors (``aligned``), and splits each (row, kv head) over
+    ``min(DECODE_CLUSTER, pages_per_seq)`` CTAs of one cluster."""
+    vec = 8 if dtype == torch.bfloat16 else 4
+    if (aligned and 0 < head_dim <= 256 and head_dim % vec == 0
+            and pages_per_seq >= 1):
+        return ("cluster", min(DECODE_CLUSTER, pages_per_seq))
+    return ("serial", None)
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
                            sm_scale=None):
     """Decode-phase attention against a paged KV cache: one query token
@@ -158,7 +255,9 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
     lengths : (b,) int32 — row ``r`` attends positions ``< lengths[r]``.
 
     Returns (b, kv_heads, group, head_dim) in ``q``'s dtype. All inputs
-    on one device and contiguous; float32 or bfloat16."""
+    on one device and contiguous; float32 or bfloat16. A row of length 0
+    gives zeros on the card (the TPU kernel's result); the plain version,
+    like the JAX package's XLA twin, averages V over the row's pages."""
     fn = "paged_decode_attention"
     dev = _check_tensors(fn, [("q", q), ("k_pages", k_pages),
                               ("v_pages", v_pages)],
@@ -188,13 +287,15 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, lengths,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    kernel = _kernel_fn(fn, q.dtype)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _launch(fn, dev, kernel, (
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, kvh, g, hd, num_pages, page_size, block_tables.shape[1],
-        float(sm_scale), stream))
+    pps = block_tables.shape[1]
+    qp, kp, vp = q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()
+    route, splits = decode_route(q.dtype, hd, pps,
+                                 (qp | kp | vp) % 16 == 0)
+    head = (qp, kp, vp, block_tables.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), b, kvh, g, hd, num_pages, page_size, pps)
+    _launch(fn, dev, _route_fn(fn, route, q.dtype),
+            head + ((float(sm_scale),) if splits is None
+                    else (splits, float(sm_scale))), route)
     return out
 
 
@@ -224,6 +325,21 @@ def _flash_prefill_torch(q, kg, vg, k_pages, v_pages, block_tables):
     k_pages[bt] = kg.reshape(b, n_pb, ps, kvh, hd).to(k_pages.dtype)
     v_pages[bt] = vg.reshape(b, n_pb, ps, kvh, hd).to(v_pages.dtype)
     return o, k_pages, v_pages
+
+
+@functools.lru_cache(maxsize=1024)
+def prefill_route(dtype, head_dim, n_heads, kv_heads, aligned=True):
+    """``"mma"`` (bfloat16 on the tensor cores) or ``"fma"`` (float32
+    FMAs on the CUDA cores) for a prefill call. The mma route takes
+    bfloat16, a head_dim in :data:`PREFILL_HEAD_DIMS`, a group
+    ``n_heads // kv_heads`` of at most :data:`PREFILL_MAX_GROUP` and
+    16-byte aligned tensors (``aligned``); float32 stays on fma, where
+    tensor cores would mean TF32 and other numbers."""
+    if (dtype == torch.bfloat16 and aligned
+            and head_dim in PREFILL_HEAD_DIMS
+            and n_heads // kv_heads <= PREFILL_MAX_GROUP):
+        return "mma"
+    return "fma"
 
 
 def flash_prefill_paged(q, kg, vg, k_pages, v_pages, block_tables):
@@ -280,13 +396,14 @@ def flash_prefill_paged(q, kg, vg, k_pages, v_pages, block_tables):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out, k_pages, v_pages
-    kernel = _kernel_fn(fn, q.dtype)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _launch(fn, dev, kernel, (
-        q.data_ptr(), kg.data_ptr(), vg.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-        b, s, nh, kvh, hd, num_pages, ps, block_tables.shape[1],
-        1.0 / math.sqrt(hd), stream))
+    ptrs = (q.data_ptr(), kg.data_ptr(), vg.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr())
+    route = prefill_route(q.dtype, hd, nh, kvh,
+                          (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3] | ptrs[4])
+                          % 16 == 0)
+    _launch(fn, dev, _route_fn(fn, route, q.dtype), ptrs + (
+        block_tables.data_ptr(), out.data_ptr(), b, s, nh, kvh, hd,
+        num_pages, ps, block_tables.shape[1], 1.0 / math.sqrt(hd)), route)
     return out, k_pages, v_pages
 
 
@@ -401,12 +518,9 @@ def _flash_fwd(q, k, v, causal=False, sm_scale=None):
     lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     if o.numel() == 0:
         return o, lse
-    kernel = _kernel_fn(fn, q.dtype)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _launch(fn, dev, kernel, (
+    _launch(fn, dev, _kernel_fn(fn, q.dtype), (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b * h, s, hd, int(bool(causal)), float(sm_scale),
-        stream))
+        lse.data_ptr(), b * h, s, hd, int(bool(causal)), float(sm_scale)))
     return o, lse
 
 
@@ -430,15 +544,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
     if dq.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((b * h * s,), dtype=torch.float32, device=dev)
-    kernel = _kernel_fn(fn, q.dtype)
-    # read at call time: inside autograd's backward this is the stream
-    # the engine runs the node on
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _launch(fn, dev, kernel, (
+    _launch(fn, dev, _kernel_fn(fn, q.dtype), (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), delta.data_ptr(), b * h, s, hd, int(bool(causal)),
-        float(sm_scale), stream))
+        float(sm_scale)))
     return dq, dk, dv
 
 

@@ -49,7 +49,6 @@ do not).
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 
@@ -272,7 +271,7 @@ def int8_matmul(x, w, scale):
     route, bn, splits = matmul_route(m, n, k, xp % 16 == 0 and wp % 16 == 0)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     lib = _build.load("int8_matmul", _SYMBOLS["int8_matmul"])
-    with _on(x.device):
+    with _build.on_device(x.device):
         stream = _raw_stream(x.device)
         if route == "wgmma":
             ws = None if splits == 1 else _workspace(
@@ -347,7 +346,7 @@ def int8_conv_im2col(q, wq, scale, stride, dilate, pad, num_group=1):
     lib = _build.load("int8_conv_im2col", _SYMBOLS["int8_conv_im2col"])
     shape = (b, cin, h, w, cout, groups, kh, kw, stride[0], stride[1],
              pad[0], pad[1], dilate[0], dilate[1], oh, ow)
-    with _on(q.device):
+    with _build.on_device(q.device):
         stream = _raw_stream(q.device)
         if route == "wgmma":
             err = lib.int8_conv_wgmma(q.data_ptr(), wq.data_ptr(),
@@ -387,14 +386,6 @@ def _check_tensors(fn, specs, channels_last=()):
                              % (fn, name, t.device, dev))
     if dev.type not in ("cpu", "cuda", "meta"):
         raise MXNetError("%s: unsupported device %s" % (fn, dev))
-
-
-def _on(device):
-    """``torch.cuda.device(device)``, or nothing where it is current
-    already (entering the guard costs host microseconds a launch)."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
 
 
 def _raw_stream(device):

@@ -147,9 +147,14 @@ def _cast(x, dtype="float32"):
     """``x`` as ``dtype`` with the reference's conversions (XLA's
     convert): a float becomes an integer by truncation toward zero,
     saturated to the type's range, NaN to 0; integers wrap, as there;
-    bool and the float types among themselves as ``Tensor.to``."""
+    bool and the float types among themselves as ``Tensor.to``, except
+    that a NaN cast to bfloat16 is XLA's quiet NaN with the input's
+    sign (0x7FC0 / 0xFFC0), where ``Tensor.to`` gives 0xFFFF on the
+    CPU."""
     from ..ndarray.ndarray import to_torch_dtype
     dt = to_torch_dtype(dtype)
+    if dt == torch.bfloat16 and x.is_floating_point() and x.dtype != dt:
+        return _to_bfloat16(x)
     if not x.is_floating_point() or dt.is_floating_point or dt == torch.bool:
         return x.to(dt)
     info = torch.iinfo(dt)
@@ -159,6 +164,16 @@ def _cast(x, dtype="float32"):
     if info.bits == 64:     # int64's max rounds up to 2^63 in float64
         out = torch.where(y >= 2.0 ** 63, info.max, out)
     return out
+
+
+def _to_bfloat16(x):
+    """``x.to(bfloat16)`` (round to nearest even) with each NaN made
+    0x7FC0, or 0xFFC0 where its sign bit is set: elementwise selects (no
+    host synchronisation) that keep the cast's gradient."""
+    # 0xFFC0 as an int16 is -64
+    nans = torch.where(torch.signbit(x.detach()), -64, 0x7FC0).to(
+        torch.int16).view(torch.bfloat16)
+    return torch.where(torch.isnan(x), nans, x.to(torch.bfloat16))
 
 
 alias("cast", "Cast")

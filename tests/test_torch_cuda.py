@@ -8,7 +8,14 @@ mode) and skips without one. On the card:
 The file imports no JAX, so it runs where only PyTorch is installed.
 Each kernel is held against its plain PyTorch version on the same
 inputs: float32 at rtol/atol 2e-5, bfloat16 against the plain version
-in float32 at 1e-2 (bf16 output rounding), pages bitwise. The flash
+in float32 at 1e-2 (bf16 output rounding), pages bitwise. The serving
+kernels are held on each of their routes (decode "cluster" and
+"serial", prefill "mma" and "fma"), the launch counted on the route the
+route function names: decode at rows of length 0 (zeros, the kernels'
+result), 1, 15, 16, 17 and 256, groups 1-8, head dims 32-128 and a
+second call bitwise equal to the first; prefill at every bucket of the
+decode config, kv_heads = n_heads, group 16, head dims 32 and 128. A
+float32 NaN cast to bfloat16 on the card gives XLA's bits. The flash
 attention kernels (forward and backward) are held by relative RMS error
 ||got - plain|| / ||plain|| of each (batch, head) slice, the plain
 backward fed the plain o and lse: o, dq, dk, dv within 1e-5 in float32
@@ -75,13 +82,25 @@ def _tols(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,kvh,g,hd,ps,pps", [
-    (8, 4, 4, 64, 16, 16),       # the decode config's full width
-    (3, 3, 2, 32, 8, 5),         # 3 kv heads, another page size
+@pytest.mark.parametrize("lengths,kvh,g,hd,ps,pps", [
+    ([37, 256, 1, 100, 17, 64, 200, 5], 4, 4, 64, 16, 16),   # full width
+    ([0, 1, 15, 16, 17, 256], 4, 1, 64, 16, 16),            # edges, MHA
+    ([0, 1, 15, 16, 17, 256], 4, 2, 64, 16, 16),
+    ([0, 1, 15, 16, 17, 256], 4, 8, 64, 16, 16),
+    ([0, 1, 17, 256], 1, 16, 64, 16, 16),                   # 2 head blocks
+    ([0, 1, 15, 16, 17, 256], 4, 4, 32, 16, 16),
+    ([0, 1, 15, 16, 17, 256], 4, 4, 128, 16, 16),
+    ([3, 40, 0], 3, 2, 32, 8, 5),                           # 3 kv heads
+    ([0, 1, 17, 256], 4, 4, 12, 16, 16),                    # bf16 serial
+    ([0, 1, 17, 256], 4, 4, 6, 16, 16),                     # serial
 ])
-def test_paged_decode_kernel_matches_plain(card, dtype, b, kvh, g, hd, ps,
-                                           pps):
+def test_paged_decode_kernel_matches_plain(card, dtype, lengths, kvh, g, hd,
+                                           ps, pps):
+    """Each route against the plain version (a row of length 0 against
+    zeros, the kernels' result), the launch counted on the route
+    ``decode_route`` names, and a second call bitwise equal."""
     rng = np.random.RandomState(6)
+    b = len(lengths)
     num_pages = b * pps + 1
     q = torch.from_numpy(rng.randn(b, kvh, g, hd).astype(np.float32))
     kp = torch.from_numpy(rng.randn(num_pages, ps, kvh, hd).astype(
@@ -90,23 +109,35 @@ def test_paged_decode_kernel_matches_plain(card, dtype, b, kvh, g, hd, ps,
         np.float32))
     bt = torch.from_numpy((rng.permutation(num_pages - 1) + 1).reshape(
         b, pps).astype(np.int32)).to(card)
-    ln = torch.from_numpy(rng.randint(1, pps * ps + 1, b).astype(
-        np.int32)).to(card)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=card)
     dt = getattr(torch, dtype)
     q, kp, vp = (t.to(card, dt) for t in (q, kp, vp))
+    route, _ = tfa.decode_route(dt, hd, pps)
     n0 = tfa.LAUNCHES["paged_decode_attention"]
+    r0 = dict(tfa.ROUTES["paged_decode_attention"])
     got = tfa.paged_decode_attention(q, kp, vp, bt, ln)
     torch.cuda.synchronize()
     assert tfa.LAUNCHES["paged_decode_attention"] == n0 + 1
+    assert tfa.ROUTES["paged_decode_attention"][route] == r0[route] + 1
     ref = tfa._paged_decode_torch(q.float(), kp.float(), vp.float(), bt, ln,
                                   1.0 / hd ** 0.5)
+    ref[ln == 0] = 0.0
     tol = _tols(dtype)
     torch.testing.assert_close(got.float(), ref, rtol=tol, atol=tol)
+    assert torch.equal(tfa.paged_decode_attention(q, kp, vp, bt, ln), got)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,nh,kvh,hd,ps", [
-    (1, 128, 16, 4, 64, 16),     # the decode config's full width
+    (1, 16, 16, 4, 64, 16),      # the decode config's buckets
+    (1, 32, 16, 4, 64, 16),
+    (1, 64, 16, 4, 64, 16),
+    (1, 128, 16, 4, 64, 16),
+    (1, 256, 16, 4, 64, 16),
+    (1, 128, 16, 16, 64, 16),    # kv_heads = n_heads
+    (1, 64, 16, 1, 64, 16),      # group 16
+    (1, 64, 8, 2, 32, 16),       # head dims
+    (1, 64, 8, 2, 128, 16),
     (2, 40, 6, 3, 64, 8),        # 3 kv heads, a ragged last q tile
 ])
 def test_flash_prefill_kernel_matches_plain(card, dtype, b, s, nh, kvh, hd,
@@ -125,17 +156,41 @@ def test_flash_prefill_kernel_matches_plain(card, dtype, b, s, nh, kvh, hd,
     bt = (torch.arange(b * n_pb, dtype=torch.int32) + 1).reshape(
         b, n_pb).to(card)
     kp_ref, vp_ref = kp.clone(), vp.clone()
+    route = tfa.prefill_route(dt, hd, nh, kvh)
+    assert route == ("mma" if dtype == "bfloat16" else "fma")
     n0 = tfa.LAUNCHES["flash_prefill_paged"]
+    r0 = tfa.ROUTES["flash_prefill_paged"][route]
     o, kp2, _ = tfa.flash_prefill_paged(q, kg, vg, kp, vp, bt)
     torch.cuda.synchronize()
     assert kp2 is kp
     assert tfa.LAUNCHES["flash_prefill_paged"] == n0 + 1
+    assert tfa.ROUTES["flash_prefill_paged"][route] == r0 + 1
     ro, _, _ = tfa._flash_prefill_torch(q.float(), kg.float(), vg.float(),
                                         kp_ref.float(), vp_ref.float(), bt)
     tfa._flash_prefill_torch(q, kg, vg, kp_ref, vp_ref, bt)
     tol = _tols(dtype)
     torch.testing.assert_close(o.float(), ro, rtol=tol, atol=tol)
     assert torch.equal(kp, kp_ref) and torch.equal(vp, vp_ref)
+
+
+@pytest.mark.parametrize("via", ["cast", "astype"])
+def test_cast_float32_nan_to_bfloat16_on_card(card, via):
+    """XLA's bits on the card too: a NaN becomes 0x7FC0 / 0xFFC0 by its
+    sign, every other value rounds to nearest even (ml_dtypes' cast)."""
+    import ml_dtypes
+    bits = np.array([0x7FC00000, 0x7F800001, 0x7FFFFFFF, 0x7FA00000,
+                     0xFFC00000, 0xFF800001, 0x00000000, 0x80000000,
+                     0x7F800000, 0xFF800000, 0x3F808000, 0x40490FDB],
+                    np.uint32)
+    src = bits.view(np.float32)
+    a = tmx.nd.array(src, ctx=tmx.gpu(0))
+    r = (tmx.nd.cast(a, dtype="bfloat16") if via == "cast"
+         else a.astype("bfloat16"))
+    got = r.asnumpy().view(np.uint16).tolist()
+    with np.errstate(invalid="ignore"):
+        want = src.astype(ml_dtypes.bfloat16).view(np.uint16).tolist()
+    assert got == want
+    assert got[:6] == [0x7FC0] * 4 + [0xFFC0] * 2
 
 
 def test_engine_on_card_matches_cpu_engine(card):

@@ -115,6 +115,30 @@ def test_cast_float32_to_bool_and_floats_matches_jax(dtype):
     np.testing.assert_array_equal(out[1], out[0])
 
 
+# float32 bit patterns: quiet and signalling NaNs with either sign and
+# several payloads, +-0, +-inf, values that round (one a tie to even)
+NAN_BITS = [0x7FC00000, 0x7F800001, 0x7FFFFFFF, 0x7FA00000, 0xFFC00000,
+            0xFF800001]
+CAST_BF16_BITS = NAN_BITS + [0x00000000, 0x80000000, 0x7F800000,
+                             0xFF800000, 0x3F808000, 0x40490FDB,
+                             0xC2F6E979, 0x3F800001]
+
+
+@pytest.mark.parametrize("via", ["cast", "astype"])
+def test_cast_float32_nan_to_bfloat16_matches_jax(via):
+    """XLA's convert gives a NaN the quiet pattern with the input's sign
+    (0x7FC0 / 0xFFC0); every other value rounds to nearest even."""
+    src = np.array(CAST_BF16_BITS, np.uint32).view(np.float32)
+    out = {}
+    for name, mx in (("jax", jmx), ("torch", tmx)):
+        a = mx.nd.array(src, ctx=mx.cpu())
+        r = (mx.nd.cast(a, dtype="bfloat16") if via == "cast"
+             else a.astype("bfloat16"))
+        out[name] = r.asnumpy().view(np.uint16).tolist()
+    assert out["torch"] == out["jax"]
+    assert out["torch"][:len(NAN_BITS)] == [0x7FC0] * 4 + [0xFFC0] * 2
+
+
 # +-0, subnormals, +-inf, NaN, values bfloat16 holds exactly, a tie that
 # rounds to even, values that round; rounded to bfloat16 once, by
 # ml_dtypes, so that both packages hold the same bits (their float32 ->
