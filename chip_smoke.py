@@ -168,8 +168,40 @@ Phases, each fatal on failure (no phase's failure is caught):
     card (f32), the CPU (f32) and the CPU in float64 (the witness), held
     by phase 14's ratio rule, and a planted BatchNorm fault (gamma's
     gradient doubled) that must fail it;
-24. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
-    20, its launches from phase 21), the card line, and last
+24. the data path: write ``build/smoke_data/train.rec`` / ``.idx`` through
+    ``recordio.pack_img`` (768 seeded images as ``tools/im2rec.py
+    --resize 256`` leaves ImageNet: short side 256, long side 256-384,
+    JPEG quality 95, labels 0-999), its size and write time; the decoder
+    backend must be ``nvjpeg``; 64 records through ``ImageIter`` on the
+    native route (nvJPEG + ``crop_mirror_normalize``) against the python
+    route (cv2 + Augmenters), center crop: within DECODE_LEVEL_TOL /
+    DECODE_MEAN_TOL uint8 levels (the inverse DCTs' rounding), and a
+    planted fault (the mean shifted one channel) must fail; the kernel
+    at a batch of 32 (random crop and mirror) bitwise equal to its plain
+    version on the card and on the CPU, a planted fault failing, timed
+    beside its bound and plain version; ``ImageRecordIter`` alone (batch
+    32, random crop and mirror, staged onto the card) in img/s at 4 and
+    ``nproc`` decode threads; one batch's upload from pageable and from
+    pinned memory; staged batches (python route through the pinned ring,
+    native route) bitwise equal to synchronous copies of the same
+    records;
+25. the north-star CLI in-process, ``train_imagenet.main([... "--benchmark",
+    "1", "--max-batches", "48", ...])``: img/s from its Speedometer
+    lines against phase 13's, ``sgd_fused_update`` once a step and its
+    plain version never, no input copied by the executor;
+26. the CLI on the records with ``--model-prefix`` (2 epochs of 24
+    batches, random crop and mirror): every batch on the native route
+    (nvjpeg, one ``crop_mirror_normalize`` launch a batch), on the card
+    when it reaches ``Module.fit`` (the executor copies no input), 48
+    update launches, finite loss, epoch 2's img/s; the manifests verify;
+    ``Module.load(prefix, 2, load_optimizer_states=True)`` equals the
+    trained module bitwise (parameters and optimizer states); a profiled
+    window of 8 real-data steps (the device's busy share); then
+    ``--load-epoch 1``: its parameters equal checkpoint 1's bitwise and
+    the resumed epoch's loss is finite;
+27. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
+    20, its launches from phase 21; ``crop_mirror_normalize``'s times
+    from phase 24, its launches from phase 26), the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or without
@@ -180,6 +212,7 @@ import argparse
 import copy
 import functools
 import json
+import logging
 import os
 import re
 import shutil
@@ -1546,6 +1579,9 @@ def _resnet_class(name):
     low = name.lower()
     if "fused_update_kernel" in low:
         return "fused_update"
+    if any(k in low for k in ("jpeg", "idct", "huffman",
+                              "crop_mirror_normalize")):
+        return "image_decode"
     if "batch_norm" in low or "bn_" in low or "welford" in low:
         return "batchnorm"
     if any(k in low for k in ("fprop", "dgrad", "wgrad", "conv", "winograd",
@@ -3654,6 +3690,487 @@ def gluon_vs_cpu(torch, mx, fu, batch=2, steps=2):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 24-26: the data path and the north-star CLI with checkpoints
+# ---------------------------------------------------------------------------
+
+SMOKE_RECORDS = 768     # phase 24's .rec: 24 batches of 32
+SMOKE_SHORT = 256       # tools/im2rec.py --resize 256: short side 256,
+SMOKE_LONG = (256, 384)  # the long side as ImageNet's aspect ratios leave it
+SMOKE_QUALITY = 95      # im2rec's JPEG quality
+CLI_MEAN = (123.68, 116.779, 103.939)   # the CLI's --rgb-mean
+CLI_STD = (58.393, 57.12, 57.375)       # an ImageNet --rgb-std
+# nvJPEG's component planes differ from libjpeg-turbo's (OpenCV's) by
+# the rounding of the inverse DCT; the colour conversion and chroma
+# upsampling are libjpeg-turbo's own (bitwise, tests/test_torch_image.py).
+# On an H100 with nvJPEG 12.4 the two were at most 3 levels apart, on
+# ~4% of values (q 95 records; PERF.md §6); a mean moved by one channel
+# moves the values 7-13 levels.
+DECODE_LEVEL_TOL = 4    # max |native - python| in uint8 levels
+DECODE_MEAN_TOL = 0.1   # mean |native - python| in levels
+CLI_BATCHES = 48        # phase 25: --max-batches
+DECODE_BACKEND = "nvjpeg"   # the H100 machines this script targets have
+                            # nvJPEG and no OpenCV C++ headers
+CLI_EXTRA = []          # appended to the CLI's arguments (a CPU rehearsal)
+
+
+class LogLines(logging.Handler):
+    """The messages logged at INFO and above while it is attached to the
+    root logger (the CLI's Speedometer and epoch lines)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        root = logging.getLogger()
+        self._level = root.level
+        root.setLevel(logging.INFO)
+        root.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        root = logging.getLogger()
+        root.removeHandler(self)
+        root.setLevel(self._level)
+        return False
+
+    def speeds(self, epoch=None):
+        out = []
+        for line in self.lines:
+            m = re.search(r"Epoch\[(\d+)\] Batch \[(\d+)\]\s+Speed: "
+                          r"([0-9.]+) samples/sec", line)
+            if m and (epoch is None or int(m.group(1)) == epoch):
+                out.append(float(m.group(3)))
+        return out
+
+    def train_value(self, name):
+        """{epoch: value} of the ``Epoch[e] Train-<name>=`` lines."""
+        out = {}
+        for line in self.lines:
+            m = re.search(r"Epoch\[(\d+)\] Train-%s=([-+0-9.eEinfa]+)"
+                          % re.escape(name), line)
+            if m:
+                out[int(m.group(1))] = float(m.group(2))
+        return out
+
+
+def smoke_records(mx, path, n=SMOKE_RECORDS, seed=0):
+    """Write ``n`` seeded images as ``tools/im2rec.py --resize 256`` leaves
+    ImageNet (short side 256, long side 256-384, either orientation, JPEG
+    quality 95, labels 0-999) through ``recordio.pack_img``: smooth
+    fields (a 6x8 random grid, cubic upsampled) plus uniform noise, so
+    that the files are the size of real ones. Returns (bytes, seconds)."""
+    import cv2
+    rng = np.random.RandomState(seed)
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    w = mx.recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                      path, "w")
+    for i in range(n):
+        long_side = int(rng.randint(SMOKE_LONG[0], SMOKE_LONG[1] + 1))
+        h, wd = (SMOKE_SHORT, long_side) if rng.rand() < 0.75 else (
+            long_side, SMOKE_SHORT)
+        grid = rng.uniform(0, 255, (6, 8, 3)).astype(np.float32)
+        field = cv2.resize(grid, (wd, h), interpolation=cv2.INTER_CUBIC)
+        noise = rng.randint(-16, 17, (h, wd, 3)).astype(np.float32)
+        img = np.clip(field + noise, 0, 255).astype(np.uint8)
+        label = float(rng.randint(0, 1000))
+        w.write_idx(i, mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, label, i, 0), img,
+            quality=SMOKE_QUALITY))
+    w.close()
+    return os.path.getsize(path), time.perf_counter() - t0
+
+
+def _levels(torch, a, b):
+    """|a - b| in uint8 levels of normalised NCHW batches (x std)."""
+    std = torch.tensor(CLI_STD, dtype=torch.float64).reshape(1, 3, 1, 1)
+    return (a.double().cpu() - b.double().cpu()).abs() * std
+
+
+def _plane_cost(items, oh, ow):
+    """Bytes crop_mirror_normalize must move: each crop's Y samples and
+    the chroma samples under it read once, float32 NCHW written once."""
+    total = 0
+    for row in items.tolist():
+        kind, ch, cw = row[6], row[7], row[8]
+        total += oh * ow + 12 * oh * ow
+        if kind == 3:               # 4:2:0: a chroma row covers 2 rows
+            total += 2 * min(ch, oh // 2 + 2) * min(cw, ow // 2 + 2)
+        elif kind == 2:
+            total += 2 * oh * min(cw, ow // 2 + 2)
+        elif kind == 1:
+            total += 2 * oh * ow
+    return total
+
+
+def data_pipeline(torch, mx, idec, rec, timer):
+    """Phase 24: the records' decode on both routes, the augment kernel
+    against its plain version, the iterator's rate, the upload's cost,
+    and staged batches against synchronous copies."""
+    dev = torch.device("cuda", 0)
+    mean = np.array(CLI_MEAN, np.float32)
+    std = np.array(CLI_STD, np.float32)
+    check("nvjpeg" in mx.image.decoder_backends(),
+          "no nvjpeg decoder backend: %s" % mx.image.decoder_backends())
+    backend = mx.image.decoder_backends()[0]
+    check(backend == DECODE_BACKEND, "decoder backend %r, expected %s"
+          % (backend, DECODE_BACKEND))
+    # native (nvJPEG + kernel) against python (cv2 + Augmenters) on 64
+    # records, center crop, no resize
+    kw = dict(path_imgrec=rec, mean=mean, std=std)
+    native = mx.image.ImageIter(64, (3, 224, 224), preprocess_threads=4,
+                                ctx=dev, **kw)
+    python = mx.image.ImageIter(64, (3, 224, 224), **kw)
+    check(native.route == "native" and python.route == "python",
+          "routes %s / %s" % (native.route, python.route))
+    a = native.next().data[0]._data
+    check(a.device.type == "cuda", "native batch on %s" % a.device)
+    b = python.next().data[0]._data
+    lv = _levels(torch, a, b)
+    lmax, lmean = float(lv.max()), float(lv.mean())
+    frac = float((lv > 0.5).double().mean())
+    check(lmax <= DECODE_LEVEL_TOL and lmean <= DECODE_MEAN_TOL,
+          "native vs python decode: max %.3f, mean %.4f levels" % (lmax,
+                                                                   lmean))
+    # planted fault: the mean moved by one channel must fail the bound
+    bad = mx.image.ImageIter(64, (3, 224, 224), path_imgrec=rec,
+                             mean=np.roll(mean, 1), std=std)
+    lv_bad = _levels(torch, a, bad.next().data[0]._data)
+    check(float(lv_bad.max()) > DECODE_LEVEL_TOL
+          or float(lv_bad.mean()) > DECODE_MEAN_TOL,
+          "planted fault (mean shifted one channel) passed the decode "
+          "bound")
+    # the kernel against its plain version at the main path's shape: one
+    # batch of 32, random crop and mirror
+    dec = mx.image.NativeImageDecoder((3, 224, 224), rand_crop=True,
+                                      rand_mirror=True, mean=mean, std=std,
+                                      num_threads=4, backend="nvjpeg")
+    reader = mx.recordio.MXIndexedRecordIO(
+        os.path.splitext(rec)[0] + ".idx", rec, "r")
+    bufs = [mx.recordio.unpack(reader.read_idx(k))[1] for k in range(32)]
+    reader.close()
+    src, items = dec.decode_planes(bufs, base=0)
+    idec.reset_launches()
+    got = idec.crop_mirror_normalize(src, items, (3, 224, 224), mean, std)
+    check(idec.LAUNCHES["crop_mirror_normalize"] == 1, "kernel not launched")
+    plain = idec._crop_mirror_normalize_plain(src, items, (3, 224, 224),
+                                              mean, std)
+    plain_cpu = idec._crop_mirror_normalize_plain(
+        src.cpu(), items, (3, 224, 224), mean, std)
+    check(torch.equal(got, plain) and torch.equal(got.cpu(), plain_cpu),
+          "crop_mirror_normalize differs from its plain version: %g"
+          % float((got - plain).abs().max()))
+    faulty = idec._crop_mirror_normalize_plain(src, items, (3, 224, 224),
+                                               np.roll(mean, 1), std)
+    check(not torch.equal(got, faulty), "planted fault (mean shifted one "
+          "channel) passed the kernel check")
+    kinds = sorted(set(items[:, 6].tolist()))
+    # the wrapper's host side (checking the items, their pinned copy)
+    # outlasts the L2 flush: hold the card so only device time is timed
+    ms = timer(lambda: idec.crop_mirror_normalize(src, items, (3, 224, 224),
+                                                  mean, std), hold_ms=0.5)
+    plain_ms = timer(lambda: idec._crop_mirror_normalize_plain(
+        src, items, (3, 224, 224), mean, std), iters=3)
+    nbytes = _plane_cost(items, 224, 224)
+    row = {"name": "crop_mirror_normalize", "max_abs_err": 0.0, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BPS * 1e3,
+           "bound_by": "bytes", "library_ms": None, "kinds": kinds,
+           "bytes": nbytes}
+    # ImageRecordIter alone, as the CLI builds it (random crop and mirror,
+    # staged onto the card by its prefetch thread)
+    nproc = os.cpu_count()
+    rates = {}
+    for threads in sorted({4, nproc}):
+        it = mx.io.ImageRecordIter(
+            path_imgrec=rec, data_shape=(3, 224, 224), batch_size=32,
+            shuffle=True, rand_crop=True, rand_mirror=True,
+            mean_r=CLI_MEAN[0], mean_g=CLI_MEAN[1], mean_b=CLI_MEAN[2],
+            std_r=CLI_STD[0], std_g=CLI_STD[1], std_b=CLI_STD[2],
+            preprocess_threads=threads, prefetch_buffer=2, ctx=dev)
+        for _ in range(2):
+            it.next()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(16):
+            batch = it.next()
+            check(batch.data[0]._data.device.type == "cuda",
+                  "ImageRecordIter batch on %s" % batch.data[0].context)
+        torch.cuda.synchronize()
+        rates[threads] = 16 * 32 / (time.perf_counter() - t0)
+        it.close()
+    # one batch's upload: pageable against pinned host memory
+    host = torch.empty((32, 3, 224, 224), dtype=torch.float32)
+    host.copy_(torch.from_numpy(np.random.RandomState(0).uniform(
+        -2, 2, host.shape).astype(np.float32)))
+    pinned = host.pin_memory()
+    dst = torch.empty(host.shape, dtype=torch.float32, device=dev)
+    upload = {}
+    for name, t, nb in (("pageable", host, False), ("pinned", pinned, True),
+                        ("pageable", host, False), ("pinned", pinned, True)):
+        dst.copy_(t, non_blocking=nb)
+        torch.cuda.synchronize()
+        s_ev = torch.cuda.Event(enable_timing=True)
+        e_ev = torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        for _ in range(10):
+            dst.copy_(t, non_blocking=nb)
+        e_ev.record()
+        torch.cuda.synchronize()
+        upload.setdefault(name, []).append(s_ev.elapsed_time(e_ev) / 10)
+    check(torch.equal(dst.cpu(), host), "upload corrupted the batch")
+    # staged batches against synchronous copies of the same records, more
+    # batches than the pinned ring has slots: the python route (host
+    # batches through the pinned ring) and the native route
+    staged_ok = {}
+    for route, extra in (("python", {}), ("native",
+                                          {"preprocess_threads": 4})):
+        args = dict(path_imgrec=rec, data_shape=(3, 224, 224),
+                    batch_size=32, shuffle=True, rand_crop=True,
+                    rand_mirror=True, mean_r=CLI_MEAN[0], std_r=CLI_STD[0],
+                    **extra)
+        staged = mx.io.ImageRecordIter(prefetch_buffer=2, ctx=dev, **args)
+        direct = mx.io.ImageRecordIter(
+            ctx=torch.device("cpu") if route == "python" else dev, **args)
+        for _ in range(5):
+            sb, db = staged.next(), direct.next()
+            for x, y in zip(sb.data + sb.label, db.data + db.label):
+                check(x._data.device.type == "cuda",
+                      "%s route: staged batch on %s" % (route, x.context))
+                check(torch.equal(x._data, y._data.to(dev)),
+                      "%s route: a staged batch differs from the "
+                      "synchronous copy" % route)
+        staged.close()
+        staged_ok[route] = 5
+    res = {"backend": backend, "routes": {"native": native.route,
+                                          "python": python.route},
+           "decode_levels_max": lmax, "decode_levels_mean": lmean,
+           "decode_values_differing": frac,
+           "planted_levels_max": float(lv_bad.max()),
+           "kernel": row, "iter_img_per_s": rates, "nproc": nproc,
+           "upload_ms": {k: min(v) for k, v in upload.items()},
+           "staged_batches_bitwise": staged_ok}
+    log("data: backend %s; native vs python decode (64 records, no resize): "
+        "max %.3f, mean %.4f levels, %.2f%% of values differ (bound %d / "
+        "%.2f); planted mean shift: max %.1f levels"
+        % (backend, lmax, lmean, 100 * frac, DECODE_LEVEL_TOL,
+           DECODE_MEAN_TOL, res["planted_levels_max"]))
+    log("data: with resize: not compared, the nvjpeg route does not resize "
+        "(ROADMAP A8.1b; the records are written at the training size)")
+    log("data: crop_mirror_normalize (32 images, planes %s) %.4f ms, plain "
+        "%.3f ms, bound %.4f ms (bytes), bitwise vs plain (card and CPU)"
+        % (kinds, ms, plain_ms, row["bound_ms"]))
+    log("data: ImageRecordIter alone, batch 32 3x224x224, random crop + "
+        "mirror, staged: %s img/s (threads: img/s; nproc %d)"
+        % ({k: round(v, 1) for k, v in rates.items()}, nproc))
+    log("data: one batch upload (19.3 MB): pageable %.3f ms, pinned %.3f ms"
+        % (res["upload_ms"]["pageable"], res["upload_ms"]["pinned"]))
+    return res
+
+
+def cli_args(*extra):
+    return ["--network", "resnet", "--num-layers", "50", "--batch-size",
+            str(RESNET_BATCH), "--disp-batches", "8"] + list(extra) + \
+        CLI_EXTRA
+
+
+def cli_synthetic(torch, mx, fu, module_img_s):
+    """Phase 25: ``train_imagenet.main(... --benchmark 1)`` in-process,
+    48 batches: img/s from its Speedometer lines, one
+    ``sgd_fused_update`` launch a step and its plain version never,
+    no input copied by the executor."""
+    from mxnet_tpu_torch import executor
+    from mxnet_tpu_torch.examples import train_imagenet
+    plain_calls = [0]
+    real_plain = fu._sgd_fused
+
+    def spy(*args):
+        plain_calls[0] += 1
+        return real_plain(*args)
+
+    fu.reset_launches()
+    executor.INPUT_COPIES["count"] = 0
+    fu._sgd_fused = spy
+    try:
+        with LogLines() as logs:
+            t0 = time.perf_counter()
+            mod = train_imagenet.main(cli_args(
+                "--benchmark", "1", "--num-epochs", "1", "--max-batches",
+                str(CLI_BATCHES)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        fu._sgd_fused = real_plain
+    launches = fu.LAUNCHES["sgd_fused_update"]
+    check(launches == CLI_BATCHES, "CLI: sgd_fused_update launched %d "
+          "times for %d steps" % (launches, CLI_BATCHES))
+    check(plain_calls[0] == 0, "CLI: the plain SGD rule ran")
+    check(executor.INPUT_COPIES["count"] == 0, "CLI: the executor copied "
+          "%d inputs" % executor.INPUT_COPIES["count"])
+    speeds = logs.speeds(0)
+    # a line at batches 8, 16, ..., each over the 8 batches before it
+    check(len(speeds) == (CLI_BATCHES - 1) // 8, "Speedometer lines: %s"
+          % speeds)
+    img_s = float(np.mean(speeds[-3:]))
+    out = mod.get_outputs()[0].asnumpy()
+    check(np.isfinite(out).all(), "CLI: non-finite outputs")
+    del mod
+    res = {"img_per_s": img_s, "speedometer": speeds, "wall_s": wall,
+           "launches": launches, "ratio_to_module_fit": img_s / module_img_s}
+    log("cli --benchmark 1: %d steps in %.2fs; Speedometer img/s %s; the "
+        "last 3 lines %.1f img/s, %.3fx phase 13's %.1f; "
+        "sgd_fused_update %d launches; nproc %d"
+        % (CLI_BATCHES, wall, [round(v, 1) for v in speeds], img_s,
+           res["ratio_to_module_fit"], module_img_s, launches,
+           os.cpu_count()))
+    return res
+
+
+def cli_records(torch, mx, fu, idec, rec, prefix):
+    """Phase 26: ``train_imagenet.main`` on the records with checkpoints,
+    two epochs of 24 batches. Every count is 0 just before and read just
+    after: 48 update launches; every batch decoded on the native route
+    (nvjpeg) by one ``crop_mirror_normalize`` launch; the batches reach
+    ``Module.fit`` on the card (the executor copies no input); the loss
+    is finite. Then the manifests verify, ``Module.load(prefix, 2,
+    load_optimizer_states=True)`` gives the trained module's parameters
+    and optimizer states bitwise, a profiled window of 8 real-data steps
+    gives the device's busy share, and ``--load-epoch 1`` resumes: its
+    loaded parameters equal checkpoint 1's bitwise (``--num-epochs 1``,
+    no step), and the resumed epoch's loss is finite."""
+    from mxnet_tpu_torch import checkpoint, executor
+    from mxnet_tpu_torch.examples import train_imagenet
+    from mxnet_tpu_torch.examples.common import data as cli_data
+    dev = mx.gpu(0)
+    shutil.rmtree(os.path.dirname(prefix), ignore_errors=True)
+    argv = cli_args("--data-train", rec, "--random-crop", "1",
+                    "--random-mirror", "1", "--max-batches", "24",
+                    "--model-prefix", prefix, "--loss", "ce")
+    fu.reset_launches()
+    idec.reset_launches()
+    mx.image.reset_routes()
+    executor.INPUT_COPIES["count"] = 0
+    with LogLines() as logs:
+        t0 = time.perf_counter()
+        mod = train_imagenet.main(argv + ["--num-epochs", "2"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = fu.LAUNCHES["sgd_fused_update"]
+    routes, backends = dict(mx.image.ROUTES), dict(mx.image.BACKENDS)
+    kernel_launches = idec.LAUNCHES["crop_mirror_normalize"]
+    copies = executor.INPUT_COPIES["count"]
+    check(steps == 48, "records fit: %d update launches for 48 steps"
+          % steps)
+    check(routes["python"] == 0 and routes["native"] >= 48,
+          "records fit: routes %s" % routes)
+    check(backends[DECODE_BACKEND] == routes["native"]
+          and kernel_launches == routes["native"],
+          "records fit: backends %s, crop_mirror_normalize launches %d"
+          % (backends, kernel_launches))
+    check(copies == 0, "records fit: the executor copied %d inputs: the "
+          "batches did not arrive on the card" % copies)
+    ce = logs.train_value("cross-entropy")
+    check(sorted(ce) == [0, 1] and all(np.isfinite(v) for v in ce.values()),
+          "records fit: cross-entropy %s" % ce)
+    speeds = logs.speeds(1)
+    img_s = float(np.mean(speeds))
+    mans = [checkpoint.verify_checkpoint(prefix, e) for e in (1, 2)]
+    check(all(m["has_optimizer_states"] for m in mans),
+          "checkpoints without optimizer states")
+    loaded = mx.mod.Module.load(prefix, 2, load_optimizer_states=True,
+                                context=mx.gpu(0))
+    loaded.bind(data_shapes=mod.data_shapes, label_shapes=mod.label_shapes)
+    loaded.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+    # the loaded module's bound arrays on the card against the trained
+    # module's
+    te, le = mod._exec, loaded._exec
+    check(all(torch.equal(te.arg_dict[k]._data, le.arg_dict[k]._data)
+              for k in mod._param_names)
+          and all(torch.equal(te.aux_dict[k]._data, le.aux_dict[k]._data)
+                  for k in mod._aux_names)
+          and le.arg_dict[mod._param_names[0]]._data.device.type == "cuda",
+          "Module.load: parameters differ from the trained module's")
+    states = 0
+    for i, st in mod._updater.states.items():
+        w = loaded._exec.arg_dict[loaded._param_names[i]]
+        got = loaded._updater.ensure_state(i, w)
+        check(torch.equal(st._data, got._data), "Module.load: optimizer "
+              "state %d differs" % i)
+        states += 1
+    check(states == len(mod._param_names), "%d optimizer states for %d "
+          "parameters" % (states, len(mod._param_names)))
+    del loaded
+    # a profiled window of real-data steps: the CLI's pipeline feeding the
+    # trained module as the fit does
+    it, _ = cli_data.get_rec_iter(train_imagenet.parse_args(argv), dev)
+    for _ in range(2):
+        batch = it.next()
+        mod.forward_backward(batch)
+        mod.update()
+    torch.cuda.synchronize()
+
+    def window():
+        for _ in range(8):
+            b = it.next()
+            mod.forward_backward(b)
+            mod.update()
+
+    prof = profile_run(torch, window, _resnet_class)
+    it.close()
+    del mod
+    # resume: --load-epoch 1 loads checkpoint 1's parameters ...
+    _, arg1, aux1 = mx.model.load_checkpoint(prefix, 1)
+    resumed = train_imagenet.main(argv + ["--load-epoch", "1",
+                                          "--num-epochs", "1"])
+    ra, rx = resumed.get_params()
+    check(all(torch.equal(ra[k]._data.cpu(), arg1[k]._data) for k in arg1)
+          and all(torch.equal(rx[k]._data.cpu(), aux1[k]._data)
+                  for k in aux1),
+          "--load-epoch 1: the loaded parameters differ from checkpoint 1")
+    del resumed
+    # ... and trains the second epoch from them
+    with LogLines() as rlogs:
+        resumed = train_imagenet.main(argv + ["--load-epoch", "1",
+                                              "--num-epochs", "2"])
+        torch.cuda.synchronize()
+    rce = rlogs.train_value("cross-entropy")
+    check(sorted(rce) == [1] and np.isfinite(rce[1]),
+          "resumed epoch: cross-entropy %s" % rce)
+    del resumed
+    ckpt_bytes = sum(os.path.getsize(os.path.join(os.path.dirname(prefix), f))
+                     for f in os.listdir(os.path.dirname(prefix)))
+    shutil.rmtree(os.path.dirname(prefix), ignore_errors=True)
+    res = {"wall_s": wall, "steps": steps, "routes": routes,
+           "backends": backends, "kernel_launches": kernel_launches,
+           "executor_input_copies": copies, "cross_entropy": ce,
+           "epoch2_speedometer": speeds, "epoch2_img_per_s": img_s,
+           "optimizer_states_bitwise": states, "profiled_window": prof,
+           "resumed_cross_entropy": rce[1], "checkpoint_bytes": ckpt_bytes}
+    log("cli records: 2 epochs of 24 batches in %.2fs; routes %s, backends "
+        "%s, crop_mirror_normalize %d launches, sgd_fused_update %d, "
+        "executor input copies %d; cross-entropy %s; epoch 2 Speedometer "
+        "%s img/s (mean %.1f; 4 decode threads, nproc %d)"
+        % (wall, routes, backends, kernel_launches, steps, copies,
+           {k: round(v, 4) for k, v in ce.items()},
+           [round(v, 1) for v in speeds], img_s, os.cpu_count()))
+    log("cli records: manifests 1, 2 verify; Module.load(2, optimizer "
+        "states) bitwise: %d parameters' states; --load-epoch 1 loads "
+        "checkpoint 1 bitwise; resumed epoch cross-entropy %.4f; "
+        "checkpoint files %.1f MB"
+        % (states, rce[1], res["checkpoint_bytes"] / 1e6))
+    log("cli records: profiled window of 8 real-data steps: wall %.3fs, "
+        "device busy %s, %d kernels, device ms by class %s"
+        % (prof["wall_s"], "not measured" if prof["busy_share"] is None
+           else "%.1f%%" % (100 * prof["busy_share"]), prof["kernels"],
+           {k: round(v, 3) for k, v in prof["device_ms"].items()}))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="write the full report here (JSON)")
@@ -3669,6 +4186,7 @@ def main():
     from mxnet_tpu_torch.ops.cuda import batch_norm as bnk
     from mxnet_tpu_torch.ops.cuda import flash_attention as fa
     from mxnet_tpu_torch.ops.cuda import fused_update as fu
+    from mxnet_tpu_torch.ops.cuda import image_decode as idec
     from mxnet_tpu_torch.ops.cuda import int8_matmul as i8
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3727,6 +4245,18 @@ def main():
     custom = rtc_custom_op(torch, mx, rtc_mods)
     gluon = gluon_fit(torch, mx, fu, fitted["img_per_s"])
     gluon_cpu = gluon_vs_cpu(torch, mx, fu)
+    rec = os.path.join(root, "build", "smoke_data", "train.rec")
+    rec_bytes, rec_s = smoke_records(mx, rec)
+    log("data: wrote %d records (%.1f MB, %.1f KB a record) in %.2fs: %s"
+        % (SMOKE_RECORDS, rec_bytes / 1e6, rec_bytes / SMOKE_RECORDS / 1e3,
+           rec_s, os.path.relpath(rec, root)))
+    timer = Timer(torch)
+    data = data_pipeline(torch, mx, idec, rec, timer)
+    del timer
+    data.update(records=SMOKE_RECORDS, rec_bytes=rec_bytes, rec_write_s=rec_s)
+    cli_synth = cli_synthetic(torch, mx, fu, fitted["img_per_s"])
+    cli_rec = cli_records(torch, mx, fu, idec, rec, os.path.join(
+        root, "build", "smoke_ckpt", "r50"))
 
     sources = {"paged_decode_attention": (
         "mxnet_tpu_torch/ops/cuda/csrc/paged_decode_attention.cu",
@@ -3760,7 +4290,11 @@ def main():
         "mxnet_tpu_torch/ops/cuda/csrc/batch_norm_inference.cu",
         "mxnet_tpu/ops/nn.py:234"),
         # the user's kernel, compiled at run time: NVRTC for Pallas
-        "rtc": ("mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:90")}
+        "rtc": ("mxnet_tpu_torch/rtc.py", "mxnet_tpu/rtc.py:90"),
+        # no TPU kernel: the host decoder's float loop (OpenCV on threads)
+        "crop_mirror_normalize": (
+        "mxnet_tpu_torch/ops/cuda/csrc/image_decode.cu",
+        "src/native/imagedec.cc:187")}
     # launches: the serving kernels' from the served round, the training
     # kernels' from the first timed train call (8 steps), the update
     # kernels' from the ResNet-50 fits (48 SGD steps; 4 Adam steps)
@@ -3774,8 +4308,11 @@ def main():
     launches.update(served_int8["runs"]["int8"]["launches"])
     # rtc's from the custom op of phase 21 (its forward and backward)
     launches["rtc"] = custom["launches"]
+    # the augment kernel's from the records fit of phase 26
+    launches["crop_mirror_normalize"] = cli_rec["kernel_launches"]
     kernels = []
-    for r in main_rows + flash_rows + fused_rows + int8_rows + [rtc_row]:
+    for r in main_rows + flash_rows + fused_rows + int8_rows + [
+            rtc_row, data["kernel"]]:
         src, rep = sources[r["name"]]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": src,
@@ -3796,7 +4333,9 @@ def main():
               "int8_vs_cpu": int8_cpu, "rtc_compile": rtc_compile,
               "rtc_checks": rtc_checks, "rtc_timing": rtc_row,
               "rtc_custom_op": custom, "gluon_fit": gluon,
-              "gluon_vs_cpu": gluon_cpu, "kernels": kernels,
+              "gluon_vs_cpu": gluon_cpu, "data": data,
+              "cli_synthetic": cli_synth, "cli_records": cli_rec,
+              "kernels": kernels,
               "update_launches": {
                   "module_fit": launches["sgd_fused_update"],
                   "gluon_fit": gluon["launches"]["sgd_fused_update"],

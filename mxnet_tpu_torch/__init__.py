@@ -33,15 +33,22 @@ Ported so far:
   (CUDA C compiled at run time by NVRTC, ``CudaModule``: the port of the
   JAX package's runtime Pallas launcher), and ``gluon`` (Block,
   Parameter, nn, loss, Trainer, utils, data, the ResNet model zoo), whose
-  ``Trainer.step`` runs the fused update kernel once a step.
+  ``Trainer.step`` runs the fused update kernel once a step;
+- the north-star CLI on real data (``examples.train_imagenet``):
+  ``recordio`` (a native reader built with g++ at first use), ``image``
+  (augmenters, ``ImageIter`` with a native decode route: OpenCV on host
+  threads, or nvJPEG on the card and the ``crop_mirror_normalize``
+  kernel), ``io.ImageRecordIter`` and ``io.PrefetchingIter`` (batches
+  staged onto the card through pinned buffers), and ``Module``
+  checkpoints with optimizer states and ``fit(resume=True)``.
 
 Importing the package imports no triton, loads no CUDA library (nor
 NVRTC) and touches no GPU.
 """
 from . import (autograd, callback, checkpoint, config, context, convert,
-               executor, initializer, io, lr_scheduler, metric, model,
+               executor, image, initializer, io, lr_scheduler, metric, model,
                models, module, ndarray, ops, optimizer, parallel, quantize,
-               random, serve, serving, symbol, telemetry)
+               random, recordio, serve, serving, symbol, telemetry)
 from . import operator, rtc  # after ndarray and symbol: adds Custom
 from . import gluon
 from .base import MXNetError
@@ -54,7 +61,8 @@ init = initializer
 
 __all__ = ["MXNetError", "cpu", "gpu", "default_device", "autograd",
            "callback", "checkpoint", "config", "context", "convert",
-           "executor", "gluon", "init", "initializer", "io", "lr_scheduler",
+           "executor", "gluon", "image", "init", "initializer", "io",
+           "lr_scheduler",
            "metric", "mod", "model", "models", "module", "nd", "ndarray",
            "operator", "ops", "optimizer", "parallel", "quantize", "random",
-           "rtc", "serve", "serving", "sym", "symbol", "telemetry"]
+           "recordio", "rtc", "serve", "serving", "sym", "symbol", "telemetry"]

@@ -1,23 +1,39 @@
-"""Training callbacks (the JAX package's ``callback.py``): ``Speedometer``.
-The checkpoint callbacks come with the rest of ROADMAP A8.2 (fit's
-checkpoint_prefix and resume, optimizer-state files); until then they
-raise."""
+"""Training callbacks (the JAX package's ``callback.py``): the
+checkpoint callbacks ``do_checkpoint`` and ``module_checkpoint``, and
+``Speedometer``."""
 from __future__ import annotations
 
 import logging
 import time
 
+from .model import save_checkpoint
+
 __all__ = ["Speedometer", "do_checkpoint", "module_checkpoint"]
 
 
-def do_checkpoint(prefix, period=1):
-    raise NotImplementedError("do_checkpoint is not ported yet (ROADMAP "
-                              "A8.2; model.save_checkpoint is)")
-
-
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
-    raise NotImplementedError("module_checkpoint is not ported yet "
-                              "(ROADMAP A8.2; model.save_checkpoint is)")
+    """An epoch-end callback that saves ``mod`` every ``period`` epochs
+    through ``Module.save_checkpoint``, numbered by completed epochs
+    (reference: callback.py module_checkpoint)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+    return _callback
+
+
+def do_checkpoint(prefix, period=1):
+    """An epoch-end callback that saves the symbol and parameters every
+    ``period`` epochs through ``model.save_checkpoint`` (atomic files
+    and a checksum manifest), numbered by completed epochs (reference:
+    callback.py do_checkpoint)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
 
 
 class Speedometer(object):

@@ -13,6 +13,9 @@ the kernel writes them in place after autograd has returned and the
 graph is gone, so no saved tensor of the graph sees the new values.
 Arguments keep the type they were bound with (int8 weights of a quantized
 graph included): inputs staged by ``forward(**kwargs)`` are cast to it.
+An input that lies on another device is copied onto the executor's and
+counted in :data:`INPUT_COPIES`; one already there (a batch a
+``PrefetchingIter`` staged on the card) is bound as it is.
 """
 from __future__ import annotations
 
@@ -24,7 +27,12 @@ from .context import default_device
 from .ndarray.ndarray import NDArray, zeros
 from .symbol.symbol import _graph_eval_fn
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "INPUT_COPIES"]
+
+# inputs forward / train_step copied from another device onto the
+# executor's since the last reset (read by chip_smoke.py: a staged batch
+# arrives on the card and adds nothing)
+INPUT_COPIES = {"count": 0}
 
 
 class Executor(object):
@@ -100,6 +108,8 @@ class Executor(object):
         target = self.arg_dict[name]
         t = value._data if isinstance(value, NDArray) \
             else torch.as_tensor(np.asarray(value))
+        if t.device != self._ctx:
+            INPUT_COPIES["count"] += 1
         target._set_data(t.to(self._ctx, target._data.dtype))
 
     def _run(self, is_train, grad_names):

@@ -1,13 +1,15 @@
 """Gluon datasets (the JAX package's ``gluon/data/dataset.py``;
 reference: python/mxnet/gluon/data/dataset.py): ``Dataset`` with
 ``filter`` / ``take`` / ``transform`` / ``transform_first``,
-``SimpleDataset`` and ``ArrayDataset``. ``RecordFileDataset`` needs
-RecordIO (ROADMAP A8.1)."""
+``SimpleDataset``, ``ArrayDataset`` and ``RecordFileDataset`` (the raw
+records of a ``.rec`` file with its ``.idx``)."""
 from __future__ import annotations
+
+import os
 
 from ...ndarray.ndarray import NDArray
 
-__all__ = ["Dataset", "SimpleDataset", "ArrayDataset"]
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
 
 
 class Dataset(object):
@@ -97,3 +99,21 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """The records of a RecordIO (``.rec``) file, in the order of its
+    ``.idx`` (reference: dataset.py RecordFileDataset); an item is the
+    record's bytes."""
+
+    def __init__(self, filename):
+        from ... import recordio
+        self._filename = filename
+        idx_file = os.path.splitext(filename)[0] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

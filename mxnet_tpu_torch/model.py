@@ -2,9 +2,8 @@
 train step may run, the kvstore choice for one device, the per-parameter
 update loop of the unfused path, and checkpoint files
 (``save_checkpoint`` / ``load_checkpoint`` / ``load_latest_valid``, in
-the JAX package's layout, which both packages load). Optimizer-state
-files and ``Module``'s checkpoint callbacks are ROADMAP A8.2; kvstores
-are ROADMAP A13."""
+the JAX package's layout, which both packages load). Kvstores are
+ROADMAP A13."""
 from __future__ import annotations
 
 from collections import namedtuple

@@ -4,10 +4,15 @@ Counterpart of the JAX package's ``module/base_module.py``: ``fit`` runs
 the same batch loop (forward_backward, update, update_metric, the next
 batch drawn and prepared, the batch-end callbacks; at each epoch's end
 the logged metric, a parameter sync, the epoch-end callbacks, scoring
-on ``eval_data`` and the iterator reset). What the JAX ``fit`` adds
-around that loop is refused by name until its ROADMAP item comes:
-checkpoints and resume (A8.2), elastic training (``MXNET_ELASTIC_*``,
-A13), monitors and ``sparse_row_id_fn`` (A8.6).
+on ``eval_data`` and the iterator reset), with the JAX package's
+checkpoints: ``checkpoint_prefix`` saves every ``checkpoint_period``
+epochs (parameters, optimizer states, manifest) and ``resume`` restarts
+from the newest checkpoint that verifies, at its epoch and, for a save
+made within an epoch, by replaying the batches it had trained. What the
+JAX ``fit`` adds beyond that is refused by name until its ROADMAP item
+comes: elastic training (``MXNET_ELASTIC_*``, A13), monitors and
+``sparse_row_id_fn`` (A8.6). The SIGTERM grace-window save waits for
+A16, the seek of an iterator to a manifest's cursor for A8.1b.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import numpy as np
 
 from .. import io as _io
 from .. import metric as _metric
+from ..base import MXNetError
 from ..initializer import Uniform
 from ..model import BatchEndParam
 from ..ndarray.ndarray import NDArray, array
@@ -162,13 +168,23 @@ class BaseModule(object):
             monitor=None, sparse_row_id_fn=None, checkpoint_prefix=None,
             checkpoint_period=1, save_optimizer_states=True, resume=False):
         """The training loop (reference: base_module.py:410; the JAX
-        package's loop at module/base_module.py:400-480)."""
+        package's loop at module/base_module.py:400-560).
+
+        ``checkpoint_prefix``: save a checkpoint after every
+        ``checkpoint_period`` epochs, numbered by completed epochs, with
+        the optimizer states when ``save_optimizer_states``. ``resume``:
+        start from the newest valid checkpoint under the prefix (a torn
+        or corrupt one is skipped): its parameters, optimizer states and
+        random state, at its epoch; a checkpoint saved within an epoch
+        (``nbatch`` > 0) replays that many batches of the iterator
+        untrained. With an iterator that replays deterministically the
+        resumed run then repeats the uninterrupted one's steps. The data
+        iterators' ``close()`` runs when the fit ends."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
-        if checkpoint_prefix is not None or resume:
-            raise NotImplementedError("fit(checkpoint_prefix=..., resume=...)"
-                                      " writes and reads checkpoints, which "
-                                      "are not ported yet (ROADMAP A8.2)")
+        if checkpoint_prefix is not None and int(checkpoint_period) < 1:
+            raise MXNetError("checkpoint_period must be >= 1, got %r"
+                             % (checkpoint_period,))
         elastic = sorted(k for k in os.environ
                          if k.startswith("MXNET_ELASTIC_"))
         if elastic:
@@ -180,6 +196,24 @@ class BaseModule(object):
         if sparse_row_id_fn is not None:
             raise NotImplementedError("fit(sparse_row_id_fn=...): sparse "
                                       "arrays are not ported (ROADMAP A8.6)")
+        resume_state = None
+        skip_nbatch = 0
+        if resume:
+            if checkpoint_prefix is None:
+                raise MXNetError("fit(resume=True) needs checkpoint_prefix "
+                                 "to know where the checkpoints live")
+            from ..checkpoint import load_latest_valid
+            resume_state = load_latest_valid(checkpoint_prefix)
+            if resume_state is not None:
+                arg_params = resume_state.arg_params
+                aux_params = resume_state.aux_params
+                allow_missing = False
+                begin_epoch = resume_state.epoch
+                skip_nbatch = resume_state.nbatch
+                self.logger.info("resuming from checkpoint %s-%04d (epoch "
+                                 "%d, batch %d)", checkpoint_prefix,
+                                 resume_state.epoch, resume_state.epoch,
+                                 resume_state.nbatch)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -188,59 +222,91 @@ class BaseModule(object):
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        if resume_state is not None:
+            # the checkpoint's parameters even where this module's were
+            # already live (init_params above keeps live ones)
+            self.set_params(resume_state.arg_params, resume_state.aux_params,
+                            force_init=True)
+            if resume_state.states_fname:
+                self.load_optimizer_states(resume_state.states_fname)
+            if resume_state.rng is not None:
+                from .. import random as _random
+                _random.set_state(resume_state.rng)
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
 
-        for epoch in range(begin_epoch, num_epoch):
-            tic = time.time()
-            eval_metric.reset()
-            nbatch = 0
-            data_iter = iter(train_data)
-            end_of_batch = False
-            eval_name_vals = eval_metric.get_name_value()
-            try:
-                next_data_batch = next(data_iter)
-            except StopIteration:
-                end_of_batch = True
-            while not end_of_batch:
-                data_batch = next_data_batch
-                self.forward_backward(data_batch)
-                self.update()
-                self.update_metric(eval_metric, data_batch.label)
+        try:
+            for epoch in range(begin_epoch, num_epoch):
+                tic = time.time()
+                eval_metric.reset()
+                nbatch = 0
+                data_iter = iter(train_data)
+                # a checkpoint saved within this epoch: draw (untrained)
+                # the batches it had trained on
+                for _ in range(skip_nbatch):
+                    try:
+                        next(data_iter)
+                    except StopIteration:
+                        break
+                    nbatch += 1
+                skip_nbatch = 0
+                end_of_batch = False
+                eval_name_vals = eval_metric.get_name_value()
                 try:
                     next_data_batch = next(data_iter)
-                    self.prepare(next_data_batch)
                 except StopIteration:
                     end_of_batch = True
-                if end_of_batch:
-                    eval_name_vals = eval_metric.get_name_value()
-                if batch_end_callback is not None:
-                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                           eval_metric=eval_metric,
-                                           locals=locals())
-                    for callback in _as_list(batch_end_callback):
-                        callback(params)
-                nbatch += 1
-            for name, val in eval_name_vals:
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
-                             time.time() - tic)
-            arg_p, aux_p = self.get_params()
-            self.set_params(arg_p, aux_p)
-            if epoch_end_callback is not None:
-                for callback in _as_list(epoch_end_callback):
-                    callback(epoch, self.symbol, arg_p, aux_p)
-            if eval_data is not None:
-                res = self.score(eval_data, validation_metric,
-                                 score_end_callback=eval_end_callback,
-                                 batch_end_callback=eval_batch_end_callback,
-                                 epoch=epoch)
-                for name, val in res:
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
-                                     name, val)
-            train_data.reset()
+                while not end_of_batch:
+                    data_batch = next_data_batch
+                    self.forward_backward(data_batch)
+                    self.update()
+                    self.update_metric(eval_metric, data_batch.label)
+                    try:
+                        next_data_batch = next(data_iter)
+                        self.prepare(next_data_batch)
+                    except StopIteration:
+                        end_of_batch = True
+                    if end_of_batch:
+                        eval_name_vals = eval_metric.get_name_value()
+                    if batch_end_callback is not None:
+                        params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                               eval_metric=eval_metric,
+                                               locals=locals())
+                        for callback in _as_list(batch_end_callback):
+                            callback(params)
+                    nbatch += 1
+                for name, val in eval_name_vals:
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
+                                     val)
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                                 time.time() - tic)
+                arg_p, aux_p = self.get_params()
+                self.set_params(arg_p, aux_p)
+                if epoch_end_callback is not None:
+                    for callback in _as_list(epoch_end_callback):
+                        callback(epoch, self.symbol, arg_p, aux_p)
+                if checkpoint_prefix is not None and \
+                        (epoch + 1) % int(checkpoint_period) == 0:
+                    self.save_checkpoint(checkpoint_prefix, epoch + 1,
+                                         save_optimizer_states)
+                if eval_data is not None:
+                    res = self.score(eval_data, validation_metric,
+                                     score_end_callback=eval_end_callback,
+                                     batch_end_callback=eval_batch_end_callback,
+                                     epoch=epoch)
+                    for name, val in res:
+                        self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                         name, val)
+                train_data.reset()
+        finally:
+            # stop read-ahead threads (close() is restartable, so the same
+            # iterator can go to another fit)
+            for it in (train_data, eval_data):
+                closer = getattr(it, "close", None)
+                if callable(closer):
+                    closer()
 
     # -- properties / interface --------------------------------------------
     @property
@@ -257,10 +323,27 @@ class BaseModule(object):
         """Prepare for a batch (the reference's row-sparse pull; no-op)."""
 
     def save_params(self, fname):
-        raise NotImplementedError("parameter files are not ported yet "
-                                  "(ROADMAP A8.2)")
+        """Write the parameters to ``fname`` (``arg:`` / ``aux:`` keys, the
+        JAX package's file), atomically."""
+        from ..ndarray.utils import save
+        arg_params, aux_params = self.get_params()
+        save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+        save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+        save(fname, save_dict)
 
-    load_params = save_params
+    def load_params(self, fname):
+        """Set the parameters from a file of :meth:`save_params`."""
+        from ..ndarray.utils import load
+        arg_params, aux_params = {}, {}
+        for k, value in load(fname).items():
+            arg_type, name = k.split(":", 1)
+            if arg_type == "arg":
+                arg_params[name] = value
+            elif arg_type == "aux":
+                aux_params[name] = value
+            else:
+                raise ValueError("Invalid param file " + fname)
+        self.set_params(arg_params, aux_params)
 
     def install_monitor(self, mon):
         raise NotImplementedError("monitors are not ported yet "

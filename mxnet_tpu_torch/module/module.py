@@ -10,9 +10,15 @@ parameter list is updated by one kernel launch. Under
 instead: forward, backward, then the updater per parameter (the same
 rule on a list of one).
 
+Checkpoints are the JAX package's files, which each package loads:
+``save_checkpoint`` writes the symbol, the parameters, optionally the
+optimizer states (``save_optimizer_states``: a pickle of ``{index:
+numpy state}``) and a checksum manifest, each file atomically; ``load``
+reads them back.
+
 Refused until their ROADMAP items: more than one context, kvstores and
-gradient compression (A8.3/A13), monitors (A8.6), checkpoint and
-optimizer-state files (A8.2), weights other than float32 (A8.4).
+gradient compression (A8.3/A13), monitors (A8.6), weights other than
+float32 (A8.4).
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ from .. import optimizer as opt
 from ..context import default_device
 from ..executor import _copy_into
 from ..initializer import InitDesc, Uniform
-from ..model import _create_kvstore, _update_params, fused_step_supported
+from ..model import (_create_kvstore, _update_params, fused_step_supported,
+                     load_checkpoint, save_checkpoint)
 from .base_module import (BaseModule, _check_input_names, _parse_data_desc)
 
 __all__ = ["Module"]
@@ -81,6 +88,7 @@ class Module(BaseModule):
         self._kvstore = None
         self._update_on_kvstore = None
         self._updater = None
+        self._preload_opt_states = None
         self._exec = None
         self._data_shapes = None
         self._label_shapes = None
@@ -88,13 +96,35 @@ class Module(BaseModule):
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
-        raise NotImplementedError("checkpoint files are not ported yet "
-                                  "(ROADMAP A8.2)")
+        """A Module of checkpoint ``epoch`` under ``prefix`` (reference:
+        module.py load): its symbol and parameters, bound at ``bind``;
+        with ``load_optimizer_states`` the optimizer states too, loaded
+        by ``init_optimizer``. ``kwargs`` go to the constructor."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
-                        **_kw):
-        raise NotImplementedError("checkpoint files are not ported yet "
-                                  "(ROADMAP A8.2)")
+                        nbatch=0, io_cursor=None):
+        """Write checkpoint ``epoch``: ``prefix-symbol.json``,
+        ``prefix-%04d.params``, with ``save_optimizer_states`` also
+        ``prefix-%04d.states``, and the manifest (checksums, ``nbatch``
+        > 0 for a save within an epoch, the random state); every file
+        atomically (reference: module.py save_checkpoint)."""
+        state_name = None
+        if save_optimizer_states:
+            state_name = "%s-%04d.states" % (prefix, epoch)
+            self.save_optimizer_states(state_name)
+        arg, aux = self.get_params()
+        save_checkpoint(prefix, epoch, self._symbol, arg, aux, nbatch=nbatch,
+                        states_fname=state_name, io_cursor=io_cursor)
+        logging.info("Saved checkpoint to \"%s-%04d.params\"", prefix,
+                     epoch)
 
     # -- properties --------------------------------------------------------
     @property
@@ -267,6 +297,9 @@ class Module(BaseModule):
         self._update_on_kvstore = update_on_kvstore
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     # -- computation -------------------------------------------------------
     def _build_feed(self, data_batch):
@@ -360,7 +393,14 @@ class Module(BaseModule):
         eval_metric.update(labels, self.get_outputs())
 
     def save_optimizer_states(self, fname):
-        raise NotImplementedError("optimizer-state files are not ported yet "
-                                  "(ROADMAP A8.2)")
+        """Write the updater's states to ``fname``, atomically."""
+        assert self.optimizer_initialized
+        from ..checkpoint import atomic_writer
+        with atomic_writer(fname) as fout:
+            fout.write(self._updater.get_states())
 
-    load_optimizer_states = save_optimizer_states
+    def load_optimizer_states(self, fname):
+        """Load the updater's states from ``fname`` (either package's)."""
+        assert self.optimizer_initialized
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())

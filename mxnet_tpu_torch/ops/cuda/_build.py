@@ -23,7 +23,7 @@ import threading
 
 from ...base import MXNetError
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "BUILD_DIR", "build_all", "load",
+__all__ = ["SOURCES", "LINK", "NVCC_FLAGS", "BUILD_DIR", "build_all", "load",
            "library_path", "on_device"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -47,7 +47,11 @@ SOURCES = {
     "int8_matmul": "int8_matmul.cu",
     "int8_conv_im2col": "int8_conv_im2col.cu",
     "batch_norm_inference": "batch_norm_inference.cu",
+    "image_decode": "image_decode.cu",
 }
+# libraries a kernel library links beyond the CUDA runtime (image_decode:
+# the CUDA toolkit's nvJPEG, preloaded by its module before the load)
+LINK = {"image_decode": ("-lnvjpeg",)}
 _HEADERS = ("common.cuh", "hopper.cuh", "int8_gemm.cuh", "int8_wgmma.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -75,7 +79,7 @@ def library_path(name):
     for fname in (SOURCES[name],) + _HEADERS:
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(fname.encode() + b"\0" + f.read())
-    h.update("\0".join(NVCC_FLAGS).encode())
+    h.update("\0".join(NVCC_FLAGS + LINK.get(name, ())).encode())
     return os.path.join(BUILD_DIR, "%s-%s.so" % (name, h.hexdigest()[:16]))
 
 
@@ -96,7 +100,8 @@ def build_all(names=None):
         for name, path in todo:
             tmp = "%s.tmp.%d" % (path, os.getpid())
             cmd = [nvcc] + list(NVCC_FLAGS) + [
-                "-I", CSRC, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
+                "-I", CSRC, "-o", tmp, os.path.join(CSRC, SOURCES[name])
+            ] + list(LINK.get(name, ()))
             procs.append((name, path, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

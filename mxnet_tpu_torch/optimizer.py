@@ -15,12 +15,15 @@ one, so the fused and unfused steps compute the same function, as the
 JAX package holds them bitwise equal (tests/test_fused_step.py).
 
 Multi-precision and weights other than float32 are refused. The other
-optimizers (NAG, Signum, AdaGrad, RMSProp, ...) come with ROADMAP A8.5,
-updater state files with A8.2.
+optimizers (NAG, Signum, AdaGrad, RMSProp, ...) come with ROADMAP A8.5.
+``Updater.get_states`` / ``set_states`` read and write the JAX package's
+optimizer-state files.
 """
 from __future__ import annotations
 
+import io
 import logging
+import pickle
 
 import numpy
 import torch
@@ -281,23 +284,93 @@ class Adam(Optimizer):
 
 class Updater(object):
     """Applies an optimizer to (index, grad, weight) triples, keeping
-    each index's state (reference: optimizer.py Updater). Its state
-    files (``get_states``/``set_states``) come with ROADMAP A8.2."""
+    each index's state (reference: optimizer.py Updater).
+
+    ``get_states()`` / ``set_states()`` read and write the JAX package's
+    optimizer-state file: a pickle of ``{index: state}``, each state
+    None, a numpy array or a tuple of them. A loaded state becomes an
+    NDArray on its weight's device at first use."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.states = {}
+        self.states_synced = {}
 
     def ensure_state(self, index, weight):
-        """The state of ``index``, created on first use; shared by the
+        """The state of ``index``, created on first use (or moved onto
+        ``weight``'s device after ``set_states``); shared by the
         per-parameter path and the fused train step."""
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
+            self.states_synced[index] = True
+        elif not self.states_synced.get(index, True):
+            self.states[index] = _state_on(self.states[index],
+                                           weight.context)
+            self.states_synced[index] = True
         return self.states[index]
 
     def __call__(self, index, grad, weight):
         self.optimizer.update(index, weight, grad,
                               self.ensure_state(index, weight))
+
+    def get_states(self, dump_optimizer=False):
+        """The states as the bytes of an optimizer-state file."""
+        if dump_optimizer:
+            raise MXNetError(
+                "get_states(dump_optimizer=True) would pickle the optimizer "
+                "object, which the other package cannot read; the state "
+                "file holds {index: state} only")
+        return pickle.dumps({i: _state_numpy(s)
+                             for i, s in self.states.items()})
+
+    def set_states(self, states):
+        """Load the bytes of an optimizer-state file (``get_states``'
+        form). Refuses a file that names any class but numpy's arrays,
+        such as one saved with ``dump_optimizer=True``."""
+        loaded = _StateUnpickler(io.BytesIO(states)).load()
+        if not isinstance(loaded, dict):
+            raise MXNetError("optimizer-state file holds %s, not "
+                             "{index: state}" % type(loaded).__name__)
+        self.states = loaded
+        self.states_synced = dict.fromkeys(loaded, False)
+
+
+# what an optimizer-state pickle may name: numpy's array reconstruction
+_STATE_GLOBALS = {
+    ("numpy.core.multiarray", "_reconstruct"),
+    ("numpy._core.multiarray", "_reconstruct"),
+    ("numpy.core.multiarray", "scalar"),
+    ("numpy._core.multiarray", "scalar"),
+    ("numpy", "ndarray"), ("numpy", "dtype"), ("_codecs", "encode")}
+
+
+class _StateUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) not in _STATE_GLOBALS:
+            raise MXNetError(
+                "optimizer-state file names %s.%s: only {index: numpy "
+                "state} files are read (a file saved with "
+                "dump_optimizer=True pickles the optimizer object of "
+                "another package)" % (module, name))
+        return super().find_class(module, name)
+
+
+def _state_numpy(state):
+    if isinstance(state, NDArray):
+        return state.asnumpy()
+    if isinstance(state, (tuple, list)):
+        return type(state)(_state_numpy(s) for s in state)
+    return state
+
+
+def _state_on(state, device):
+    if isinstance(state, numpy.ndarray):
+        return NDArray(torch.from_numpy(numpy.array(state)).to(device))
+    if isinstance(state, NDArray):
+        return state.as_in_context(device)
+    if isinstance(state, (tuple, list)):
+        return type(state)(_state_on(s, device) for s in state)
+    return state
 
 
 def get_updater(optimizer):

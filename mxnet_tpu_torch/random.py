@@ -12,10 +12,12 @@ import threading
 
 import torch
 
-__all__ = ["seed", "generator", "get_state"]
+__all__ = ["seed", "generator", "get_state", "set_state"]
 
 _lock = threading.Lock()
-_state = {"seed": 0, "gens": {}}
+# gens: device -> Generator; pending: device name -> the state bytes
+# set_state restored for a generator not created yet
+_state = {"seed": 0, "gens": {}, "pending": {}}
 
 
 def seed(seed_state, ctx=None):
@@ -25,6 +27,7 @@ def seed(seed_state, ctx=None):
     with _lock:
         _state["seed"] = int(seed_state)
         _state["gens"] = {}
+        _state["pending"] = {}
 
 
 def generator(device):
@@ -38,6 +41,9 @@ def generator(device):
         if gen is None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(_state["seed"])
+            pending = _state["pending"].pop(str(dev), None)
+            if pending is not None:
+                gen.set_state(torch.tensor(list(pending), dtype=torch.uint8))
             _state["gens"][dev] = gen
         return gen
 
@@ -45,10 +51,21 @@ def generator(device):
 def get_state():
     """This package's random state as JSON-ready data: the seed and each
     generator created since, by device, its state in hex: what a
-    checkpoint manifest records (restoring it comes with resume, ROADMAP
-    A8.2)."""
+    checkpoint manifest records and :func:`set_state` restores."""
     with _lock:
         return {"seed": int(_state["seed"]),
                 "generators": {str(dev): bytes(gen.get_state().tolist()).hex()
                                for dev, gen in _state["gens"].items()}}
 
+
+def set_state(state):
+    """Restore a :func:`get_state` snapshot (a resumed ``fit``): the seed,
+    and each generator's state when its device is next drawn on. The JAX
+    package's snapshot (``{"seed", "counter"}``) restores the seed
+    alone: its counter numbers threefry keys, which no torch generator
+    reproduces."""
+    with _lock:
+        _state["seed"] = int(state["seed"])
+        _state["gens"] = {}
+        _state["pending"] = {dev: bytes.fromhex(h) for dev, h in
+                             state.get("generators", {}).items()}

@@ -48,7 +48,13 @@ template kernel through ``exports`` bitwise, a row sum over 64 KB of
 dynamic shared memory within 2e-6 of the sum of |x|, a launch from a
 second thread too; a compile error and a launch error raise. One Gluon
 ``Trainer`` step on the card must match the CPU's through one update
-launch (changes within 1e-3 relative RMS).
+launch (changes within 1e-3 relative RMS). The image pipeline's nvJPEG
+route must match its python route (cv2) within 4 uint8 levels, 0.1 on
+average (the inverse DCTs round differently), at 4:2:0, 4:2:2, 4:4:4
+and grayscale, with the ``crop_mirror_normalize`` kernel bitwise equal
+to its plain version; batches staged by ``ImageRecordIter(
+prefetch_buffer=2)`` must equal synchronous copies of the same records
+and reach ``Module.fit`` without an executor copy.
 """
 import numpy as np
 import pytest
@@ -766,3 +772,102 @@ def test_gluon_step_on_card_matches_cpu(card):
     for k, v in state.items():
         dg, dc = runs["cuda"][0][k] - v, runs["cpu"][0][k] - v
         assert np.linalg.norm(dg - dc) <= 1e-3 * np.linalg.norm(dc), k
+
+
+# ---------------------------------------------------------------------------
+# the data path: nvJPEG decode, crop_mirror_normalize, staged batches
+# ---------------------------------------------------------------------------
+
+_CLI_MEAN = np.array([123.68, 116.779, 103.939], np.float32)
+_CLI_STD = np.array([58.393, 57.12, 57.375], np.float32)
+
+
+def _jpeg_records(tmp_path, n=24, sampling=None, gray=False):
+    import cv2
+    from mxnet_tpu_torch import recordio
+    rng = np.random.RandomState(2)
+    path = str(tmp_path / "r.rec")
+    w = recordio.MXIndexedRecordIO(str(tmp_path / "r.idx"), path, "w")
+    bufs = []
+    for i in range(n):
+        h, wd = 60 + i % 7, 70 + 3 * (i % 5)
+        grid = rng.uniform(0, 255, (3, 4, 3)).astype(np.float32)
+        img = np.clip(cv2.resize(grid, (wd, h)) + rng.randint(
+            -20, 21, (h, wd, 3)), 0, 255).astype(np.uint8)
+        params = [cv2.IMWRITE_JPEG_QUALITY, 95]
+        if sampling is not None:
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, sampling]
+        ok, b = cv2.imencode(".jpg", img[..., 0] if gray else img, params)
+        bufs.append(b.tobytes())
+        w.write_idx(i, recordio.pack(recordio.IRHeader(0, float(i), i, 0),
+                                     bufs[-1]))
+    w.close()
+    return path, bufs
+
+
+@pytest.mark.parametrize("sampling,gray", [
+    (None, False), (0x111111, False), (0x211111, False), (None, True)],
+    ids=["420", "444", "422", "gray"])
+def test_nvjpeg_route_matches_python_route(card, tmp_path, sampling, gray):
+    """The native route (nvJPEG planes, crop_mirror_normalize) against
+    the python route (cv2, Augmenters) on the same records: within 4
+    uint8 levels, 0.1 on average (the inverse DCTs' rounding); the
+    kernel against its plain version bitwise, on the card and the CPU."""
+    from mxnet_tpu_torch import image as timg
+    from mxnet_tpu_torch.ops.cuda import image_decode as idec
+    path, bufs = _jpeg_records(tmp_path, sampling=sampling, gray=gray)
+    kw = dict(path_imgrec=path, mean=_CLI_MEAN, std=_CLI_STD)
+    nat = timg.ImageIter(24, (3, 56, 64), preprocess_threads=3, ctx=card,
+                         **kw)
+    assert nat.route == "native" and nat._native.backend == "nvjpeg"
+    a = nat.next().data[0]._data
+    b = timg.ImageIter(24, (3, 56, 64), **kw).next().data[0]._data
+    lv = (a.cpu().double() - b.double()).abs() * torch.from_numpy(
+        _CLI_STD).double().reshape(1, 3, 1, 1)
+    assert float(lv.max()) <= 4 and float(lv.mean()) <= 0.1
+    dec = timg.NativeImageDecoder((3, 56, 64), rand_crop=True,
+                                  rand_mirror=True, mean=_CLI_MEAN,
+                                  std=_CLI_STD, backend="nvjpeg")
+    src, items = dec.decode_planes(bufs, base=7)
+    tidx = idec.LAUNCHES["crop_mirror_normalize"]
+    got = idec.crop_mirror_normalize(src, items, (3, 56, 64), _CLI_MEAN,
+                                     _CLI_STD)
+    assert idec.LAUNCHES["crop_mirror_normalize"] == tidx + 1
+    for ref in (idec._crop_mirror_normalize_plain(
+            src, items, (3, 56, 64), _CLI_MEAN, _CLI_STD),
+            idec._crop_mirror_normalize_plain(
+                src.cpu(), items, (3, 56, 64), _CLI_MEAN, _CLI_STD)):
+        assert torch.equal(got.cpu(), ref.cpu())
+    with pytest.raises(tmx.MXNetError, match="decode"):
+        dec.decode_batch([bufs[0], b"\xff\xd8 not a jpeg"])
+
+
+def test_staged_batches_equal_synchronous_copies(card, tmp_path):
+    """ImageRecordIter(prefetch_buffer=2) on the card: batches staged
+    through the pinned ring (python route) and decoded on the card
+    (native route) equal synchronous copies of the same records, over
+    more batches than the ring has slots; they arrive on the card and
+    the executor binds them without a copy."""
+    from mxnet_tpu_torch import executor
+    path, _ = _jpeg_records(tmp_path, n=40)
+    for extra in ({}, {"preprocess_threads": 3}):
+        args = dict(path_imgrec=path, data_shape=(3, 48, 48), batch_size=6,
+                    shuffle=True, rand_crop=True, rand_mirror=True,
+                    mean_r=123.68, std_r=58.4, **extra)
+        staged = tmx.io.ImageRecordIter(prefetch_buffer=2, ctx=card, **args)
+        direct = tmx.io.ImageRecordIter(
+            ctx=card if extra else torch.device("cpu"), **args)
+        for _ in range(7):
+            sb, db = staged.next(), direct.next()
+            assert sb.pad == db.pad
+            for x, y in zip(sb.data + sb.label, db.data + db.label):
+                assert x._data.device.type == "cuda"
+                assert torch.equal(x._data, y._data.to(card))
+        staged.close()
+    sym = tmx.models.mlp(num_classes=40)         # labels 0-39
+    mod = tmx.mod.Module(sym, context=card)
+    it = tmx.io.ImageRecordIter(prefetch_buffer=2, ctx=card, **args)
+    executor.INPUT_COPIES["count"] = 0
+    mod.fit(tmx.io.ResizeIter(it, 3), num_epoch=1, optimizer="sgd",
+            initializer=tmx.init.Xavier())
+    assert executor.INPUT_COPIES["count"] == 0
