@@ -156,18 +156,25 @@ Phases, each fatal on failure (no phase's failure is caught):
     on a 32x256x56x56 float32 activation, output and ``x.grad`` equal
     to the PyTorch expression bitwise, in exactly 2 rtc launches;
 22. train ``gluon.model_zoo.vision.get_model("resnet50_v1",
-    classes=1000)``, hybridized, at batch 32 of float32 3x224x224 (TF32
-    off) with ``SoftmaxCrossEntropyLoss`` and ``Trainer("sgd", lr 0.1,
-    momentum 0.9, wd 1e-4)``: 8 warm and 24 timed steps, finite loss,
-    weights and running statistics changed, ``sgd_fused_update`` once a
-    ``trainer.step`` and its plain version never; 4 Adam steps
+    classes=1000)`` at batch 32 of float32 3x224x224 (TF32 off) with
+    ``SoftmaxCrossEntropyLoss`` and ``Trainer("sgd", lr 0.1, momentum
+    0.9, wd 1e-4)``, eager and hybridized in the same call (two nets
+    from one seeded state; the hybridized one runs its traced Symbol as
+    CUDA graphs): the hybridized first step's logits and loss within
+    1e-5 of the eager step's, 8 warm steps each, then four timed windows
+    of 24 steps (eager, hybridized, hybridized, eager), finite loss,
+    ``sgd_fused_update`` once a ``trainer.step`` in both modes and its
+    plain version never; the hybridized net's moving statistics updated
+    once a step, one step's update equal to a host-side replay of the
+    momentum rule over that step's batch statistics; 4 Adam steps
     (``adam_fused_update`` once each); img/s, ms/step, MFU over the zoo
-    net's own conv and FC FLOPs, the ratio to phase 13's img/s, one
-    profiled step;
+    net's own conv and FC FLOPs, the ratio to phase 13's img/s; one
+    profiled step of each mode (kernels, busy share, host launches);
 23. two chained Gluon ``trainer.step``s of resnet50_v1 at batch 2 on the
-    card (f32), the CPU (f32) and the CPU in float64 (the witness), held
-    by phase 14's ratio rule, and a planted BatchNorm fault (gamma's
-    gradient doubled) that must fail it;
+    card (f32) eager and hybridized, the CPU (f32) and the CPU in
+    float64 (the witness), held by phase 14's ratio rule, and a planted
+    BatchNorm fault (gamma's gradient doubled), eager and hybridized,
+    that must fail it;
 24. the data path: write ``build/smoke_data/train.rec`` / ``.idx`` through
     ``recordio.pack_img`` (768 seeded images as ``tools/im2rec.py
     --resize 256`` leaves ImageNet: short side 256, long side 256-384,
@@ -199,10 +206,21 @@ Phases, each fatal on failure (no phase's failure is caught):
     window of 8 real-data steps (the device's busy share); then
     ``--load-epoch 1``: its parameters equal checkpoint 1's bitwise and
     the resumed epoch's loss is finite;
-27. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
+27. ``export`` phase 22's trained net (``-symbol.json``, ``-0000.params``)
+    and serve the files: ``SymbolBlock.imports`` on the card, hybridized,
+    at batch 32, within 1e-5 of the Gluon net's eager predict, and
+    ``model.load_checkpoint`` + ``serving.Predictor`` within 1e-5 of it;
+    ``batch_norm_inference`` once per BatchNorm node (53) a forward, by
+    its counter with the replays counted, its plain version never; eager
+    predict against the imported block's graph replay (img/s, host
+    microseconds a forward; turns eager, imported, imported, eager); a
+    planted fault (one exported moving variance doubled) must fail;
+28. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
     20, its launches from phase 21; ``crop_mirror_normalize``'s times
-    from phase 24, its launches from phase 26), the card line, and last
-    ``{"ok": true, "device": {...}}``.
+    from phase 24, its launches from phase 26; ``sgd_fused_update``'s
+    launches from phase 22's first hybridized window,
+    ``batch_norm_inference``'s from phase 27's windows), the card line,
+    and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or without
 the package beside it. ``--report PATH`` also writes every measurement
@@ -1017,6 +1035,13 @@ def profile_round(torch, eng, reqs):
     return profile_run(torch, run)
 
 
+# the runtime calls that enqueue work on the card: kernel launches,
+# copies and fills, and graph launches
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                "cuGraphLaunch", "cudaLaunchCooperativeKernel",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def profile_run(torch, run, classify=_kernel_class, classify_seq=None):
     """``run()`` under torch.profiler, CUDA activity only: the device's
     busy share of the wall time (union of kernel intervals) and device
@@ -1051,9 +1076,17 @@ def profile_run(torch, run, classify=_kernel_class, classify_seq=None):
     if cur_e is not None:
         busy_us += cur_e - cur_s
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # host launches: the runtime's launch calls, a graph replay one
+    launch_calls = [ev.name for ev in prof.events()
+                    if ev.device_type != torch.autograd.DeviceType.CUDA
+                    and ev.name.startswith(LAUNCH_CALLS)]
+    graphs = sum(n.startswith(("cudaGraphLaunch", "cuGraphLaunch"))
+                 for n in launch_calls)
     return {"wall_s": wall, "kernels": len(spans), "device_ms": device_ms,
             "top_kernels_ms": [[n[:96], ms] for n, ms in top],
-            "busy_share": (busy_us / (wall * 1e6)) if spans else None}
+            "busy_share": (busy_us / (wall * 1e6)) if spans else None,
+            "host_launches": len(launch_calls) if launch_calls else None,
+            "graph_launches": graphs if launch_calls else None}
 
 
 # ---------------------------------------------------------------------------
@@ -3385,6 +3418,8 @@ def rtc_custom_op(torch, mx, mods):
 
 GLUON_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 GLUON_WARM, GLUON_TIMED = 8, 24
+GLUON_FIRST_TOL = 1e-5  # hybridized vs eager first step: logits, loss
+GLUON_STAT_TOL = 1e-6   # one step's statistics vs the host replay
 GLUON_PLANT = 2.0       # phase 23's planted fault: BatchNorm's gamma
                         # gradient doubled
 
@@ -3419,40 +3454,56 @@ def gluon_flops(mx, net):
 
 def gluon_fit(torch, mx, fu, module_img_s):
     """Phase 22: ``gluon.model_zoo.vision.get_model("resnet50_v1",
-    classes=1000)``, hybridized, trained at full width on the card: batch
+    classes=1000)`` trained at full width on the card, eager and
+    hybridized in the same call: two nets from one seeded state, batch
     32 of float32 3x224x224 (TF32 off), SoftmaxCrossEntropyLoss,
-    ``Trainer(net.collect_params(), "sgd", lr 0.1, momentum 0.9, wd
-    1e-4)``: 8 warm steps, then 24 timed (host clock, synchronized at
-    both ends). ``sgd_fused_update`` launches once a step and its plain
-    version never; 4 steps with Adam launch ``adam_fused_update`` once
-    each; one profiled step."""
+    ``Trainer("sgd", lr 0.1, momentum 0.9, wd 1e-4)`` each. The
+    hybridized net's first step (its CUDA graphs' capture) gives the
+    eager step's logits and loss within GLUON_FIRST_TOL; then GLUON_WARM
+    warm steps each and four timed windows of GLUON_TIMED steps (eager,
+    hybridized, hybridized, eager; host clock, synchronized at both
+    ends). ``sgd_fused_update`` launches once a step in both modes and
+    its plain version never; the hybridized CachedOp updated the moving
+    statistics once a step, and one step's update equals a host-side
+    replay of the momentum rule over that step's batch statistics; 4
+    Adam steps (``adam_fused_update`` once each); one profiled step of
+    each mode (kernels, busy share, host launches: a graph replay is
+    one)."""
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 is on")
-    mx.random.seed(22)
-    net = mx.gluon.model_zoo.vision.get_model("resnet50_v1", classes=1000)
-    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
-                                  magnitude=2), ctx=mx.gpu(0))
-    flop, n_layers = gluon_flops(mx, net)
-    net.hybridize()
     rng = np.random.RandomState(0)
     x = mx.nd.array(rng.uniform(-1, 1, (RESNET_BATCH, 3, 224, 224)).astype(
         np.float32), ctx=mx.gpu(0))
     y = mx.nd.array(rng.randint(0, 1000, (RESNET_BATCH,)).astype(
         np.float32), ctx=mx.gpu(0))
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
-    params = net.collect_params()
+    nets = {}
+    for mode in ("eager", "hybridized"):
+        mx.random.seed(22)
+        net = mx.gluon.model_zoo.vision.get_model(
+            "resnet50_v1", classes=1000, prefix="g22_")
+        net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                      magnitude=2), ctx=mx.gpu(0))
+        if mode == "eager":
+            flop, n_layers = gluon_flops(mx, net)
+        else:
+            gluon_params_copy(nets["eager"][0], net)
+            net.hybridize()
+        nets[mode] = (net, mx.gluon.Trainer(net.collect_params(), "sgd",
+                                            GLUON_OPT))
+    params = nets["hybridized"][0].collect_params()
     n_trained = sum(p.grad_req != "null" for p in params.values())
 
-    def run(trainer, steps):
+    def run(mode, steps, trainer=None):
+        net, default = nets[mode]
         for _ in range(steps):
             with mx.autograd.record():
-                loss = loss_fn(net(x), y)
+                out = net(x)
+                loss = loss_fn(out, y)
             loss.backward()
-            trainer.step(RESNET_BATCH)
-        return loss
+            (trainer or default).step(RESNET_BATCH)
+        return out, loss
 
-    trainer = mx.gluon.Trainer(params, "sgd", GLUON_OPT)
-    snap0 = {k: p.data().asnumpy() for k, p in params.items()}
     plain_calls = [0]
     real_plain = fu._sgd_fused
 
@@ -3460,95 +3511,186 @@ def gluon_fit(torch, mx, fu, module_img_s):
         plain_calls[0] += 1
         return real_plain(*args)
 
-    fu.reset_launches()
     fu._sgd_fused = spy
+    windows, launches, first = [], {}, {}
     try:
-        run(trainer, GLUON_WARM)
-        torch.cuda.synchronize()
-        snap1 = {k: p.data().asnumpy() for k, p in params.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = run(trainer, GLUON_TIMED)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        for mode in ("eager", "hybridized"):
+            fu.reset_launches()
+            t0 = time.perf_counter()
+            out, loss = run(mode, 1)
+            torch.cuda.synchronize()
+            first[mode] = (out.asnumpy(), loss.asnumpy(),
+                           time.perf_counter() - t0)
+            run(mode, GLUON_WARM - 1)
+            torch.cuda.synchronize()
+            launches[mode + "_warm"] = fu.LAUNCHES["sgd_fused_update"]
+        hyb_op = nets["hybridized"][0]._cached_op
+        updates0 = hyb_op.stat_updates
+        for mode in ("eager", "hybridized", "hybridized", "eager"):
+            fu.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, loss = run(mode, GLUON_TIMED)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            windows.append({"mode": mode, "s": dt,
+                            "img_per_s": RESNET_BATCH * GLUON_TIMED / dt,
+                            "ms_per_step": dt * 1e3 / GLUON_TIMED,
+                            "launches": fu.LAUNCHES["sgd_fused_update"],
+                            "loss_mean": float(loss.asnumpy().mean())})
     finally:
         fu._sgd_fused = real_plain
-    launches = dict(fu.LAUNCHES)
-    steps = GLUON_WARM + GLUON_TIMED
-    check(launches["sgd_fused_update"] == steps,
-          "gluon: sgd_fused_update launched %d times for %d steps"
-          % (launches["sgd_fused_update"], steps))
+    for w in windows:
+        w["mfu"] = w["img_per_s"] * flop / F32_FLOPS
+        check(w["launches"] == GLUON_TIMED, "gluon %s: sgd_fused_update "
+              "launched %d times in %d steps"
+              % (w["mode"], w["launches"], GLUON_TIMED))
+        check(w["mfu"] <= 1.05 and np.isfinite(w["loss_mean"]),
+              "gluon %s: %.0f img/s (MFU %.2f), loss %s"
+              % (w["mode"], w["img_per_s"], w["mfu"], w["loss_mean"]))
+    check(all(launches[m + "_warm"] == GLUON_WARM for m in nets),
+          "gluon: warm-up launches %s" % launches)
     check(plain_calls[0] == 0, "gluon: the plain SGD rule ran %d times"
           % plain_calls[0])
-    loss_v = loss.asnumpy()
-    check(loss_v.shape == (RESNET_BATCH,) and np.isfinite(loss_v).all(),
-          "gluon: loss %s" % (loss_v,))
-    snap2 = {k: p.data().asnumpy() for k, p in params.items()}
-    w_moved = max(float(np.abs(snap2[k] - snap1[k]).max()) for k in snap2
-                  if "running" not in k)
-    s_moved = max(float(np.abs(snap2[k] - snap1[k]).max()) for k in snap2
-                  if "running" in k)
-    s_from_init = min(float(np.abs(snap2[k] - snap0[k]).max())
-                      for k in snap2 if "running" in k)
-    check(w_moved > 0 and s_moved > 0 and s_from_init > 0,
-          "gluon: weights (%g) or running statistics (%g, every one %g) did "
-          "not change" % (w_moved, s_moved, s_from_init))
-    check(all(np.isfinite(v).all() for v in snap2.values()),
+    stat_updates = hyb_op.stat_updates - updates0
+    check(stat_updates == 2 * GLUON_TIMED, "gluon: the hybridized net "
+          "updated its moving statistics %d times in %d steps"
+          % (stat_updates, 2 * GLUON_TIMED))
+    first_err = {"logits": rel_max(first["hybridized"][0], first["eager"][0]),
+                 "loss": rel_max(first["hybridized"][1], first["eager"][1])}
+    check(max(first_err.values()) <= GLUON_FIRST_TOL, "gluon: the "
+          "hybridized first step is off the eager one: %s" % first_err)
+    replay = gluon_stat_replay(torch, mx, nets["hybridized"][0], x, run)
+    check(replay["err"] <= GLUON_STAT_TOL < replay["err_if_twice"],
+          "gluon: one step's moving-statistics update is not one update of "
+          "the momentum rule: %s" % replay)
+    snap = {k: p.data().asnumpy() for k, p in params.items()}
+    check(all(np.isfinite(v).all() for v in snap.values()),
           "gluon: non-finite weights")
-    img_s = RESNET_BATCH * GLUON_TIMED / dt
-    mfu = img_s * flop / F32_FLOPS
-    check(mfu <= 1.05, "gluon: %.0f img/s implies MFU %.2f > 1"
-          % (img_s, mfu))
-    fu.reset_launches()
-
-    def one_step():
-        run(trainer, 1)
-
-    prof = profile_run(torch, one_step, _resnet_class)
-    check(fu.LAUNCHES["sgd_fused_update"] == 1, "gluon: profiled step "
-          "launched sgd_fused_update %d times"
-          % fu.LAUNCHES["sgd_fused_update"])
+    profiled = {}
+    for mode in ("eager", "hybridized"):
+        fu.reset_launches()
+        profiled[mode] = profile_run(torch, lambda: run(mode, 1),
+                                     _resnet_class)
+        check(fu.LAUNCHES["sgd_fused_update"] == 1, "gluon %s: profiled "
+              "step launched sgd_fused_update %d times"
+              % (mode, fu.LAUNCHES["sgd_fused_update"]))
     adam = mx.gluon.Trainer(params, "adam", {"learning_rate": 1e-3,
                                              "wd": 1e-4})
     fu.reset_launches()
-    run(adam, 4)
+    run("hybridized", 4, adam)
     torch.cuda.synchronize()
     adam_launches = fu.LAUNCHES["adam_fused_update"]
     check(adam_launches == 4 and fu.LAUNCHES["sgd_fused_update"] == 0,
           "gluon adam: launches %s for 4 steps" % fu.LAUNCHES)
     check(all(np.isfinite(p.data().asnumpy()).all()
               for p in params.values()), "gluon adam: non-finite weights")
+    by_mode = {m: [w for w in windows if w["mode"] == m] for m in nets}
+    img_s = {m: sum(w["img_per_s"] for w in ws) / len(ws)
+             for m, ws in by_mode.items()}
     res = {"batch": RESNET_BATCH, "warm_steps": GLUON_WARM,
-           "timed_steps": GLUON_TIMED, "timed_s": dt, "img_per_s": img_s,
-           "ms_per_step": dt * 1e3 / GLUON_TIMED, "mfu": mfu,
+           "timed_steps": GLUON_TIMED, "windows": windows,
+           "img_per_s": img_s, "hybridized_over_eager":
+           img_s["hybridized"] / img_s["eager"],
+           "mfu": {m: v * flop / F32_FLOPS for m, v in img_s.items()},
+           "first_step_s": {m: first[m][2] for m in nets},
+           "first_step_rel_err": first_err, "stat_replay": replay,
+           "captures": hyb_op.runner.captures,
            "train_flop_per_img": flop, "conv_fc_layers": n_layers,
-           "params_trained": n_trained, "loss_mean": float(loss_v.mean()),
-           "weights_moved": w_moved, "stats_moved": s_moved,
-           "launches": launches, "adam_launches": adam_launches,
+           "params_trained": n_trained,
+           "launches": {"sgd_fused_update": by_mode["hybridized"][0][
+               "launches"]}, "adam_launches": adam_launches,
            "module_fit_img_per_s": module_img_s,
-           "ratio_to_module_fit": img_s / module_img_s,
-           "profiled_step": prof}
-    log("gluon resnet50_v1: %d steps (%d warm); %.1f img/s, %.2f ms/step, "
-        "MFU %.3f (%.2f GFLOP/img from its %d conv/FC shapes, 67 TFLOP/s "
-        "f32 peak); %.3fx Module.fit's %.1f img/s; loss %.4f; launches %s "
-        "(%d tensors a launch); adam run %d launches"
-        % (steps, GLUON_WARM, img_s, res["ms_per_step"], mfu, flop / 1e9,
-           n_layers, res["ratio_to_module_fit"], module_img_s,
-           res["loss_mean"], launches, n_trained, adam_launches))
-    log("gluon profiled step: wall %.3fs, device busy %s, %d kernels, "
-        "device ms by class %s"
-        % (prof["wall_s"], "not measured" if prof["busy_share"] is None
-           else "%.1f%%" % (100 * prof["busy_share"]), prof["kernels"],
-           {k: round(v, 3) for k, v in prof["device_ms"].items()}))
-    for name, ms in prof["top_kernels_ms"]:
-        log("gluon profiled step: %8.3f ms  %s" % (ms, name))
+           "ratio_to_module_fit": {m: v / module_img_s
+                                   for m, v in img_s.items()},
+           "profiled_step": profiled, "net": nets["hybridized"][0],
+           "x": x}
+    log("gluon resnet50_v1: first step eager %.2fs, hybridized %.2fs "
+        "(captures %d), logits/loss off by %.2e / %.2e; windows %s; "
+        "hybridized / eager %.3f; MFU %s (%.2f GFLOP/img from its %d "
+        "conv/FC shapes, 67 TFLOP/s f32 peak); %s Module.fit's %.1f img/s; "
+        "sgd_fused_update once a step (%d tensors a launch); adam %d "
+        "launches; one step's statistics update off the host replay by "
+        "%.2e (twice: %.2e)"
+        % (first["eager"][2], first["hybridized"][2], hyb_op.runner.captures,
+           first_err["logits"], first_err["loss"],
+           ", ".join("%s %.1f img/s %.2f ms" % (w["mode"], w["img_per_s"],
+                                                w["ms_per_step"])
+                     for w in windows), res["hybridized_over_eager"],
+           {m: round(v, 4) for m, v in res["mfu"].items()}, flop / 1e9,
+           n_layers, {m: round(v, 3) for m, v in
+                      res["ratio_to_module_fit"].items()}, module_img_s,
+           n_trained, adam_launches, replay["err"], replay["err_if_twice"]))
+    for mode, prof in profiled.items():
+        log("gluon profiled %s step: wall %.3fs, device busy %s, %d kernels, "
+            "host launches %s (graph launches %s), device ms by class %s"
+            % (mode, prof["wall_s"], "not measured"
+               if prof["busy_share"] is None
+               else "%.1f%%" % (100 * prof["busy_share"]), prof["kernels"],
+               prof["host_launches"], prof["graph_launches"],
+               {k: round(v, 3) for k, v in prof["device_ms"].items()}))
+        for name, ms in prof["top_kernels_ms"][:4]:
+            log("gluon profiled %s step: %8.3f ms  %s" % (mode, ms, name))
     return res
+
+
+def gluon_params_copy(src, dst):
+    """``dst``'s parameters set to ``src``'s, in place, by position (two
+    nets of one architecture)."""
+    for p, q in zip(src.collect_params().values(),
+                    dst.collect_params().values()):
+        q.set_data(p.data())
+
+
+def rel_max(got, ref):
+    """Largest absolute error over the reference's largest magnitude
+    (numpy arrays)."""
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def gluon_stat_replay(torch, mx, net, x, run):
+    """One hybridized step's moving-statistics update against the momentum
+    rule replayed on the host: the batch statistics of the step's
+    forward, from the CachedOp's traced Symbol evaluated on the same
+    weights (a pure function: it updates nothing), then the step; every
+    BatchNorm's new statistic within GLUON_STAT_TOL (relative, over all
+    53) of ``momentum * old + (1 - momentum) * batch`` in float32, and
+    the distance to two updates beside it."""
+    from mxnet_tpu_torch.symbol.symbol import _graph_eval_fn
+    op = net._cached_op
+    tr = op._graphs[(True, 1)]
+    env, _aux, xs = tr.bind([x])
+    env.update(zip(tr.names, xs))
+    with torch.no_grad():
+        _, stats = _graph_eval_fn(tr.sym, True)(env)
+    params = net.collect_params()
+    old = {k: p.data().asnumpy() for k, p in params.items()
+           if "running" in k}
+    before = op.stat_updates
+    run("hybridized", 1)
+    torch.cuda.synchronize()
+    new = {k: params[k].data().asnumpy() for k in old}
+    errs, twice = [], []
+    for mm, mv, mom, mean, var in stats:
+        m32 = np.float32(mom)
+        for name, batch in ((mm, mean), (mv, var)):
+            b = batch.cpu().numpy().astype(np.float32)
+            once = old[name] * m32 + b * np.float32(1 - mom)
+            two = once * m32 + b * np.float32(1 - mom)
+            scale = max(np.abs(once).max(), 1e-30)
+            errs.append(float(np.abs(new[name] - once).max() / scale))
+            twice.append(float(np.abs(new[name] - two).max() / scale))
+    return {"bn_nodes": len(stats), "err": max(errs),
+            "err_if_twice": min(twice),
+            "updates": op.stat_updates - before}
 
 
 def gamma_grad_scaled(torch, real, factor):
     """A planted fault for phase 23: BatchNorm whose gamma gradient is
     ``factor`` times the sound one (its forward value is the sound
-    op's)."""
+    op's). It keeps the sound op's signature, from which a Symbol
+    traced under it takes the op's input slots."""
+    @functools.wraps(real)
     def fn(data, gamma, beta, *rest, **attrs):
         g = gamma * factor - (gamma * (factor - 1)).detach()
         return real(data, g, beta, *rest, **attrs)
@@ -3561,7 +3703,8 @@ class _GluonSide(object):
     float64, by the plain SGD rule with the hypers an SGD optimizer
     gives (the kernel and ``Trainer`` take float32 only)."""
 
-    def __init__(self, torch, mx, fu, state, x, y, ctx, dtype="float32"):
+    def __init__(self, torch, mx, fu, state, x, y, ctx, dtype="float32",
+                 hybridize=False):
         self.torch, self.mx, self.fu = torch, mx, fu
         self.net = mx.gluon.model_zoo.vision.get_model(
             "resnet50_v1", classes=1000, prefix="g23_")
@@ -3569,6 +3712,8 @@ class _GluonSide(object):
         mx.convert.gluon_params_from_jax(state, self.params, ctx=ctx)
         if dtype == "float64":
             self.net.cast("float64")
+        if hybridize:
+            self.net.hybridize()
         self.x = mx.nd.array(x, ctx=ctx, dtype=dtype)
         self.y = mx.nd.array(y, ctx=ctx, dtype=dtype)
         self.loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
@@ -3609,12 +3754,14 @@ class _GluonSide(object):
 
 def gluon_vs_cpu(torch, mx, fu, batch=2, steps=2):
     """Phase 23: two chained Gluon ``trainer.step``s of resnet50_v1 at
-    batch 2 from one state, on the card (float32), on the CPU (float32)
-    and on the CPU in float64 (the witness), held by phase 14's rule
+    batch 2 from one state, on the card (float32) eager and hybridized
+    (its CUDA graphs), on the CPU (float32) and on the CPU in float64
+    (the witness), each card side held by phase 14's rule
     (``resnet_misses``: the card's errors against the witness within
     RESNET_RATIO_TOL times the CPU's own, step 1's outputs and running
     statistics absolutely), with the planted fault (BatchNorm's gamma
-    gradient doubled) on the card that must miss it."""
+    gradient doubled) on the card, eager and hybridized, that must miss
+    it."""
     from mxnet_tpu_torch.ops import registry as reg
     rng = np.random.RandomState(23)
     x = rng.uniform(-1, 1, (batch, 3, 224, 224)).astype(np.float32)
@@ -3632,7 +3779,12 @@ def gluon_vs_cpu(torch, mx, fu, batch=2, steps=2):
                                    "float64"),
              "cpu": _GluonSide(torch, mx, fu, state, x, y, mx.cpu()),
              "dev": _GluonSide(torch, mx, fu, state, x, y, mx.gpu(0)),
-             "planted": _GluonSide(torch, mx, fu, state, x, y, mx.gpu(0))}
+             "planted": _GluonSide(torch, mx, fu, state, x, y, mx.gpu(0)),
+             "hybridized": _GluonSide(torch, mx, fu, state, x, y, mx.gpu(0),
+                                      hybridize=True),
+             "planted_hybridized": _GluonSide(torch, mx, fu, state, x, y,
+                                              mx.gpu(0), hybridize=True)}
+    card_sides = ("dev", "planted", "hybridized", "planted_hybridized")
     # the v1 bottleneck's 1x1 convs carry biases, each followed by a
     # BatchNorm in training mode: their gradient is zero in exact
     # arithmetic, so the witness moves them by rounding only and a
@@ -3644,14 +3796,14 @@ def gluon_vs_cpu(torch, mx, fu, batch=2, steps=2):
           if "running" in k}
     bn = reg.get_op("BatchNorm")
     sound = bn.fn
-    rows, planted = [], []
+    rows, planted = [], {"planted": [], "planted_hybridized": []}
     for step in range(1, steps + 1):
         t0 = time.time()
         o_w, a_w, s_w = sides["witness"].step()
         row = {"step": step, "witness_s": time.time() - t0}
-        for side in ("cpu", "dev", "planted"):
+        for side in ("cpu",) + card_sides:
             fu.reset_launches()
-            if side == "planted":
+            if side.startswith("planted"):
                 bn.fn = gamma_grad_scaled(torch, sound, GLUON_PLANT)
             try:
                 out, a, s = sides[side].step()
@@ -3670,10 +3822,12 @@ def gluon_vs_cpu(torch, mx, fu, batch=2, steps=2):
                          "dw_worst": max(dw, key=dw.get),
                          "ds_max": max(ds.values()),
                          "ds_worst": max(ds, key=ds.get)}
-        misses = resnet_misses(row["dev"], row["cpu"], step)
-        check(not misses, "gluon vs f64 step %d: the card is off: %s"
-              % (step, "; ".join(misses)))
-        planted += resnet_misses(row["planted"], row["cpu"], step)
+        for side in ("dev", "hybridized"):
+            misses = resnet_misses(row[side], row["cpu"], step)
+            check(not misses, "gluon vs f64 step %d: the card (%s) is off: "
+                  "%s" % (step, side, "; ".join(misses)))
+        for side in planted:
+            planted[side] += resnet_misses(row[side], row["cpu"], step)
         row["weights_held"] = len(a0)
         rows.append(row)
         log("gluon vs f64 (batch %d) step %d (witness %.1fs): %s" % (
@@ -3682,12 +3836,177 @@ def gluon_vs_cpu(torch, mx, fu, batch=2, steps=2):
                 "running-stat change max %.2e (%s)"
                 % (side, r["out_rel"], r["dw_median"], r["dw_max"],
                    r["dw_worst"], r["ds_max"], r["ds_worst"])
-                for side, r in ((k, row[k]) for k in ("cpu", "dev",
-                                                      "planted")))))
-    log("gluon vs f64: the planted gamma-gradient fault misses %s"
-        % (planted or "nothing"))
-    check(planted, "gluon vs f64: the planted BatchNorm fault passes")
+                for side, r in ((k, row[k]) for k in ("cpu",) +
+                                card_sides))))
+    for side, misses in planted.items():
+        log("gluon vs f64: the planted gamma-gradient fault (%s) misses %s"
+            % (side, misses or "nothing"))
+        check(misses, "gluon vs f64: the planted BatchNorm fault passes "
+              "(%s)" % side)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 27: export the trained Gluon net and serve what was exported
+# ---------------------------------------------------------------------------
+
+EXPORT_TOL = 1e-5       # imported predictor vs the Gluon net, relative
+EXPORT_FORWARDS = 20    # forwards a timed window; four windows
+HOST_SAMPLES = 10       # single forwards on an idle card, for host µs
+
+
+def forward_window(torch, fn, n=EXPORT_FORWARDS, batch=RESNET_BATCH):
+    """``n`` calls of ``fn`` back to back: img/s over the wall
+    (synchronized at both ends); then the host microseconds of one call
+    made on an idle card (its Python call alone, the least of
+    HOST_SAMPLES), which a back-to-back window cannot give: there the
+    host waits whenever the card is behind."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host = []
+    for _ in range(HOST_SAMPLES):
+        t = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+    return {"img_per_s": n * batch / wall, "host_us": min(host) * 1e6,
+            "ms_per_forward": wall / n * 1e3}
+
+
+def _read(path, mode="r"):
+    with open(path, mode) as f:
+        return f.read()
+
+
+def gluon_export(torch, mx, bnk, net, x, workdir, dev_type=2):
+    """Phase 27: ``net.export(prefix, epoch=0)`` of phase 22's trained
+    resnet50_v1, then ``SymbolBlock.imports`` of its files on the card,
+    hybridized, predicting the batch of 32: its logits within EXPORT_TOL
+    (relative) of the Gluon net's own eager predict; the same files
+    through ``model.load_checkpoint`` and ``serving.Predictor`` within
+    EXPORT_TOL of the imported block's; ``batch_norm_inference`` launched
+    once per BatchNorm node of the traced Symbol a forward (replays
+    counted) and its plain version never; eager Gluon predict against
+    the imported block's graph replay, img/s and host microseconds a
+    forward, in turns eager, imported, imported, eager; a planted fault
+    (one exported ``aux:`` moving variance scaled by 2) that must fail
+    the comparison. ``dev_type=1`` puts the Predictor on the host (a CPU
+    rehearsal)."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    from mxnet_tpu_torch.symbol.symbol import _topo
+    os.makedirs(workdir, exist_ok=True)
+    prefix = os.path.join(workdir, "g22")
+    t0 = time.time()
+    sym = net.export(prefix, epoch=0)
+    export_s = time.time() - t0
+    n_bn = sum(1 for n in _topo(sym._entries) if n.op == "BatchNorm")
+    files = (prefix + "-symbol.json", prefix + "-0000.params")
+    net.hybridize(False)
+    with mx.autograd.predict_mode():
+        ref = net(x).asnumpy()
+    plain_calls = [0]
+    real = bnk._batch_norm_inference_plain
+
+    def spy(x, *args, **kwargs):
+        # shape inference runs the op on meta tensors: no computation
+        plain_calls[0] += x.device.type != "meta"
+        return real(x, *args, **kwargs)
+
+    bnk._batch_norm_inference_plain = nn_ops._batch_norm_inference_plain = spy
+    try:
+        t0 = time.time()
+        blk = mx.gluon.SymbolBlock.imports(files[0], ["data"], files[1],
+                                           ctx=mx.gpu(0))
+        blk.hybridize()
+        import_s = time.time() - t0
+        with mx.autograd.predict_mode():
+            t0 = time.time()
+            got = blk(x).asnumpy()
+            first_s = time.time() - t0
+            bnk.reset_launches()
+            again = blk(x).asnumpy()
+            torch.cuda.synchronize()
+            per_forward = bnk.LAUNCHES["batch_norm_inference"]
+            arg, aux = mx.model.load_checkpoint(prefix, 0)[1:]
+            pred = mx.serving.Predictor(
+                _read(files[0]), _read(files[1], "rb"), dev_type=dev_type,
+                input_shapes={"data": x.shape})
+            pred.set_input("data", x.asnumpy().astype("<f4").tobytes())
+            pred.forward()
+            served = np.frombuffer(pred.get_output(0), "<f4").reshape(
+                pred.get_output_shape(0))
+            windows = []
+            bnk.reset_launches()
+            for mode in ("eager", "imported", "imported", "eager"):
+                w = forward_window(torch, (lambda: net(x)) if mode == "eager"
+                                   else (lambda: blk(x)), batch=x.shape[0])
+                w["mode"] = mode
+                windows.append(w)
+            window_launches = bnk.LAUNCHES["batch_norm_inference"]
+    finally:
+        bnk._batch_norm_inference_plain = real
+        nn_ops._batch_norm_inference_plain = real
+    errs = {"imported": rel_max(got, ref), "predictor": rel_max(served, got),
+            "repeat_bitwise": bool(np.array_equal(again, got)),
+            "predictor_bitwise": bool(np.array_equal(served, got))}
+    check(got.shape == (RESNET_BATCH, 1000) and np.isfinite(got).all(),
+          "export: imported logits %s" % (got.shape,))
+    check(errs["imported"] <= EXPORT_TOL and errs["predictor"] <= EXPORT_TOL,
+          "export: the imported block / Predictor are off: %s" % errs)
+    check(sorted(arg) == sorted(sym.list_arguments()[1:])
+          and sorted(aux) == sorted(sym.list_auxiliary_states()),
+          "export: load_checkpoint's arg/aux split differs from the symbol's")
+    check(per_forward == n_bn and n_bn == 53, "export: %d batch_norm_"
+          "inference launches a forward for %d BatchNorm nodes"
+          % (per_forward, n_bn))
+    check(window_launches == 2 * (EXPORT_FORWARDS + HOST_SAMPLES) * 2 * n_bn,
+          "export: %d batch_norm_inference launches in the windows"
+          % window_launches)
+    check(plain_calls[0] == 0, "export: the plain BatchNorm ran %d times"
+          % plain_calls[0])
+    # the planted fault: one moving variance scaled by 2 in the file
+    saved = mx.nd.load(files[1])
+    victim = sorted(k for k in saved if k.startswith("aux:")
+                    and k.endswith("running_var"))[0]
+    saved[victim] = saved[victim] * 2
+    mx.nd.save(prefix + "-planted-0000.params", saved, format="mxnet")
+    bad = mx.gluon.SymbolBlock.imports(files[0], ["data"],
+                                       prefix + "-planted-0000.params",
+                                       ctx=mx.gpu(0))
+    bad.hybridize()
+    with mx.autograd.predict_mode():
+        planted = rel_max(bad(x).asnumpy(), ref)
+    check(planted > EXPORT_TOL, "export: the planted moving-variance fault "
+          "passes (%.2e)" % planted)
+    by = {m: [w for w in windows if w["mode"] == m] for m in
+          ("eager", "imported")}
+    summary = {m: {k: sum(w[k] for w in ws) / len(ws) for k in
+                   ("img_per_s", "host_us", "ms_per_forward")}
+               for m, ws in by.items()}
+    res = {"export_s": export_s, "import_s": import_s,
+           "first_forward_s": first_s, "bn_nodes": n_bn,
+           "launches_per_forward": per_forward,
+           "window_launches": window_launches, "errors": errs,
+           "planted_rel_err": planted, "planted_key": victim,
+           "windows": windows, "summary": summary,
+           "params_mb": os.path.getsize(files[1]) / 1e6,
+           "captures": blk._cached_op.runner.captures}
+    log("export: %.2fs (%.1f MB params), imports %.2fs, first forward "
+        "(capture) %.2fs; imported vs Gluon %.2e, Predictor vs imported "
+        "%.2e (bitwise %s, repeat bitwise %s); %d batch_norm_inference a "
+        "forward for %d nodes; planted %s x2: %.2e; %s"
+        % (export_s, res["params_mb"], import_s, first_s, errs["imported"],
+           errs["predictor"], errs["predictor_bitwise"],
+           errs["repeat_bitwise"], per_forward, n_bn, victim, planted,
+           ", ".join("%s %.1f img/s %.1f host us/forward"
+                     % (w["mode"], w["img_per_s"], w["host_us"])
+                     for w in windows)))
+    shutil.rmtree(workdir, ignore_errors=True)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4244,6 +4563,8 @@ def main():
     del timer
     custom = rtc_custom_op(torch, mx, rtc_mods)
     gluon = gluon_fit(torch, mx, fu, fitted["img_per_s"])
+    g_net, g_x = gluon.pop("net"), gluon.pop("x")
+    g_net.hybridize(False)          # its CUDA graphs go; phase 27 exports it
     gluon_cpu = gluon_vs_cpu(torch, mx, fu)
     rec = os.path.join(root, "build", "smoke_data", "train.rec")
     rec_bytes, rec_s = smoke_records(mx, rec)
@@ -4257,6 +4578,8 @@ def main():
     cli_synth = cli_synthetic(torch, mx, fu, fitted["img_per_s"])
     cli_rec = cli_records(torch, mx, fu, idec, rec, os.path.join(
         root, "build", "smoke_ckpt", "r50"))
+    exported = gluon_export(torch, mx, bnk, g_net, g_x, os.path.join(
+        root, "build", "chip_smoke_export"))
 
     sources = {"paged_decode_attention": (
         "mxnet_tpu_torch/ops/cuda/csrc/paged_decode_attention.cu",
@@ -4296,16 +4619,19 @@ def main():
         "mxnet_tpu_torch/ops/cuda/csrc/image_decode.cu",
         "src/native/imagedec.cc:187")}
     # launches: the serving kernels' from the served round, the training
-    # kernels' from the first timed train call (8 steps), the update
-    # kernels' from the ResNet-50 fits (48 SGD steps; 4 Adam steps)
+    # kernels' from the first timed train call (8 steps), the SGD update's
+    # from phase 22's first hybridized window (24 steps, the update once
+    # a step beside the CUDA graphs), Adam's from Module.fit (4 steps)
     launches = dict(served["launches"])
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] = trained["calls"][1]["launches"][name]
-    launches["sgd_fused_update"] = fitted["launches"]["sgd_fused_update"]
+    launches["sgd_fused_update"] = gluon["launches"]["sgd_fused_update"]
     launches["adam_fused_update"] = fitted["adam_launches"]
-    # the int8 and BatchNorm kernels' from the int8 correctness set of
-    # phase 17
+    # the int8 kernels' from the int8 correctness set of phase 17; the
+    # BatchNorm kernel's from phase 27's timed windows (its replays of
+    # the exported predictor counted, and the eager predicts)
     launches.update(served_int8["runs"]["int8"]["launches"])
+    launches["batch_norm_inference"] = exported["window_launches"]
     # rtc's from the custom op of phase 21 (its forward and backward)
     launches["rtc"] = custom["launches"]
     # the augment kernel's from the records fit of phase 26
@@ -4333,11 +4659,12 @@ def main():
               "int8_vs_cpu": int8_cpu, "rtc_compile": rtc_compile,
               "rtc_checks": rtc_checks, "rtc_timing": rtc_row,
               "rtc_custom_op": custom, "gluon_fit": gluon,
-              "gluon_vs_cpu": gluon_cpu, "data": data,
+              "gluon_vs_cpu": gluon_cpu, "gluon_export": exported,
+              "data": data,
               "cli_synthetic": cli_synth, "cli_records": cli_rec,
               "kernels": kernels,
               "update_launches": {
-                  "module_fit": launches["sgd_fused_update"],
+                  "module_fit": fitted["launches"]["sgd_fused_update"],
                   "gluon_fit": gluon["launches"]["sgd_fused_update"],
                   "gluon_adam": gluon["adam_launches"]},
               "wall_s": time.time() - t_all}
@@ -4348,7 +4675,7 @@ def main():
             json.dump(report, f, indent=1)
     log("sgd_fused_update launches: Module.fit %d, Gluon fit %d; "
         "adam_fused_update: Module.fit %d, Gluon %d"
-        % (launches["sgd_fused_update"],
+        % (fitted["launches"]["sgd_fused_update"],
            gluon["launches"]["sgd_fused_update"],
            launches["adam_fused_update"], gluon["adam_launches"]))
     log("wall_s %.1f" % report["wall_s"])

@@ -25,7 +25,7 @@ import torch
 from .base import MXNetError
 from .context import default_device
 from .ndarray.ndarray import NDArray, zeros
-from .symbol.symbol import _graph_eval_fn
+from .symbol.symbol import _graph_eval_fn, update_moving_stats
 
 __all__ = ["Executor", "INPUT_COPIES"]
 
@@ -123,17 +123,9 @@ class Executor(object):
         return leaves, outs, stats
 
     def _update_aux(self, stats):
-        """Moving statistics, in place, grouped by momentum:
-        ``old = momentum * old + (1 - momentum) * batch``."""
-        groups = {}
-        for mm, mv, mom, mean, var in stats:
-            olds, news = groups.setdefault(mom, ([], []))
-            olds += [self.aux_dict[mm]._data, self.aux_dict[mv]._data]
-            news += [mean, var]
-        with torch.no_grad():
-            for mom, (olds, news) in groups.items():
-                torch._foreach_mul_(olds, mom)
-                torch._foreach_add_(olds, torch._foreach_mul(news, 1 - mom))
+        """Moving statistics, in place (``symbol.update_moving_stats``)."""
+        update_moving_stats(stats, {n: a._data
+                                    for n, a in self.aux_dict.items()})
 
     def forward(self, is_train=False, **kwargs):
         """Run the graph (reference: GraphExecutor::RunOps). In training

@@ -7,7 +7,9 @@ python/mxnet/gluon/nn/basic_layers.py, activations.py): ``Sequential``,
 registry, with the JAX package's parameter names and defaults.
 ``BatchNorm`` normalizes with the batch statistics and updates its
 running statistics in place while ``autograd.is_training()``, and uses
-the running statistics otherwise. The layers whose op the port's
+the running statistics otherwise; traced (``F`` the ``symbol``
+namespace) it is one ``BatchNorm`` node either way. Every layer here
+traces under ``hybridize()`` and ``export``. The layers whose op the port's
 registry lacks (``Dropout``, ``Embedding``, ``InstanceNorm``,
 ``LayerNorm``, ``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU``)
 raise ``NotImplementedError`` naming ROADMAP A12.2.
@@ -20,7 +22,7 @@ import torch
 
 from ...base import MXNetError
 from ... import initializer as init
-from ..block import Block, HybridBlock
+from ..block import Block, HybridBlock, _is_symbol
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "Embedding",
            "BatchNorm", "InstanceNorm", "LayerNorm", "Flatten", "Lambda",
@@ -164,7 +166,10 @@ class BatchNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
         from ... import autograd
-        if not autograd.is_training() or self._kwargs["use_global_stats"]:
+        if _is_symbol(x) or not autograd.is_training() or \
+                self._kwargs["use_global_stats"]:
+            # traced, one BatchNorm node: the graph evaluator gives its
+            # batch statistics, and the CachedOp updates the running ones
             return F.BatchNorm(x, gamma, beta, running_mean, running_var,
                                **self._kwargs)
         out, mean, var = F.BatchNorm(x, gamma, beta, running_mean,

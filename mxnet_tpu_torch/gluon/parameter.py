@@ -183,6 +183,14 @@ class Parameter(object):
         with torch.no_grad():
             self._data._data.copy_(src.detach())
 
+    def var(self):
+        """This parameter as a Symbol variable: its name, shape and type
+        (reference: parameter.py var). An op that takes it in an
+        auxiliary slot (BatchNorm's moving statistics, ``grad_req``
+        "null") marks it an auxiliary state."""
+        from ..symbol import var as sym_var
+        return sym_var(self.name, shape=self.shape, dtype=self.dtype)
+
     def cast(self, dtype):
         self.dtype = np.dtype(dtype)
         if self._data is not None:

@@ -86,7 +86,11 @@ for _ew, _bc in [("elemwise_add", "broadcast_add"),
                  ("_minimum", "broadcast_minimum"),
                  ("_power", "broadcast_power"),
                  ("broadcast_plus", "broadcast_add"),
-                 ("broadcast_minus", "broadcast_sub")]:
+                 ("broadcast_minus", "broadcast_sub"),
+                 ("_greater", "broadcast_greater"),
+                 ("_greater_equal", "broadcast_greater_equal"),
+                 ("_lesser", "broadcast_lesser"),
+                 ("_lesser_equal", "broadcast_lesser_equal")]:
     alias(_ew, _bc)
 
 

@@ -19,17 +19,26 @@ output; ``save`` / ``load`` write and read the JSON file atomically.
 
 An op whose function takes ``*args`` (``Custom``) gets an input slot for
 each further positional Symbol and each keyword Symbol, as in the JAX
-package.
+package; a positional ``None`` leaves its slot unwired (``bias`` under
+``no_bias``), as the op function takes it on tensors.
 
-Not ported yet (ROADMAP A8.6): composition (``sym(data=...)``),
-``Group``, ``infer_type``, arithmetic other than the residual ``+``,
-control-flow subgraphs, ``AttrScope``; group2ctx model parallelism is
-A13.
+Composition (``sym(data=other)``: a copy whose free variables are
+replaced by other symbols), ``Group``, ``copy``, ``list_inputs``,
+``get_children`` and the arithmetic of the JAX package (``+ - * / **``
+with symbols or scalars, the reversed forms, unary ``-``, the
+comparisons ``> >= < <=``, ``reshape``) over the registry's
+``elemwise_*`` / ``_*_scalar`` ops are the JAX package's; ``==`` stays
+identity, so symbols live in dicts and sets. Gluon's hybridize traces a
+block into such a graph (``gluon/block.py``).
+
+Not ported yet (ROADMAP A8.6): ``infer_type``, control-flow subgraphs,
+``AttrScope``; group2ctx model parallelism is A13.
 """
 from __future__ import annotations
 
 import inspect
 import json
+import numbers
 import threading
 
 import numpy as np
@@ -38,7 +47,7 @@ import torch
 from ..base import MXNetError
 from ..ops import registry as _reg
 
-__all__ = ["Symbol", "Variable", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
 
 # ops whose trailing inputs are auxiliary states (updated by the
 # executor during training, never gradient-trained)
@@ -174,7 +183,64 @@ class Symbol(object):
                 entries.extend((node, i) for i in range(_n_outputs(node)))
         return Symbol(entries)
 
+    def get_children(self):
+        """The inputs of this symbol's outputs as one grouped symbol, or
+        None for a variable (reference: symbol.py get_children)."""
+        entries, seen = [], set()
+        for node, _ in self._entries:
+            for src, oi in node.inputs:
+                if (id(src), oi) not in seen:
+                    seen.add((id(src), oi))
+                    entries.append((src, oi))
+        return Symbol(entries) if entries else None
+
+    def __copy__(self):
+        return Symbol(self._entries)
+
+    def __deepcopy__(self, memo):
+        return self.copy()
+
+    def copy(self):
+        """A deep copy: new nodes, the same names and attrs."""
+        return load_json(self.tojson())
+
+    # -- composition -------------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        """A copy with free variables replaced (reference: symbol.py
+        __call__): positional symbols take the free arguments in
+        ``list_arguments`` order, keywords the variable of that name (or,
+        for a one-op symbol, of that input slot: ``data`` for
+        ``fc1_data``); ``name`` renames a one-output result."""
+        s = self.copy()
+        s._compose(*args, **kwargs)
+        return s
+
+    def _compose(self, *args, **kwargs):
+        name = kwargs.pop("name", None)
+        nodes = _topo(self._entries)
+        subst = {}
+        if args:
+            free = [n for n in nodes if n.is_var and not n.is_aux]
+            if len(args) > len(free):
+                raise MXNetError("too many positional arguments to compose")
+            for node, sym in zip(free, args):
+                subst[id(node)] = _single_entry(sym)
+        for key, sym in kwargs.items():
+            hit = [n for n in nodes if n.is_var and n.name == key] or \
+                [n for n in nodes if n.is_var and n.name.endswith("_" + key)]
+            if not hit:
+                raise MXNetError("no variable named %r to compose" % key)
+            subst[id(hit[0])] = _single_entry(sym)
+        _substitute(nodes, self, subst)
+        if name is not None and len(self._entries) == 1:
+            self._entries[0][0].name = name
+
     # -- listings ----------------------------------------------------------
+    def list_inputs(self):
+        """Every variable, arguments and auxiliary states, in
+        topological order."""
+        return [n.name for n in _topo(self._entries) if n.is_var]
+
     def list_arguments(self):
         return [n.name for n in _topo(self._entries)
                 if n.is_var and not n.is_aux]
@@ -286,14 +352,60 @@ class Symbol(object):
         return Executor(self, ctx, args, args_grad, grad_req, aux_states)
 
     # -- arithmetic --------------------------------------------------------
+    def _binop(self, other, op_name, scalar_op, reverse=False):
+        if isinstance(other, Symbol):
+            a, b = (other, self) if reverse else (self, other)
+            return _apply_op(_reg.get_op(op_name), (a, b), {}, None)
+        if isinstance(other, numbers.Real) and not isinstance(other, bool):
+            return _apply_op(_reg.get_op(scalar_op), (self,),
+                             {"scalar": float(other)}, None)
+        return NotImplemented
+
     def __add__(self, other):
-        """``elemwise_add`` of two symbols (the residual ``+``); scalar
-        and other arithmetic come with ROADMAP A8.6."""
-        if not isinstance(other, Symbol):
-            raise NotImplementedError("Symbol + %s is not ported yet "
-                                      "(ROADMAP A8.6)" % type(other).__name__)
-        return _apply_op(_reg.get_op("elemwise_add"), (self, other), {},
-                         None)
+        return self._binop(other, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binop(other, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._binop(other, "elemwise_sub", "_rminus_scalar",
+                           reverse=True)
+
+    def __mul__(self, other):
+        return self._binop(other, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binop(other, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binop(other, "elemwise_div", "_rdiv_scalar",
+                           reverse=True)
+
+    def __pow__(self, other):
+        return self._binop(other, "broadcast_power", "_power_scalar")
+
+    def __neg__(self):
+        return _apply_op(_reg.get_op("negative"), (self,), {}, None)
+
+    def __gt__(self, other):
+        return self._binop(other, "_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._binop(other, "_greater_equal", "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._binop(other, "_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._binop(other, "_lesser_equal", "_lesser_equal_scalar")
+
+    def reshape(self, shape, **kwargs):
+        return _apply_op(_reg.get_op("Reshape"), (self,),
+                         dict(kwargs, shape=tuple(shape)), None)
 
     def __hash__(self):
         return object.__hash__(self)
@@ -302,7 +414,8 @@ class Symbol(object):
         return self is other
 
     def __bool__(self):
-        raise TypeError("Symbol has no truth value")
+        raise TypeError("Symbol has no truth value: comparisons build "
+                        "graph nodes")
 
 
 def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
@@ -323,6 +436,38 @@ def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
         attrs["__init__"] = init if isinstance(init, str) else init.dumps()
     attrs.update(kwargs)
     return Symbol([(_Node(None, name, attrs), 0)])
+
+
+var = Variable
+
+
+def Group(symbols):
+    """The outputs of ``symbols``, in order, as one symbol (reference:
+    symbol.py Group)."""
+    entries = []
+    for s in symbols:
+        if not isinstance(s, Symbol):
+            raise TypeError("Group takes Symbols, got %s" % type(s).__name__)
+        entries.extend(s._entries)
+    return Symbol(entries)
+
+
+def _single_entry(sym):
+    if not isinstance(sym, Symbol) or len(sym._entries) != 1:
+        raise MXNetError("can only compose with single-output symbols")
+    return sym._entries[0]
+
+
+def _substitute(nodes, sym, subst):
+    """Rewire every input of ``nodes`` and every output entry of ``sym``
+    that reads a variable in ``subst`` (id -> entry) to that entry."""
+    if not subst:
+        return
+    for node in nodes:
+        node.inputs = [subst.get(id(src), (src, oi)) if src.is_var
+                       else (src, oi) for src, oi in node.inputs]
+    sym._entries = [subst.get(id(n), (n, oi)) if n.is_var else (n, oi)
+                    for n, oi in sym._entries]
 
 
 def load(fname):
@@ -373,12 +518,19 @@ def _apply_op(op, args, attrs, name):
     variadic = any(p.kind is inspect.Parameter.VAR_POSITIONAL
                    for p in inspect.signature(op.fn).parameters.values())
     pos = 0
+    skipped = set()
     for a in args:
-        if not isinstance(a, Symbol):
+        if a is not None and not isinstance(a, Symbol):
             raise TypeError("positional args to symbol ops must be Symbols, "
                             "got %s" % type(a))
         while pos < len(in_names) and in_names[pos][0] in inputs:
             pos += 1
+        if a is None:
+            # an absent optional input (bias=None): its slot stays unwired
+            if pos < len(in_names):
+                skipped.add(in_names[pos][0])
+            pos += 1
+            continue
         if pos >= len(in_names):
             if not variadic:
                 raise MXNetError("too many inputs for op %s" % op.name)
@@ -410,7 +562,8 @@ def _apply_op(op, args, attrs, name):
             node_inputs.append(ent)
             wired.append(in_name)
             continue
-        if in_name == "bias" and attrs.get("no_bias", False):
+        if in_name in skipped or (in_name == "bias"
+                                  and attrs.get("no_bias", False)):
             continue
         if has_default and in_name not in aux_names and in_name != "bias":
             continue
@@ -443,10 +596,10 @@ def _graph_eval_fn(symbol, is_train):
     for each BatchNorm that normalized with batch statistics (training,
     not ``use_global_stats``), ``(moving_mean_name, moving_var_name,
     momentum, batch_mean, batch_var)`` with the statistics detached: the
-    executor updates the moving statistics with them, in place,
-    ``new = momentum * old + (1 - momentum) * batch`` (the JAX package's
-    functional update, symbol/symbol.py:796-802, with the biased
-    variance)."""
+    executor and Gluon's CachedOp update the moving statistics with them
+    (:func:`update_moving_stats`), in place, ``new = momentum * old +
+    (1 - momentum) * batch`` (the JAX package's functional update,
+    symbol/symbol.py:796-802, with the biased variance)."""
     nodes = _topo(symbol._entries)
 
     def fn(env):
@@ -484,6 +637,22 @@ def _graph_eval_fn(symbol, is_train):
     return fn
 
 
+def update_moving_stats(stats, aux):
+    """Apply ``_graph_eval_fn``'s batch statistics to the moving ones in
+    ``aux`` (name -> tensor), in place, grouped by momentum: ``old =
+    momentum * old + (1 - momentum) * batch`` (the Gluon layer's
+    arithmetic)."""
+    groups = {}
+    for mm, mv, mom, mean, var in stats:
+        olds, news = groups.setdefault(mom, ([], []))
+        olds += [aux[mm], aux[mv]]
+        news += [mean.to(aux[mm].dtype), var.to(aux[mv].dtype)]
+    with torch.no_grad():
+        for mom, (olds, news) in groups.items():
+            torch._foreach_mul_(olds, mom)
+            torch._foreach_add_(olds, torch._foreach_mul(news, 1 - mom))
+
+
 # ---------------------------------------------------------------------------
 # shape deduction
 # ---------------------------------------------------------------------------
@@ -497,8 +666,11 @@ def _deduce_shapes(symbol, known):
     nodes = _topo(symbol._entries)
     shapes = dict(known)
     for n in nodes:
-        if n.is_var and n.name not in shapes and n.attrs.get("__shape__"):
-            shapes[n.name] = tuple(n.attrs["__shape__"])
+        shape = n.attrs.get("__shape__") if n.is_var else None
+        if shape and n.name not in shapes and all(d > 0 for d in shape):
+            # a parameter's variable before its deferred shape is known
+            # carries 0 entries: deduced below like an unannotated one
+            shapes[n.name] = tuple(shape)
     out_shapes = {}
 
     def entry_shape(src, oi):

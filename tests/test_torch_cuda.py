@@ -48,7 +48,12 @@ template kernel through ``exports`` bitwise, a row sum over 64 KB of
 dynamic shared memory within 2e-6 of the sum of |x|, a launch from a
 second thread too; a compile error and a launch error raise. One Gluon
 ``Trainer`` step on the card must match the CPU's through one update
-launch (changes within 1e-3 relative RMS). The image pipeline's nvJPEG
+launch (changes within 1e-3 relative RMS). A hybridized block's CUDA
+graphs must replay its Symbol's direct evaluation (predict outputs and
+training outputs and running statistics bitwise, gradients within
+1e-5), count the kernels they replay, keep outputs across replays,
+train as the eager block does, draw new random numbers per replay, and
+raise ``MXNetError`` when an op cannot be captured. The image pipeline's nvJPEG
 route must match its python route (cv2) within 4 uint8 levels, 0.1 on
 average (the inverse DCTs round differently), at 4:2:0, 4:2:2, 4:4:4
 and grayscale, with the ``crop_mirror_normalize`` kernel bitwise equal
@@ -772,6 +777,231 @@ def test_gluon_step_on_card_matches_cpu(card):
     for k, v in state.items():
         dg, dc = runs["cuda"][0][k] - v, runs["cpu"][0][k] - v
         assert np.linalg.norm(dg - dc) <= 1e-3 * np.linalg.norm(dc), k
+
+
+# ---------------------------------------------------------------------------
+# hybridize: the traced Symbol replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _hyb_net(prefix="hy_"):
+    nn = tmx.gluon.nn
+    net = nn.HybridSequential(prefix=prefix)
+    with net.name_scope():
+        net.add(nn.Conv2D(8, 3, padding=1, use_bias=False), nn.BatchNorm(),
+                nn.Activation("relu"), nn.MaxPool2D(2), nn.Conv2D(8, 3),
+                nn.BatchNorm(), nn.Activation("relu"), nn.GlobalAvgPool2D(),
+                nn.Flatten(), nn.Dense(5))
+    return net
+
+
+def _hyb_pair(card, seed=8):
+    """(hybridized net, eager twin) on the card from one state."""
+    rng = np.random.RandomState(seed)
+    ref = _hyb_net()
+    ref.initialize(tmx.init.Xavier(), ctx=tmx.cpu())
+    ref(tmx.nd.array(rng.uniform(-1, 1, (2, 3, 12, 12)), ctx=tmx.cpu()))
+    state = tmx.convert.gluon_params_to_numpy(ref)
+    nets = []
+    for _ in range(2):
+        net = _hyb_net()
+        tmx.convert.gluon_params_from_jax(state, net, ctx=card)
+        nets.append(net)
+    nets[0].hybridize()
+    return nets
+
+
+def _hyb_x(card, seed, n=4):
+    rng = np.random.RandomState(seed)
+    return tmx.nd.array(rng.uniform(-1, 1, (n, 3, 12, 12)), ctx=card)
+
+
+def test_graph_replay_equals_symbol_evaluation_bitwise(card):
+    """The CachedOp's replay against its direct evaluation of the same
+    Symbol on the card: predict-mode outputs bitwise; a recorded
+    training call's outputs and running statistics bitwise, its
+    gradients within 1e-5 relative (cuDNN's backward may sum in another
+    order)."""
+    net, _ = _hyb_pair(card)
+    x = _hyb_x(card, 1)
+    with tmx.autograd.predict_mode():
+        got = net(x)
+        op = net._cached_op
+        want = op.eager(x)
+    assert torch.equal(got._data, want._data)
+    assert op.runner.captures == 1
+    params = net.collect_params()
+    runs = []
+    for graphed in (True, False):
+        before = {k: p.data()._data.clone() for k, p in params.items()}
+        with tmx.autograd.record():
+            out = net(x) if graphed else op.eager(x)
+            loss = (out * out).sum()
+        loss.backward()
+        runs.append((out._data.clone(),
+                     {k: p.data()._data.clone() for k, p in params.items()},
+                     {k: p.grad()._data.clone() for k, p in params.items()
+                      if p.grad_req != "null"}))
+        for k, p in params.items():        # the same start for both
+            p.data()._data.detach().copy_(before[k])
+    (o1, p1, g1), (o2, p2, g2) = runs
+    assert torch.equal(o1, o2)
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), k
+    for k in g1:
+        assert torch.norm(g1[k] - g2[k]) <= 1e-5 * torch.norm(g2[k]), k
+    assert op.runner.captures == 2
+
+
+def test_graph_replays_count_their_kernel_launches(card):
+    """Predict mode: each replay adds one batch_norm_inference launch a
+    BatchNorm node, as the eager forward does; the capture adds none."""
+    net, twin = _hyb_pair(card)
+    x = _hyb_x(card, 2)
+    with tmx.autograd.predict_mode():
+        tbn.reset_launches()
+        twin(x)
+        eager = tbn.LAUNCHES["batch_norm_inference"]
+        net(x)                               # warm-up, capture, replay
+        assert tbn.LAUNCHES["batch_norm_inference"] == 3 * eager
+        tbn.reset_launches()
+        for _ in range(3):
+            net(x)
+    assert eager == 2 and tbn.LAUNCHES["batch_norm_inference"] == 3 * eager
+
+
+def test_graph_outputs_survive_later_replays(card):
+    net, twin = _hyb_pair(card)
+    x1, x2 = _hyb_x(card, 3), _hyb_x(card, 4)
+    with tmx.autograd.predict_mode():
+        a = net(x1)
+        held = a._data.clone()
+        b = net(x2)
+        assert torch.equal(a._data, held)
+        assert not torch.equal(a._data, b._data)
+        assert torch.equal(b._data, twin(x2)._data)
+
+
+def test_graph_training_matches_eager_on_card(card):
+    """Three Trainer steps hybridized and eager from one state: the same
+    losses and weights within 1e-5 relative, one sgd_fused_update launch
+    a step; gradients handed to the parameters alias no static buffer;
+    two recorded forwards before one backward keep their own
+    activations; a second backward without retain_graph raises; new
+    parameter storage takes a new capture."""
+    net, twin = _hyb_pair(card)
+    y = tmx.nd.array(np.arange(4) % 5, ctx=card)
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    res = []
+    for n in (net, twin):
+        trainer = tmx.gluon.Trainer(n.collect_params(), "sgd",
+                                    {"learning_rate": 0.1, "momentum": 0.9})
+        tfu.reset_launches()
+        losses, first_grad = [], None
+        for step in range(3):
+            with tmx.autograd.record():
+                loss = loss_fn(n(_hyb_x(card, 10 + step)), y)
+            loss.backward()
+            if step == 0:
+                g = n.collect_params()["hy_dense0_weight"].grad()._data
+                first_grad = (g, g.clone())
+            trainer.step(4)
+            losses.append(loss._data.clone())
+        assert tfu.LAUNCHES["sgd_fused_update"] == 3
+        assert torch.equal(first_grad[0], first_grad[1])
+        res.append((torch.stack(losses), {
+            k: p.data()._data.clone() for k, p in n.collect_params().items()}))
+    assert torch.norm(res[0][0] - res[1][0]) <= 1e-5 * torch.norm(res[1][0])
+    for k, v in res[1][1].items():
+        assert torch.norm(res[0][1][k] - v) <= 1e-5 * torch.norm(v), k
+    # two forwards, one backward: each keeps its activations
+    for n in (net, twin):
+        n.collect_params().zero_grad()
+        with tmx.autograd.record(train_mode=False):
+            loss = (n(_hyb_x(card, 20)) * n(_hyb_x(card, 21))).sum()
+        loss.backward()
+    for k, p in net.collect_params().items():
+        if p.grad_req != "null":
+            want = twin.collect_params()[k].grad()._data
+            assert torch.norm(p.grad()._data - want) <= \
+                1e-5 * torch.norm(want), k
+    with pytest.raises(tmx.base.MXNetError, match="retain_graph"):
+        loss.backward()
+    captures = net._cached_op.runner.captures
+    net.collect_params()["hy_dense0_weight"].initialize(
+        ctx=card, force_reinit=True)
+    with tmx.autograd.predict_mode():
+        got = net(_hyb_x(card, 5))
+    assert net._cached_op.runner.captures == captures + 1
+    twin.collect_params()["hy_dense0_weight"].set_data(
+        net.collect_params()["hy_dense0_weight"].data())
+    with tmx.autograd.predict_mode():
+        assert torch.equal(got._data, twin(_hyb_x(card, 5))._data)
+
+
+def test_graph_capture_failure_raises_and_runs_nothing_in_its_place(card):
+    """An op that reads a value back to the host (``.item()``) cannot be
+    captured: the call raises MXNetError naming the block and the
+    capture, returns nothing, and the card keeps working."""
+    net, twin = _hyb_pair(card)
+    act = treg.get_op("Activation")
+    sound = act.fn
+
+    def syncing(data, act_type="relu"):
+        data.sum().item()           # reads a value back to the host
+        return sound(data, act_type)
+
+    act.fn = syncing
+    try:
+        with tmx.autograd.predict_mode():
+            with pytest.raises(tmx.base.MXNetError,
+                               match="hy.*capture of its forward failed"):
+                net(_hyb_x(card, 6))
+    finally:
+        act.fn = sound
+    torch.cuda.synchronize()
+    with tmx.autograd.predict_mode():
+        assert torch.equal(net(_hyb_x(card, 6))._data,
+                           twin(_hyb_x(card, 6))._data)
+
+
+def _register_noise():
+    if "hybridize_noise" in tmx.operator._CUSTOM_REGISTRY:
+        return
+
+    @tmx.operator.register("hybridize_noise")
+    class _NoiseProp(tmx.operator.CustomOpProp):
+        def infer_shape(self, in_shape):
+            return in_shape, [in_shape[0]], []
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class _Op(tmx.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    u = tmx.nd.random.uniform(0, 1, in_data[0].shape,
+                                              ctx=in_data[0].context)
+                    self.assign(out_data[0], req[0], in_data[0] * u)
+
+                def backward(self, req, out_grad, in_data, out_data,
+                             in_grad, aux):
+                    self.assign(in_grad[0], req[0], out_grad[0])
+            return _Op()
+
+
+def test_graph_replays_draw_new_random_numbers(card):
+    """A HybridBlock drawing from the port's generator (``nd.random``,
+    inside a custom op) draws new numbers on every replay: the graphs
+    register the generator."""
+    _register_noise()
+    net = tmx.gluon.nn.HybridLambda(
+        lambda F, x: F.Custom(x, op_type="hybridize_noise"))
+    net.hybridize()
+    x = tmx.nd.ones((1000,), ctx=card)
+    tmx.random.seed(3)
+    draws = [net(x)._data.clone() for _ in range(3)]
+    assert net._cached_op.runner.captures == 1
+    for d in draws:
+        assert float(d.min()) >= 0 and float(d.max()) < 1
+    assert not torch.equal(draws[1], draws[2])
+    assert not torch.equal(draws[0], draws[1])
 
 
 # ---------------------------------------------------------------------------

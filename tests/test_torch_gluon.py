@@ -21,7 +21,9 @@ numpy-seeded. Held:
   initialization are ill-conditioned in float32 whatever the package: a
   1e-6 relative nudge (a few ulps) of the port's own starting weights
   changes some weights' updates by 30-100% within 4 steps, and the JAX
-  package differs from itself, hybridized against not, by percents. So
+  package differs from itself, hybridized against not, by percents (the
+  port's hybridized steps run its traced Symbol through the CachedOp,
+  ``tests/test_torch_hybridize.py``). So
   the port is held to float32's own error on this problem: at every
   step, the change of every weight and running statistic since the
   start, against the JAX package's (the largest relative RMS error over
@@ -355,6 +357,9 @@ def _train(mx, net, opt, hybridize, steps=STEPS):
         trainer.step(TX.shape[0])
         out.append((loss.asnumpy(), {k: p.data().asnumpy() for k, p in
                                      net.collect_params().items()}))
+    if hybridize and mx is tmx:
+        # the port's steps went through the CachedOp's traced Symbol
+        assert net._cached_op is not None and net._cached_op.traces == 1
     return out
 
 
@@ -534,15 +539,6 @@ def test_utils_match_jax():
 def test_layers_without_their_op_raise(layer):
     with pytest.raises(NotImplementedError, match="A12.2"):
         getattr(tmx.gluon.nn, layer)(1)
-
-
-def test_trace_and_symbol_block_raise_naming_their_item():
-    net = _dense(tmx)
-    net.hybridize()
-    with pytest.raises(NotImplementedError, match="A12.1"):
-        net.export("x")
-    with pytest.raises(NotImplementedError, match="A12.1"):
-        tmx.gluon.SymbolBlock(None, None)
 
 
 def test_initialize_defaults_to_the_card():
