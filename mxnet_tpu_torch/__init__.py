@@ -42,6 +42,12 @@ Ported so far:
   staged onto the card through pinned buffers), and ``Module``
   checkpoints with optimizer states and ``fit(resume=True)``.
 
+- the core op surface (the JAX package's ``ops/{creation,elemwise,
+  reduce,matrix,nn}.py`` but RNN, SyncBatchNorm and the contrib
+  resizes), Dropout on the port's explicit generator, ``Context`` with
+  ``with mx.cpu():`` scoping, and the CLI's other networks
+  (``models.alexnet``, ``vgg``, ``mobilenet``, ``inception_bn``).
+
 Importing the package imports no triton, loads no CUDA library (nor
 NVRTC) and touches no GPU.
 """
@@ -52,14 +58,16 @@ from . import (autograd, callback, checkpoint, config, context, convert,
 from . import operator, rtc  # after ndarray and symbol: adds Custom
 from . import gluon
 from .base import MXNetError
-from .context import cpu, default_device, gpu
+from .context import (Context, cpu, current_context, default_device, gpu,
+                      num_gpus)
 
 nd = ndarray
 sym = symbol
 mod = module
 init = initializer
 
-__all__ = ["MXNetError", "cpu", "gpu", "default_device", "autograd",
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
+           "num_gpus", "default_device", "autograd",
            "callback", "checkpoint", "config", "context", "convert",
            "executor", "gluon", "image", "init", "initializer", "io",
            "lr_scheduler",

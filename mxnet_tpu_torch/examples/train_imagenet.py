@@ -17,9 +17,10 @@ train_imagenet.py).
         --network mlp --image-shape 3,32,32 --num-classes 10 \\
         --data-train small.rec --batch-size 16 --num-epochs 1
 
-``main(argv)`` runs in-process and returns the trained ``Module``. The
-networks are ``resnet`` and ``mlp``; the JAX package's others (alexnet,
-vgg, mobilenet, inception-bn) come with ROADMAP A8.8.
+    # the other networks: --network alexnet | vgg --num-layers 16 |
+    # mobilenet | inception-bn
+
+``main(argv)`` runs in-process and returns the trained ``Module``.
 """
 from __future__ import annotations
 
@@ -31,22 +32,27 @@ from .common import data, fit
 
 __all__ = ["get_network", "main"]
 
-NETWORKS = ("resnet", "mlp")
-
-
 def get_network(args):
-    """The symbol of ``--network``."""
+    """The symbol of ``--network`` (the JAX CLI's dispatch)."""
     image_shape = tuple(int(x) for x in args.image_shape.split(","))
-    if args.network == "resnet":
+    name = args.network
+    if name == "resnet":
         return models.resnet(num_classes=args.num_classes,
                              num_layers=args.num_layers,
                              image_shape=image_shape)
-    if args.network == "mlp":
+    if name == "alexnet":
+        return models.alexnet(num_classes=args.num_classes)
+    if name == "vgg":
+        return models.vgg(num_classes=args.num_classes,
+                          num_layers=args.num_layers)
+    if name == "mobilenet":
+        return models.mobilenet(num_classes=args.num_classes)
+    if name == "mlp":
         return models.mlp(num_classes=args.num_classes)
-    raise NotImplementedError(
-        "--network %r is not ported yet (this port trains %s; the JAX "
-        "package's alexnet, vgg, mobilenet and inception-bn come with "
-        "ROADMAP A8.8)" % (args.network, ", ".join(NETWORKS)))
+    if name in ("inception-bn", "inception_bn"):
+        return models.inception_bn(num_classes=args.num_classes)
+    raise ValueError("unknown --network %r (choose from resnet, alexnet, "
+                     "vgg, mobilenet, mlp, inception-bn)" % name)
 
 
 def parse_args(argv=None):

@@ -11,6 +11,12 @@ in-place update of the BatchNorm moving statistics. Where the JAX
 package donates the weight and state buffers to one XLA program, here
 the kernel writes them in place after autograd has returned and the
 graph is gone, so no saved tensor of the graph sees the new values.
+A graph that draws random numbers (Dropout) draws from the port's
+generator of the executor's device; ``train_step`` draws once a step,
+for its forward and backward alike, and a ``backward`` that has to run
+the forward again replays the draws of the last training ``forward``
+from the generator state saved then (the JAX package keeps that
+forward's key, executor.py:363, :422).
 Arguments keep the type they were bound with (int8 weights of a quantized
 graph included): inputs staged by ``forward(**kwargs)`` are cast to it.
 An input that lies on another device is copied onto the executor's and
@@ -85,6 +91,7 @@ class Executor(object):
         self._aux_names = aux_names
         self._fns = {}
         self._graph = None      # (names, leaves, outputs) for backward
+        self._rng_state = None  # generator state before the last forward
         self.outputs = []
 
     # -- execution ---------------------------------------------------------
@@ -112,14 +119,27 @@ class Executor(object):
             INPUT_COPIES["count"] += 1
         target._set_data(t.to(self._ctx, target._data.dtype))
 
-    def _run(self, is_train, grad_names):
+    def _run(self, is_train, grad_names, rng_state=None):
         """Evaluate the graph; with ``grad_names``, on leaves that share
-        the arguments' storage and record the graph for autograd."""
+        the arguments' storage and record the graph for autograd. A graph
+        that draws random numbers draws from the device's generator
+        (whose state before the draws is kept in ``_rng_state``), or from
+        a private generator set to ``rng_state``."""
+        from . import random as _random
         env = self._env()
         leaves = {n: env[n].detach().requires_grad_() for n in grad_names}
         env.update(leaves)
+        fn = self._fn(is_train)
+        gen = None
+        if fn.needs_rng:
+            if rng_state is None:
+                gen = _random.generator(self._ctx)
+                self._rng_state = gen.get_state()
+            else:
+                gen = torch.Generator(device=self._ctx)
+                gen.set_state(rng_state)
         with torch.set_grad_enabled(bool(grad_names)):
-            outs, stats = self._fn(is_train)(env)
+            outs, stats = fn(env, gen)
         return leaves, outs, stats
 
     def _update_aux(self, stats):
@@ -171,7 +191,7 @@ class Executor(object):
             return
         graph, self._graph = self._graph, None
         if graph is None or graph[0] != names:
-            leaves, outs, _ = self._run(True, names)
+            leaves, outs, _ = self._run(True, names, self._rng_state)
         else:
             _, leaves, outs = graph
         grads = self._grads(outs, [leaves[n] for n in names],

@@ -159,6 +159,16 @@ class BatchNorm(HybridBlock):
                 init=_init(running_variance_initializer),
                 allow_deferred_init=True, differentiable=False)
 
+    def cast(self, dtype):
+        """Cast the block; gamma, beta and the running statistics stay
+        float32 under float16 and bfloat16 (reference MXNet's policy,
+        the JAX package's BatchNorm.cast)."""
+        if str(dtype) in ("float16", "bfloat16") or dtype in (
+                torch.float16, torch.bfloat16) or (
+                isinstance(dtype, type) and dtype.__name__ == "float16"):
+            dtype = "float32"
+        super(BatchNorm, self).cast(dtype)
+
     def infer_shape(self, x, *args):
         c = x.shape[self._axis]
         for p in (self.gamma, self.beta, self.running_mean, self.running_var):
@@ -275,8 +285,9 @@ class Swish(HybridBlock):
 def _not_ported(name, op):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "gluon.nn.%s is not ported to mxnet_tpu_torch: the op registry "
-            "has no %s yet (ROADMAP A12.2)" % (name, op))
+            "gluon.nn.%s is not ported to mxnet_tpu_torch yet (ROADMAP "
+            "A12.2); a HybridBlock can call the %s op as F.%s"
+            % (name, op, op))
     return type(name, (HybridBlock,), {"__init__": __init__,
                                         "__doc__": "Not ported (A12.2)."})
 

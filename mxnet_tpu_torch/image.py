@@ -96,7 +96,9 @@ def _wrap_like(src, out):
 
 
 def _rng(rng):
-    return rng if rng is not None else _pyrandom.Random()
+    """``rng``, or the global ``random`` module (so that
+    ``random.seed`` reproduces the draws, as in the JAX package)."""
+    return rng if rng is not None else _pyrandom
 
 
 def imdecode(buf, flag=1, to_rgb=True, out=None, to_ndarray=True):
@@ -351,8 +353,7 @@ class LightingAug(Augmenter):
         self.alphastd = alphastd
         self.eigval = np.asarray(eigval, dtype=np.float32)
         self.eigvec = np.asarray(eigvec, dtype=np.float32)
-        self.np_rng = np_rng if np_rng is not None \
-            else np.random.RandomState()
+        self.np_rng = np_rng if np_rng is not None else np.random
 
     def __call__(self, src):
         alpha = self.np_rng.normal(0, self.alphastd, size=(3,))

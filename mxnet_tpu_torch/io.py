@@ -182,7 +182,9 @@ class NDArrayIter(DataIter):
         self.label = _init_data(label, True, label_name)
         if shuffle and (seed is None
                         or isinstance(seed, np.random.RandomState)):
-            rng = seed if seed is not None else np.random.RandomState()
+            # unseeded, one anchor from the global generator, so that
+            # np.random.seed reproduces the order (the JAX package's rule)
+            rng = seed if seed is not None else np.random
             seed = int(rng.randint(0, 2 ** 31 - 1))
         self.shuffle = shuffle
         self._seed = seed

@@ -3,7 +3,8 @@ array wrapper, creation helpers, random sampling, ``save`` / ``load``
 (``utils``; the reference binary layout in ``mxnet_format``) and one
 function per registered op (``nd.relu``, ``nd.sum``, ...; ``register``),
 ``nd.Custom`` among them."""
-from .ndarray import NDArray, array, empty, invoke_op, ones, zeros
+from .ndarray import (NDArray, arange, array, concat, empty, full, invoke_op,
+                      ones, stack, waitall, zeros)
 from . import random
 from .utils import load, save
 from .. import ops as _ops  # noqa: F401  (fills the op registry)
@@ -11,5 +12,6 @@ from . import register as _register
 
 _register.populate(__name__)
 
-__all__ = ["NDArray", "array", "empty", "invoke_op", "load", "ones",
-           "random", "save", "zeros"]
+__all__ = ["NDArray", "arange", "array", "concat", "empty", "full",
+           "invoke_op", "load", "ones", "random", "save", "stack", "waitall",
+           "zeros"]

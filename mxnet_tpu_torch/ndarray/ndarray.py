@@ -26,16 +26,17 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
-from ..context import default_device
+from ..context import Context, default_device
 
-__all__ = ["NDArray", "array", "zeros", "ones", "empty", "invoke_op",
-           "to_torch_dtype"]
+__all__ = ["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
+           "concat", "stack", "waitall", "invoke_op", "to_torch_dtype"]
 
 _DTYPES = {
     np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64,
     np.dtype(np.float16): torch.float16, np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64, np.dtype(np.int8): torch.int8,
     np.dtype(np.uint8): torch.uint8, np.dtype(np.bool_): torch.bool,
+    np.dtype(np.int16): torch.int16, np.dtype(np.uint32): torch.uint32,
 }
 _NP_DTYPES = {t: n for n, t in _DTYPES.items()}
 
@@ -63,20 +64,25 @@ def invoke_op(name, inputs, attrs=None, out=None):
     """Apply the registered op ``name`` to ``inputs`` (NDArrays, or
     tensors) with ``attrs``; the analog of the reference's
     ``MXImperativeInvokeEx``. Ops with a ``train_mode`` attr get
-    ``autograd.is_training()`` unless ``attrs`` has it; the op runs with
-    torch's grad mode on exactly while ``autograd.record()`` is. With
-    ``out`` the result is bound into that NDArray (or list)."""
+    ``autograd.is_training()`` unless ``attrs`` has it; an op that draws
+    random numbers draws from the port's generator of its inputs'
+    device; a creation op (no array input) puts its output on ``ctx``,
+    by default the current context. The op runs with torch's grad mode
+    on exactly while ``autograd.record()`` is. With ``out`` the result
+    is bound into that NDArray (or list)."""
     from .. import autograd
-    from ..ops.registry import get_op
+    from ..ops.registry import apply, get_op
     op = get_op(name)
     attrs = dict(attrs or {})
     if "train_mode" in op.attr_defaults and "train_mode" not in attrs:
         attrs["train_mode"] = autograd.is_training()
     tensors = [x._data if isinstance(x, NDArray) else x for x in inputs]
+    if "ctx" in op.attr_defaults and not any(
+            isinstance(t, torch.Tensor) for t in tensors):
+        attrs["ctx"] = _device(attrs.get("ctx"))
     with torch.set_grad_enabled(autograd.is_recording()):
-        res = op.fn(*tensors, **attrs)
-    outs = [NDArray(t) for t in
-            (res if isinstance(res, (tuple, list)) else (res,))]
+        res = apply(op, tensors, attrs)
+    outs = [NDArray(t) for t in res]
     if out is not None:
         targets = out if isinstance(out, (list, tuple)) else [out]
         for t, o in zip(targets, outs):
@@ -126,7 +132,9 @@ class NDArray(object):
 
     @property
     def context(self):
-        return self._data.device
+        """The :class:`~mxnet_tpu_torch.context.Context` the data lies
+        on (``gpu(0)``, ``cpu(0)``)."""
+        return Context(self._data.device)
 
     ctx = context
 
@@ -277,6 +285,62 @@ class NDArray(object):
         return invoke_op("slice_axis", [self],
                          {"axis": axis, "begin": begin, "end": end})
 
+    def squeeze(self, axis=None):
+        return invoke_op("squeeze", [self], {"axis": axis})
+
+    def swapaxes(self, dim1, dim2):
+        return invoke_op("swapaxes", [self], {"dim1": dim1, "dim2": dim2})
+
+    def broadcast_to(self, shape):
+        return invoke_op("broadcast_to", [self], {"shape": tuple(shape)})
+
+    def broadcast_like(self, other):
+        return invoke_op("broadcast_like", [self, other])
+
+    def tile(self, reps):
+        return invoke_op("tile", [self], {"reps": tuple(reps)})
+
+    def repeat(self, repeats, axis=None):
+        return invoke_op("repeat", [self], {"repeats": repeats,
+                                            "axis": axis})
+
+    def pad(self, mode, pad_width, constant_value=0.0):
+        return invoke_op("Pad", [self], {"mode": mode,
+                                         "pad_width": pad_width,
+                                         "constant_value": constant_value})
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        return invoke_op("SliceChannel", [self], {
+            "num_outputs": num_outputs, "axis": axis,
+            "squeeze_axis": squeeze_axis})
+
+    def slice(self, begin, end, step=None):
+        attrs = {"begin": tuple(begin), "end": tuple(end)}
+        if step is not None:
+            attrs["step"] = tuple(step)
+        return invoke_op("slice", [self], attrs)
+
+    def take(self, indices, axis=0, mode="clip"):
+        return invoke_op("take", [self, indices], {"axis": axis,
+                                                   "mode": mode})
+
+    def one_hot(self, depth, on_value=1.0, off_value=0.0):
+        return invoke_op("one_hot", [self], {"depth": depth,
+                                             "on_value": on_value,
+                                             "off_value": off_value})
+
+    def dot(self, other, transpose_a=False, transpose_b=False):
+        return invoke_op("dot", [self, other], {"transpose_a": transpose_a,
+                                                "transpose_b": transpose_b})
+
+    def tostype(self, stype):
+        """This array for ``"default"``; the sparse storage types are
+        ROADMAP A15."""
+        if stype != "default":
+            raise MXNetError("storage type %r is not ported to "
+                             "mxnet_tpu_torch yet (ROADMAP A15)" % (stype,))
+        return self
+
     # -- reductions and elementwise methods ----------------------------------
     def sum(self, axis=None, keepdims=False, exclude=False):
         return invoke_op("sum", [self], {"axis": axis, "keepdims": keepdims,
@@ -292,6 +356,30 @@ class NDArray(object):
 
     def min(self, axis=None, keepdims=False):
         return invoke_op("min", [self], {"axis": axis, "keepdims": keepdims})
+
+    def prod(self, axis=None, keepdims=False):
+        return invoke_op("prod", [self], {"axis": axis, "keepdims": keepdims})
+
+    def argmax(self, axis=None, keepdims=False):
+        return invoke_op("argmax", [self], {"axis": axis,
+                                            "keepdims": keepdims})
+
+    def argmin(self, axis=None, keepdims=False):
+        return invoke_op("argmin", [self], {"axis": axis,
+                                            "keepdims": keepdims})
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return invoke_op("argsort", [self], {"axis": axis,
+                                             "is_ascend": is_ascend})
+
+    def sort(self, axis=-1, is_ascend=True):
+        return invoke_op("sort", [self], {"axis": axis,
+                                          "is_ascend": is_ascend})
+
+    def topk(self, axis=-1, k=1, ret_typ="indices", is_ascend=False):
+        return invoke_op("topk", [self], {"axis": axis, "k": k,
+                                          "ret_typ": ret_typ,
+                                          "is_ascend": is_ascend})
 
     def norm(self, ord=2, axis=None, keepdims=False):
         return invoke_op("norm", [self], {"ord": ord, "axis": axis,
@@ -313,6 +401,7 @@ class NDArray(object):
         return method
 
     abs = _unary("abs")
+    sign = _unary("sign")
     sqrt = _unary("sqrt")
     square = _unary("square")
     exp = _unary("exp")
@@ -420,23 +509,34 @@ class NDArray(object):
 
     # -- indexing ----------------------------------------------------------
     def __getitem__(self, key):
+        """An NDArray key takes along axis 0 (clipped, as the JAX
+        package's); ints, slices (negative steps included), ``...`` and
+        None index as numpy does; other keys index the tensor as torch
+        does."""
         from .. import autograd
+        from ..ops.matrix import encode_index_key
         if isinstance(key, NDArray):
-            key = key._data.long()
+            return invoke_op("take", [self, key], {"axis": 0,
+                                                   "mode": "clip"})
+        enc = encode_index_key(key)
+        if enc is not None:
+            return invoke_op("_getitem", [self], {"key": enc})
         with torch.set_grad_enabled(autograd.is_recording()):
             return NDArray(self._data[key])
 
     def __setitem__(self, key, value):
+        from ..ops.matrix import basic_setitem, encode_index_key
         if isinstance(value, NDArray):
             value = value._data
         elif isinstance(value, np.ndarray):
             value = torch.from_numpy(np.ascontiguousarray(value))
+        if isinstance(value, torch.Tensor):
+            value = value.to(self._data.device, self._data.dtype)
         if isinstance(key, NDArray):
             key = key._data.long()
         with torch.no_grad():
-            if isinstance(value, torch.Tensor):
-                self._data[key] = value.to(self._data.device,
-                                           self._data.dtype)
+            if encode_index_key(key) is not None:
+                basic_setitem(self._data, key, value)
             else:
                 self._data[key] = value
 
@@ -469,6 +569,38 @@ def ones(shape, ctx=None, dtype=None, **_kw):
 
 def empty(shape, ctx=None, dtype=None):
     return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def full(shape, val, ctx=None, dtype=None, **_kw):
+    """An array of ``shape`` filled with ``val`` (the ``_full`` op)."""
+    return invoke_op("_full", [], {"shape": _as_shape(shape), "value": val,
+                                   "dtype": to_torch_dtype(dtype),
+                                   "ctx": ctx})
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype="float32"):
+    """``start, start + step, ...`` below ``stop`` (the ``_arange`` op)."""
+    return invoke_op("_arange", [], {"start": start, "stop": stop,
+                                     "step": step, "repeat": repeat,
+                                     "dtype": to_torch_dtype(dtype),
+                                     "ctx": ctx})
+
+
+def concat(*arrays, dim=1):
+    return invoke_op("Concat", list(arrays), {"dim": dim})
+
+
+def stack(*arrays, axis=0):
+    return invoke_op("stack", list(arrays), {"axis": axis})
+
+
+def waitall():
+    """Block until all launched work is done (reference:
+    MXNDArrayWaitAll): every CUDA card this process has used is
+    synchronized; on the host there is nothing to wait for."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def _as_shape(shape):

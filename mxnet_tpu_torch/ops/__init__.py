@@ -1,9 +1,10 @@
-"""Operators of the PyTorch/CUDA package: the registry, the ResNet op
-set, the elementwise, shape and reduction ops of the imperative API and
-Gluon's losses, and the quantization ops (importing this package
-populates the registry), and ``ops.cuda``, the kernels written by hand
-for Hopper."""
+"""Operators of the PyTorch/CUDA package: the registry, the creation,
+elementwise, reduction, shape / indexing and neural-network ops of the
+JAX package's five core op files, and the quantization ops (importing
+this package populates the registry), and ``ops.cuda``, the kernels
+written by hand for Hopper."""
 from . import registry
+from . import creation  # noqa: F401
 from . import elemwise  # noqa: F401
 from . import matrix    # noqa: F401
 from . import nn        # noqa: F401

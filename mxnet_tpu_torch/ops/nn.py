@@ -1,11 +1,15 @@
-"""Neural-network operators of the ResNet training path.
+"""Neural-network operators.
 
 Counterpart of the JAX package's ``ops/nn.py`` (FullyConnected :32,
-Convolution :62, Pooling :136, BatchNorm :230, Activation :353,
-softmax / log_softmax :387-400, SoftmaxOutput :475), with the same
-names, input slots, attrs and defaults, so that symbols built here get
-the same auto-created variables (``fc1_weight``, ``bn0_moving_mean``)
-and load the JAX package's JSON.
+Convolution :62, Deconvolution :89, Pooling :136, UpSampling :199,
+BatchNorm :230, LayerNorm :310, InstanceNorm :325, LRN :335, Activation
+:353, LeakyReLU :368, softmax / log_softmax / softmin :387-406,
+softmax_cross_entropy :409, SoftmaxOutput :475, the regression outputs
+:491-540, Dropout :547), with the same names, input slots, attrs and
+defaults, so that symbols built here get the same auto-created
+variables (``fc1_weight``, ``bn0_moving_mean``) and load the JAX
+package's JSON. (RNN is ROADMAP A12.2, SyncBatchNorm A8.3, and the
+contrib resizes A15.)
 Convolutions and matrix products go to cuDNN/cuBLAS through
 ``torch.nn.functional``, as the JAX package left them to XLA; BatchNorm
 in training mode to ``F.batch_norm`` without running buffers (its batch
@@ -22,7 +26,7 @@ import torch.nn.functional as F
 
 from ..base import MXNetError
 from .cuda.batch_norm import _batch_norm_inference_plain, batch_norm_inference
-from .registry import register
+from .registry import alias, register
 
 
 def _tup(v, n, default):
@@ -71,6 +75,31 @@ def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
     return _CONV[nd](data, weight, None if no_bias else bias,
                      _tup(stride, nd, 1), _tup(pad, nd, 0),
                      _tup(dilate, nd, 1), int(num_group))
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("Deconvolution", attr_defaults={
+    "kernel": (), "stride": (), "dilate": (), "pad": (), "adj": (),
+    "num_filter": 0, "num_group": 1, "no_bias": True, "layout": None,
+    "target_shape": (), "workspace": 1024})
+def _deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                   pad=(), adj=(), num_filter=0, num_group=1, no_bias=True,
+                   layout=None, target_shape=(), **_ignored):
+    """Transposed convolution (reference: deconvolution.cc): weight
+    (C, num_filter / num_group, *kernel); the output size is
+    ``(in - 1) * stride - 2 * pad + dilate * (kernel - 1) + adj + 1``."""
+    nd = len(kernel)
+    if nd not in _CONV_T:
+        raise MXNetError("Deconvolution supports 1/2/3-d kernels")
+    if layout not in _NC_LAYOUTS:
+        raise MXNetError("Deconvolution layout %r is not ported (channels-"
+                         "first only; ROADMAP A15)" % (layout,))
+    return _CONV_T[nd](data, weight, None if no_bias else bias,
+                       _tup(stride, nd, 1), _tup(pad, nd, 0),
+                       _tup(adj, nd, 0), int(num_group), _tup(dilate, nd, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +178,22 @@ def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
     return summed / counts
 
 
+@register("UpSampling", attr_defaults={
+    "scale": 1, "sample_type": "nearest", "num_filter": 0,
+    "multi_input_mode": "concat", "workspace": 512})
+def _upsampling(*args, scale=1, sample_type="nearest", num_filter=0,
+                multi_input_mode="concat", workspace=512):
+    """The first input scaled up by ``scale`` in H and W: each pixel
+    repeated (``nearest``), or linear interpolation at half-pixel
+    centres (``bilinear``, ``jax.image.resize``'s)."""
+    data = args[0]
+    s = int(scale)
+    if sample_type == "nearest":
+        return data.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+    return F.interpolate(data, scale_factor=s, mode="bilinear",
+                         align_corners=False)
+
+
 # ---------------------------------------------------------------------------
 # BatchNorm (reference: src/operator/nn/batch_norm.cc)
 # ---------------------------------------------------------------------------
@@ -204,6 +249,48 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out, moving_mean, moving_var
 
 
+@register("LayerNorm", num_outputs=_mean_var_outputs,
+          attr_defaults={"axis": -1, "eps": 1e-5, "output_mean_var": False})
+def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """Normalized over ``axis`` with the biased variance; ``(out, mean,
+    var)`` with ``output_mean_var``."""
+    axis = axis % data.dim()
+    var, mean = torch.var_mean(data, dim=axis, keepdim=True, correction=0)
+    bshape = [data.shape[axis] if i == axis else 1
+              for i in range(data.dim())]
+    out = (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape) \
+        + beta.reshape(bshape)
+    if output_mean_var:
+        return out, mean.squeeze(axis), var.squeeze(axis)
+    return out
+
+
+@register("InstanceNorm", attr_defaults={"eps": 1e-3})
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    """Normalized over each sample's and channel's spatial axes."""
+    red = tuple(range(2, data.dim()))
+    var, mean = torch.var_mean(data, dim=red, keepdim=True, correction=0)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape) \
+        + beta.reshape(bshape)
+
+
+@register("LRN", attr_defaults={"alpha": 1e-4, "beta": 0.75, "knorm": 2.0,
+                                "nsize": 5})
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across channels (reference:
+    lrn.cc): ``x / (knorm + alpha / nsize * S)^beta``, ``S`` the sum of
+    ``x^2`` over the ``nsize`` channels centred on each, zero past the
+    edges."""
+    half = int(nsize) // 2
+    c = data.shape[1]
+    sq = F.pad(torch.square(data).movedim(1, -1), (half, half)).movedim(-1, 1)
+    ssum = sq.narrow(1, 0, c)
+    for i in range(1, int(nsize)):
+        ssum = ssum + sq.narrow(1, i, c)
+    return data / torch.pow(knorm + alpha * ssum / nsize, beta)
+
+
 # ---------------------------------------------------------------------------
 # activations / softmax output
 # ---------------------------------------------------------------------------
@@ -223,6 +310,34 @@ def _activation(data, act_type="relu"):
     raise MXNetError("unknown act_type %r" % act_type)
 
 
+_SELU_ALPHA, _SELU_LAMBDA = 1.6732632423543772, 1.0507009873554805
+
+
+@register("LeakyReLU", attr_defaults={"act_type": "leaky", "slope": 0.25,
+                                      "lower_bound": 0.125,
+                                      "upper_bound": 0.334})
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334):
+    """``leaky`` / ``prelu`` (a learned ``gamma`` per channel) /
+    ``elu`` / ``selu`` / ``gelu`` (exact, by erf) (reference:
+    leaky_relu.cc)."""
+    pos = data >= 0
+    if act_type == "leaky":
+        return torch.where(pos, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 else gamma
+        return torch.where(pos, data, g * data)
+    if act_type == "elu":
+        return torch.where(pos, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_LAMBDA * torch.where(pos, data,
+                                          _SELU_ALPHA * torch.expm1(data))
+    if act_type == "gelu":
+        return F.gelu(data, approximate="none")
+    raise MXNetError("unknown LeakyReLU act_type %r" % act_type)
+
+
 @register("softmax", attr_defaults={"axis": -1, "temperature": None})
 def _softmax(data, axis=-1, temperature=None):
     if temperature:
@@ -235,6 +350,22 @@ def _log_softmax(data, axis=-1, temperature=None):
     if temperature:
         data = data / temperature
     return torch.log_softmax(data, dim=axis)
+
+
+@register("softmin", attr_defaults={"axis": -1, "temperature": None})
+def _softmin(data, axis=-1, temperature=None):
+    if temperature:
+        data = data / temperature
+    return torch.softmax(-data, dim=axis)
+
+
+@register("softmax_cross_entropy")
+def _softmax_cross_entropy(data, label):
+    """The summed cross-entropy of softmax(data) at the labels: a
+    scalar (reference: loss_binary_op.cc)."""
+    logp = torch.log_softmax(data, dim=-1)
+    lab = label.to(torch.int32).to(torch.int64)
+    return -torch.gather(logp, -1, lab[:, None]).sum()
 
 
 class _SoftmaxOutput(torch.autograd.Function):
@@ -290,3 +421,68 @@ def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
         "multi_output": bool(multi_output), "use_ignore": bool(use_ignore),
         "normalization": str(normalization),
         "smooth_alpha": float(smooth_alpha)})
+
+
+alias("Softmax", "SoftmaxOutput")
+
+
+# ---------------------------------------------------------------------------
+# regression outputs: the reference's gradient, not their forward's
+# ---------------------------------------------------------------------------
+
+class _RegressionOutput(torch.autograd.Function):
+    """``forward(data)`` with the gradient ``grad(out, label) *
+    grad_scale`` whatever the head gradient (reference:
+    regression_output-inl.h; the JAX ops' custom VJPs)."""
+
+    @staticmethod
+    def forward(ctx, data, label, fwd, grad, grad_scale):
+        out = fwd(data)
+        ctx.save_for_backward(out, label)
+        ctx.grad, ctx.grad_scale = grad, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        out, label = ctx.saved_tensors
+        g = ctx.grad(out, label.reshape(out.shape)) * ctx.grad_scale
+        return g, None, None, None, None
+
+
+def _regression(name, fwd, grad):
+    def _g(data, label, grad_scale=1.0):
+        return _RegressionOutput.apply(data, label, fwd, grad,
+                                       float(grad_scale))
+    register(name, attr_defaults={"grad_scale": 1.0})(_g)
+
+
+_regression("LinearRegressionOutput", lambda d: d.clone(),
+            lambda o, l: o - l)
+_regression("LogisticRegressionOutput", torch.sigmoid, lambda o, l: o - l)
+_regression("MAERegressionOutput", lambda d: d.clone(),
+            lambda o, l: torch.sign(o - l))
+
+
+# ---------------------------------------------------------------------------
+# Dropout (reference: src/operator/nn/dropout.cc)
+# ---------------------------------------------------------------------------
+
+@register("Dropout", needs_rng=True,
+          attr_defaults={"p": 0.5, "mode": "training", "axes": (),
+                         "train_mode": False})
+def _dropout(gen, data, p=0.5, mode="training", axes=(), train_mode=False,
+             **_ignored):
+    """In training (or ``mode="always"``) each value kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``, else zero; with
+    ``axes`` one draw is shared along those axes. The mask is drawn from
+    ``gen``, the port's generator of the data's device; outside training
+    and at ``p = 0`` the identity. On meta tensors (shape inference)
+    nothing is drawn."""
+    if (not train_mode and mode != "always") or p <= 0.0 \
+            or data.device.type == "meta":
+        return data
+    shape = tuple(1 if i in axes else s for i, s in enumerate(data.shape))
+    keep = 1.0 - p
+    draw = torch.rand(shape, generator=gen, device=data.device)
+    mask = (draw < keep).to(data.dtype) / keep
+    return data * mask

@@ -73,21 +73,30 @@ class _NameManager(threading.local):
 _name_mgr = _NameManager()
 
 
+def _positional_params(op):
+    """The positional parameters of an op's function, the generator of
+    a ``needs_rng`` op left out."""
+    params = [p for p in inspect.signature(op.fn).parameters.values()
+              if p.kind in (inspect.Parameter.POSITIONAL_OR_KEYWORD,
+                            inspect.Parameter.POSITIONAL_ONLY)]
+    return params[1:] if op.needs_rng else params
+
+
 def _input_names(op):
     """Array-input parameter names of an op, from its function's
     signature: positional parameters that are not attrs, each with
     whether it has a default."""
-    names = []
-    for p in inspect.signature(op.fn).parameters.values():
-        if p.kind not in (inspect.Parameter.POSITIONAL_OR_KEYWORD,
-                          inspect.Parameter.POSITIONAL_ONLY):
-            continue
-        if p.name == "key" or p.name.startswith("_"):
-            continue
-        if p.name in op.attr_defaults:
-            continue
-        names.append((p.name, p.default is not inspect.Parameter.empty))
-    return names
+    return [(p.name, p.default is not inspect.Parameter.empty)
+            for p in _positional_params(op)
+            if not p.name.startswith("_") and p.name not in op.attr_defaults]
+
+
+def _attr_names(op):
+    """The op's attrs that its function takes positionally, in
+    signature order: where a positional argument that is not a Symbol
+    goes (``F.clip(x, -0.5, 0.5)``)."""
+    return [p.name for p in _positional_params(op)
+            if p.name in op.attr_defaults]
 
 
 class _Node(object):
@@ -391,6 +400,9 @@ class Symbol(object):
     def __neg__(self):
         return _apply_op(_reg.get_op("negative"), (self,), {}, None)
 
+    def __abs__(self):
+        return _apply_op(_reg.get_op("abs"), (self,), {}, None)
+
     def __gt__(self, other):
         return self._binop(other, "_greater", "_greater_scalar")
 
@@ -519,10 +531,16 @@ def _apply_op(op, args, attrs, name):
                    for p in inspect.signature(op.fn).parameters.values())
     pos = 0
     skipped = set()
+    free_attrs = [n for n in _attr_names(op) if n not in attrs]
     for a in args:
         if a is not None and not isinstance(a, Symbol):
-            raise TypeError("positional args to symbol ops must be Symbols, "
-                            "got %s" % type(a))
+            # an attribute given positionally, in signature order
+            if not free_attrs:
+                raise TypeError("positional args to symbol op %s must be "
+                                "Symbols or its attributes in order, got "
+                                "%s" % (op.name, type(a)))
+            attrs[free_attrs.pop(0)] = a
+            continue
         while pos < len(in_names) and in_names[pos][0] in inputs:
             pos += 1
         if a is None:
@@ -590,9 +608,14 @@ def _aux_input_positions(op, node):
 
 
 def _graph_eval_fn(symbol, is_train):
-    """``fn(env: name -> tensor) -> (outputs, stats)``.
+    """``fn(env: name -> tensor, gen=None) -> (outputs, stats)``.
 
-    ``env`` holds the argument and auxiliary tensors. ``stats`` lists,
+    ``env`` holds the argument and auxiliary tensors. Each op that draws
+    random numbers (Dropout) draws from ``gen``, by default the port's
+    generator of the env's device (``random.generator``), one draw after
+    another in topological order (the JAX package folds one key per RNG
+    node, symbol/symbol.py:759-772); a creation op creates on that
+    device. ``fn.needs_rng`` says whether the graph draws. ``stats`` lists,
     for each BatchNorm that normalized with batch statistics (training,
     not ``use_global_stats``), ``(moving_mean_name, moving_var_name,
     momentum, batch_mean, batch_var)`` with the statistics detached: the
@@ -602,9 +625,14 @@ def _graph_eval_fn(symbol, is_train):
     symbol/symbol.py:796-802, with the biased variance)."""
     nodes = _topo(symbol._entries)
 
-    def fn(env):
+    def fn(env, gen=None):
         values = {}
         stats = []
+        dev = next((t.device for t in env.values()
+                    if isinstance(t, torch.Tensor)), None)
+        if gen is None and fn.needs_rng and dev.type != "meta":
+            from .. import random as _random
+            gen = _random.generator(dev)
         for node in nodes:
             if node.is_var:
                 if node.name not in env:
@@ -616,10 +644,12 @@ def _graph_eval_fn(symbol, is_train):
             if "train_mode" in op.attr_defaults and "train_mode" not in attrs:
                 attrs["train_mode"] = is_train
             arrs = [values[(id(src), oi)] for src, oi in node.inputs]
+            if "ctx" in op.attr_defaults and not arrs:
+                attrs["ctx"] = dev
             if (node.op in AUX_STATES and is_train
                     and not attrs.get("use_global_stats", False)):
                 attrs["output_mean_var"] = True
-                out, mean, var = op.fn(*arrs, **attrs)
+                out, mean, var = _reg.apply(op, arrs, attrs, gen)
                 mm, mv = [node.inputs[i][0].name
                           for i in _aux_input_positions(op, node)]
                 stats.append((mm, mv, float(attrs.get("momentum", 0.9)),
@@ -627,13 +657,13 @@ def _graph_eval_fn(symbol, is_train):
                 outs = (out, mean, var) \
                     if node.attrs.get("output_mean_var", False) else (out,)
             else:
-                out = op.fn(*arrs, **attrs)
-                outs = tuple(out) if isinstance(out, (tuple, list)) \
-                    else (out,)
+                outs = _reg.apply(op, arrs, attrs, gen)
             for i, o in enumerate(outs):
                 values[(id(node), i)] = o
         return tuple(values[(id(n), oi)] for n, oi in symbol._entries), stats
 
+    fn.needs_rng = any(not n.is_var and _reg.get_op(n.op).needs_rng
+                       for n in nodes)
     return fn
 
 
@@ -697,9 +727,10 @@ def _deduce_shapes(symbol, known):
                 attrs["train_mode"] = False
             metas = [torch.empty(s, device="meta", dtype=_var_dtype(src))
                      for s, (src, _oi) in zip(in_shapes, node.inputs)]
+            if "ctx" in op.attr_defaults and not metas:
+                attrs["ctx"] = "meta"
             with torch.no_grad():
-                outs = op.fn(*metas, **attrs)
-            outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+                outs = _reg.apply(op, metas, attrs)
             for i, o in enumerate(outs):
                 out_shapes[(id(node), i)] = tuple(o.shape)
             progress = True
@@ -741,18 +772,27 @@ def _deduce_params(node, in_shapes, shapes):
         changed |= set_leaf(1, (num_hidden, in_dim))
         if len(ins) > 2:
             changed |= set_leaf(2, (num_hidden,))
-    elif node.op == "Convolution":
+    elif node.op in ("Convolution", "Deconvolution"):
         num_filter = attrs.get("num_filter")
-        wshape = ((num_filter, data_shape[1] // attrs.get("num_group", 1))
-                  + tuple(attrs.get("kernel", ())))
-        changed |= set_leaf(1, wshape)
+        group = attrs.get("num_group", 1)
+        lead = (num_filter, data_shape[1] // group) \
+            if node.op == "Convolution" \
+            else (data_shape[1], num_filter // group)
+        changed |= set_leaf(1, lead + tuple(attrs.get("kernel", ())))
         if len(ins) > 2:
             changed |= set_leaf(2, (num_filter,))
-    elif node.op == "BatchNorm":
-        c = data_shape[attrs.get("axis", 1) % len(data_shape)]
+    elif node.op in ("BatchNorm", "InstanceNorm", "LayerNorm"):
+        axis = attrs.get("axis", -1 if node.op == "LayerNorm" else 1)
+        c = data_shape[axis % len(data_shape)]
         for pos in range(1, len(ins)):
             changed |= set_leaf(pos, (c,))
-    elif node.op == "SoftmaxOutput" and len(ins) > 1:
+    elif node.op == "Embedding":
+        changed |= set_leaf(1, (attrs.get("input_dim"),
+                                attrs.get("output_dim")))
+    elif node.op in ("SoftmaxOutput", "Softmax") and len(ins) > 1:
         # the label of a single-output softmax is one class per row
         changed |= set_leaf(1, tuple(data_shape[:1]))
+    elif node.op in ("LinearRegressionOutput", "LogisticRegressionOutput",
+                     "MAERegressionOutput") and len(ins) > 1:
+        changed |= set_leaf(1, tuple(data_shape))
     return changed

@@ -1004,6 +1004,42 @@ def test_graph_replays_draw_new_random_numbers(card):
     assert not torch.equal(draws[0], draws[1])
 
 
+def test_graph_replays_draw_new_dropout_masks(card):
+    """``F.Dropout`` in a hybridized block on the card: each replay of
+    the captured training graph draws a new mask from the port's
+    generator (registered with the graph), the backward replay uses the
+    forward's mask, and ``random.seed`` repeats the masks."""
+    net = tmx.gluon.nn.HybridLambda(lambda F, x: F.Dropout(x, p=0.5))
+    net.hybridize()
+    x = tmx.nd.ones((4096,), ctx=card)
+    x.attach_grad()
+
+    def run():
+        outs = []
+        for _ in range(3):
+            with tmx.autograd.record():
+                y = net(x)
+            y.backward()
+            outs.append((y._data.clone(), x.grad._data.clone()))
+        return outs
+
+    tmx.random.seed(3)
+    first = run()
+    assert net._cached_op.runner.captures == 1
+    for y, g in first:
+        kept = y != 0
+        assert torch.equal(y[kept], torch.full_like(y[kept], 2.0))
+        assert torch.equal(g, y)            # d(x * mask / 0.5) / dx
+        assert abs(float(kept.float().mean()) - 0.5) < 4 * (0.25 / 4096) \
+            ** 0.5
+    assert not torch.equal(first[0][0], first[1][0])
+    assert not torch.equal(first[1][0], first[2][0])
+    tmx.random.seed(3)
+    again = run()
+    for (a, _), (b, _) in zip(first, again):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # the data path: nvJPEG decode, crop_mirror_normalize, staged batches
 # ---------------------------------------------------------------------------

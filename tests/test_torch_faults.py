@@ -1,4 +1,4 @@
-"""Three faults of the port against the JAX package, held on the CPU.
+"""Faults of the port against the JAX package, held on the CPU.
 
 * ``Trainer.learning_rate`` follows the optimizer's lr scheduler, and
   ``set_learning_rate`` is refused while a scheduler sets the rate
@@ -11,6 +11,17 @@
 * ``NDArray.asnumpy`` (and ``asscalar``) of a bfloat16 array returns
   what the JAX package's does: numpy's ``ml_dtypes.bfloat16``, the same
   bits.
+* Slicing with a negative step (``x[::-1]``, ``x[3:0:-2]``, and
+  assignment through one) gives the JAX package's values (C.5).
+* ``sum`` of int32 is int32 and of uint8 uint32; ``mean`` of int32 is
+  the float32 mean (C.6).
+* ``BatchNorm.cast`` to float16 / bfloat16 keeps gamma, beta and the
+  running statistics float32 (C.7).
+* With no seed given, ``NDArrayIter``'s shuffle and the augmenters draw
+  from the global ``np.random`` / ``random``, so that seeding those
+  reproduces them (C.8).
+* A hybridized block may pass an op's attributes positionally
+  (``F.clip(x, -0.5, 0.5)``) and take ``abs()`` of a Symbol (C.9).
 """
 import numpy as np
 import pytest
@@ -176,3 +187,179 @@ def test_asnumpy_bfloat16_matches_jax(via):
     # 1 + 2^-8 ties to 1.0; -0 keeps its sign
     assert got.view(np.uint16)[9] == 0x3F80
     assert got.view(np.uint16)[1] == 0x8000
+
+
+# ---------------------------------------------------------------------------
+# C.5: negative-step slicing
+# ---------------------------------------------------------------------------
+
+SLICE_KEYS = [(slice(None, None, -1),), (slice(3, 0, -2),),
+              (0, slice(1, 3), slice(None, None, -1)),
+              (Ellipsis, slice(None, None, -2)),
+              (slice(None, None, -1), None, slice(4, None, -3)),
+              (slice(0, 3, -1),)]
+
+
+@pytest.mark.parametrize("key", range(len(SLICE_KEYS)))
+def test_negative_step_slicing_matches_jax(key):
+    key = SLICE_KEYS[key]
+    src = np.arange(4 * 5 * 6, dtype=np.float32).reshape(4, 5, 6)
+    got = tmx.nd.array(src, ctx=tmx.cpu())[key]
+    want = jmx.nd.array(src, ctx=jmx.cpu())[key]
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got.asnumpy(), want.asnumpy())
+    # assignment through the same key
+    out = {}
+    for name, mx in (("jax", jmx), ("torch", tmx)):
+        a = mx.nd.array(src, ctx=mx.cpu())
+        val = np.arange(int(np.prod(want.shape)), dtype=np.float32) \
+            .reshape(want.shape) + 1000
+        a[key] = mx.nd.array(val, ctx=mx.cpu())
+        out[name] = a.asnumpy()
+    np.testing.assert_array_equal(out["torch"], out["jax"])
+
+
+def test_negative_step_slice_gradient_matches_jax():
+    src = np.arange(12, dtype=np.float32).reshape(3, 4)
+    grads = {}
+    for name, mx in (("jax", jmx), ("torch", tmx)):
+        x = mx.nd.array(src, ctx=mx.cpu())
+        x.attach_grad()
+        with mx.autograd.record():
+            y = x[::-1, 3:0:-2] * mx.nd.array(np.array([2.0, 3.0],
+                                                       np.float32),
+                                              ctx=mx.cpu())
+        y.backward()
+        grads[name] = x.grad.asnumpy()
+    np.testing.assert_array_equal(grads["torch"], grads["jax"])
+
+
+# ---------------------------------------------------------------------------
+# C.6: the types of integer reductions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["int32", "uint8", "int8", "float32"])
+@pytest.mark.parametrize("op", ["sum", "mean", "prod", "method_sum"])
+def test_integer_sum_and_mean_match_jax(op, dtype):
+    src = (np.arange(12) % 5 + 1).reshape(3, 4).astype(dtype)
+    out = {}
+    for name, mx in (("jax", jmx), ("torch", tmx)):
+        a = mx.nd.array(src, ctx=mx.cpu(), dtype=dtype)
+        if op == "method_sum":
+            r = [a.sum(), a.sum(axis=1)]
+        else:
+            f = getattr(mx.nd, op)
+            r = [f(a), f(a, axis=0, keepdims=True)]
+        out[name] = [x.asnumpy() for x in r]
+    for got, want in zip(out["torch"], out["jax"]):
+        assert got.dtype == want.dtype, (got.dtype, want.dtype)
+        np.testing.assert_allclose(got.reshape(want.shape), want, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# C.7: BatchNorm.cast keeps its statistics float32
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_batchnorm_cast_keeps_float32_stats(dtype):
+    src = np.random.RandomState(3).randn(4, 3, 2, 2).astype(np.float32)
+    out = {}
+    for name, mx in (("jax", jmx), ("torch", tmx)):
+        net = mx.gluon.nn.BatchNorm(in_channels=3)
+        net.initialize(ctx=mx.cpu())
+        net.cast(dtype)
+        x = mx.nd.array(src, ctx=mx.cpu()).astype(dtype)
+        with mx.autograd.record():
+            y = net(x)
+        y.backward()
+        out[name] = {k: str(p.data().dtype) for k, p in
+                     net.collect_params().items()}
+        out[name]["out"] = str(y.dtype)
+        out[name]["mean"] = net.running_mean.data().asnumpy()
+    assert sorted(out["torch"].keys()) == sorted(out["jax"].keys())
+    for k in out["jax"]:
+        if k == "mean":
+            np.testing.assert_allclose(out["torch"][k], out["jax"][k],
+                                       rtol=1e-2, atol=1e-3)
+        else:
+            assert out["torch"][k] == out["jax"][k], k
+    assert out["torch"]["out"] == dtype
+    assert all(v == "float32" for k, v in out["torch"].items()
+               if k not in ("out", "mean"))
+
+
+# ---------------------------------------------------------------------------
+# C.8: unseeded shuffles and augmenters follow the global generators
+# ---------------------------------------------------------------------------
+
+def _shuffled_order(mx):
+    data = np.arange(16, dtype=np.float32).reshape(16, 1)
+    it = mx.io.NDArrayIter(data, np.zeros(16, np.float32), batch_size=4,
+                           shuffle=True)
+    return np.concatenate([b.data[0].asnumpy().ravel() for b in it])
+
+
+def _crops_and_lighting(mx):
+    import random
+    img = np.arange(20 * 24 * 3, dtype=np.uint8).reshape(20, 24, 3)
+    random.seed(5)
+    boxes = [mx.image.random_crop(img, (10, 8))[1] for _ in range(3)]
+    np.random.seed(6)
+    light = mx.image.LightingAug(0.1, np.ones(3), np.eye(3))
+    shifts = [light(img.astype(np.float32)) for _ in range(2)]
+    return boxes, np.stack([np.asarray(s.asnumpy() if hasattr(
+        s, "asnumpy") else s) for s in shifts])
+
+
+def test_global_seed_reproduces_shuffle_and_augmenters():
+    orders = {}
+    for name, mx in (("jax", jmx), ("torch", tmx)):
+        np.random.seed(3)
+        first = _shuffled_order(mx)
+        np.random.seed(3)
+        second = _shuffled_order(mx)
+        np.testing.assert_array_equal(first, second)
+        orders[name] = first
+    assert sorted(orders["torch"].tolist()) == list(range(16))
+    boxes, light = {}, {}
+    for name, mx in (("jax", jmx), ("torch", tmx)):
+        b1, l1 = _crops_and_lighting(mx)
+        b2, l2 = _crops_and_lighting(mx)
+        assert b1 == b2
+        np.testing.assert_array_equal(l1, l2)
+        boxes[name], light[name] = b1, l1
+    assert boxes["torch"] == boxes["jax"]
+    np.testing.assert_allclose(light["torch"], light["jax"], rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# C.9: positional attributes and abs() in a hybridized block
+# ---------------------------------------------------------------------------
+
+def _clip_abs_block(mx):
+    class ClipAbs(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            y = F.clip(x, -0.5, 0.5)
+            return y ** 2 + abs(x)
+    return ClipAbs()
+
+
+@pytest.mark.parametrize("hybridize", [False, True])
+def test_hybridized_positional_attrs_and_abs_match_jax(hybridize):
+    src = np.random.RandomState(4).uniform(-1, 1, (3, 5)).astype(
+        np.float32)
+    src[np.abs(np.abs(src) - 0.5) < 0.01] = 0.25     # off clip's kinks
+    out = {}
+    for name, mx in (("jax", jmx), ("torch", tmx)):
+        net = _clip_abs_block(mx)
+        net.initialize(ctx=mx.cpu())
+        if hybridize:
+            net.hybridize()
+        x = mx.nd.array(src, ctx=mx.cpu())
+        x.attach_grad()
+        with mx.autograd.record():
+            y = net(x)
+        y.backward()
+        out[name] = (y.asnumpy(), x.grad.asnumpy())
+    for got, want in zip(out["torch"], out["jax"]):
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)

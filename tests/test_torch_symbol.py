@@ -189,7 +189,9 @@ def test_flatten_and_elemwise_add():
 
 def test_unported_op_raises_naming_the_roadmap():
     with pytest.raises(MXNetError, match="ROADMAP A15"):
-        treg.get_op("Dropout")
+        treg.get_op("linalg_gemm")
+    with pytest.raises(MXNetError, match="ROADMAP A12.2"):
+        treg.get_op("RNN")
 
 
 # ---------------------------------------------------------------------------

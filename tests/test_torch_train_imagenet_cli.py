@@ -286,11 +286,14 @@ def test_cli_devices_and_refusals(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(MXNetError, match="no CUDA device"):
             train_imagenet.main(synth)
-    for extra, tag in ((["--gpus", "0,1"], "A8.3"),
-                       (["--gpus", "", "--kv-store", "dist_sync"], "A13"),
-                       (["--gpus", "", "--monitor", "1"], "A8.6"),
-                       (["--gpus", "", "--network", "vgg"], "A8.8")):
-        with pytest.raises(NotImplementedError, match=tag):
+    for extra, exc, tag in (
+            (["--gpus", "0,1"], NotImplementedError, "A8.3"),
+            (["--gpus", "", "--kv-store", "dist_sync"], NotImplementedError,
+             "A13"),
+            (["--gpus", "", "--monitor", "1"], NotImplementedError, "A8.6"),
+            (["--gpus", "", "--network", "lenet"], ValueError,
+             "unknown --network")):
+        with pytest.raises(exc, match=tag):
             train_imagenet.main(synth + extra)
     prefix = str(tmp_path / "ck" / "m")
     train_imagenet.main(synth + ["--gpus", "", "--model-prefix", prefix,
