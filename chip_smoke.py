@@ -239,12 +239,43 @@ Phases, each fatal on failure (no phase's failure is caught):
     each): forward and gradient, integer outputs bitwise, float within
     2e-5 (gradients 1e-4) of the largest magnitude; integer reductions,
     argmax / argsort / topk over ties, bitwise with their types;
-30. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
+30. Inception v3 from the Gluon model zoo trained as ``benchmark.py``'s
+    ``train_inception`` does (traced to a Symbol under ``SoftmaxOutput``,
+    ``Module.fit`` at batch 32 of float32 3x299x299, SGD lr 0.05
+    momentum 0.9, a warm and a timed epoch of 24 batches):
+    ``sgd_fused_update`` once a step and its plain version never, no
+    executor copy; img/s, ms/step, MFU; one profiled step; the V100's
+    published 214.48 img/s as context;
+31. MobileNet-1.0 through Gluon as phase 22 trains ResNet-50 (eager and
+    hybridized from one state, batch 32 at 224, ``Trainer("sgd")``): the
+    hybridized first step within 1e-5 of eager's, windows eager,
+    hybridized, hybridized, eager, ``sgd_fused_update`` once a
+    ``trainer.step``; host launches and busy share of a profiled step;
+32. the zoo scored on the card: alexnet, vgg16, vgg16_bn, squeezenet1.0
+    and 1.1, densenet121, inceptionv3 (299), mobilenet1.0 and
+    mobilenetv2_1.0 hybridized at batch 32: img/s and MFU over a window
+    of forwards; ``batch_norm_inference`` once per BatchNorm node a
+    forward (0 without BatchNorm), replays counted; batch-2 logits within
+    1e-4 of the CPU's from the same weights; ``export`` ->
+    ``SymbolBlock.imports`` of inceptionv3 and mobilenetv2_1.0 within
+    1e-5, and planted faults (Concat order reversed in Inception's
+    ``_Mix``; a moving variance doubled) that must fail; the V100's
+    published figures beside alexnet, vgg16 and inceptionv3;
+33. one SGD step at batch 2 of inceptionv3, mobilenetv2_1.0 and
+    densenet121 on the card and the CPU against the CPU's float64
+    witness by phase 28's rule (a change zero in exact arithmetic held
+    within 1e-5), and a planted BatchNorm fault that must fail (phase
+    14's; phase 23's for Inception, whose float32 step hides phase 14's);
+34. ``train_mnist.main`` in-process for ``--network mlp`` and ``lenet``
+    with the default flags: ``sgd_fused_update`` once a step, finite
+    outputs, the final validation accuracy above chance, img/s;
+35. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
     20, its launches from phase 21; ``crop_mirror_normalize``'s times
     from phase 24, its launches from phase 26; ``sgd_fused_update``'s
-    launches from phase 22's first hybridized window and phase 28's
-    four CLI runs, ``batch_norm_inference``'s from phase 27's windows),
-    the card line, and last ``{"ok": true, "device": {...}}``.
+    launches from phase 22's first hybridized window, phase 28's four CLI
+    runs, phase 30's fit, phase 31's first hybridized window and phase
+    34's runs; ``batch_norm_inference``'s from phase 27's and phase 32's
+    windows), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or without
 the package beside it. ``--report PATH`` also writes every measurement
@@ -1847,7 +1878,7 @@ class _F64Witness(object):
 
 def resnet_vs_f64(torch, mx, fu, batch=2, steps=2, sides=(
         "cpu", "dev", "planted", "f64_nudged"), num_layers=50, sym=None,
-        plant=None, label="resnet", image=(3, 224, 224)):
+        plant=None, label="resnet", image=(3, 224, 224), exact_zero=None):
     """ResNet-50 (or ``num_layers``, or the network ``sym``) at full
     width, ``batch`` images of ``image``, ``steps`` chained fused SGD
     steps (``forward_backward`` + ``update``, ``Module.fit``'s loop body
@@ -1859,6 +1890,10 @@ def resnet_vs_f64(torch, mx, fu, batch=2, steps=2, sides=(
     second witness whose weights are nudged by 1e-7 (relative). Per step
     and side, relative RMS error against the witness of the outputs, of
     each weight's change since the start and of each moving statistic's.
+    With ``exact_zero``, a tensor whose witness change has an RMS of at
+    most that is zero in exact arithmetic (its float64 change is
+    rounding): it is left out of those relative errors, and the largest
+    RMS of such a tensor's change on the side is ``zero_max``.
     """
     from mxnet_tpu_torch.ops import registry as reg
     if sym is None:
@@ -1921,14 +1956,24 @@ def resnet_vs_f64(torch, mx, fu, batch=2, steps=2, sides=(
                 out = mod.get_outputs()[0].asnumpy()
             check(np.isfinite(out).all() and out.shape == (batch, 1000),
                   "%s vs f64: %s outputs %s" % (label, side, out.shape,))
-            dw = {k: rel_rms(a[k] - a0[k], a_w[k] - a0[k]) for k in a0}
-            ds = {k: rel_rms(v - x0[k], s_w[k] - x0[k]) for k, v in s.items()}
+            changes = [(k, a[k] - a0[k], a_w[k] - a0[k], "w")
+                       for k in a0] + [(k, v - x0[k], s_w[k] - x0[k], "s")
+                                       for k, v in s.items()]
+            zero = {k: float(np.sqrt(np.mean(np.square(got))))
+                    for k, got, ref, _ in changes if exact_zero is not None
+                    and np.sqrt(np.mean(np.square(ref))) <= exact_zero}
+            dw = {k: rel_rms(got, ref) for k, got, ref, kind in changes
+                  if kind == "w" and k not in zero}
+            ds = {k: rel_rms(got, ref) for k, got, ref, kind in changes
+                  if kind == "s" and k not in zero}
             row[side] = {"out_rel": rel_rms(out, o_w), "dw": dw, "ds": ds,
                          "dw_max": max(dw.values()),
                          "dw_median": float(np.median(list(dw.values()))),
                          "dw_worst": max(dw, key=dw.get),
                          "ds_max": max(ds.values(), default=0.0),
-                         "ds_worst": max(ds, key=ds.get, default=None)}
+                         "ds_worst": max(ds, key=ds.get, default=None),
+                         "zero_keys": len(zero),
+                         "zero_max": max(zero.values(), default=0.0)}
         rows.append(row)
         log("%s vs f64 (batch %d) step %d (witness %.1fs): %s" % (
             label, batch, step, row["witness_s"], "; ".join(
@@ -3454,10 +3499,10 @@ GLUON_PLANT = 2.0       # phase 23's planted fault: BatchNorm's gamma
                         # gradient doubled
 
 
-def gluon_flops(mx, net):
-    """Training FLOP an image of the zoo net: 2 x multiply-adds of every
-    conv and FC at batch 1 (their shapes, by forward hooks), x3 for
-    forward + backward."""
+def gluon_flops(mx, net, side=224):
+    """Training FLOP an image of the zoo net at ``side`` x ``side``: 2 x
+    multiply-adds of every conv and FC at batch 1 (their shapes, by
+    forward hooks), x3 for forward + backward."""
     from mxnet_tpu_torch.gluon.nn.conv_layers import _Conv
     macs = []
 
@@ -3476,7 +3521,7 @@ def gluon_flops(mx, net):
 
     attach(net)
     with mx.autograd.predict_mode():
-        net(mx.nd.array(np.zeros((1, 3, 224, 224), np.float32),
+        net(mx.nd.array(np.zeros((1, 3, side, side), np.float32),
                         ctx=mx.gpu(0)))
     net.apply(lambda b: b._forward_hooks.clear())
     return 3 * 2 * sum(macs), len(macs)
@@ -4958,6 +5003,591 @@ def op_sweep(torch, mx):
             "max_rel_err": worst}
 
 
+# ---------------------------------------------------------------------------
+# phases 30-34: the Gluon model zoo at full width, and train_mnist
+# ---------------------------------------------------------------------------
+
+ZOO_SIDE = {"inceptionv3": 299}     # its final AvgPool2D(8); the rest 224
+INCEPTION_OPT = {"learning_rate": 0.05, "momentum": 0.9}    # benchmark.py
+#                                     train_inception's SGD
+INCEPTION_BATCHES = 24  # a warm and a timed epoch of this many batches
+INCEPTION_V100 = 214.48     # benchmark.py:45, 1x V100: context, no target
+MOBILENET_WINDOWS = ("eager", "hybridized", "hybridized", "eager")
+ZOO_SCORE = ("alexnet", "vgg16", "vgg16_bn", "squeezenet1.0",
+             "squeezenet1.1", "densenet121", "inceptionv3", "mobilenet1.0",
+             "mobilenetv2_1.0")
+ZOO_FORWARDS = 20       # batch-32 forwards a timed scoring window
+ZOO_SCORE_V100 = {"alexnet": 7906.09, "vgg16": 708.43,
+                  "inceptionv3": 814.59}    # benchmark.py:48-51: context
+ZOO_EXPORTED = ("inceptionv3", "mobilenetv2_1.0")
+# card vs CPU logits at batch 2, float32 (TF32 off) from the same weights,
+# relative to the largest logit: up to 121 layers (DenseNet) summed in
+# other orders by other algorithms (cuDNN against oneDNN), each step a
+# few ulps of 2^-24 ~ 6e-8, growing along the depth; sound nets read
+# below 1e-5 (PERF.md), the planted faults 1e-2 and above
+ZOO_PATH_TOL = 1e-4
+# phase 33: (net, BatchNorm nodes, planted fault). Phase 14's BatchNorm
+# fault (the unbiased variance's gradient) moves a gradient by about
+# 1 / (N - 1), N the values of a channel: at batch 2 Inception's fewest
+# are 128 (8x8), and its float32 step is ill-conditioned (the CPU's
+# weight changes read 2.45e-2 median off the float64 witness's), so on
+# an H100 the fault sat at 1.68x the CPU's error, inside the ratio rule;
+# Inception plants phase 23's (gamma's gradient doubled)
+ZOO_F64 = (("inceptionv3", 94, "gamma"), ("mobilenetv2_1.0", 53, "bn"),
+           ("densenet121", 121, "bn"))
+# phase 33: a change whose float64 RMS is at most ZOO_EXACT_ZERO is zero
+# in exact arithmetic (its float64 value is rounding, ~1e-17): MobileNet
+# v2's linear bottlenecks feed a BatchNorm's output (channel means = its
+# beta) through 1x1 convs into other BatchNorms, which makes those convs'
+# batch means and the first BatchNorm's beta gradient exactly zero. Such
+# a tensor's float32 change, noise on either side, is held to at most
+# ZOO_ZERO_TOL (RMS): the CPU's read 2.6e-7 for MobileNet v2 (34 such
+# tensors), and a planted update of lr 0.1 x a gradient of 1e-3 reads 1e-4
+ZOO_EXACT_ZERO = 1e-12
+ZOO_ZERO_TOL = 1e-5
+MNIST_EXTRA = []        # appended to train_mnist's arguments (a CPU
+#                         rehearsal)
+
+
+def zoo_image(name):
+    return (3,) + (ZOO_SIDE.get(name, 224),) * 2
+
+
+def zoo_net(mx, name, ctx, seed):
+    """``get_model(name, classes=1000)`` initialized on ``ctx`` from a
+    seed (Xavier, gaussian, in, 2: the CLI's), its deferred shapes
+    finished by one predict-mode forward."""
+    mx.random.seed(seed)
+    net = mx.gluon.model_zoo.vision.get_model(name, classes=1000,
+                                              prefix="zoo_")
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx)
+    with mx.autograd.predict_mode():
+        net(mx.nd.zeros((1,) + zoo_image(name), ctx=ctx))
+    return net
+
+
+class _PlainSGDSpy(object):
+    """Counts calls of the plain SGD rule while it is entered."""
+
+    def __init__(self, fu):
+        self.fu, self.calls = fu, 0
+
+    def __enter__(self):
+        self.real = self.fu._sgd_fused
+
+        def spy(*args):
+            self.calls += 1
+            return self.real(*args)
+        self.fu._sgd_fused = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.fu._sgd_fused = self.real
+        return False
+
+
+def inception_fit(torch, mx, fu):
+    """Phase 30: Inception v3 trained as ``benchmark.py``'s
+    ``train_inception`` does: ``get_model("inceptionv3", classes=1000)``
+    initialized on the card, traced by ``_trace_symbol`` under
+    ``SoftmaxOutput``, through ``Module.fit`` at batch 32 of float32
+    3x299x299 (TF32 off), SGD lr 0.05 momentum 0.9, a warm and a timed
+    epoch of INCEPTION_BATCHES synthetic batches on the card:
+    ``sgd_fused_update`` once a step and its plain version never, no
+    input copied by the executor, finite outputs, weights and moving
+    statistics changed; img/s, ms/step, MFU over the net's own conv and
+    FC FLOPs; one profiled step; the V100's published 214.48 img/s
+    beside it as context."""
+    from mxnet_tpu_torch import executor
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    ctx = mx.gpu(0)
+    image = zoo_image("inceptionv3")
+    net = zoo_net(mx, "inceptionv3", ctx, 30)
+    sym = mx.sym.SoftmaxOutput(net._trace_symbol(), name="softmax")
+    names, auxs = set(sym.list_arguments()), set(sym.list_auxiliary_states())
+    params = net.collect_params()
+    arg = {k: p.data() for k, p in params.items() if k in names}
+    aux = {k: p.data() for k, p in params.items() if k in auxs}
+    flop = network_flops(mx, sym, image)
+    shape = (RESNET_BATCH,) + image
+    train = mx.io.ResizeIter(synthetic_iter(mx, shape, 1000, 1 << 20, ctx),
+                             INCEPTION_BATCHES)
+    ends, resumed, snaps = [], [], []
+
+    def epoch_end(epoch, _sym, a, x):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        snaps.append(({k: v.asnumpy() for k, v in a.items()},
+                      {k: v.asnumpy() for k, v in x.items()}))
+        resumed.append(time.perf_counter())
+
+    mod = mx.mod.Module(sym, context=ctx)
+    fu.reset_launches()
+    executor.INPUT_COPIES["count"] = 0
+    with _PlainSGDSpy(fu) as plain:
+        t0 = time.perf_counter()
+        mod.fit(train, num_epoch=2, epoch_end_callback=epoch_end,
+                kvstore="device", optimizer="sgd",
+                optimizer_params=INCEPTION_OPT, arg_params=arg,
+                aux_params=aux, eval_metric="acc")
+    steps = 2 * INCEPTION_BATCHES
+    launches = fu.LAUNCHES["sgd_fused_update"]
+    check(launches == steps, "inception fit: sgd_fused_update launched %d "
+          "times for %d steps" % (launches, steps))
+    check(plain.calls == 0, "inception fit: the plain SGD rule ran %d times"
+          % plain.calls)
+    check(executor.INPUT_COPIES["count"] == 0, "inception fit: the executor "
+          "copied %d inputs" % executor.INPUT_COPIES["count"])
+    out = mod.get_outputs()[0].asnumpy()
+    check(out.shape == (RESNET_BATCH, 1000) and np.isfinite(out).all(),
+          "inception fit: outputs %s" % (out.shape,))
+    (a0, x0), (a1, x1) = snaps
+    w_moved = max(float(np.abs(a1[k] - a0[k]).max()) for k in a0)
+    s_moved = max(float(np.abs(x1[k] - x0[k]).max()) for k in x0)
+    check(w_moved > 0 and s_moved > 0 and all(
+        np.isfinite(v).all() for v in a1.values()), "inception fit: weights "
+          "(%g) or moving statistics (%g) did not change, or are not finite"
+          % (w_moved, s_moved))
+    dt = ends[1] - resumed[0]
+    img_s = RESNET_BATCH * INCEPTION_BATCHES / dt
+    mfu = img_s * flop / F32_FLOPS
+    check(mfu <= 1.05, "inception fit: %.0f img/s implies MFU %.2f > 1"
+          % (img_s, mfu))
+    batch = next(iter(train))
+    train.reset()
+    fu.reset_launches()
+
+    def one_step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    prof = profile_run(torch, one_step, _network_class)
+    check(fu.LAUNCHES["sgd_fused_update"] == 1, "inception profiled step "
+          "launched sgd_fused_update %d times"
+          % fu.LAUNCHES["sgd_fused_update"])
+    res = {"batch": RESNET_BATCH, "image": image,
+           "timed_batches": INCEPTION_BATCHES, "warm_epoch_s": ends[0] - t0,
+           "timed_epoch_s": dt, "img_per_s": img_s,
+           "ms_per_step": dt * 1e3 / INCEPTION_BATCHES, "mfu": mfu,
+           "gflop_per_img": flop / 1e9, "launches": launches,
+           "weights_moved": w_moved, "stats_moved": s_moved,
+           "v100_published": INCEPTION_V100, "profiled_step": prof}
+    log("inceptionv3 fit: batch %d x 3x299x299, timed epoch %.3fs: %.1f "
+        "img/s, %.2f ms/step, MFU %.3f (%.2f GFLOP/img from its conv/FC "
+        "shapes, 67 TFLOP/s f32); warm epoch %.2fs; sgd_fused_update %d "
+        "launches in %d steps; published 1x V100 %.2f img/s (context only)"
+        % (RESNET_BATCH, dt, img_s, res["ms_per_step"], mfu, flop / 1e9,
+           res["warm_epoch_s"], launches, steps, INCEPTION_V100))
+    log_profile("inceptionv3 profiled step", prof)
+    del mod, net
+    return res
+
+
+def log_profile(label, prof):
+    log("%s: wall %.3fs, device busy %s, %d kernels, host launches %s "
+        "(graph launches %s), device ms by class %s; top %s"
+        % (label, prof["wall_s"], "not measured" if prof["busy_share"] is None
+           else "%.1f%%" % (100 * prof["busy_share"]), prof["kernels"],
+           prof["host_launches"], prof["graph_launches"],
+           {k: round(v, 3) for k, v in prof["device_ms"].items()},
+           "; ".join("%.3f ms %s" % (ms, n[:60])
+                     for n, ms in prof["top_kernels_ms"][:4])))
+
+
+def mobilenet_gluon(torch, mx, fu, name="mobilenet1.0"):
+    """Phase 31: BASELINE.json's Gluon config, ``model_zoo.vision``
+    MobileNet-1.0 hybridized, trained as phase 22 trains ResNet-50: batch
+    32 of float32 3x224x224 (TF32 off), SoftmaxCrossEntropyLoss,
+    ``Trainer("sgd", lr 0.1, momentum 0.9, wd 1e-4)``; two nets from one
+    seeded state, eager and hybridized (its CUDA-graph replay); the
+    hybridized first step's logits and loss within GLUON_FIRST_TOL of the
+    eager step's; GLUON_WARM warm steps each, then timed windows of
+    GLUON_TIMED steps (eager, hybridized, hybridized, eager);
+    ``sgd_fused_update`` once a ``trainer.step`` in both modes and its
+    plain version never; img/s, MFU; one profiled step of each mode (host
+    launches, busy share)."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(31)
+    x = mx.nd.array(rng.uniform(-1, 1, (RESNET_BATCH,) + zoo_image(name))
+                    .astype(np.float32), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, 1000, (RESNET_BATCH,)).astype(
+        np.float32), ctx=ctx)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    nets = {}
+    for mode in ("eager", "hybridized"):
+        net = zoo_net(mx, name, ctx, 31)
+        if mode == "eager":
+            flop, n_layers = gluon_flops(mx, net)
+        else:
+            gluon_params_copy(nets["eager"][0], net)
+            net.hybridize()
+        nets[mode] = (net, mx.gluon.Trainer(net.collect_params(), "sgd",
+                                            GLUON_OPT))
+
+    def run(mode, steps):
+        net, trainer = nets[mode]
+        for _ in range(steps):
+            with mx.autograd.record():
+                out = net(x)
+                loss = loss_fn(out, y)
+            loss.backward()
+            trainer.step(RESNET_BATCH)
+        return out, loss
+
+    first, windows = {}, []
+    with _PlainSGDSpy(fu) as plain:
+        for mode in ("eager", "hybridized"):
+            fu.reset_launches()
+            out, loss = run(mode, 1)
+            first[mode] = (out.asnumpy(), loss.asnumpy())
+            run(mode, GLUON_WARM - 1)
+            torch.cuda.synchronize()
+            check(fu.LAUNCHES["sgd_fused_update"] == GLUON_WARM, "%s %s: "
+                  "%d update launches in %d warm steps" % (
+                      name, mode, fu.LAUNCHES["sgd_fused_update"],
+                      GLUON_WARM))
+        for mode in MOBILENET_WINDOWS:
+            fu.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, loss = run(mode, GLUON_TIMED)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            img_s = RESNET_BATCH * GLUON_TIMED / dt
+            windows.append({"mode": mode, "img_per_s": img_s,
+                            "ms_per_step": dt * 1e3 / GLUON_TIMED,
+                            "mfu": img_s * flop / F32_FLOPS,
+                            "launches": fu.LAUNCHES["sgd_fused_update"],
+                            "loss_mean": float(loss.asnumpy().mean())})
+    for w in windows:
+        check(w["launches"] == GLUON_TIMED, "%s %s: sgd_fused_update "
+              "launched %d times in %d steps" % (name, w["mode"],
+                                                 w["launches"], GLUON_TIMED))
+        check(w["mfu"] <= 1.05 and np.isfinite(w["loss_mean"]),
+              "%s %s: %.0f img/s (MFU %.2f), loss %s" % (
+                  name, w["mode"], w["img_per_s"], w["mfu"], w["loss_mean"]))
+    check(plain.calls == 0, "%s: the plain SGD rule ran %d times"
+          % (name, plain.calls))
+    first_err = {"logits": rel_max(first["hybridized"][0], first["eager"][0]),
+                 "loss": rel_max(first["hybridized"][1], first["eager"][1])}
+    check(max(first_err.values()) <= GLUON_FIRST_TOL, "%s: the hybridized "
+          "first step is off the eager one: %s" % (name, first_err))
+    profiled = {}
+    for mode in ("eager", "hybridized"):
+        fu.reset_launches()
+        profiled[mode] = profile_run(torch, lambda: run(mode, 1),
+                                     _resnet_class)
+        check(fu.LAUNCHES["sgd_fused_update"] == 1, "%s %s: profiled step "
+              "launched sgd_fused_update %d times"
+              % (name, mode, fu.LAUNCHES["sgd_fused_update"]))
+    img_s = {m: float(np.mean([w["img_per_s"] for w in windows
+                               if w["mode"] == m])) for m in nets}
+    res = {"batch": RESNET_BATCH, "windows": windows, "img_per_s": img_s,
+           "mfu": {m: v * flop / F32_FLOPS for m, v in img_s.items()},
+           "hybridized_over_eager": img_s["hybridized"] / img_s["eager"],
+           "first_step_rel_err": first_err, "gflop_per_img": flop / 1e9,
+           "conv_fc_layers": n_layers,
+           "captures": nets["hybridized"][0]._cached_op.runner.captures,
+           "launches": windows[1]["launches"], "profiled_step": profiled}
+    log("%s Gluon: logits/loss of the hybridized first step off eager's by "
+        "%.2e / %.2e; windows %s; hybridized / eager %.3f; MFU %s (%.3f "
+        "GFLOP/img from its %d conv/FC shapes); sgd_fused_update once a "
+        "step" % (name, first_err["logits"], first_err["loss"], ", ".join(
+            "%s %.1f img/s %.2f ms" % (w["mode"], w["img_per_s"],
+                                       w["ms_per_step"]) for w in windows),
+            res["hybridized_over_eager"],
+            {m: round(v, 4) for m, v in res["mfu"].items()}, flop / 1e9,
+            n_layers))
+    for mode, prof in profiled.items():
+        log_profile("%s profiled %s step" % (name, mode), prof)
+    return res
+
+
+def _count_bn(sym):
+    from mxnet_tpu_torch.symbol.symbol import _topo
+    return sum(1 for n in _topo(sym._entries) if n.op == "BatchNorm")
+
+
+def concat_reversed_mix(mx):
+    """A planted fault: Inception's ``_Mix`` concatenating its branches
+    in reverse order (the channel count is unchanged, their order is
+    not)."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import inception
+
+    def hybrid_forward(self, F, x):
+        return F.Concat(*[b(x) for b in reversed(list(
+            self._children.values()))], dim=1)
+    return inception._Mix, hybrid_forward
+
+
+def zoo_export(torch, mx, name, net, x, ref, workdir):
+    """Phase 32's export check of ``name``: ``export`` → ``SymbolBlock
+    .imports`` on the card, hybridized, within EXPORT_TOL of ``ref`` (the
+    net's own predict of ``x``); and its planted fault must fail it
+    (Inception: ``_Mix``'s Concat order reversed in the exported trace;
+    otherwise one exported moving variance doubled)."""
+    os.makedirs(workdir, exist_ok=True)
+    prefix = os.path.join(workdir, name)
+    net.export(prefix)
+    files = (prefix + "-symbol.json", prefix + "-0000.params")
+
+    def imported(json_file, params_file):
+        blk = mx.gluon.SymbolBlock.imports(json_file, ["data"], params_file,
+                                           ctx=mx.gpu(0))
+        blk.hybridize()
+        with mx.autograd.predict_mode():
+            return blk(x).asnumpy()
+
+    err = rel_max(imported(*files), ref)
+    check(err <= EXPORT_TOL, "%s export: the imported block is off by %.2e"
+          % (name, err))
+    if name == "inceptionv3":
+        cls, bad_forward = concat_reversed_mix(mx)
+        real = cls.hybrid_forward
+        cls.hybrid_forward = bad_forward
+        try:
+            net.export(prefix + "-planted")
+        finally:
+            cls.hybrid_forward = real
+        plant = "Concat order reversed in _Mix"
+        planted = rel_max(imported(prefix + "-planted-symbol.json",
+                                   prefix + "-planted-0000.params"), ref)
+    else:
+        saved = mx.nd.load(files[1])
+        victim = sorted(k for k in saved if k.startswith("aux:")
+                        and k.endswith("running_var"))[0]
+        saved[victim] = saved[victim] * 2
+        mx.nd.save(prefix + "-planted-0000.params", saved, format="mxnet")
+        plant = "%s doubled" % victim
+        planted = rel_max(imported(files[0], prefix + "-planted-0000.params"),
+                          ref)
+    check(planted > EXPORT_TOL, "%s export: the planted fault (%s) passes "
+          "(%.2e)" % (name, plant, planted))
+    shutil.rmtree(workdir, ignore_errors=True)
+    return {"rel_err": err, "planted": plant, "planted_rel_err": planted}
+
+
+def zoo_score(torch, mx, bnk, workdir):
+    """Phase 32: every net of ZOO_SCORE scored on the card as
+    ``benchmark.py``'s ``infer_score`` does (hybridized, batch 32,
+    float32, TF32 off; Inception at 299, the rest at 224, 1000 classes):
+    a timed window of ZOO_FORWARDS forwards (img/s, MFU over the net's
+    own conv and FC FLOPs); ``batch_norm_inference`` once per BatchNorm
+    node of the traced Symbol a forward, replays counted (0 for the nets
+    without BatchNorm), its plain version never on the card; the logits
+    of a batch of 2 within ZOO_PATH_TOL of the CPU's from the same
+    weights (carried as numpy arrays by ``gluon_params_from_jax``); for
+    ZOO_EXPORTED, ``zoo_export``; the V100's published img/s beside
+    AlexNet, VGG16 and Inception v3 as context."""
+    from mxnet_tpu_torch.convert import (gluon_params_from_jax,
+                                         gluon_params_to_numpy)
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    dev, cpu = mx.gpu(0), mx.cpu()
+    plain = [0]
+    real = bnk._batch_norm_inference_plain
+
+    def spy(x, *args, **kwargs):
+        plain[0] += x.device.type == "cuda"
+        return real(x, *args, **kwargs)
+
+    res = {}
+    bnk._batch_norm_inference_plain = nn_ops._batch_norm_inference_plain = spy
+    try:
+        for i, name in enumerate(ZOO_SCORE):
+            image = zoo_image(name)
+            net = zoo_net(mx, name, dev, 320 + i)
+            flop = gluon_flops(mx, net, image[1])[0] / 3
+            vals = gluon_params_to_numpy(net)
+            rng = np.random.RandomState(32)
+            x = rng.uniform(-1, 1, (RESNET_BATCH,) + image).astype(
+                np.float32)
+            x_dev = mx.nd.array(x, ctx=dev)
+            x2 = mx.nd.array(x[:2], ctx=dev)
+            n_bn = _count_bn(net._trace_symbol())
+            net.hybridize()
+            with mx.autograd.predict_mode():
+                t0 = time.time()
+                net(x_dev)
+                torch.cuda.synchronize()
+                first_s = time.time() - t0
+                bnk.reset_launches()
+                ref = net(x_dev).asnumpy()
+                per_forward = bnk.LAUNCHES["batch_norm_inference"]
+                bnk.reset_launches()
+                w = forward_window(torch, lambda: net(x_dev),
+                                   n=ZOO_FORWARDS)
+                window_launches = bnk.LAUNCHES["batch_norm_inference"]
+                card2 = net(x2).asnumpy()
+                cpu_net = mx.gluon.model_zoo.vision.get_model(
+                    name, classes=1000, prefix="zoo_")
+                gluon_params_from_jax(vals, cpu_net, ctx=cpu)
+                host2 = cpu_net(mx.nd.array(x[:2], ctx=cpu)).asnumpy()
+            check(np.isfinite(ref).all() and ref.shape == (RESNET_BATCH,
+                                                          1000),
+                  "%s scoring: logits %s" % (name, ref.shape))
+            check(per_forward == n_bn, "%s scoring: %d batch_norm_inference "
+                  "launches a forward for %d BatchNorm nodes"
+                  % (name, per_forward, n_bn))
+            want = (ZOO_FORWARDS + HOST_SAMPLES) * n_bn
+            check(window_launches == want, "%s scoring: %d batch_norm_"
+                  "inference launches in the window, want %d"
+                  % (name, window_launches, want))
+            path_err = rel_max(card2, host2)
+            check(path_err <= ZOO_PATH_TOL, "%s scoring: the card's logits "
+                  "are off the CPU's by %.2e" % (name, path_err))
+            mfu = w["img_per_s"] * flop / F32_FLOPS
+            check(mfu <= 1.05, "%s scoring: %.0f img/s implies MFU %.2f"
+                  % (name, w["img_per_s"], mfu))
+            row = {"image": image, "img_per_s": w["img_per_s"],
+                   "ms_per_forward": w["ms_per_forward"],
+                   "host_us": w["host_us"], "mfu": mfu,
+                   "fwd_gflop_per_img": flop / 1e9, "bn_nodes": n_bn,
+                   "bn_launches_per_forward": per_forward,
+                   "bn_window_launches": window_launches,
+                   "card_vs_cpu_rel_err": path_err, "first_forward_s":
+                   first_s, "v100_published": ZOO_SCORE_V100.get(name)}
+            if name in ZOO_EXPORTED:
+                with mx.autograd.predict_mode():
+                    row["export"] = zoo_export(torch, mx, name, net, x_dev,
+                                               ref, workdir)
+            res[name] = row
+            log("%s scoring: batch %d x %s: %.1f img/s, %.2f ms a forward, "
+                "%.0f host us, MFU %.3f (%.2f GFLOP/img forward); "
+                "batch_norm_inference %d a forward (%d nodes), %d in the "
+                "window; card vs CPU logits %.2e; first forward (capture) "
+                "%.2fs%s%s" % (
+                    name, RESNET_BATCH, "x".join(map(str, image)),
+                    w["img_per_s"], w["ms_per_forward"], w["host_us"], mfu,
+                    flop / 1e9, per_forward, n_bn, window_launches, path_err,
+                    first_s, "; export %s" % row["export"] if "export" in row
+                    else "", "; published 1x V100 %.2f img/s (context only)"
+                    % ZOO_SCORE_V100[name] if name in ZOO_SCORE_V100
+                    else ""))
+            del net, cpu_net
+    finally:
+        bnk._batch_norm_inference_plain = real
+        nn_ops._batch_norm_inference_plain = real
+    check(plain[0] == 0, "zoo scoring: the plain BatchNorm ran %d times on "
+          "the card" % plain[0])
+    res["window_launches"] = sum(r["bn_window_launches"]
+                                 for r in res.values())
+    return res
+
+
+def zoo_vs_f64(torch, mx, fu):
+    """Phase 33: one fused SGD step at batch 2 of each net of ZOO_F64 (its
+    traced Symbol under ``SoftmaxOutput``, 1000 classes, at its input
+    size) on the card and on the CPU in float32 against the CPU's float64
+    witness, by phase 28's rule (phase 14's step-1 limits, weight changes
+    within RESNET_RATIO_TOL x the CPU's own float32 error or
+    NET_F32_FLOOR), Dropout's p set to 0 through the JSON, and the
+    tensors whose change is zero in exact arithmetic held apart
+    (``zoo_misses``); a planted BatchNorm fault must miss it (phase 14's;
+    phase 23's for Inception, see ZOO_F64)."""
+    plants = {"bn": ("BatchNorm", bn_unbiased_backward),
+              "gamma": ("BatchNorm", functools.partial(
+                  gamma_grad_scaled, factor=GLUON_PLANT))}
+    res = {}
+    for name, n_bn, plant in ZOO_F64:
+        net = mx.gluon.model_zoo.vision.get_model(name, classes=1000,
+                                                  prefix="zoo_")
+        sym = no_dropout(mx, mx.sym.SoftmaxOutput(net._trace_symbol(),
+                                                  name="softmax"))
+        check(_count_bn(sym) == n_bn, "%s: %d BatchNorm nodes, want %d"
+              % (name, _count_bn(sym), n_bn))
+        (row,) = resnet_vs_f64(torch, mx, fu, batch=2, steps=1,
+                               sides=("cpu", "dev", "planted"), sym=sym,
+                               label=name, image=zoo_image(name),
+                               plant=plants[plant],
+                               exact_zero=ZOO_EXACT_ZERO)
+        misses = zoo_misses(row["dev"], row["cpu"])
+        check(not misses, "%s vs f64: the card is off: %s"
+              % (name, "; ".join(misses)))
+        planted = zoo_misses(row["planted"], row["cpu"])
+        check(planted, "%s vs f64: the planted BatchNorm fault (%s) passes"
+              % (name, plant))
+        log("%s vs f64: card/CPU error ratios: %s; %d tensors zero in "
+            "exact arithmetic, their largest change card %.2e, CPU %.2e; "
+            "planted (%s) misses %s"
+            % (name, ", ".join("%s %.2f" % (k, row["dev"][k] / max(
+                row["cpu"][k], 1e-30)) for k in ("dw_median", "dw_max")),
+               row["dev"]["zero_keys"], row["dev"]["zero_max"],
+               row["cpu"]["zero_max"], plant, planted))
+        res[name] = {side: {k: v for k, v in r.items()
+                            if k not in ("dw", "ds")}
+                     for side, r in row.items() if isinstance(r, dict)}
+    return res
+
+
+def zoo_misses(side, cpu):
+    """Phase 33's misses of ``side``: phase 28's rule over the tensors
+    whose change is not zero in exact arithmetic, and ZOO_ZERO_TOL over
+    those whose change is."""
+    misses = resnet_misses(side, cpu, 1, NET_F32_FLOOR)
+    if side["zero_max"] > ZOO_ZERO_TOL:
+        misses.append("a change that is zero in exact arithmetic reads "
+                      "%.3g > %g" % (side["zero_max"], ZOO_ZERO_TOL))
+    return misses
+
+
+def mnist_cli(torch, mx, fu):
+    """Phase 34: ``train_mnist.main`` in-process on the card for ``--network
+    mlp`` and ``lenet`` with the default flags (the seeded synthetic set
+    of 6000 images, batch 64, 6 epochs, SGD lr 0.3 momentum 0.9):
+    ``sgd_fused_update`` once a step and its plain version never, finite
+    outputs, the printed final validation accuracy above chance (0.1);
+    img/s from the Speedometer lines (the first epoch's left out)."""
+    import contextlib
+    import io as _io
+    from mxnet_tpu_torch.examples import train_mnist
+    args = train_mnist.parse_args(MNIST_EXTRA)
+    batches = -(-args.num_examples // args.batch_size)
+    steps = args.num_epochs * batches
+    res = {}
+    for net in ("mlp", "lenet"):
+        fu.reset_launches()
+        printed = _io.StringIO()
+        with _PlainSGDSpy(fu) as plain, LogLines() as logs, \
+                contextlib.redirect_stdout(printed):
+            t0 = time.perf_counter()
+            mod = train_mnist.main(["--network", net] + MNIST_EXTRA)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = fu.LAUNCHES["sgd_fused_update"]
+        check(launches == steps, "train_mnist %s: sgd_fused_update launched "
+              "%d times for %d steps" % (net, launches, steps))
+        check(plain.calls == 0, "train_mnist %s: the plain SGD rule ran"
+              % net)
+        m = re.search(r"final validation accuracy: ([0-9.]+)",
+                      printed.getvalue())
+        acc = float(m.group(1)) if m else float("nan")
+        check(acc > 0.1, "train_mnist %s: final validation accuracy %s"
+              % (net, acc))
+        out = mod.get_outputs()[0].asnumpy()
+        check(np.isfinite(out).all(), "train_mnist %s: non-finite outputs"
+              % net)
+        train_acc = logs.train_value("accuracy")
+        speeds = [v for e in range(1, args.num_epochs)
+                  for v in logs.speeds(e)]
+        check(len(speeds) >= 1, "train_mnist %s: Speedometer lines %s"
+              % (net, logs.speeds()))
+        img_s = float(np.mean(speeds))
+        res[net] = {"img_per_s": img_s, "speedometer": logs.speeds(),
+                    "final_val_accuracy": acc, "train_accuracy": train_acc,
+                    "launches": launches, "steps": steps, "wall_s": wall}
+        log("train_mnist %s: %d steps in %.1fs, %.1f img/s (Speedometer, "
+            "epochs 1-%d), final validation accuracy %.4f, train accuracy "
+            "by epoch %s; sgd_fused_update %d launches"
+            % (net, steps, wall, img_s, args.num_epochs - 1, acc,
+               {k: round(v, 4) for k, v in train_acc.items()}, launches))
+        del mod
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="write the full report here (JSON)")
@@ -5051,6 +5681,12 @@ def main():
     networks = cli_networks(torch, mx, fu)
     networks_cpu = networks_vs_cpu(torch, mx, fu)
     swept = op_sweep(torch, mx)
+    incep = inception_fit(torch, mx, fu)
+    mobile = mobilenet_gluon(torch, mx, fu)
+    zoo = zoo_score(torch, mx, bnk, os.path.join(root, "build",
+                                                  "chip_smoke_zoo"))
+    zoo_cpu = zoo_vs_f64(torch, mx, fu)
+    mnist = mnist_cli(torch, mx, fu)
 
     sources = {"paged_decode_attention": (
         "mxnet_tpu_torch/ops/cuda/csrc/paged_decode_attention.cu",
@@ -5092,18 +5728,24 @@ def main():
     # launches: the serving kernels' from the served round, the training
     # kernels' from the first timed train call (8 steps), the SGD update's
     # from phase 22's first hybridized window (24 steps, the update once
-    # a step beside the CUDA graphs), Adam's from Module.fit (4 steps)
+    # a step beside the CUDA graphs), phase 28's four CLI runs, phase 30's
+    # Inception fit, phase 31's first hybridized window and phase 34's two
+    # train_mnist runs, Adam's from Module.fit (4 steps)
     launches = dict(served["launches"])
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] = trained["calls"][1]["launches"][name]
     launches["sgd_fused_update"] = gluon["launches"]["sgd_fused_update"] \
-        + sum(r["launches"] for r in networks.values())
+        + sum(r["launches"] for r in networks.values()) \
+        + incep["launches"] + mobile["launches"] \
+        + sum(r["launches"] for r in mnist.values())
     launches["adam_fused_update"] = fitted["adam_launches"]
     # the int8 kernels' from the int8 correctness set of phase 17; the
     # BatchNorm kernel's from phase 27's timed windows (its replays of
-    # the exported predictor counted, and the eager predicts)
+    # the exported predictor counted, and the eager predicts) and phase
+    # 32's scoring windows (replays counted)
     launches.update(served_int8["runs"]["int8"]["launches"])
-    launches["batch_norm_inference"] = exported["window_launches"]
+    launches["batch_norm_inference"] = exported["window_launches"] \
+        + zoo["window_launches"]
     # rtc's from the custom op of phase 21 (its forward and backward)
     launches["rtc"] = custom["launches"]
     # the augment kernel's from the records fit of phase 26
@@ -5135,13 +5777,20 @@ def main():
               "data": data,
               "cli_synthetic": cli_synth, "cli_records": cli_rec,
               "networks": networks, "networks_vs_cpu": networks_cpu,
-              "op_sweep": swept, "kernels": kernels,
+              "op_sweep": swept, "inception_fit": incep,
+              "mobilenet_gluon": mobile, "zoo_score": zoo,
+              "zoo_vs_f64": zoo_cpu, "train_mnist": mnist,
+              "kernels": kernels,
               "update_launches": {
                   "module_fit": fitted["launches"]["sgd_fused_update"],
                   "gluon_fit": gluon["launches"]["sgd_fused_update"],
                   "gluon_adam": gluon["adam_launches"],
                   "networks": {k: v["launches"]
-                               for k, v in networks.items()}},
+                               for k, v in networks.items()},
+                  "inception_fit": incep["launches"],
+                  "mobilenet_gluon": mobile["launches"],
+                  "train_mnist": {k: v["launches"]
+                                  for k, v in mnist.items()}},
               "wall_s": time.time() - t_all}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

@@ -1,7 +1,7 @@
 """Gluon: the imperative neural-network API (the JAX package's
 ``gluon``; reference: python/mxnet/gluon/). Blocks run eagerly on
 ``torch``; ``Trainer.step`` updates every parameter in one launch of the
-fused update kernel. ``rnn`` and ``contrib`` are ROADMAP A12.2."""
+fused update kernel. ``rnn`` and ``contrib.rnn`` are ROADMAP A12.2."""
 from .parameter import (DeferredInitializationError,  # noqa: F401
                         Parameter, ParameterDict)
 from .block import Block, HybridBlock, SymbolBlock  # noqa: F401
@@ -11,3 +11,4 @@ from . import loss  # noqa: F401
 from . import utils  # noqa: F401
 from . import data  # noqa: F401
 from . import model_zoo  # noqa: F401
+from . import contrib  # noqa: F401

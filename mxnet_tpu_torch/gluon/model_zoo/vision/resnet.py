@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
+from ..model_store import get_model_file
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
@@ -230,11 +231,11 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None,
     block_type, layers, channels = resnet_spec[num_layers]
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
+    net = resnet_class(block_class, layers, channels, **kwargs)
     if pretrained:
-        raise NotImplementedError(
-            "pretrained=True: mxnet_tpu_torch fetches no weights (there is "
-            "no network); load them with net.load_parameters(path)")
-    return resnet_class(block_class, layers, channels, **kwargs)
+        net.load_parameters(get_model_file(
+            "resnet%d_v%d" % (num_layers, version), root=root), ctx=ctx)
+    return net
 
 
 def _variant(version, num_layers):

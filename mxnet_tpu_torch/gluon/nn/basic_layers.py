@@ -8,11 +8,11 @@ registry, with the JAX package's parameter names and defaults.
 ``BatchNorm`` normalizes with the batch statistics and updates its
 running statistics in place while ``autograd.is_training()``, and uses
 the running statistics otherwise; traced (``F`` the ``symbol``
-namespace) it is one ``BatchNorm`` node either way. Every layer here
-traces under ``hybridize()`` and ``export``. The layers whose op the port's
-registry lacks (``Dropout``, ``Embedding``, ``InstanceNorm``,
-``LayerNorm``, ``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU``)
-raise ``NotImplementedError`` naming ROADMAP A12.2.
+namespace) it is one ``BatchNorm`` node either way. ``Dropout``,
+``Embedding``, ``InstanceNorm``, ``LayerNorm`` and the ``LeakyReLU``
+family (``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU``) call the
+registry's ops of the same names. Every layer here traces under
+``hybridize()`` and ``export``.
 """
 from __future__ import annotations
 
@@ -282,22 +282,169 @@ class Swish(HybridBlock):
         return x * F.sigmoid(self._beta * x)
 
 
-def _not_ported(name, op):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "gluon.nn.%s is not ported to mxnet_tpu_torch yet (ROADMAP "
-            "A12.2); a HybridBlock can call the %s op as F.%s"
-            % (name, op, op))
-    return type(name, (HybridBlock,), {"__init__": __init__,
-                                        "__doc__": "Not ported (A12.2)."})
+class Dropout(HybridBlock):
+    """Each value zeroed with probability ``rate`` while
+    ``autograd.is_training()`` and the kept ones scaled by
+    ``1 / (1 - rate)``; with ``axes`` one draw is shared along those axes
+    (reference: basic_layers.py Dropout; op Dropout, drawn from the
+    port's generator of the data's device)."""
+
+    def __init__(self, rate, axes=(), **kwargs):
+        super(Dropout, self).__init__(**kwargs)
+        self._rate = rate
+        self._axes = axes
+
+    def hybrid_forward(self, F, x):
+        if self._rate <= 0:
+            return x
+        return F.Dropout(x, p=self._rate, axes=self._axes)
+
+    def __repr__(self):
+        return "Dropout(p = %s, axes=%s)" % (self._rate, self._axes)
 
 
-Dropout = _not_ported("Dropout", "Dropout")
-Embedding = _not_ported("Embedding", "Embedding")
-InstanceNorm = _not_ported("InstanceNorm", "InstanceNorm")
-LayerNorm = _not_ported("LayerNorm", "LayerNorm")
-LeakyReLU = _not_ported("LeakyReLU", "LeakyReLU")
-PReLU = _not_ported("PReLU", "LeakyReLU")
-ELU = _not_ported("ELU", "LeakyReLU")
-SELU = _not_ported("SELU", "LeakyReLU")
-GELU = _not_ported("GELU", "LeakyReLU")
+class Embedding(HybridBlock):
+    """Rows of ``weight`` (input_dim, output_dim) picked by index
+    (reference: basic_layers.py Embedding; op Embedding). As in the JAX
+    package, ``sparse_grad=True`` asks for a ``row_sparse`` gradient and
+    gets a dense one: sparse storage is ROADMAP A15."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, sparse_grad=False, **kwargs):
+        super(Embedding, self).__init__(**kwargs)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        self._dtype = dtype
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=_init(weight_initializer),
+                grad_stype="row_sparse" if sparse_grad else "default")
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim, dtype=self._dtype)
+
+    def __repr__(self):
+        return "Embedding(%d -> %d, %s)" % (
+            self._input_dim, self._output_dim, self._dtype)
+
+
+class _Norm(HybridBlock):
+    """gamma and beta of a normalization over ``in_channels``."""
+
+    def __init__(self, axis, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, **kwargs):
+        super(_Norm, self).__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=_init(gamma_initializer),
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=_init(beta_initializer),
+                allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        self.gamma._set_shape_from((x.shape[self._axis],))
+        self.beta._set_shape_from((x.shape[self._axis],))
+
+    def __repr__(self):
+        return "%s(axis=%s, eps=%s)" % (type(self).__name__, self._axis,
+                                        self._epsilon)
+
+
+class InstanceNorm(_Norm):
+    """Each (sample, channel) normalized over its other axes (reference:
+    basic_layers.py InstanceNorm; op InstanceNorm), ``axis`` the channel
+    axis (the JAX package sizes gamma by axis 1 whatever ``axis``, and
+    then fails for another axis of another size)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super(InstanceNorm, self).__init__(
+            axis, epsilon, center, scale, beta_initializer,
+            gamma_initializer, in_channels, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+        x = F.swapaxes(x, dim1=1, dim2=self._axis)
+        return F.swapaxes(F.InstanceNorm(x, gamma, beta, eps=self._epsilon),
+                          dim1=1, dim2=self._axis)
+
+
+class LayerNorm(_Norm):
+    """Each position normalized over ``axis`` (reference: basic_layers.py
+    LayerNorm; op LayerNorm)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super(LayerNorm, self).__init__(
+            axis, epsilon, center, scale, beta_initializer,
+            gamma_initializer, in_channels, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
+
+
+class LeakyReLU(HybridBlock):
+    """``x`` above 0, ``alpha * x`` below (reference: activations.py
+    LeakyReLU; op LeakyReLU, act_type "leaky")."""
+
+    def __init__(self, alpha, **kwargs):
+        super(LeakyReLU, self).__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+    def __repr__(self):
+        return "LeakyReLU(%s)" % self._alpha
+
+
+class PReLU(HybridBlock):
+    """LeakyReLU with a learned slope ``alpha`` of shape (1,), 0.25 at
+    the start (reference: activations.py PReLU)."""
+
+    def __init__(self, alpha_initializer=None, **kwargs):
+        super(PReLU, self).__init__(**kwargs)
+        with self.name_scope():
+            self.alpha = self.params.get(
+                "alpha", shape=(1,),
+                init=_init(alpha_initializer) or init.Constant(0.25))
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """``alpha * (exp(x) - 1)`` below 0 (reference: activations.py
+    ELU)."""
+
+    def __init__(self, alpha=1.0, **kwargs):
+        super(ELU, self).__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """Scaled ELU (reference: activations.py SELU)."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class GELU(HybridBlock):
+    """Gaussian error linear unit (reference: activations.py GELU)."""
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")

@@ -4,14 +4,15 @@ Counterpart of the JAX package's ``gluon/nn/conv_layers.py`` (reference:
 python/mxnet/gluon/nn/conv_layers.py): ``Conv1D/2D/3D``, ``MaxPool``,
 ``AvgPool``, ``GlobalMaxPool`` and ``GlobalAvgPool`` in 1, 2 and 3 dims,
 NC{W,HW,DHW} layouts, over the registry's ``Convolution`` and
-``Pooling`` (cuDNN through ``torch.nn.functional``). The transposed
-convolutions and ``ReflectionPad2D`` need ``Deconvolution`` and ``Pad``,
-which the registry lacks: they raise naming ROADMAP A12.2.
+``Pooling`` (cuDNN through ``torch.nn.functional``);
+``Conv1D/2D/3DTranspose`` over ``Deconvolution`` (weight ``(in_channels,
+channels // groups, *kernel)``, ``output_padding`` as ``adj``) and
+``ReflectionPad2D`` over ``Pad`` in reflect mode.
 """
 from __future__ import annotations
 
 from ..block import HybridBlock
-from .basic_layers import Activation, _init, _not_ported
+from .basic_layers import Activation, _init
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
            "Conv3DTranspose", "MaxPool1D", "MaxPool2D", "MaxPool3D",
@@ -34,21 +35,23 @@ class _Conv(HybridBlock):
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, layout, in_channels=0, activation=None,
                  use_bias=True, weight_initializer=None,
-                 bias_initializer="zeros", **kwargs):
+                 bias_initializer="zeros", op_name="Convolution", adj=None,
+                 **kwargs):
         super(_Conv, self).__init__(**kwargs)
         n = len(kernel_size)
         self._channels = channels
         self._in_channels = in_channels
+        self._op_name = op_name
         self._kwargs = {
             "kernel": _tup(kernel_size, n), "stride": _tup(strides, n),
             "dilate": _tup(dilation, n), "pad": _tup(padding, n),
             "num_filter": channels, "num_group": groups,
             "no_bias": not use_bias, "layout": layout}
-        wshape = (channels, in_channels // groups if in_channels else 0) \
-            + tuple(kernel_size)
+        if adj is not None:
+            self._kwargs["adj"] = _tup(adj, n)
         with self.name_scope():
             self.weight = self.params.get(
-                "weight", shape=wshape, init=_init(weight_initializer),
+                "weight", shape=self._weight_shape(in_channels), init=_init(weight_initializer),
                 allow_deferred_init=True)
             self.bias = self.params.get(
                 "bias", shape=(channels,), init=_init(bias_initializer),
@@ -56,13 +59,21 @@ class _Conv(HybridBlock):
             self.act = Activation(activation, prefix=activation + "_") \
                 if activation is not None else None
 
+    def _weight_shape(self, in_channels):
+        """Convolution: (channels, in / groups, *k); Deconvolution:
+        (in, channels / groups, *k); an unknown ``in_channels`` is 0."""
+        groups = self._kwargs["num_group"]
+        if self._op_name == "Convolution":
+            return (self._channels, in_channels // groups) + \
+                self._kwargs["kernel"]
+        return (in_channels, self._channels // groups) + \
+            self._kwargs["kernel"]
+
     def infer_shape(self, x, *args):
-        self.weight._set_shape_from(
-            (self._channels, x.shape[1] // self._kwargs["num_group"])
-            + self._kwargs["kernel"])
+        self.weight._set_shape_from(self._weight_shape(x.shape[1]))
 
     def hybrid_forward(self, F, x, weight, bias=None):
-        out = F.Convolution(x, weight, bias, **self._kwargs)
+        out = getattr(F, self._op_name)(x, weight, bias, **self._kwargs)
         return self.act(out) if self.act is not None else out
 
     def __repr__(self):
@@ -105,10 +116,57 @@ class Conv3D(_Conv):
             weight_initializer, bias_initializer, **kwargs)
 
 
-Conv1DTranspose = _not_ported("Conv1DTranspose", "Deconvolution")
-Conv2DTranspose = _not_ported("Conv2DTranspose", "Deconvolution")
-Conv3DTranspose = _not_ported("Conv3DTranspose", "Deconvolution")
-ReflectionPad2D = _not_ported("ReflectionPad2D", "Pad")
+class Conv1DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super(Conv1DTranspose, self).__init__(
+            channels, _tup(kernel_size, 1), strides, padding, dilation,
+            groups, layout, in_channels, activation, use_bias,
+            weight_initializer, bias_initializer, op_name="Deconvolution",
+            adj=output_padding, **kwargs)
+
+
+class Conv2DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), dilation=(1, 1), groups=1,
+                 layout="NCHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        super(Conv2DTranspose, self).__init__(
+            channels, _tup(kernel_size, 2), strides, padding, dilation,
+            groups, layout, in_channels, activation, use_bias,
+            weight_initializer, bias_initializer, op_name="Deconvolution",
+            adj=output_padding, **kwargs)
+
+
+class Conv3DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        super(Conv3DTranspose, self).__init__(
+            channels, _tup(kernel_size, 3), strides, padding, dilation,
+            groups, layout, in_channels, activation, use_bias,
+            weight_initializer, bias_initializer, op_name="Deconvolution",
+            adj=output_padding, **kwargs)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Pad H and W of an NCHW input by reflection (reference:
+    conv_layers.py ReflectionPad2D; op Pad, mode "reflect"); an int pads
+    all four sides by that much."""
+
+    def __init__(self, padding=0, **kwargs):
+        super(ReflectionPad2D, self).__init__(**kwargs)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        self._padding = tuple(padding)
+
+    def hybrid_forward(self, F, x):
+        return F.Pad(x, mode="reflect", pad_width=self._padding)
 
 
 class _Pooling(HybridBlock):

@@ -37,9 +37,11 @@ class Parameter(object):
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        if stype != "default" or grad_stype != "default":
+        if stype != "default":
             raise MXNetError("sparse parameters are not ported to "
                              "mxnet_tpu_torch (ROADMAP A15)")
+        # grad_stype is accepted and the gradient stays dense, as in the
+        # JAX package
         self.name = name
         self.shape = tuple(shape) if shape is not None else None
         self.dtype = np.dtype(dtype)
@@ -104,10 +106,16 @@ class Parameter(object):
 
     def _finish_init(self, init, ctx, default_init):
         arr = zeros(self.shape, ctx=ctx, dtype=self.dtype)
-        initializer = init or self.init or default_init
-        if isinstance(initializer, str):
-            initializer = init_mod.create(initializer)
-        initializer(init_mod.InitDesc(self.name), arr)
+        # the parameter's own initializer sets it whatever its name (PReLU's
+        # alpha too), the default one by the name's suffix (reference:
+        # gluon/parameter.py _finish_deferred_init)
+        explicit = init or self.init
+        if isinstance(explicit, str):
+            explicit = init_mod.create(explicit)
+        if isinstance(default_init, str):
+            default_init = init_mod.create(default_init)
+        default_init(init_mod.InitDesc(
+            self.name, {"__init__": explicit} if explicit else None), arr)
         self._data = arr
         self._deferred_init = None
         if self._grad_req != "null":

@@ -22,6 +22,10 @@
   reproduces them (C.8).
 * A hybridized block may pass an op's attributes positionally
   (``F.clip(x, -0.5, 0.5)``) and take ``abs()`` of a Symbol (C.9).
+* ``pretrained=True`` loads ``<root>/<name>.params`` from a local
+  directory, and raises ``MXNetError`` naming the path without it
+  (C.10): a seeded JAX ``resnet18_v1`` saved there gives the same
+  logits in both packages within 1e-5.
 """
 import numpy as np
 import pytest
@@ -363,3 +367,31 @@ def test_hybridized_positional_attrs_and_abs_match_jax(hybridize):
         out[name] = (y.asnumpy(), x.grad.asnumpy())
     for got, want in zip(out["torch"], out["jax"]):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_pretrained_loads_a_local_file_as_jax(tmp_path):
+    """C.10: the port raised NotImplementedError for pretrained=True
+    even with the file staged."""
+    x = np.random.RandomState(0).uniform(-1, 1, (2, 3, 32, 32)).astype(
+        np.float32)
+    jmx.random.seed(0)
+    src = jmx.gluon.model_zoo.vision.get_model("resnet18_v1", classes=10)
+    src.initialize(jmx.init.Xavier(), ctx=jmx.cpu())
+    with jmx.autograd.predict_mode():
+        src(jmx.nd.array(x))
+    src.save_parameters(str(tmp_path / "resnet18_v1.params"))
+    logits = []
+    for mx in (jmx, tmx):
+        net = mx.gluon.model_zoo.vision.get_model(
+            "resnet18_v1", classes=10, pretrained=True, root=str(tmp_path),
+            ctx=mx.cpu())
+        logits.append(net(mx.nd.array(x, ctx=mx.cpu())).asnumpy())
+    assert logits[0].shape == (2, 10)
+    assert np.abs(logits[1] - logits[0]).max() <= 1e-5 * np.abs(
+        logits[0]).max()
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    for mx in (jmx, tmx):
+        with pytest.raises(mx.base.MXNetError, match="resnet18_v1.params"):
+            mx.gluon.model_zoo.vision.get_model(
+                "resnet18_v1", pretrained=True, root=str(empty))
