@@ -234,11 +234,12 @@ Phases, each fatal on failure (no phase's failure is caught):
     kept values exactly x / (1 - p), the backward's mask the forward's,
     new masks each draw and each executor step, the same after a
     re-seed, and a planted fault (no 1 / (1 - p)) that must fail;
-29. every op of the port's core op files on the card against the same
-    op on the CPU (``tests/torch_op_cases.py``'s inputs, three shapes
-    each): forward and gradient, integer outputs bitwise, float within
-    2e-5 (gradients 1e-4) of the largest magnitude; integer reductions,
-    argmax / argsort / topk over ties, bitwise with their types;
+29. every op of the port's core op files (but ``RNN``, phase 37's) on
+    the card against the same op on the CPU
+    (``tests/torch_op_cases.py``'s inputs, three shapes each): forward
+    and gradient, integer outputs bitwise, float within 2e-5 (gradients
+    1e-4) of the largest magnitude; integer reductions, argmax /
+    argsort / topk over ties, bitwise with their types;
 30. Inception v3 from the Gluon model zoo trained as ``benchmark.py``'s
     ``train_inception`` does (traced to a Symbol under ``SoftmaxOutput``,
     ``Module.fit`` at batch 32 of float32 3x299x299, SGD lr 0.05
@@ -269,13 +270,37 @@ Phases, each fatal on failure (no phase's failure is caught):
 34. ``train_mnist.main`` in-process for ``--network mlp`` and ``lenet``
     with the default flags: ``sgd_fused_update`` once a step, finite
     outputs, the final validation accuracy above chance, img/s;
-35. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
+35. the ``lstm_bucketing`` CLI at reference MXNet's defaults (the PTB
+    "small" LM: 2 x 200 LSTM cells unrolled per bucket, 200-wide
+    embedding, batch 32, buckets 10..60, PTB's 10 000 words) over a
+    seeded corpus file of 4000 sentences, through ``BucketingModule.fit``:
+    a warm and a timed epoch, ``sgd_fused_update`` once a step, samples/s,
+    tokens/s padded and not, ms/step, MFU over its matmul shapes, the
+    perplexity finite and falling, one profiled step of the longest
+    bucket; one step at batch 2 against the CPU's float64 witness by
+    phase 28's rule, with a planted fault (SliceChannel's outputs
+    reversed) that must fail;
+36. the Gluon word LM at reference MXNet's defaults (WikiText-2's 33 278
+    words: Embedding -> ``gluon.rnn.LSTM(200, 2 layers, dropout 0.2)`` ->
+    Dense, bptt 35, batch 32, ``clip_global_norm``, ``Trainer("sgd", lr
+    20)``, the hidden state carried and detached), eager and hybridized
+    (the ``RNN`` op on cuDNN inside the replayed CUDA graphs): the
+    hybridized first step (Dropout off) within 1e-5 of eager's, windows
+    eager, hybridized, hybridized, eager: tokens/s, MFU,
+    ``sgd_fused_update`` once a step; host launches, busy share and
+    cuDNN RNN time of a profiled step;
+37. the ``RNN`` op on the card against the CPU (its four modes, uni- and
+    bidirectional, LSTMP; outputs, states, gradients) and ``CTCLoss``
+    (both blank labels, with and without lengths; loss and gradient); a
+    planted i/f gate swap must fail;
+38. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
     20, its launches from phase 21; ``crop_mirror_normalize``'s times
     from phase 24, its launches from phase 26; ``sgd_fused_update``'s
     launches from phase 22's first hybridized window, phase 28's four CLI
-    runs, phase 30's fit, phase 31's first hybridized window and phase
-    34's runs; ``batch_norm_inference``'s from phase 27's and phase 32's
-    windows), the card line, and last ``{"ok": true, "device": {...}}``.
+    runs, phase 30's fit, phase 31's first hybridized window, phase 34's
+    runs, phase 35's fit and phase 36's first hybridized window;
+    ``batch_norm_inference``'s from phase 27's and phase 32's windows),
+    the card line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or without
 the package beside it. ``--report PATH`` also writes every measurement
@@ -1834,15 +1859,27 @@ def bn_unbiased_backward(torch, real):
     return fn
 
 
+def float64_constants(mx, sym):
+    """``sym`` with its constant nodes (``_zeros``, ``_ones``, ``_full``,
+    float32 unless told otherwise) made float64, so that the graph binds
+    in float64 throughout."""
+    graph = json.loads(sym.tojson())
+    for node in graph["nodes"]:
+        if node["op"] in ("_zeros", "_ones", "_full"):
+            node["attrs"]["dtype"] = "float64"
+    return mx.sym.load_json(json.dumps(graph))
+
+
 class _F64Witness(object):
     """The fused SGD step of ``Module.fit`` in float64 on the CPU: the
-    port's graph bound in float64 (``simple_bind``), ``Executor.train_step``
-    with the plain rule, the hypers of an optimizer made as Module makes
-    it."""
+    port's graph bound in float64 (``simple_bind``, its constants made
+    float64), ``Executor.train_step`` with the plain rule, the hypers of
+    an optimizer made as Module makes it."""
 
     def __init__(self, torch, mx, fu, sym, arg0, aux0, x, y, nudge=0.0):
         self.names = [n for n in sym.list_arguments()
                       if n not in ("data", "softmax_label")]
+        sym = float64_constants(mx, sym)
         f64 = np.float64
         self.exe = sym.simple_bind(
             ctx=mx.cpu(), grad_req={n: "write" for n in self.names},
@@ -1879,29 +1916,40 @@ class _F64Witness(object):
 def resnet_vs_f64(torch, mx, fu, batch=2, steps=2, sides=(
         "cpu", "dev", "planted", "f64_nudged"), num_layers=50, sym=None,
         plant=None, label="resnet", image=(3, 224, 224), exact_zero=None):
-    """ResNet-50 (or ``num_layers``, or the network ``sym``) at full
-    width, ``batch`` images of ``image``, ``steps`` chained fused SGD
-    steps (``forward_backward`` + ``update``, ``Module.fit``'s loop body
-    with its optimizer arguments) from one Xavier state: the witness
-    (``_F64Witness``) and each side of ``sides``: "cpu" a CPU Module in
-    f32, "dev" the card's Module in f32, "planted" the card's with the
-    op ``plant[0]``'s function replaced by ``plant[1](torch, real)``
-    (default BatchNorm's ``bn_unbiased_backward``), "f64_nudged" a
-    second witness whose weights are nudged by 1e-7 (relative). Per step
-    and side, relative RMS error against the witness of the outputs, of
-    each weight's change since the start and of each moving statistic's.
-    With ``exact_zero``, a tensor whose witness change has an RMS of at
-    most that is zero in exact arithmetic (its float64 change is
-    rounding): it is left out of those relative errors, and the largest
-    RMS of such a tensor's change on the side is ``zero_max``.
-    """
-    from mxnet_tpu_torch.ops import registry as reg
+    """``module_vs_f64`` of ResNet-50 (or ``num_layers``, or the image
+    classifier ``sym``) at full width on ``batch`` seeded images of
+    ``image`` and labels of 1000 classes; ``plant`` defaults to
+    BatchNorm's ``bn_unbiased_backward``."""
     if sym is None:
         sym = resnet_symbol(mx, num_layers)
-    plant_op, make_plant = plant or ("BatchNorm", bn_unbiased_backward)
     rng = np.random.RandomState(1)
     x = rng.uniform(-1, 1, (batch,) + tuple(image)).astype(np.float32)
     y = rng.randint(0, 1000, (batch,)).astype(np.float32)
+    return module_vs_f64(torch, mx, fu, sym, x, y, (batch, 1000), steps=steps,
+                         sides=sides, label=label, exact_zero=exact_zero,
+                         plant=plant or ("BatchNorm", bn_unbiased_backward))
+
+
+def module_vs_f64(torch, mx, fu, sym, x, y, out_shape, steps, sides, plant,
+                  label, exact_zero=None):
+    """The network ``sym`` on data ``x`` and labels ``y``, ``steps``
+    chained fused SGD steps (``forward_backward`` + ``update``,
+    ``Module.fit``'s loop body with its optimizer arguments) from one
+    Xavier state: the witness (``_F64Witness``) and each side of
+    ``sides``: "cpu" a CPU Module in f32, "dev" the card's Module in
+    f32, "planted" the card's with the op ``plant[0]``'s function
+    replaced by ``plant[1](torch, real)``, "f64_nudged" a second witness
+    whose weights are nudged by 1e-7 (relative). The first output must
+    be finite and of ``out_shape``. Per step and side, relative RMS
+    error against the witness of the outputs, of each weight's change
+    since the start and of each moving statistic's. With
+    ``exact_zero``, a tensor whose witness change has an RMS of at most
+    that is zero in exact arithmetic (its float64 change is rounding):
+    it is left out of those relative errors, and the largest RMS of such
+    a tensor's change on the side is ``zero_max``.
+    """
+    from mxnet_tpu_torch.ops import registry as reg
+    plant_op, make_plant = plant
     data = mx.io.DataBatch([mx.nd.array(x, ctx=mx.cpu())],
                          [mx.nd.array(y, ctx=mx.cpu())])
     mx.random.seed(1)
@@ -1927,7 +1975,7 @@ def resnet_vs_f64(torch, mx, fu, batch=2, steps=2, sides=(
         mod.init_params(None, arg_params=arg0, aux_params=aux0)
         mod.init_optimizer(kvstore="device", optimizer="sgd",
                            optimizer_params=fit_args(
-                               mx, batch_size=batch)["optimizer_params"])
+                               mx, batch_size=x.shape[0])["optimizer_params"])
         mods[side] = mod
     bn = reg.get_op(plant_op)
     sound_bn = bn.fn
@@ -1954,7 +2002,7 @@ def resnet_vs_f64(torch, mx, fu, batch=2, steps=2, sides=(
                 a, s = [{k: v.asnumpy() for k, v in d.items()}
                         for d in mod.get_params()]
                 out = mod.get_outputs()[0].asnumpy()
-            check(np.isfinite(out).all() and out.shape == (batch, 1000),
+            check(np.isfinite(out).all() and out.shape == out_shape,
                   "%s vs f64: %s outputs %s" % (label, side, out.shape,))
             changes = [(k, a[k] - a0[k], a_w[k] - a0[k], "w")
                        for k in a0] + [(k, v - x0[k], s_w[k] - x0[k], "s")
@@ -1976,7 +2024,7 @@ def resnet_vs_f64(torch, mx, fu, batch=2, steps=2, sides=(
                          "zero_max": max(zero.values(), default=0.0)}
         rows.append(row)
         log("%s vs f64 (batch %d) step %d (witness %.1fs): %s" % (
-            label, batch, step, row["witness_s"], "; ".join(
+            label, x.shape[0], step, row["witness_s"], "; ".join(
                 "%s outputs %.2e, weight change median %.2e max %.2e (%s), "
                 "moving-stat change max %.2e (%s)"
                 % (side, r["out_rel"], r["dw_median"], r["dw_max"],
@@ -4906,16 +4954,18 @@ SWEEP_GRAD_TOL = 1e-4   # and gradients (atomics in scatter-adds)
 SWEEP_SLOW_TOL = {"erfinv": 1e-4, "gamma": 1e-4, "gammaln": 1e-4}
 SWEEP_FILES = ("creation.py", "elemwise.py", "reduce.py", "matrix.py",
                "nn.py")
+SWEEP_ELSEWHERE = {"RNN"}   # phase 37 holds it, card against CPU
 
 
 def op_sweep(torch, mx):
     """Phase 29: every op of the port's ``ops/{creation,elemwise,reduce,
-    matrix,nn}.py`` (the core op surface) on CUDA tensors against the
-    same op on CPU tensors, at the three shapes of its case in
-    ``tests/torch_op_cases.py``: the forward, and the gradient where the
-    op is differentiable; integer and index outputs bitwise (with their
-    types), float outputs within SWEEP_FWD_TOL (gradients SWEEP_GRAD_TOL)
-    of the largest magnitude; every output on the card. Then integer
+    matrix,nn}.py`` (the core op surface) but ``RNN`` (phase 37's) on
+    CUDA tensors against the same op on CPU tensors, at the three shapes
+    of its case in ``tests/torch_op_cases.py``: the forward, and the
+    gradient where the op is differentiable; integer and index outputs
+    bitwise (with their types), float outputs within SWEEP_FWD_TOL
+    (gradients SWEEP_GRAD_TOL) of the largest magnitude; every output on
+    the card. Then integer
     reductions and ties on the card: sum / prod / mean / argmax / topk /
     argsort of int32, uint8 and tied float inputs bitwise against the
     CPU's."""
@@ -4925,7 +4975,8 @@ def op_sweep(torch, mx):
     import torch_op_cases as cases
     reg = mx.ops.registry
     names = [n for n in reg.list_ops() if os.path.basename(
-        inspect.getsourcefile(reg.get_op(n).fn)) in SWEEP_FILES]
+        inspect.getsourcefile(reg.get_op(n).fn)) in SWEEP_FILES
+        and n not in SWEEP_ELSEWHERE]
     by_fn = {}
     for n in cases.SPECS:
         if n in reg._REGISTRY:
@@ -5588,6 +5639,665 @@ def mnist_cli(torch, mx, fu):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 35-37: recurrent language models
+# ---------------------------------------------------------------------------
+
+# (a) reference MXNet's example/rnn/bucketing/lstm_bucketing.py at its
+# defaults (the PTB "small" LM): 2 x 200 LSTM, 200-wide embedding, batch
+# 32, buckets 10..60, SGD lr 0.01 (the port's CLI holds momentum at 0.9),
+# PTB's 10 000 words over a seeded corpus cut to LM_SENTENCES sentences
+LM_VOCAB = 10000
+LM_SENTENCES = 4000     # PTB train has 42 068; cut so an epoch is ~125 steps
+LM_LEN_SHAPE = 3.0      # sentence lengths ~ Gamma(3, 7) in 2..60: mean ~21,
+LM_LEN_SCALE = 7.0      # PTB's
+LM_ZIPF = 1.1           # token ranks ~ Zipf(1.1), every word at least once
+LM_FOLLOW = 0.5         # share of tokens that are their predecessor's fixed
+                        # successor (structure an LSTM can learn)
+# lr 0.001: the CLI's momentum is 0.9, so its step lr / (1 - momentum) is
+# the reference's lr 0.01 without momentum
+LM_ARGS = ["--num-layers", "2", "--num-hidden", "200", "--num-embed", "200",
+           "--batch-size", "32", "--buckets", "10,20,30,40,50,60",
+           "--lr", "0.001", "--disp-batches", "50", "--num-epochs", "2"]
+LM_EXTRA = []           # appended to the CLI's arguments (a CPU rehearsal)
+LM_CHECK_LEN = 60       # phase 35's float64 step: the longest bucket
+LM_SPLIT_STEPS = 5      # phase 35: fit steps timed in two parts
+
+# (b) reference MXNet's example/gluon/word_language_model/train.py at its
+# defaults (WikiText-2's 33 278 words): Embedding -> LSTM(200, 2 layers,
+# dropout 0.2) -> Dense, untied; bptt 35, batch 32, clip 0.2, SGD lr 20
+GLM_VOCAB = 33278
+GLM_BPTT, GLM_BATCH, GLM_HIDDEN, GLM_LAYERS = 35, 32, 200, 2
+GLM_DROPOUT, GLM_LR, GLM_CLIP = 0.2, 20.0, 0.2
+GLM_WARM, GLM_TIMED = 5, 50
+GLM_WINDOWS = ("eager", "hybridized", "hybridized", "eager")
+
+# phase 37: card vs CPU
+RNN_CARD_SHAPE = (35, 32, 200, 200, 2)      # (T, N, I, H, layers)
+RNN_CARD_TOL = 1e-4     # card vs CPU f32, relative to the largest magnitude:
+                        # 35 recurrent steps summed in other orders (cuDNN)
+CTC_CARD_SHAPE = (50, 32, 30, 12)           # (T, N, A, max label length)
+CTC_CARD_TOL = 1e-4     # and CTC's gradient (atomics on the card)
+
+
+def lm_corpus(path, n=LM_SENTENCES, vocab=LM_VOCAB, seed=35):
+    """Write a seeded PTB-like corpus to ``path``: ``n`` sentences,
+    lengths ~ Gamma(LM_LEN_SHAPE, LM_LEN_SCALE) clipped to 2..60, tokens
+    "w<rank>": a sentence's first token and, with probability 1 -
+    LM_FOLLOW, each later one drawn by rank ~ Zipf(LM_ZIPF) over
+    ``vocab`` words, else the previous token's successor under a fixed
+    seeded permutation; the words no draw reached replace random tokens,
+    so the file holds all ``vocab``. Returns (sentences as token lists,
+    token count)."""
+    rng = np.random.RandomState(seed)
+    lens = np.clip(np.round(rng.gamma(LM_LEN_SHAPE, LM_LEN_SCALE, n)),
+                   2, 60).astype(int)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = ranks ** -LM_ZIPF
+    total = int(lens.sum())
+    draws = rng.choice(vocab, size=total, p=p / p.sum())
+    follow = rng.rand(total) < LM_FOLLOW
+    succ = rng.permutation(vocab)
+    toks = draws.copy()
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    first = np.zeros(total, bool)
+    first[starts] = True
+    for i in range(1, total):
+        if follow[i] and not first[i]:
+            toks[i] = succ[toks[i - 1]]
+    missing = np.setdiff1d(np.arange(vocab), toks)
+    toks[rng.choice(total, len(missing), replace=False)] = missing
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    sents = []
+    with open(path, "w") as f:
+        for s0, ln in zip(starts, lens):
+            words = ["w%d" % t for t in toks[s0:s0 + ln]]
+            sents.append(words)
+            f.write(" ".join(words) + "\n")
+    return sents, total
+
+
+def lstm_flops(batch, seq_len, embed, hidden, layers, vocab):
+    """Training FLOPs of one batch of the unrolled LSTM LM: per step and
+    layer the i2h and h2h products (2 N In 4H, 2 N H 4H), the output
+    layer over every position (2 N T H V), times 3 (forward, backward to
+    the activations and to the weights)."""
+    per_step = sum(2 * batch * ((embed if l == 0 else hidden) + hidden)
+                   * 4 * hidden for l in range(layers))
+    return 3.0 * (seq_len * per_step + 2 * batch * seq_len * hidden * vocab)
+
+
+class _TokenSpy(object):
+    """Counts what ``BucketSentenceIter`` serves in each epoch: batches by
+    bucket, tokens (data positions that hold a word) and positions."""
+
+    def __init__(self, it_cls):
+        self.cls = it_cls
+        self.epochs = [{"buckets": {}, "words": 0, "positions": 0}]
+
+    def __enter__(self):
+        self.real_next, self.real_reset = self.cls.next, self.cls.reset
+        spy = self
+
+        def counted(it):
+            batch = spy.real_next(it)
+            d = batch.data[0].asnumpy()
+            e = spy.epochs[-1]
+            e["buckets"][batch.bucket_key] = \
+                e["buckets"].get(batch.bucket_key, 0) + 1
+            e["words"] += int((d != -1).sum())
+            e["positions"] += d.size
+            return batch
+
+        def reset(it):
+            if spy.epochs[-1]["buckets"]:
+                spy.epochs.append({"buckets": {}, "words": 0,
+                                   "positions": 0})
+            return spy.real_reset(it)
+        self.cls.next = self.cls.__next__ = counted
+        self.cls.reset = reset
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.next = self.cls.__next__ = self.real_next
+        self.cls.reset = self.real_reset
+        return False
+
+
+def _lm_class(name):
+    low = name.lower()
+    if "fused_update_kernel" in low:
+        return "fused_update"
+    if "memcpy" in low:
+        return "memcpy"
+    if "rnn" in low or "lstm" in low:
+        return "cudnn_rnn"
+    if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "cublas",
+                              "nvjet")):
+        return "cublas"
+    if "softmax" in low:
+        return "softmax"
+    if "index" in low or "embedding" in low or "gather" in low \
+            or "scatter" in low:
+        return "embedding"
+    return "elementwise_other"
+
+
+def slice_reversed(torch, real):
+    """Planted fault: SliceChannel's outputs in reverse order (the LSTM
+    gates i, f, c, o read as o, c, f, i)."""
+    @functools.wraps(real)
+    def fn(*args, **kwargs):
+        return tuple(reversed(real(*args, **kwargs)))
+    return fn
+
+
+def lstm_cli(torch, mx, fu, workdir):
+    """Phase 35: configuration (a), ``lstm_bucketing.main`` in-process on
+    the card over a seeded PTB-like corpus file (``lm_corpus``): a warm
+    epoch and a timed epoch through ``BucketingModule.fit``; one
+    ``sgd_fused_update`` launch a step and the plain rule never; samples/s
+    from the Speedometer (epoch 2), tokens/s of the timed epoch padded and
+    not, ms/step, MFU over its matmul shapes (``lstm_flops``) against 67
+    TFLOP/s f32; the training perplexity finite and falling; one profiled
+    fit step of the longest bucket, the metric's update included (busy
+    share, host launches), and that step's two parts timed apart
+    unprofiled (``forward_backward`` + ``update``, ``update_metric``,
+    which copies the softmax output to the host); then one step
+    at batch 2 of that bucket on the card and the CPU against the CPU's
+    float64 witness by phase 28's rule, with a planted fault (SliceChannel
+    reversed) that must fail."""
+    from mxnet_tpu_torch.examples import lstm_bucketing
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    path = os.path.join(workdir, "ptb_synthetic.txt")
+    t0 = time.perf_counter()
+    sents, n_tok = lm_corpus(path)
+    corpus_s = time.perf_counter() - t0
+    argv = ["--data", path] + LM_ARGS + LM_EXTRA
+    args = lstm_bucketing.parse_args(argv)
+    buckets = [int(b) for b in args.buckets.split(",")]
+    fu.reset_launches()
+    with _PlainSGDSpy(fu) as plain, LogLines() as logs, \
+            _TokenSpy(mx.rnn.BucketSentenceIter) as tokens:
+        t0 = time.perf_counter()
+        mod = lstm_bucketing.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = sum(sum(e["buckets"].values()) for e in tokens.epochs)
+    launches = fu.LAUNCHES["sgd_fused_update"]
+    check(launches == steps and steps > 0, "lstm_bucketing: sgd_fused_update "
+          "launched %d times for %d steps" % (launches, steps))
+    check(plain.calls == 0, "lstm_bucketing: the plain SGD rule ran")
+    ppl = logs.train_value("perplexity")
+    costs = {}
+    for line in logs.lines:
+        m = re.search(r"Epoch\[(\d+)\] Time cost=([0-9.]+)", line)
+        if m:
+            costs[int(m.group(1))] = float(m.group(2))
+    last = args.num_epochs - 1
+    timed = tokens.epochs[last]
+    n_batch = sum(timed["buckets"].values())
+    n_words, n_pos = timed["words"], timed["positions"]
+    dt = costs[last]
+    vocab = LM_VOCAB + 1
+    flop = sum(n * lstm_flops(args.batch_size, L, args.num_embed,
+                              args.num_hidden, args.num_layers, vocab)
+               for L, n in timed["buckets"].items())
+    speeds = logs.speeds(last)
+    res = {"corpus_sentences": len(sents), "corpus_tokens": n_tok,
+           "corpus_s": corpus_s, "vocab": vocab, "steps": steps,
+           "launches": launches, "wall_s": wall, "epoch_s": costs,
+           "perplexity": ppl, "batches_by_bucket": timed["buckets"],
+           "samples_per_s": float(np.mean(speeds)) if speeds else None,
+           "speedometer": logs.speeds(),
+           "tokens_per_s": n_words / dt, "padded_tokens_per_s": n_pos / dt,
+           "padding_share": 1 - n_words / n_pos,
+           "ms_per_step": dt * 1e3 / n_batch,
+           "gflop_per_epoch": flop / 1e9, "mfu": flop / dt / F32_FLOPS}
+    check(res["mfu"] <= 1.05, "lstm_bucketing: MFU %.2f" % res["mfu"])
+    # one profiled step of the longest bucket
+    longest = max(buckets)
+    lines = [" ".join(s) for s in sents]
+    it = mx.rnn.BucketSentenceIter(
+        lstm_bucketing.encode(lines, lstm_bucketing.build_vocab(lines)),
+        args.batch_size, buckets=buckets, invalid_label=-1)
+    batch = next(b for b in it if b.bucket_key == longest)
+    ppl_metric = mx.metric.Perplexity(ignore_label=-1)
+
+    def fit_step(parts=None):
+        """``fit``'s loop body: the step, then the metric (which reads
+        the whole softmax output on the host)."""
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mod.update_metric(ppl_metric, batch.label)
+        torch.cuda.synchronize()
+        if parts is not None:
+            parts.append((t1 - t0, time.perf_counter() - t1))
+    fu.reset_launches()
+    prof = profile_run(torch, fit_step, _lm_class)
+    check(fu.LAUNCHES["sgd_fused_update"] == 1, "lstm_bucketing: profiled "
+          "step launched sgd_fused_update %d times"
+          % fu.LAUNCHES["sgd_fused_update"])
+    parts = []
+    for _ in range(LM_SPLIT_STEPS):
+        fit_step(parts)
+    step_ms, metric_ms = (1e3 * float(np.median(p)) for p in zip(*parts))
+    res["fit_step_ms"] = {"forward_backward_update": step_ms,
+                          "update_metric": metric_ms,
+                          "metric_share": metric_ms / (step_ms + metric_ms)}
+    out = mod.get_outputs()[0]
+    check(out._data.is_cuda and np.isfinite(out.asnumpy()).all(),
+          "lstm_bucketing: outputs on %s" % out.context)
+    res["profiled_step"] = prof
+    res["profiled_bucket"] = longest
+    log("lstm_bucketing (PTB small widths, vocab %d, %d sentences / %d "
+        "tokens written in %.2fs): %d steps in %.1fs, sgd_fused_update %d "
+        "launches; timed epoch %.2fs: %s samples/s (Speedometer), %.0f "
+        "tokens/s (%.0f padded, padding %.1f%%), %.2f ms/step, MFU %.4f "
+        "(%.1f GFLOP/epoch from its matmul shapes); perplexity by epoch %s"
+        % (vocab, len(sents), n_tok, corpus_s, steps, wall, launches, dt,
+           "%.1f" % res["samples_per_s"] if speeds else "none",
+           res["tokens_per_s"], res["padded_tokens_per_s"],
+           100 * res["padding_share"], res["ms_per_step"], res["mfu"],
+           flop / 1e9, {k: round(v, 2) for k, v in ppl.items()}))
+    log_profile("lstm_bucketing profiled bucket-%d fit step (with the "
+                "metric)" % longest, prof)
+    log("lstm_bucketing bucket-%d fit step, median of %d unprofiled: "
+        "forward_backward + update %.2f ms, update_metric (Perplexity on "
+        "the host) %.2f ms, %.1f%% of the step"
+        % (longest, LM_SPLIT_STEPS, step_ms, metric_ms,
+           100 * res["fit_step_ms"]["metric_share"]))
+    check(len(ppl) == args.num_epochs and all(np.isfinite(list(
+        ppl.values()))) and ppl[args.num_epochs - 1] < ppl[0],
+        "lstm_bucketing: training perplexity by epoch %s" % ppl)
+    del mod
+    # one step at batch 2 against the float64 witness: the CLI's network
+    # for the longest bucket
+    sym, _, _ = lstm_bucketing.sym_gen_for(
+        lstm_bucketing.lstm_stack(args.num_layers, args.num_hidden), vocab,
+        args.num_embed, args.num_hidden, 2)(LM_CHECK_LEN)
+    rng = np.random.RandomState(35)
+    x = rng.randint(1, vocab, (2, LM_CHECK_LEN)).astype(np.float32)
+    y = np.concatenate([x[:, 1:], np.full((2, 1), -1, np.float32)], 1)
+    x[1, 40:] = -1
+    y[1, 39:] = -1
+    (row,) = module_vs_f64(torch, mx, fu, sym, x, y, (2 * LM_CHECK_LEN, vocab),
+                           steps=1, sides=("cpu", "dev", "planted"),
+                           plant=("SliceChannel", slice_reversed),
+                           label="lstm_bucketing")
+    misses = resnet_misses(row["dev"], row["cpu"], 1, NET_F32_FLOOR)
+    check(not misses, "lstm_bucketing vs f64: the card is off: %s"
+          % "; ".join(misses))
+    planted = resnet_misses(row["planted"], row["cpu"], 1, NET_F32_FLOOR)
+    check(planted, "lstm_bucketing vs f64: the planted SliceChannel fault "
+          "passes")
+    log("lstm_bucketing vs f64: card/CPU error ratios %s; planted "
+        "SliceChannel fault misses %s" % (", ".join(
+            "%s %.2f" % (k, row["dev"][k] / max(row["cpu"][k], 1e-30))
+            for k in ("dw_median", "dw_max")), planted))
+    res["vs_f64"] = {side: {k: v for k, v in r.items()
+                            if k not in ("dw", "ds")}
+                     for side, r in row.items() if isinstance(r, dict)}
+    return res
+
+
+def _glm_net(mx, ctx, seed):
+    """Reference MXNet's word-LM ``RNNModel`` (mode lstm, untied): Dropout
+    -> Embedding -> ``gluon.rnn.LSTM`` -> Dropout -> Dense, seeded Xavier
+    weights (the encoder Uniform(0.1)), the two states in and out."""
+    nn, rnn = mx.gluon.nn, mx.gluon.rnn
+
+    class RNNModel(mx.gluon.HybridBlock):
+        def __init__(self):
+            super(RNNModel, self).__init__()
+            with self.name_scope():
+                self.drop = nn.Dropout(GLM_DROPOUT)
+                self.encoder = nn.Embedding(
+                    GLM_VOCAB, GLM_HIDDEN,
+                    weight_initializer=mx.init.Uniform(0.1))
+                self.rnn = rnn.LSTM(GLM_HIDDEN, GLM_LAYERS,
+                                    dropout=GLM_DROPOUT,
+                                    input_size=GLM_HIDDEN)
+                self.decoder = nn.Dense(GLM_VOCAB, in_units=GLM_HIDDEN)
+
+        def hybrid_forward(self, F, inputs, h, c):
+            emb = self.drop(self.encoder(inputs))
+            output, (h, c) = self.rnn(emb, [h, c])
+            output = self.drop(output)
+            return [self.decoder(output.reshape((-1, GLM_HIDDEN))), h, c]
+
+    mx.random.seed(seed)
+    net = RNNModel()
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def glm_flops():
+    """Training FLOPs of one (bptt x batch) step of the Gluon LM: the
+    LSTM's products and the decoder, times 3."""
+    tok = GLM_BPTT * GLM_BATCH
+    lstm = sum(2 * tok * 2 * GLM_HIDDEN * 4 * GLM_HIDDEN
+               for _ in range(GLM_LAYERS))
+    return 3.0 * (lstm + 2 * tok * GLM_HIDDEN * GLM_VOCAB)
+
+
+def lstm_gluon(torch, mx, fu):
+    """Phase 36: configuration (b), the Gluon word LM through ``Trainer``
+    on the card, two nets from one seeded state, eager and hybridized (the
+    ``RNN`` op a node of the traced Symbol, replayed in the block's CUDA
+    graphs). Each step: forward under ``autograd.record()``, summed
+    ``SoftmaxCrossEntropyLoss``, backward, ``clip_global_norm`` at
+    clip x bptt x batch, ``trainer.step(batch)``; the hidden state carried
+    and detached. The first step of each runs with Dropout off (predict
+    mode), and the hybridized one's logits and loss are held within
+    GLUON_FIRST_TOL of eager's; GLM_WARM warm steps each, then windows of
+    GLM_TIMED steps (eager, hybridized, hybridized, eager): tokens/s,
+    ms/step, MFU (``glm_flops``), ``sgd_fused_update`` once a step and the
+    plain rule never, finite loss; one profiled step of each mode (host
+    launches, graph launches, busy share, cuDNN RNN device ms)."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(36)
+    ranks = np.arange(1, GLM_VOCAB + 1, dtype=np.float64)
+    p = ranks ** -LM_ZIPF
+    n_win = 1 + GLM_WARM + GLM_TIMED
+    stream = rng.choice(GLM_VOCAB, size=(n_win * GLM_BPTT + 1, GLM_BATCH),
+                        p=p / p.sum()).astype(np.float32)
+    windows_data = [(mx.nd.array(stream[i * GLM_BPTT:(i + 1) * GLM_BPTT],
+                                 ctx=ctx),
+                     mx.nd.array(stream[i * GLM_BPTT + 1:(i + 1) * GLM_BPTT
+                                        + 1].reshape(-1), ctx=ctx))
+                    for i in range(n_win)]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    nets = {}
+    for mode in ("eager", "hybridized"):
+        net = _glm_net(mx, ctx, 36)
+        if mode == "hybridized":
+            gluon_params_copy(nets["eager"][0], net)
+            net.hybridize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": GLM_LR, "momentum": 0,
+                                    "wd": 0})
+        nets[mode] = [net, trainer, None]
+    params = {m: [p for p in nets[m][0].collect_params().values()
+                  if p.grad_req != "null"] for m in nets}
+
+    def run(mode, steps, start=0, train=True):
+        net, trainer, hidden = nets[mode]
+        for i in range(steps):
+            data, target = windows_data[(start + i) % n_win]
+            if hidden is None:
+                hidden = net.rnn.begin_state(GLM_BATCH, ctx=ctx)
+            hidden = [h.detach() for h in hidden]
+            with mx.autograd.record(train_mode=train):
+                out, h, c = net(data, *hidden)
+                loss = loss_fn(out, target)
+            loss.backward()
+            mx.gluon.utils.clip_global_norm(
+                [q.grad() for q in params[mode]],
+                GLM_CLIP * GLM_BPTT * GLM_BATCH)
+            trainer.step(GLM_BATCH)
+            hidden = [h, c]
+        nets[mode][2] = hidden
+        return out, loss
+
+    flop = glm_flops()
+    first, windows = {}, []
+    with _PlainSGDSpy(fu) as plain:
+        for mode in ("eager", "hybridized"):
+            fu.reset_launches()
+            out, loss = run(mode, 1, train=False)
+            first[mode] = (out.asnumpy(), loss.asnumpy())
+            run(mode, GLM_WARM, start=1)
+            torch.cuda.synchronize()
+            check(fu.LAUNCHES["sgd_fused_update"] == GLM_WARM + 1,
+                  "Gluon LM %s: %d update launches in %d steps" % (
+                      mode, fu.LAUNCHES["sgd_fused_update"], GLM_WARM + 1))
+        for mode in GLM_WINDOWS:
+            fu.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, loss = run(mode, GLM_TIMED, start=1 + GLM_WARM)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            tok_s = GLM_BPTT * GLM_BATCH * GLM_TIMED / dt
+            windows.append({"mode": mode, "tokens_per_s": tok_s,
+                            "ms_per_step": dt * 1e3 / GLM_TIMED,
+                            "mfu": flop * GLM_TIMED / dt / F32_FLOPS,
+                            "launches": fu.LAUNCHES["sgd_fused_update"],
+                            "loss_mean": float(loss.asnumpy().mean())})
+    for w in windows:
+        check(w["launches"] == GLM_TIMED, "Gluon LM %s: sgd_fused_update "
+              "launched %d times in %d steps" % (w["mode"], w["launches"],
+                                                 GLM_TIMED))
+        check(w["mfu"] <= 1.05 and np.isfinite(w["loss_mean"]),
+              "Gluon LM %s: %.0f tokens/s (MFU %.2f), loss %s" % (
+                  w["mode"], w["tokens_per_s"], w["mfu"], w["loss_mean"]))
+    check(plain.calls == 0, "Gluon LM: the plain SGD rule ran %d times"
+          % plain.calls)
+    first_err = {"logits": rel_max(first["hybridized"][0], first["eager"][0]),
+                 "loss": rel_max(first["hybridized"][1], first["eager"][1])}
+    check(max(first_err.values()) <= GLUON_FIRST_TOL, "Gluon LM: the "
+          "hybridized first step is off the eager one: %s" % first_err)
+    cached = nets["hybridized"][0]._cached_op
+    check(cached is not None and cached.runner.captures >= 1,
+          "Gluon LM: the hybridized net captured no CUDA graph")
+    profiled = {}
+    for mode in ("eager", "hybridized"):
+        fu.reset_launches()
+        profiled[mode] = profile_run(torch, lambda: run(mode, 1),
+                                     _lm_class)
+        check(fu.LAUNCHES["sgd_fused_update"] == 1, "Gluon LM %s: profiled "
+              "step launched sgd_fused_update %d times"
+              % (mode, fu.LAUNCHES["sgd_fused_update"]))
+        check(profiled[mode]["device_ms"].get("cudnn_rnn", 0) > 0,
+              "Gluon LM %s: no cuDNN RNN kernel in the step: %s"
+              % (mode, profiled[mode]["device_ms"]))
+    hyb = profiled["hybridized"]
+    check(hyb["graph_launches"] is None or hyb["graph_launches"] >= 1,
+          "Gluon LM hybridized: no graph launch in the profiled step")
+    tok_s = {m: float(np.mean([w["tokens_per_s"] for w in windows
+                               if w["mode"] == m])) for m in nets}
+    res = {"windows": windows, "tokens_per_s": tok_s,
+           "mfu": {m: v / (GLM_BPTT * GLM_BATCH) * flop / F32_FLOPS
+                   for m, v in tok_s.items()},
+           "hybridized_over_eager": tok_s["hybridized"] / tok_s["eager"],
+           "first_step_rel_err": first_err, "gflop_per_step": flop / 1e9,
+           "captures": cached.runner.captures,
+           "launches": windows[1]["launches"], "profiled_step": profiled}
+    log("Gluon LM (WikiText-2 widths): hybridized first step off eager's "
+        "by %.2e / %.2e (logits / loss, Dropout off); windows %s; "
+        "hybridized / eager %.3f; MFU %s (%.2f GFLOP a step); %d captures; "
+        "sgd_fused_update once a step" % (
+            first_err["logits"], first_err["loss"], ", ".join(
+                "%s %.0f tokens/s %.2f ms" % (w["mode"], w["tokens_per_s"],
+                                              w["ms_per_step"])
+                for w in windows), res["hybridized_over_eager"],
+            {m: round(v, 4) for m, v in res["mfu"].items()}, flop / 1e9,
+            res["captures"]))
+    for mode, prof in profiled.items():
+        log_profile("Gluon LM profiled %s step" % mode, prof)
+    return res
+
+
+def _rnn_case(torch, mode, bidirectional, proj, dev):
+    """Phase 37's RNN op inputs, seeded, on ``dev``: (data, flat weights,
+    h0[, c0]) and the op's attrs."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    T, N, I, H, L = RNN_CARD_SHAPE
+    dirs = 2 if bidirectional else 1
+    hout = proj or H
+    gen = torch.Generator().manual_seed(37)
+    n = tnn.rnn_param_size(L, I, H, bidirectional, mode, proj)
+    shapes = [(T, N, I), (n,), (L * dirs, N, hout)] + (
+        [(L * dirs, N, H)] if mode == "lstm" else [])
+    ins = [(torch.rand(s, generator=gen) - 0.5).to(dev) for s in shapes]
+    ins[1] *= 0.2
+    attrs = dict(state_size=H, num_layers=L, bidirectional=bidirectional,
+                 mode=mode, state_outputs=True)
+    if proj:
+        attrs["projection_size"] = proj
+    return ins, attrs
+
+
+def _rnn_run(torch, ins, attrs):
+    from mxnet_tpu_torch.ops import nn as tnn
+    xs = [t.clone().requires_grad_() for t in ins]
+    outs = tnn._rnn(None, *xs, **attrs)
+    loss = sum((o * torch.linspace(-1, 1, o.numel(), device=o.device)
+                .reshape(o.shape) * (i + 1)).sum()
+               for i, o in enumerate(outs))
+    grads = torch.autograd.grad(loss, xs)
+    return [o.detach().cpu().numpy() for o in outs] + \
+        [g.cpu().numpy() for g in grads]
+
+
+def gate_swapped(torch, real):
+    """Planted fault: the LSTM's i and f gate rows swapped in unpacking."""
+    @functools.wraps(real)
+    def fn(params, num_layers, input_size, state_size, *args, **kw):
+        layers = real(params, num_layers, input_size, state_size, *args,
+                      **kw)
+        H = state_size
+
+        def sw(t):
+            return torch.cat([t[H:2 * H], t[:H], t[2 * H:]], 0)
+        return [[(sw(W), sw(R), sw(bW), sw(bR), P)
+                 for W, R, bW, bR, P in per_dir] for per_dir in layers]
+    return fn
+
+
+def rnn_compaction_cost(torch, dev):
+    """The ``RNN`` op's forward and backward at the Gluon LM's shape
+    (bptt 35, batch 32, 2 x 200 LSTM) on weights that are views of the
+    JAX package's flat layout, which cuDNN copies into its own buffer at
+    every call, against ``torch.nn.LSTM`` on the same values in its
+    flattened buffer (CUDA events, L2 flushed, turns op, module, module,
+    op): the difference is what the copy costs. On the card only."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    if dev.type != "cuda":
+        return None
+    T, N, H, L = GLM_BPTT, GLM_BATCH, GLM_HIDDEN, GLM_LAYERS
+    gen = torch.Generator().manual_seed(371)
+    n = tnn.rnn_param_size(L, H, H, False, "lstm")
+    w = ((torch.rand(n, generator=gen) - 0.5) * 0.2).to(dev)
+    x = (torch.rand(T, N, H, generator=gen) - 0.5).to(dev)
+    h0 = torch.zeros(L, N, H, device=dev)
+    lstm = torch.nn.LSTM(H, H, L).to(dev)
+    with torch.no_grad():
+        flat = [t for d in tnn._unpack_rnn_params(w, L, H, H, False, "lstm")
+                for t in d[0][:4]]
+        for p, v in zip(lstm._flat_weights, flat):
+            p.copy_(v)
+    lstm.flatten_parameters()
+    wl = w.clone().requires_grad_()
+    xl = x.clone().requires_grad_()
+
+    def op():
+        out = tnn._rnn(None, xl, wl, h0, h0, state_size=H, num_layers=L,
+                       mode="lstm")
+        out.sum().backward()
+
+    def module():
+        out, _ = lstm(xl, (h0, h0))
+        out.sum().backward()
+
+    timer = Timer(torch)
+    times = {"op": [], "module": []}
+    for name in ("op", "module", "module", "op"):
+        times[name].append(timer(op if name == "op" else module, iters=20))
+    del timer
+    res = {k: float(np.mean(v)) for k, v in times.items()}
+    res["copy_ms"] = res["op"] - res["module"]
+    log("RNN op at the Gluon LM's shape, forward + backward: %.4f ms on the "
+        "JAX layout's views (cuDNN compacts them a call) vs %.4f ms for "
+        "torch.nn.LSTM's flattened buffer: the copy costs ~%.4f ms a call"
+        % (res["op"], res["module"], res["copy_ms"]))
+    return res
+
+
+def rnn_ctc_card(torch, mx, dev=None):
+    """Phase 37: the ``RNN`` op on the card (cuDNN) against the same op on
+    the CPU (ATen) at RNN_CARD_SHAPE, in its four modes uni- and
+    bidirectional and LSTMP: outputs, final states and the gradients to
+    data, weights and states within RNN_CARD_TOL of the CPU's largest
+    magnitude; a planted i/f gate swap on the card must miss; then
+    ``CTCLoss`` (both blank labels, with and without lengths) on the card
+    against the CPU, loss and gradient within CTC_CARD_TOL."""
+    from mxnet_tpu_torch.ops import contrib_ops
+    from mxnet_tpu_torch.ops import nn as tnn
+    dev = dev or torch.device("cuda")
+    res = {"rnn": {}, "ctc": {}}
+    cases = [(m, b, None) for m in ("lstm", "gru", "rnn_tanh", "rnn_relu")
+             for b in (False, True)] + [("lstm", False, 100),
+                                        ("lstm", True, 100)]
+    for mode, bi, proj in cases:
+        ins, attrs = _rnn_case(torch, mode, bi, proj, dev)
+        card = _rnn_run(torch, ins, attrs)
+        cpu = _rnn_run(torch, [t.cpu() for t in ins], attrs)
+        errs = [rel_max(c, r) for c, r in zip(card, cpu)]
+        label = "%s%s%s" % (mode, "-bi" if bi else "",
+                            "-proj%d" % proj if proj else "")
+        check(max(errs) <= RNN_CARD_TOL, "RNN %s card vs CPU: %s"
+              % (label, ["%.2e" % e for e in errs]))
+        res["rnn"][label] = max(errs)
+    ins, attrs = _rnn_case(torch, "lstm", True, None, dev)
+    cpu = _rnn_run(torch, [t.cpu() for t in ins], attrs)
+    real = tnn._unpack_rnn_params
+    tnn._unpack_rnn_params = gate_swapped(torch, real)
+    try:
+        planted = _rnn_run(torch, ins, attrs)
+    finally:
+        tnn._unpack_rnn_params = real
+    planted_err = max(rel_max(c, r) for c, r in zip(planted, cpu))
+    check(planted_err > 100 * RNN_CARD_TOL, "RNN: the planted gate swap "
+          "passes (%.2e)" % planted_err)
+    res["rnn_planted_err"] = planted_err
+    T, N, A, L = CTC_CARD_SHAPE
+    rng = np.random.RandomState(37)
+    for blank in ("first", "last"):
+        for lengths in (False, True):
+            data = torch.from_numpy(rng.randn(T, N, A).astype(np.float32))
+            lens = rng.randint(1, L + 1, N)
+            label = np.full((N, L), -1, np.float32)
+            lo, hi = (1, A) if blank == "first" else (0, A - 1)
+            for i, n in enumerate(lens):
+                label[i, :n] = rng.randint(lo, hi, n)
+            # data lengths that leave room for any labelling (2L + 1)
+            extra = [torch.from_numpy(rng.randint(
+                max(T - 10, 2 * L + 1), T + 1, N).astype(np.float32)),
+                     torch.from_numpy(lens.astype(np.float32))] \
+                if lengths else []
+            attrs = {"blank_label": blank, "use_data_lengths": lengths,
+                     "use_label_lengths": lengths}
+            out = {}
+            for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+                x = data.to(d).requires_grad_()
+                loss = contrib_ops._ctc_loss(
+                    x, torch.from_numpy(label).to(d),
+                    *[e.to(d) for e in extra], **attrs)
+                (g,) = torch.autograd.grad(loss.sum(), x)
+                out[side] = (loss.detach().cpu().numpy(), g.cpu().numpy())
+            errs = [rel_max(out["card"][i], out["cpu"][i]) for i in (0, 1)]
+            key = "%s-%s" % (blank, "lengths" if lengths else "nolengths")
+            check(np.isfinite(out["card"][0]).all()
+                  and max(errs) <= CTC_CARD_TOL, "CTCLoss %s card vs CPU: "
+                  "%s" % (key, errs))
+            res["ctc"][key] = errs
+    res["compaction"] = rnn_compaction_cost(torch, dev)
+    log("RNN op card vs CPU at %s: worst relative error %s; planted i/f "
+        "swap off by %.2e; CTCLoss at %s: %s" % (
+            RNN_CARD_SHAPE, {k: "%.2e" % v for k, v in res["rnn"].items()},
+            planted_err, CTC_CARD_SHAPE,
+            {k: "%.2e / %.2e" % tuple(v) for k, v in res["ctc"].items()}))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="write the full report here (JSON)")
@@ -5687,6 +6397,13 @@ def main():
                                                   "chip_smoke_zoo"))
     zoo_cpu = zoo_vs_f64(torch, mx, fu)
     mnist = mnist_cli(torch, mx, fu)
+    lm_dir = os.path.join(root, "build", "chip_smoke_lm")
+    try:
+        lstm_a = lstm_cli(torch, mx, fu, lm_dir)
+    finally:
+        shutil.rmtree(lm_dir, ignore_errors=True)
+    lstm_b = lstm_gluon(torch, mx, fu)
+    rnn_card = rnn_ctc_card(torch, mx)
 
     sources = {"paged_decode_attention": (
         "mxnet_tpu_torch/ops/cuda/csrc/paged_decode_attention.cu",
@@ -5729,15 +6446,17 @@ def main():
     # kernels' from the first timed train call (8 steps), the SGD update's
     # from phase 22's first hybridized window (24 steps, the update once
     # a step beside the CUDA graphs), phase 28's four CLI runs, phase 30's
-    # Inception fit, phase 31's first hybridized window and phase 34's two
-    # train_mnist runs, Adam's from Module.fit (4 steps)
+    # Inception fit, phase 31's first hybridized window, phase 34's two
+    # train_mnist runs, phase 35's lstm_bucketing fit and phase 36's first
+    # hybridized window, Adam's from Module.fit (4 steps)
     launches = dict(served["launches"])
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] = trained["calls"][1]["launches"][name]
     launches["sgd_fused_update"] = gluon["launches"]["sgd_fused_update"] \
         + sum(r["launches"] for r in networks.values()) \
         + incep["launches"] + mobile["launches"] \
-        + sum(r["launches"] for r in mnist.values())
+        + sum(r["launches"] for r in mnist.values()) \
+        + lstm_a["launches"] + lstm_b["launches"]
     launches["adam_fused_update"] = fitted["adam_launches"]
     # the int8 kernels' from the int8 correctness set of phase 17; the
     # BatchNorm kernel's from phase 27's timed windows (its replays of
@@ -5780,7 +6499,8 @@ def main():
               "op_sweep": swept, "inception_fit": incep,
               "mobilenet_gluon": mobile, "zoo_score": zoo,
               "zoo_vs_f64": zoo_cpu, "train_mnist": mnist,
-              "kernels": kernels,
+              "lstm_bucketing": lstm_a, "gluon_lm": lstm_b,
+              "rnn_ctc_card": rnn_card, "kernels": kernels,
               "update_launches": {
                   "module_fit": fitted["launches"]["sgd_fused_update"],
                   "gluon_fit": gluon["launches"]["sgd_fused_update"],
@@ -5790,7 +6510,9 @@ def main():
                   "inception_fit": incep["launches"],
                   "mobilenet_gluon": mobile["launches"],
                   "train_mnist": {k: v["launches"]
-                                  for k, v in mnist.items()}},
+                                  for k, v in mnist.items()},
+                  "lstm_bucketing": lstm_a["launches"],
+                  "gluon_lm": lstm_b["launches"]},
               "wall_s": time.time() - t_all}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

@@ -43,10 +43,14 @@ Ported so far:
   checkpoints with optimizer states and ``fit(resume=True)``.
 
 - the core op surface (the JAX package's ``ops/{creation,elemwise,
-  reduce,matrix,nn}.py`` but RNN, SyncBatchNorm and the contrib
-  resizes), Dropout on the port's explicit generator, ``Context`` with
+  reduce,matrix,nn}.py`` but SyncBatchNorm and the contrib resizes),
+  Dropout on the port's explicit generator, ``Context`` with
   ``with mx.cpu():`` scoping, and the CLI's other networks
-  (``models.alexnet``, ``vgg``, ``mobilenet``, ``inception_bn``).
+  (``models.alexnet``, ``vgg``, ``mobilenet``, ``inception_bn``);
+- recurrent language models: the ``RNN`` op (cuDNN on the card) and
+  ``CTCLoss``, ``gluon.rnn`` and ``gluon.contrib.rnn``, the legacy
+  ``rnn`` API (cells, ``BucketSentenceIter``, checkpoints),
+  ``mod.BucketingModule`` and every metric (``Perplexity``).
 
 Importing the package imports no triton, loads no CUDA library (nor
 NVRTC) and touches no GPU.
@@ -54,7 +58,7 @@ NVRTC) and touches no GPU.
 from . import (autograd, callback, checkpoint, config, context, convert,
                executor, image, initializer, io, lr_scheduler, metric, model,
                models, module, ndarray, ops, optimizer, parallel, quantize,
-               random, recordio, serve, serving, symbol, telemetry)
+               random, recordio, rnn, serve, serving, symbol, telemetry)
 from . import operator, rtc  # after ndarray and symbol: adds Custom
 from . import gluon
 from .base import MXNetError
@@ -73,4 +77,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "lr_scheduler",
            "metric", "mod", "model", "models", "module", "nd", "ndarray",
            "operator", "ops", "optimizer", "parallel", "quantize", "random",
-           "recordio", "rtc", "serve", "serving", "sym", "symbol", "telemetry"]
+           "recordio", "rnn", "rtc", "serve", "serving", "sym", "symbol", "telemetry"]

@@ -390,13 +390,15 @@ class HybridBlock(Block):
         return {p.name: p for p in self.collect_params().values()}
 
     def _trace(self, names):
-        """Call the block on variables ``names``; auto-named nodes count
-        from 0 in the trace, whatever was named before it."""
+        """Run the block's ``forward`` (through ``Block.__call__``, so past
+        a subclass's own ``__call__`` signature) on variables ``names``;
+        auto-named nodes count from 0 in the trace, whatever was named
+        before it."""
         from .. import symbol as sym_mod
         from ..symbol.symbol import _name_mgr
         saved, _name_mgr._counter = _name_mgr._counter, {}
         try:
-            return self(*[sym_mod.var(n) for n in names])
+            return Block.__call__(self, *[sym_mod.var(n) for n in names])
         finally:
             _name_mgr._counter = saved
 

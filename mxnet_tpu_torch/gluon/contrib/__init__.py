@@ -1,5 +1,5 @@
 """Gluon contrib (the JAX package's ``gluon/contrib``; reference:
-python/mxnet/gluon/contrib/): ``nn`` and ``data``. ``contrib.rnn`` comes
-with the recurrent layers (ROADMAP A12.2)."""
+python/mxnet/gluon/contrib/): ``nn``, ``rnn`` and ``data``."""
 from . import nn  # noqa: F401
+from . import rnn  # noqa: F401
 from . import data  # noqa: F401

@@ -5,8 +5,7 @@ python/mxnet/gluon/loss.py): every loss is a HybridBlock taking
 ``(pred, label[, sample_weight])`` and returning a per-sample loss
 averaged over all but the batch axis, written over the ``F`` ops (here
 the ``ndarray`` namespace), so the same code runs as in the JAX package.
-``CTCLoss`` needs the CTC op, which the registry lacks: it raises naming
-ROADMAP A12.2.
+``CTCLoss`` runs the ``CTCLoss`` op (``ops/contrib_ops.py``).
 """
 from __future__ import annotations
 
@@ -157,12 +156,32 @@ class KLDivLoss(Loss):
 
 class CTCLoss(Loss):
     """Connectionist temporal classification loss (reference: loss.py
-    CTCLoss): not ported."""
+    CTCLoss; the op ``CTCLoss``, contrib/ctc_loss.cc, with its default
+    ``blank_label="first"``: the blank is class 0, labels are 1..A-1
+    padded with 0 or -1): ``pred`` in ``layout`` NTC or TNC, ``label`` in
+    ``label_layout`` NT or TN. ``label_lengths`` count whether or not
+    ``pred_lengths`` are given (the JAX package's loss drops them when
+    they come alone: its keyword arrays fill the op's slots in order)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "gluon.loss.CTCLoss is not ported to mxnet_tpu_torch: the op "
-            "registry has no CTCLoss yet (ROADMAP A12.2)")
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        assert layout in ("NTC", "TNC")
+        assert label_layout in ("NT", "TN")
+        self._layout = layout
+        self._label_layout = label_layout
+        batch_axis = label_layout.find("N")
+        super(CTCLoss, self).__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

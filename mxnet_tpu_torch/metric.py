@@ -1,19 +1,24 @@
 """Evaluation metrics.
 
-The JAX package's ``metric.py`` for the training path: ``create``,
-``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``, ``TopKAccuracy`` and
-``CrossEntropy``. Metrics run on the host on numpy copies (``asnumpy`` is
-the sync point with the card). The other metrics and ``CustomMetric``
-come with ROADMAP A8.6.
+Counterpart of the JAX package's ``metric.py`` (reference:
+python/mxnet/metric.py): ``EvalMetric``, ``CompositeEvalMetric``, the
+classification, regression and loss metrics (``Perplexity`` with
+``ignore_label`` for language models), a string registry with
+``create``, and the ``CustomMetric`` / ``np()`` wrappers. Metrics run on
+the host on numpy copies (``asnumpy`` is the sync point with the card).
 """
 from __future__ import annotations
+
+import math
 
 import numpy
 
 from .base import MXNetError
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "create", "register"]
+           "F1", "MCC", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy",
+           "NegativeLogLikelihood", "PearsonCorrelation", "Loss", "Torch",
+           "Caffe", "CustomMetric", "np", "create", "register"]
 
 _METRIC_REGISTRY = {}
 
@@ -35,6 +40,8 @@ def _alias(*names):
 def create(metric, *args, **kwargs):
     """Create a metric from a name, callable, list, or instance
     (reference: metric.py create)."""
+    if callable(metric):
+        return CustomMetric(metric, *args, **kwargs)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):
@@ -44,12 +51,8 @@ def create(metric, *args, **kwargs):
         return composite
     if isinstance(metric, str):
         if metric.lower() not in _METRIC_REGISTRY:
-            raise MXNetError("metric %r is not ported to mxnet_tpu_torch "
-                             "yet (ROADMAP A8.6)" % metric)
+            raise MXNetError("unknown metric %r" % metric)
         return _METRIC_REGISTRY[metric.lower()](*args, **kwargs)
-    if callable(metric):
-        raise NotImplementedError("CustomMetric is not ported yet "
-                                  "(ROADMAP A8.6)")
     raise TypeError("metric should be a str, callable, list or EvalMetric")
 
 
@@ -81,10 +84,31 @@ class EvalMetric(object):
         self.name = str(name)
         self.output_names = output_names
         self.label_names = label_names
+        self._kwargs = kwargs
         self.reset()
 
     def __str__(self):
         return "EvalMetric: {}".format(dict(self.get_name_value()))
+
+    def get_config(self):
+        config = self._kwargs.copy()
+        config.update({
+            "metric": self.__class__.__name__,
+            "name": self.name,
+            "output_names": self.output_names,
+            "label_names": self.label_names})
+        return config
+
+    def update_dict(self, label, pred):
+        if self.output_names is not None:
+            pred = [pred[name] for name in self.output_names]
+        else:
+            pred = list(pred.values())
+        if self.label_names is not None:
+            label = [label[name] for name in self.label_names]
+        else:
+            label = list(label.values())
+        self.update(label, pred)
 
     def update(self, labels, preds):
         raise NotImplementedError()
@@ -122,6 +146,23 @@ class CompositeEvalMetric(EvalMetric):
     def add(self, metric):
         self.metrics.append(create(metric))
 
+    def get_metric(self, index):
+        try:
+            return self.metrics[index]
+        except IndexError:
+            return ValueError("Metric index {} is out of range 0 and {}".format(
+                index, len(self.metrics)))
+
+    def update_dict(self, labels, preds):
+        if self.label_names is not None:
+            labels = {name: label for name, label in labels.items()
+                      if name in self.label_names}
+        if self.output_names is not None:
+            preds = {name: pred for name, pred in preds.items()
+                     if name in self.output_names}
+        for metric in self.metrics:
+            metric.update_dict(labels, preds)
+
     def update(self, labels, preds):
         for metric in self.metrics:
             metric.update(labels, preds)
@@ -145,6 +186,11 @@ class CompositeEvalMetric(EvalMetric):
             names.extend(name)
             values.extend(value)
         return (names, values)
+
+    def get_config(self):
+        config = super().get_config()
+        config.update({"metrics": [i.get_config() for i in self.metrics]})
+        return config
 
 
 @_alias("acc", "accuracy")
@@ -208,6 +254,248 @@ class TopKAccuracy(EvalMetric):
             self.num_inst += num_samples
 
 
+@_alias("f1")
+@register
+class F1(EvalMetric):
+    """Binary F1 score (reference: metric.py:452)."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None,
+                 average="macro"):
+        self.average = average
+        self.metrics = _BinaryClassificationMetrics()
+        super().__init__(name=name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for label, pred in zip(labels, preds):
+            self.metrics.update_binary_stats(label, pred)
+        if self.average == "macro":
+            self.sum_metric += self.metrics.fscore
+            self.num_inst += 1
+            self.metrics.reset_stats()
+        else:
+            self.sum_metric = self.metrics.fscore * self.metrics.total_examples
+            self.num_inst = self.metrics.total_examples
+
+    def reset(self):
+        self.sum_metric = 0.0
+        self.num_inst = 0
+        if hasattr(self, "metrics"):
+            self.metrics.reset_stats()
+
+
+class _BinaryClassificationMetrics(object):
+    """tp/fp/fn bookkeeping shared by F1 and MCC (reference: metric.py:528)."""
+
+    def __init__(self):
+        self.reset_stats()
+
+    def update_binary_stats(self, label, pred):
+        pred = _as_numpy(pred)
+        label = _as_numpy(label).astype("int32")
+        pred_label = numpy.argmax(pred, axis=1)
+        check_label_shapes(label, pred)
+        if len(numpy.unique(label)) > 2:
+            raise ValueError("%s currently only supports binary "
+                             "classification." % self.__class__.__name__)
+        pred_true = (pred_label == 1)
+        pred_false = 1 - pred_true
+        label_true = (label == 1)
+        label_false = 1 - label_true
+        self.true_positives += (pred_true * label_true).sum()
+        self.false_positives += (pred_true * label_false).sum()
+        self.false_negatives += (pred_false * label_true).sum()
+        self.true_negatives += (pred_false * label_false).sum()
+
+    @property
+    def precision(self):
+        if self.true_positives + self.false_positives > 0:
+            return float(self.true_positives) / (
+                self.true_positives + self.false_positives)
+        return 0.0
+
+    @property
+    def recall(self):
+        if self.true_positives + self.false_negatives > 0:
+            return float(self.true_positives) / (
+                self.true_positives + self.false_negatives)
+        return 0.0
+
+    @property
+    def fscore(self):
+        if self.precision + self.recall > 0:
+            return 2 * self.precision * self.recall / (
+                self.precision + self.recall)
+        return 0.0
+
+    @property
+    def matthewscc(self):
+        if not self.total_examples:
+            return 0.0
+        true_pos = float(self.true_positives)
+        false_pos = float(self.false_positives)
+        false_neg = float(self.false_negatives)
+        true_neg = float(self.true_negatives)
+        terms = [(true_pos + false_pos), (true_pos + false_neg),
+                 (true_neg + false_pos), (true_neg + false_neg)]
+        denom = 1.0
+        for t in filter(lambda t: t != 0.0, terms):
+            denom *= t
+        return ((true_pos * true_neg) - (false_pos * false_neg)) \
+            / math.sqrt(denom)
+
+    @property
+    def total_examples(self):
+        return self.false_negatives + self.false_positives + \
+            self.true_negatives + self.true_positives
+
+    def reset_stats(self):
+        self.false_positives = 0
+        self.false_negatives = 0
+        self.true_positives = 0
+        self.true_negatives = 0
+
+
+@_alias("mcc")
+@register
+class MCC(EvalMetric):
+    """Matthews correlation coefficient (reference: metric.py:602)."""
+
+    def __init__(self, name="mcc", output_names=None, label_names=None,
+                 average="macro"):
+        self._average = average
+        self._metrics = _BinaryClassificationMetrics()
+        super().__init__(name=name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for label, pred in zip(labels, preds):
+            self._metrics.update_binary_stats(label, pred)
+        if self._average == "macro":
+            self.sum_metric += self._metrics.matthewscc
+            self.num_inst += 1
+            self._metrics.reset_stats()
+        else:
+            self.sum_metric = self._metrics.matthewscc \
+                * self._metrics.total_examples
+            self.num_inst = self._metrics.total_examples
+
+    def reset(self):
+        self.sum_metric = 0.0
+        self.num_inst = 0
+        if hasattr(self, "_metrics"):
+            self._metrics.reset_stats()
+
+
+@_alias("perplexity")
+@register
+class Perplexity(EvalMetric):
+    """Perplexity (reference: metric.py:761)."""
+
+    def __init__(self, ignore_label=None, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, ignore_label=ignore_label,
+                         output_names=output_names, label_names=label_names)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        assert len(labels) == len(preds)
+        loss = 0.0
+        num = 0
+        for label, pred in zip(labels, preds):
+            label = _as_numpy(label)
+            pred = _as_numpy(pred)
+            assert label.size == pred.size / pred.shape[-1], \
+                "shape mismatch: %s vs. %s" % (label.shape, pred.shape)
+            label = label.reshape((label.size,)).astype("int32")
+            probs = pred.reshape(-1, pred.shape[-1])[
+                numpy.arange(label.size), label]
+            if self.ignore_label is not None:
+                ignore = (label == self.ignore_label).astype(probs.dtype)
+                num -= int(ignore.sum())
+                probs = probs * (1 - ignore) + ignore
+            loss -= numpy.sum(numpy.log(numpy.maximum(1e-10, probs)))
+            num += label.size
+        # accumulate raw loss; get() exponentiates the global mean
+        # (reference: metric.py Perplexity stores sum_metric += loss)
+        self.sum_metric += loss
+        self.num_inst += num
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, float(numpy.exp(self.sum_metric / self.num_inst)))
+
+
+@_alias("mae")
+@register
+class MAE(EvalMetric):
+    """Mean absolute error (reference: metric.py:838)."""
+
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for label, pred in zip(labels, preds):
+            label = _as_numpy(label)
+            pred = _as_numpy(pred)
+            if len(label.shape) == 1:
+                label = label.reshape(label.shape[0], 1)
+            if len(pred.shape) == 1:
+                pred = pred.reshape(pred.shape[0], 1)
+            self.sum_metric += numpy.abs(label - pred).mean()
+            self.num_inst += 1
+
+
+@_alias("mse")
+@register
+class MSE(EvalMetric):
+    """Mean squared error (reference: metric.py:887)."""
+
+    def __init__(self, name="mse", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for label, pred in zip(labels, preds):
+            label = _as_numpy(label)
+            pred = _as_numpy(pred)
+            if len(label.shape) == 1:
+                label = label.reshape(label.shape[0], 1)
+            if len(pred.shape) == 1:
+                pred = pred.reshape(pred.shape[0], 1)
+            self.sum_metric += numpy.square(label - pred).mean()
+            self.num_inst += 1
+
+
+@_alias("rmse")
+@register
+class RMSE(EvalMetric):
+    """Root mean squared error (reference: metric.py:936)."""
+
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for label, pred in zip(labels, preds):
+            label = _as_numpy(label)
+            pred = _as_numpy(pred)
+            if len(label.shape) == 1:
+                label = label.reshape(label.shape[0], 1)
+            if len(pred.shape) == 1:
+                pred = pred.reshape(pred.shape[0], 1)
+            self.sum_metric += numpy.sqrt(numpy.square(label - pred).mean())
+            self.num_inst += 1
+
+
 @_alias("ce", "cross-entropy")
 @register
 class CrossEntropy(EvalMetric):
@@ -229,3 +517,128 @@ class CrossEntropy(EvalMetric):
             prob = pred[numpy.arange(label.shape[0]), numpy.int64(label)]
             self.sum_metric += (-numpy.log(prob + self.eps)).sum()
             self.num_inst += label.shape[0]
+
+
+@_alias("nll_loss")
+@register
+class NegativeLogLikelihood(EvalMetric):
+    """NLL over probability outputs (reference: metric.py:1040)."""
+
+    def __init__(self, eps=1e-12, name="nll-loss", output_names=None,
+                 label_names=None):
+        super().__init__(name, eps=eps, output_names=output_names,
+                         label_names=label_names)
+        self.eps = eps
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for label, pred in zip(labels, preds):
+            label = _as_numpy(label)
+            pred = _as_numpy(pred)
+            label = label.ravel()
+            num_examples = pred.shape[0]
+            assert label.shape[0] == num_examples, \
+                (label.shape[0], num_examples)
+            prob = pred[numpy.arange(num_examples, dtype=numpy.int64),
+                        numpy.int64(label)]
+            self.sum_metric += (-numpy.log(prob + self.eps)).sum()
+            self.num_inst += num_examples
+
+
+@_alias("pearsonr")
+@register
+class PearsonCorrelation(EvalMetric):
+    """Pearson correlation (reference: metric.py:1096)."""
+
+    def __init__(self, name="pearsonr", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        labels, preds = check_label_shapes(labels, preds, True)
+        for label, pred in zip(labels, preds):
+            label = _as_numpy(label)
+            pred = _as_numpy(pred)
+            check_label_shapes(label, pred, False, True)
+            self.sum_metric += numpy.corrcoef(
+                pred.ravel(), label.ravel())[0, 1]
+            self.num_inst += 1
+
+
+@_alias("loss")
+@register
+class Loss(EvalMetric):
+    """Mean of a loss output (reference: metric.py:1141)."""
+
+    def __init__(self, name="loss", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, _, preds):
+        if isinstance(preds, (list, tuple)):
+            preds_l = preds
+        else:
+            preds_l = [preds]
+        for pred in preds_l:
+            loss = _as_numpy(pred).sum()
+            self.sum_metric += loss
+            self.num_inst += _as_numpy(pred).size
+
+
+@register
+class Torch(Loss):
+    """Legacy name (reference: metric.py Torch)."""
+
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class Caffe(Loss):
+    """Legacy name (reference: metric.py Caffe)."""
+
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class CustomMetric(EvalMetric):
+    """Wrap a feval(label, pred) function (reference: metric.py:1219)."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False,
+                 output_names=None, label_names=None):
+        if name is None:
+            name = feval.__name__
+            if name.find("<") != -1:
+                name = "custom(%s)" % name
+        super().__init__(name, feval=feval,
+                         allow_extra_outputs=allow_extra_outputs,
+                         output_names=output_names, label_names=label_names)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            labels, preds = check_label_shapes(labels, preds, True)
+        for pred, label in zip(preds, labels):
+            label = _as_numpy(label)
+            pred = _as_numpy(pred)
+            reval = self._feval(label, pred)
+            if isinstance(reval, tuple):
+                (sum_metric, num_inst) = reval
+                self.sum_metric += sum_metric
+                self.num_inst += num_inst
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+    def get_config(self):
+        raise NotImplementedError("CustomMetric cannot be serialized")
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """Wrap a numpy feval into a CustomMetric (reference: metric.py:1309)."""
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)

@@ -18,7 +18,8 @@ reads them back.
 
 Refused until their ROADMAP items: more than one context, kvstores and
 gradient compression (A8.3/A13), monitors (A8.6), weights other than
-float32 (A8.4).
+float32 (A8.4); ``bind(shared_module=)`` is refused as in the JAX
+package (``BucketingModule`` aliases its buckets' arrays instead).
 """
 from __future__ import annotations
 
@@ -224,8 +225,11 @@ class Module(BaseModule):
             self.logger.warning("Already bound, ignoring bind()")
             return
         if shared_module is not None:
-            raise NotImplementedError("shared_module is not ported yet "
-                                      "(ROADMAP A8.6)")
+            # as the JAX package (module/module.py:256): buckets share
+            # memory through BucketingModule's aliased arrays instead
+            raise NotImplementedError(
+                "shared_module is not supported; BucketingModule shares "
+                "the parameters of its buckets")
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self._data_shapes, self._label_shapes = _parse_data_desc(
@@ -300,6 +304,17 @@ class Module(BaseModule):
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
             self._preload_opt_states = None
+
+    def borrow_optimizer(self, shared_module):
+        """Use ``shared_module``'s optimizer, kvstore and updater (with its
+        states), as the buckets of a ``BucketingModule`` do (reference:
+        module.py borrow_optimizer)."""
+        assert shared_module.optimizer_initialized
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
 
     # -- computation -------------------------------------------------------
     def _build_feed(self, data_batch):

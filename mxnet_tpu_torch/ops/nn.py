@@ -8,14 +8,18 @@ softmax_cross_entropy :409, SoftmaxOutput :475, the regression outputs
 :491-540, Dropout :547), with the same names, input slots, attrs and
 defaults, so that symbols built here get the same auto-created
 variables (``fc1_weight``, ``bn0_moving_mean``) and load the JAX
-package's JSON. (RNN is ROADMAP A12.2, SyncBatchNorm A8.3, and the
-contrib resizes A15.)
+package's JSON, and the fused ``RNN`` op (:570-700). (SyncBatchNorm is
+ROADMAP A8.3, and the contrib resizes A15.)
 Convolutions and matrix products go to cuDNN/cuBLAS through
 ``torch.nn.functional``, as the JAX package left them to XLA; BatchNorm
 in training mode to ``F.batch_norm`` without running buffers (its batch
 variance is the biased one the JAX op uses; the moving statistics are
 updated by the graph evaluator, as in the JAX package); with the moving
 statistics to the ``batch_norm_inference`` kernel (``cuda/batch_norm.py``).
+``RNN`` reads its weights out of the JAX package's flat vector and runs
+one of torch's recurrent calls (``_VF.lstm`` / ``gru`` / ``rnn_tanh`` /
+``rnn_relu``: cuDNN on the card, ATen on the host) a layer, as the JAX
+package left its ``lax.scan`` to XLA.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import _VF
 
 from ..base import MXNetError
 from .cuda.batch_norm import _batch_norm_inference_plain, batch_norm_inference
@@ -486,3 +491,134 @@ def _dropout(gen, data, p=0.5, mode="training", axes=(), train_mode=False,
     draw = torch.rand(shape, generator=gen, device=data.device)
     mask = (draw < keep).to(data.dtype) / keep
     return data * mask
+
+
+# ---------------------------------------------------------------------------
+# Fused RNN (reference: src/operator/rnn.cc; the JAX package's ops/nn.py:570)
+# ---------------------------------------------------------------------------
+
+def _rnn_num_outputs(attrs):
+    a = dict(attrs)
+    if not a.get("state_outputs", False):
+        return 1
+    return 3 if a.get("mode", "lstm") == "lstm" else 2
+
+
+def _gates(mode):
+    return {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}[mode]
+
+
+def rnn_param_size(num_layers, input_size, state_size, bidirectional, mode,
+                   projection_size=None):
+    """Length of the flat parameter vector: per layer and direction W
+    (gates * state, input), R (gates * state, output), bW, bR, and with
+    LSTMP ``projection_size`` P (projection, state)."""
+    g = _gates(mode)
+    dirs = 2 if bidirectional else 1
+    hout = projection_size if projection_size else state_size
+    size = 0
+    for layer in range(num_layers):
+        isz = input_size if layer == 0 else hout * dirs
+        size += dirs * g * state_size * (isz + hout + 2)
+        if projection_size:
+            size += dirs * projection_size * state_size
+    return size
+
+
+def _unpack_rnn_params(params, num_layers, input_size, state_size,
+                       bidirectional, mode, projection_size=None):
+    """``[[(W, R, bW, bR, P or None) per direction] per layer]``, views of
+    the flat vector in the JAX package's layout (ops/nn.py:597)."""
+    g = _gates(mode)
+    dirs = 2 if bidirectional else 1
+    hout = projection_size if projection_size else state_size
+    offset = 0
+    layers = []
+
+    def take(n, shape):
+        nonlocal offset
+        t = params[offset: offset + n].reshape(shape)
+        offset += n
+        return t
+
+    for layer in range(num_layers):
+        isz = input_size if layer == 0 else hout * dirs
+        per_dir = []
+        for _ in range(dirs):
+            W = take(g * state_size * isz, (g * state_size, isz))
+            R = take(g * state_size * hout, (g * state_size, hout))
+            bW = take(g * state_size, (g * state_size,))
+            bR = take(g * state_size, (g * state_size,))
+            P = take(projection_size * state_size,
+                     (projection_size, state_size)) \
+                if projection_size else None
+            per_dir.append((W, R, bW, bR, P))
+        layers.append(per_dir)
+    if offset != params.shape[0]:
+        raise MXNetError("RNN: %d parameters, the layers take %d"
+                         % (params.shape[0], offset))
+    return layers
+
+
+_RNN_CALLS = {"lstm": _VF.lstm, "gru": _VF.gru, "rnn_tanh": _VF.rnn_tanh,
+              "rnn_relu": _VF.rnn_relu}
+
+
+@register("RNN", num_outputs=_rnn_num_outputs, needs_rng=True,
+          attr_defaults={"state_size": 0, "num_layers": 1,
+                         "bidirectional": False, "mode": "lstm", "p": 0.0,
+                         "state_outputs": False, "projection_size": None,
+                         "train_mode": False})
+def _rnn(gen, data, params, state, *maybe_cell, state_size=0, num_layers=1,
+         bidirectional=False, mode="lstm", p=0.0, state_outputs=False,
+         projection_size=None, train_mode=False, **_ignored):
+    """Multilayer RNN over time, layout TNC (reference: rnn.cc): the LSTM
+    gates i, f, g, o, the GRU's r, z, n with bR inside ``r *``, as the
+    JAX op's (:629) and torch's own. One torch recurrent call a layer
+    (both directions in it, no dropout in it); inter-layer dropout ``p``
+    masks the input of layers 1..L-1 in training only, from ``gen`` (the
+    port's generator), as the JAX op does (:681-686). ``state`` is
+    (layers * dirs, N, output), an LSTM's ``state_cell`` (layers * dirs,
+    N, state_size); ``state_outputs`` adds the final states."""
+    T, N, I = data.shape
+    H = int(state_size)
+    dirs = 2 if bidirectional else 1
+    if projection_size and mode != "lstm":
+        raise MXNetError("projection_size is only supported for lstm")
+    if projection_size == H:
+        raise MXNetError("projection_size must differ from state_size")
+    hout = projection_size if projection_size else H
+    cell = maybe_cell[0] if (mode == "lstm" and maybe_cell) else None
+    if mode == "lstm" and cell is None:
+        raise MXNetError("RNN(mode='lstm') takes a state_cell input")
+    n_out = _rnn_num_outputs({"state_outputs": state_outputs, "mode": mode})
+    if data.device.type == "meta":
+        outs = [data.new_empty((T, N, hout * dirs)),
+                data.new_empty((num_layers * dirs, N, hout)),
+                data.new_empty((num_layers * dirs, N, H))]
+        return tuple(outs[:n_out]) if state_outputs else outs[0]
+    layers = _unpack_rnn_params(params, num_layers, I, H, bidirectional,
+                                mode, projection_size)
+    call = _RNN_CALLS[mode]
+    train = torch.is_grad_enabled()
+    x, hs, cs = data, [], []
+    for li, per_dir in enumerate(layers):
+        if li > 0 and p > 0.0 and train_mode:
+            keep = 1.0 - p
+            draw = torch.rand(x.shape, generator=gen, device=x.device)
+            x = x * ((draw < keep).to(x.dtype) / keep)
+        weights = [t for d in per_dir for t in d if t is not None]
+        h0 = state[li * dirs:(li + 1) * dirs]
+        if mode == "lstm":
+            x, h, c = call(x, (h0, cell[li * dirs:(li + 1) * dirs]),
+                           weights, True, 1, 0.0, train, dirs == 2, False)
+            cs.append(c)
+        else:
+            x, h = call(x, h0, weights, True, 1, 0.0, train, dirs == 2,
+                        False)
+        hs.append(h)
+    if not state_outputs:
+        return x
+    if mode == "lstm":
+        return x, torch.cat(hs, 0), torch.cat(cs, 0)
+    return x, torch.cat(hs, 0)

@@ -89,9 +89,7 @@ def alias(new_name, existing_name):
 
 
 # ops of the JAX package queued under another ROADMAP item than A15
-_QUEUED = {"RNN": "A12.2", "CTCLoss": "A12.2", "ctc_loss": "A12.2",
-           "_contrib_CTCLoss": "A12.2", "_contrib_ctc_loss": "A12.2",
-           "SyncBatchNorm": "A8.3"}
+_QUEUED = {"SyncBatchNorm": "A8.3"}
 
 
 def get_op(name):

@@ -789,6 +789,20 @@ def _deduce_params(node, in_shapes, shapes):
     elif node.op == "Embedding":
         changed |= set_leaf(1, (attrs.get("input_dim"),
                                 attrs.get("output_dim")))
+    elif node.op == "RNN":
+        from ..ops.nn import rnn_param_size
+        H = int(attrs.get("state_size", 0))
+        proj = attrs.get("projection_size")
+        layers = int(attrs.get("num_layers", 1))
+        dirs = 2 if attrs.get("bidirectional", False) else 1
+        changed |= set_leaf(1, (rnn_param_size(
+            layers, data_shape[2], H, dirs == 2, attrs.get("mode", "lstm"),
+            proj),))
+        lead = (layers * dirs, data_shape[1])
+        if len(ins) > 2:
+            changed |= set_leaf(2, lead + (proj or H,))
+        if len(ins) > 3:
+            changed |= set_leaf(3, lead + (H,))
     elif node.op in ("SoftmaxOutput", "Softmax") and len(ins) > 1:
         # the label of a single-output softmax is one class per row
         changed |= set_leaf(1, tuple(data_shape[:1]))

@@ -289,8 +289,23 @@ def test_losses_match_jax(name, kw, args, weighted):
 
 
 def test_ctc_loss_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="A12.2"):
-        tmx.gluon.loss.CTCLoss()
+    """Once a stub raising naming A12.2; now the CTC loss, held against
+    the JAX package's on a (N, T, C) batch with -1 padded labels."""
+    rng = np.random.RandomState(4)
+    pred = rng.randn(3, 9, 6).astype(np.float32)
+    label = np.array([[1, 2, 2, -1], [5, 4, 3, 1], [3, -1, -1, -1]],
+                     np.float32)
+    res = []
+    for mx in (jmx, tmx):
+        x = _arr(mx, pred)
+        x.attach_grad()
+        with mx.autograd.record():
+            out = mx.gluon.loss.CTCLoss()(x, _arr(mx, label))
+        out.backward()
+        res.append((out.asnumpy(), x.grad.asnumpy()))
+    (lw, gw), (lg, gg) = res
+    assert lw.shape == lg.shape == (3,)
+    assert _rel(lg, lw) <= TOL and _rel(gg, gw) <= TOL
 
 
 # ---------------------------------------------------------------------------
@@ -369,6 +384,10 @@ def _train(mx, net, opt, hybridize, steps=STEPS):
 
 @pytest.fixture(scope="module")
 def jax_init():
+    # the weights are the JAX package's draws: start its generator from
+    # its default seed, so they do not depend on what ran before in the
+    # process
+    jmx.random.seed(0)
     jnet, _ = _pair(_zoo18, [TX], init=_fit_init)
     return {k: p.data().asnumpy() for k, p in jnet.collect_params().items()}
 

@@ -190,8 +190,8 @@ def test_flatten_and_elemwise_add():
 def test_unported_op_raises_naming_the_roadmap():
     with pytest.raises(MXNetError, match="ROADMAP A15"):
         treg.get_op("linalg_gemm")
-    with pytest.raises(MXNetError, match="ROADMAP A12.2"):
-        treg.get_op("RNN")
+    with pytest.raises(MXNetError, match="ROADMAP A8.3"):
+        treg.get_op("SyncBatchNorm")
 
 
 # ---------------------------------------------------------------------------

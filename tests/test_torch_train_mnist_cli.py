@@ -11,7 +11,13 @@ packages' generators differ. Held, for MLP and LeNet:
 
 * every parameter of the ``--model-prefix`` checkpoints within
   ``PARAM_TOL`` = 1e-4 of the largest magnitude of its JAX value (lr 0.3
-  with momentum 0.9 over 19 steps; float32 sums in other orders);
+  with momentum 0.9 over 19 steps; float32 sums in other orders); for
+  LeNet within the larger of ``PARAM_TOL`` and ``RATIO`` = 4 times the
+  port's own float32 error, the distance of its epoch from the same
+  epoch started from weights nudged by ``NUDGE`` = 1e-6 (the rule of
+  ``test_torch_models_cli.py``): with one torch thread LeNet's epoch
+  moves a tensor by 2.56e-4 under that nudge, as far as the packages
+  differ (2.56e-4), and with 3 or 8 threads both are below 1e-5;
 * each checkpoint loads in the other package with the same arrays, and
   the port's ``Module`` on the JAX checkpoint predicts within 1e-5 of
   the JAX ``Module`` on it;
@@ -37,6 +43,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = 1200         # 19 batches of 64 a epoch, 200 validation images
 PARAM_TOL = 1e-4
 PRED_TOL = 1e-5
+NUDGE = 1e-6
+RATIO = 4.0
 
 
 def _jax_cli():
@@ -47,12 +55,17 @@ def _jax_cli():
     return mod
 
 
-def _seeded_uniform(mx):
+def _seeded_uniform(mx, nudge=0.0):
+    """``Uniform._init_weight`` as a numpy draw seeded by the name;
+    with ``nudge`` each value scaled by ``1 + nudge * N(0, 1)``."""
     def _init_weight(self, name, arr):
         seed = zlib.crc32(str(name).encode())
         value = np.random.RandomState(seed).uniform(
-            -self.scale, self.scale, arr.shape).astype(np.float32)
-        arr[:] = mx.nd.array(value, ctx=arr.context)
+            -self.scale, self.scale, arr.shape)
+        if nudge:
+            value = value * (1 + nudge * np.random.RandomState(seed + 1)
+                             .randn(*value.shape))
+        arr[:] = mx.nd.array(value.astype(np.float32), ctx=arr.context)
     return _init_weight
 
 
@@ -72,10 +85,12 @@ def _scorer(mx, prefix, shape):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """For each network: the JAX CLI's and the port's checkpoint prefix
-    after one epoch, and the port's trained ``Module``."""
+    after one epoch, the port's trained ``Module``, and for LeNet the
+    prefix of the port's epoch from weights nudged by ``NUDGE``."""
+    from mxnet_tpu.symbol.symbol import _name_mgr as jnames
+    from mxnet_tpu_torch.symbol.symbol import _name_mgr as tnames
     mp = pytest.MonkeyPatch()
     mp.setattr(jmx.init.Uniform, "_init_weight", _seeded_uniform(jmx))
-    mp.setattr(tmx.init.Uniform, "_init_weight", _seeded_uniform(tmx))
     cli = _jax_cli()
     out = {}
     try:
@@ -86,41 +101,66 @@ def runs(tmp_path_factory):
             jprefix, tprefix = str(d / "jax"), str(d / "port")
             mp.setattr(sys, "argv", ["train_mnist.py"] + flags
                        + ["--model-prefix", jprefix])
+            # every run names its layers from 0 (``convolution0_weight``),
+            # whatever other tests named before, so that the draw seeded
+            # by the name starts each run from the same weights
+            mp.setattr(jnames, "_counter", {})
             np.random.seed(0)
             cli.main()
+            mp.setattr(tnames, "_counter", {})
+            mp.setattr(tmx.init.Uniform, "_init_weight",
+                       _seeded_uniform(tmx))
             np.random.seed(0)
             tmod = train_mnist.main(["--gpus", ""] + flags
                                     + ["--model-prefix", tprefix])
-            out[net] = (jprefix, tprefix, tmod)
+            nprefix = None
+            if net == "lenet":
+                nprefix = str(d / "nudged")
+                mp.setattr(tnames, "_counter", {})
+                mp.setattr(tmx.init.Uniform, "_init_weight",
+                           _seeded_uniform(tmx, NUDGE))
+                np.random.seed(0)
+                train_mnist.main(["--gpus", ""] + flags
+                                 + ["--model-prefix", nprefix])
+            out[net] = (jprefix, tprefix, tmod, nprefix)
     finally:
         mp.undo()
     return out
 
 
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
 @pytest.mark.parametrize("net", ["mlp", "lenet"])
 def test_one_epoch_matches_jax(runs, net):
-    jprefix, tprefix, _ = runs[net]
+    jprefix, tprefix, _, nprefix = runs[net]
     jsym, jarg, jaux = _params(jmx, jprefix)
     tsym, targ, taux = _params(tmx, tprefix)
+    nudged = _params(tmx, nprefix)[1] if nprefix else None
     # auto-named layers count from each package's own name manager: match
     # the parameters by their place in the symbol
     jnames, tnames = jsym.list_arguments(), tsym.list_arguments()
     assert len(jnames) == len(tnames)
     assert not jaux and not taux
-    worst = 0.0
+    over = {}
     for jn, tn in zip(jnames, tnames):
         if jn in ("data", "softmax_label"):
             continue
         want, got = jarg[jn], targ[tn]
         assert want.shape == got.shape, jn
-        worst = max(worst, float(np.abs(got - want).max()
-                                 / np.abs(want).max()))
-    assert worst <= PARAM_TOL, worst
+        err = _rel(got, want)
+        bound = PARAM_TOL
+        if nudged is not None:
+            bound = max(PARAM_TOL, RATIO * _rel(nudged[tn], got))
+        if err > bound:
+            over[tn] = (err, bound)
+    assert not over, over
 
 
 @pytest.mark.parametrize("net", ["mlp", "lenet"])
 def test_checkpoints_load_in_the_other_package(runs, net):
-    jprefix, tprefix, _ = runs[net]
+    jprefix, tprefix, _, _ = runs[net]
     for prefix in (jprefix, tprefix):
         _, ja, _ = _params(jmx, prefix)
         _, ta, _ = _params(tmx, prefix)
@@ -141,7 +181,7 @@ def test_checkpoints_load_in_the_other_package(runs, net):
 def test_validation_accuracy_matches_jax(runs, net):
     """Each package scores its own checkpoint on the validation set: the
     same accuracy (200 images; one flipped argmax would show)."""
-    jprefix, tprefix, tmod = runs[net]
+    jprefix, tprefix, tmod, _ = runs[net]
     xv, yv = train_mnist.synthetic_mnist(EXAMPLES // 6, seed=1)
     accs = []
     for mx, mod in ((jmx, _scorer(jmx, jprefix, xv.shape)), (tmx, tmod)):
