@@ -268,8 +268,9 @@ Phases, each fatal on failure (no phase's failure is caught):
     within 1e-5), and a planted BatchNorm fault that must fail (phase
     14's; phase 23's for Inception, whose float32 step hides phase 14's);
 34. ``train_mnist.main`` in-process for ``--network mlp`` and ``lenet``
-    with the default flags: ``sgd_fused_update`` once a step, finite
-    outputs, the final validation accuracy above chance, img/s;
+    with the default flags and a seeded shuffle: ``sgd_fused_update``
+    once a step, finite outputs, the final validation accuracy above
+    chance, img/s;
 35. the ``lstm_bucketing`` CLI at reference MXNet's defaults (the PTB
     "small" LM: 2 x 200 LSTM cells unrolled per bucket, 200-wide
     embedding, batch 32, buckets 10..60, PTB's 10 000 words) over a
@@ -293,9 +294,41 @@ Phases, each fatal on failure (no phase's failure is caught):
     bidirectional, LSTMP; outputs, states, gradients) and ``CTCLoss``
     (both blank labels, with and without lengths; loss and gradient); a
     planted i/f gate swap must fail;
-38. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
-    20, its launches from phase 21; ``crop_mirror_normalize``'s times
-    from phase 24, its launches from phase 26; ``sgd_fused_update``'s
+38. the flash kernels' "fma" route (the TPU kernel's whole domain: k and
+    v of their own length s_k, head dims up to 256, float32 and bf16)
+    against the plain versions by phase 6's limits, causal and full, each
+    launch on the route ``flash_route`` names; a planted fault (a key
+    tile hidden at s_q 512 < s_k 1024) that must fail; each route timed
+    beside its bound, plain version and causal SDPA at the same shape
+    (bf16 head_dim 128; bf16 s_q 512 < s_k 1024; the CLI's f32 shape);
+39. ``_contrib_flash_attention`` on the card (bf16, causal; head_dim 128,
+    and s_k twice s_q) through ``nd.contrib``, a bound ``sym.contrib``
+    Symbol and a hybridized block (CUDA graphs): output and gradients
+    against the plain versions, one fma launch each a call;
+40. the ``train_transformer_lm`` CLI in-process at benchmark.py:669's
+    widths (d 1024, 16 heads, 12 layers, d_ff 4096, vocab 32768, seq
+    1024, batch 8) in float32, dense and with ``--num-experts 8``, each
+    with ``--generate 32``: its printed lines, the loss falling, 12 + 12
+    flash launches a step on the fma route;
+41. the bf16 train step at the same widths as MoE (8 experts, top-2),
+    dense with ``remat=True`` and dense: tokens/s, MFU (6 N_active + 12
+    L d s / 2 a token; N_active counts a token's two experts), peak
+    memory, flash launches a step, a profiled step; remat's loss and
+    gradients against no remat's from the same weights and batch;
+42. ``transformer_generate`` at benchmark.py:736's decode config (bf16,
+    GQA 16/4, RoPE, 12 layers, batch 8, prompt 32, 128 steps):
+    generated tokens/s, a profiled call; at 2 layers in float32 the
+    dense cache's greedy tokens on the card equal the CPU's and the
+    paged ``DecodeEngine``'s;
+43. the same config with 8 experts through ``DecodeEngine``, 16
+    requests of phase 4's mix: the paged kernels launched once a layer
+    per prefill and step on their redesigned routes, tokens/s, and the
+    requests again profiled;
+44. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
+    20, its launches from phase 21; the flash kernels' fma-route rows'
+    times from phase 38, their launches from phases 39 and 40;
+    ``crop_mirror_normalize``'s times from phase 24, its launches from
+    phase 26; ``sgd_fused_update``'s
     launches from phase 22's first hybridized window, phase 28's four CLI
     runs, phase 30's fit, phase 31's first hybridized window, phase 34's
     runs, phase 35's fit and phase 36's first hybridized window;
@@ -5096,6 +5129,13 @@ ZOO_F64 = (("inceptionv3", 94, "gamma"), ("mobilenetv2_1.0", 53, "bn"),
 # tensors), and a planted update of lr 0.1 x a gradient of 1e-3 reads 1e-4
 ZOO_EXACT_ZERO = 1e-12
 ZOO_ZERO_TOL = 1e-5
+# phase 34: the CLI's NDArrayIter shuffles from numpy's global generator
+# (the JAX package's rule), which nothing seeds, so the phase drew a new
+# order each run; at the default lr 0.3 / momentum 0.9 the MLP collapses
+# to chance on some orders in both packages (on the CPU, shuffles seeded
+# 0-7: the port's on 3, the JAX package's on 2). Seeded for a
+# reproducible run.
+MNIST_SHUFFLE_SEED = 0
 MNIST_EXTRA = []        # appended to train_mnist's arguments (a CPU
 #                         rehearsal)
 
@@ -5590,7 +5630,8 @@ def mnist_cli(torch, mx, fu):
     mlp`` and ``lenet`` with the default flags (the seeded synthetic set
     of 6000 images, batch 64, 6 epochs, SGD lr 0.3 momentum 0.9):
     ``sgd_fused_update`` once a step and its plain version never, finite
-    outputs, the printed final validation accuracy above chance (0.1);
+    outputs, the printed final validation accuracy above chance (0.1),
+    the shuffle seeded (MNIST_SHUFFLE_SEED);
     img/s from the Speedometer lines (the first epoch's left out)."""
     import contextlib
     import io as _io
@@ -5604,6 +5645,7 @@ def mnist_cli(torch, mx, fu):
         printed = _io.StringIO()
         with _PlainSGDSpy(fu) as plain, LogLines() as logs, \
                 contextlib.redirect_stdout(printed):
+            np.random.seed(MNIST_SHUFFLE_SEED)
             t0 = time.perf_counter()
             mod = train_mnist.main(["--network", net] + MNIST_EXTRA)
             torch.cuda.synchronize()
@@ -6298,6 +6340,636 @@ def rnn_ctc_card(torch, mx, dev=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 38-43: the rest of the transformer LM family
+# ---------------------------------------------------------------------------
+
+# phase 38: (b, heads, s_q, s_k, head_dim, dtype) held on the "fma" route:
+# key lengths of their own (C.12), causal and full, and the head dims the
+# wgmma route does not take, up to 256
+FMA_CHECKS = [(1, 2, 8, 16, 64, "float32"), (1, 2, 16, 8, 64, "bfloat16"),
+              (2, 3, 100, 37, 32, "bfloat16"), (2, 8, 512, 1024, 64,
+                                                "bfloat16"),
+              (2, 8, 256, 256, 128, "bfloat16"), (2, 8, 256, 256, 128,
+                                                  "float32"),
+              (1, 4, 130, 70, 80, "bfloat16"), (1, 2, 64, 64, 256,
+                                                "bfloat16")]
+# phase 38's timed shapes, causal, L2 flushed: (label, b, heads, s_q, s_k,
+# head_dim, dtype). A d_model 1024 model with 8 heads of 128; queries
+# against twice as many keys; the train_transformer_lm CLI's own float32
+# attention at full width (its flash launches take this route)
+FMA_TIMED = [("bf16 head_dim 128", 8, 8, 1024, 1024, 128, "bfloat16"),
+             ("bf16 s_q 512 < s_k 1024", 8, 16, 512, 1024, 64, "bfloat16"),
+             ("f32 CLI shape", 8, 16, 1024, 1024, 64, "float32")]
+# phase 39: the _contrib_flash_attention op's shapes on the card, causal
+CONTRIB_SHAPES = [(2, 8, 256, 256, 128), (2, 8, 256, 512, 64)]
+# phase 40: the CLI at benchmark.py:669's widths (float32, its own dtype)
+LM_CLI_ARGS = ["--d-model", "1024", "--n-heads", "16", "--n-layers", "12",
+               "--d-ff", "4096", "--vocab", "32768", "--seq-len", "1024",
+               "--batch-size", "8", "--steps", "10", "--generate", "32"]
+LM_CLI_EXTRA = []       # appended to the CLI's arguments (a CPU rehearsal)
+# phase 41: the bf16 train step's three configurations, 4 steps a call
+STEP_K = 4
+STEP_CONFIGS = (("moe", dict(num_experts=8)), ("remat", dict(remat=True)),
+                ("dense", dict()))
+# phase 42: benchmark.py:736 decode_transformer_lm
+GEN_BATCH, GEN_PROMPT, GEN_STEPS = 8, 32, 128
+GEN_CHECK_LAYERS = 2    # the f32 stream checks
+GEN_REQUESTS = 16       # phase 43: phase 4's mix
+CARD = "cuda"           # the device of phases 38-43 ("cpu": a rehearsal)
+
+
+def attn_cost(b, h, s_q, s_k, d, item, causal, backward):
+    """(bytes, flops) of one flash call: q, k, v (and o, do, lse for the
+    backward) read once, o and lse (dq, dk, dv) written once; 4 (10 for
+    the backward's five products) * head_dim flops per visible (query,
+    key) pair, ``kpos <= qpos`` when causal."""
+    if causal:
+        m = min(s_q, s_k)
+        pairs = b * h * (m * (m + 1) // 2 + (s_q - m) * s_k)
+    else:
+        pairs = b * h * s_q * s_k
+    q_el, k_el = b * h * s_q * d, b * h * s_k * d
+    if backward:
+        return ((4 * q_el + 4 * k_el) * item + 4 * b * h * s_q,
+                10.0 * d * pairs)
+    return (2 * q_el + 2 * k_el) * item + 4 * b * h * s_q, 4.0 * d * pairs
+
+
+def attn_bound(torch, nbytes, flops, dtype):
+    """(bound ms, what bounds it) at the peak for the dtype's operations:
+    bf16 tensor cores, or float32 outside them."""
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    t_b, t_o = nbytes / HBM_BPS, flops / peak
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def hidden_key_tile(torch, fa, q, k, v, causal, scale):
+    """(o, lse) of the plain function with keys 0..15 hidden from the
+    last 16 query rows: what a kernel that skipped that one tile pair
+    would compute."""
+    s_q, s_k = q.shape[2], k.shape[2]
+    keep = torch.ones(s_q, s_k, dtype=torch.bool, device=q.device)
+    if causal:
+        keep = (torch.arange(s_k, device=q.device)[None, :]
+                <= torch.arange(s_q, device=q.device)[:, None])
+    keep[s_q - 16:, :16] = False
+    sc = torch.where(keep, q.float() @ k.float().transpose(-1, -2) * scale,
+                     fa.NEG_INF)
+    lse = torch.logsumexp(sc, -1)
+    return torch.exp(sc - lse[..., None]) @ v.float(), lse
+
+
+def check_flash_routes(torch, fa, timer):
+    """Phase 38: the "fma" route of both flash kernels (C.12's domain:
+    s_k != s_q, head dims up to 256) against the plain versions by
+    phase 6's relative-RMS limits, each launch on the route flash_route
+    names; a planted fault (a key tile hidden at s_q 512 < s_k 1024)
+    that must fail; then each timed shape (FMA_TIMED) beside its bound,
+    its plain version and causal scaled_dot_product_attention at the
+    same shape (top-left causal alignment, kpos <= qpos, as the kernel's
+    rule)."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(38)
+    rows, planted = [], None
+    for b, h, s_q, s_k, d, dt in FMA_CHECKS:
+        dtype = getattr(torch, dt)
+        lim = flash_limits(dtype, torch)
+        for causal in (True, False):
+            q, do = (torch.randn(b, h, s_q, d, generator=gen).to(
+                CARD, dtype) for _ in range(2))
+            k, v = (torch.randn(b, h, s_k, d, generator=gen).to(
+                CARD, dtype) for _ in range(2))
+            scale = 1.0 / d ** 0.5
+            check(fa.flash_route(dtype, d, s_q, s_k) == "fma",
+                  "flash_route %s for an fma shape" % ((dt, d, s_q, s_k),))
+            r0 = {n: dict(fa.ROUTES[n]) for n in ("flash_attention",
+                                                  "flash_attention_bwd")}
+            o, lse = fa._flash_fwd(q, k, v, causal)
+            dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            torch.cuda.synchronize()
+            for n in r0:
+                check(fa.ROUTES[n]["fma"] == r0[n]["fma"] + 1
+                      and fa.ROUTES[n]["wgmma"] == r0[n]["wgmma"],
+                      "%s: not one launch on the fma route: %s"
+                      % (n, fa.ROUTES[n]))
+            ref = plain_flash(torch, fa, q, k, v, do, causal, scale)
+            errs = {n: rel_err(g, r) for n, g, r in
+                    zip(FLASH_OUTS, (o, lse, dq, dk, dv), ref)}
+            rows.append({"dtype": dt, "shape": [b, h, s_q, s_k, d],
+                         "causal": causal, "rel_err": errs})
+            log("check flash fma route %-8s (b, h, s_q, s_k, d) %-24s "
+                "causal=%d %s" % (dt, (b, h, s_q, s_k, d), causal,
+                                  " ".join("%s=%.2e" % kv
+                                           for kv in errs.items())))
+            bad = {n: e for n, e in errs.items() if e > lim[n]}
+            check(not bad, "flash fma route %s %s causal=%s: %s over %s"
+                  % (dt, (b, h, s_q, s_k, d), causal, bad, lim))
+            if s_q < s_k and causal and dtype == torch.bfloat16 \
+                    and planted is None:
+                po, plse = hidden_key_tile(torch, fa, q, k, v, causal,
+                                           scale)
+                planted = {"o": rel_err(po, ref[0]),
+                           "lse": rel_err(plse, ref[1])}
+                log("planted fault (key tile hidden at s_q %d < s_k %d): "
+                    "o=%.2e lse=%.2e" % (s_q, s_k, planted["o"],
+                                         planted["lse"]))
+                check(planted["o"] > lim["o"] and planted["lse"]
+                      > lim["lse"], "planted fault (hidden key tile) "
+                      "passes the checks: %s" % planted)
+    check(planted is not None, "no planted fault ran")
+    timed = []
+    for label, b, h, s_q, s_k, d, dt in FMA_TIMED:
+        dtype = getattr(torch, dt)
+        q, do = (torch.randn(b, h, s_q, d, generator=gen).to(CARD, dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(b, h, s_k, d, generator=gen).to(CARD, dtype)
+                for _ in range(2))
+        scale = 1.0 / d ** 0.5
+        route = fa.flash_route(dtype, d, s_q, s_k)
+        o, lse = fa._flash_fwd(q, k, v, True)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+        ref = plain_flash(torch, fa, q, k, v, do, True, scale)
+        # the timed shapes are held to the same limits: the CLI's f32
+        # shape is the one phase 40 launches, at its full grid
+        lim = flash_limits(dtype, torch)
+        errs = {n: rel_err(g, r_) for n, g, r_ in
+                zip(FLASH_OUTS, (o, lse, dq, dk, dv), ref)}
+        rows.append({"dtype": dt, "shape": [b, h, s_q, s_k, d],
+                     "causal": True, "rel_err": errs, "label": label})
+        log("check flash %s route %-24s %s" % (
+            route, label, " ".join("%s=%.2e" % kv for kv in errs.items())))
+        bad = {n: e for n, e in errs.items() if e > lim[n]}
+        check(not bad, "flash %s route %s %s causal: %s over %s"
+              % (route, label, (b, h, s_q, s_k, d), bad, lim))
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+        item = q.element_size()
+        for name, fn, plain, lib, backward, err in (
+                ("flash_attention", lambda: fa._flash_fwd(q, k, v, True),
+                 lambda: fa._flash_fwd_torch(q, k, v, True, scale),
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        is_causal=True),
+                 False, max_err(o, ref[0])),
+                ("flash_attention_bwd",
+                 lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True),
+                 lambda: fa._flash_bwd_torch(q, k, v, o, lse, do, True,
+                                             scale),
+                 lambda: torch.autograd.grad(lo, (lq, lk, lv), do,
+                                             retain_graph=True),
+                 True, max(max_err(a, r) for a, r in
+                           zip((dq, dk, dv), ref[2:])))):
+            nbytes, flops = attn_cost(b, h, s_q, s_k, d, item, True,
+                                      backward)
+            bound, by = attn_bound(torch, nbytes, flops, dtype)
+            r = {"name": name, "label": label, "route": route,
+                 "shape": "b=%d h=%d s_q=%d s_k=%d d=%d causal %s"
+                 % (b, h, s_q, s_k, d, dt), "ms": timer(fn, iters=10),
+                 "plain_ms": timer(plain, iters=5),
+                 "library_ms": timer(lib, iters=10), "bound_ms": bound,
+                 "bound_by": by, "max_abs_err": err, "flops": flops}
+            r["of_bound"] = bound / r["ms"]
+            r["vs_library"] = r["ms"] / r["library_ms"]
+            timed.append(r)
+            log("time %-20s %s (%s route) ms=%.4f plain_ms=%.4f "
+                "library_ms=%.4f (kernel/SDPA %.2fx) bound_ms=%.4f (%s; "
+                "%.1f%% of it) %.2f TFLOP/s max_abs_err=%.3g"
+                % (name, r["shape"], route, r["ms"], r["plain_ms"],
+                   r["library_ms"], r["vs_library"], bound, by,
+                   100 * r["of_bound"], flops / (r["ms"] * 1e-3) / 1e12,
+                   err))
+    return {"rows": rows, "planted": planted, "timed": timed}
+
+
+def _as_nd(mx, t):
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    return NDArray(t)
+
+
+def contrib_card(torch, mx, fa):
+    """Phase 39: ``_contrib_flash_attention`` on the card, bf16, causal,
+    at CONTRIB_SHAPES (head_dim 128; s_k twice s_q), through
+    ``nd.contrib``, a bound ``sym.contrib`` Symbol and a hybridized
+    block (its CUDA graphs): output and q, k, v gradients against the
+    plain versions at phase 6's limits, every launch on the fma route;
+    the launches are counted (the kernels line's fma entries)."""
+    gen = torch.Generator().manual_seed(39)
+    lim = flash_limits(torch.bfloat16, torch)
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    rows = []
+
+    class Attn(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, q, k, v):
+            return F.contrib.flash_attention(q, k, v, causal=True)
+
+    for b, h, s_q, s_k, d in CONTRIB_SHAPES:
+        q, do = (torch.randn(b, h, s_q, d, generator=gen).to(
+            CARD, torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, h, s_k, d, generator=gen).to(
+            CARD, torch.bfloat16) for _ in range(2))
+        ref = plain_flash(torch, fa, q, k, v, do, True, 1.0 / d ** 0.5)
+        want = [ref[0]] + list(ref[2:])
+        net = Attn()
+        net.hybridize()
+        for i, route in enumerate(("nd", "sym", "hybridized",
+                                   "hybridized")):
+            # the first hybridized call warms up (a real launch of each
+            # kernel), captures (none) and replays (one)
+            want_n = 2 if i == 2 else 1
+            fa.reset_launches()
+            if route == "sym":
+                s = mx.sym.contrib.flash_attention(
+                    mx.sym.var("q"), mx.sym.var("k"), mx.sym.var("v"),
+                    causal=True)
+                grads = {n: _as_nd(mx, torch.zeros_like(t))
+                         for n, t in zip("qkv", (q, k, v))}
+                ex = s.bind(mx.gpu(0), {n: _as_nd(mx, t) for n, t in
+                                        zip("qkv", (q, k, v))},
+                            args_grad=grads)
+                out = ex.forward(is_train=True)[0]._data
+                ex.backward([_as_nd(mx, do)])
+                got = [out] + [grads[n]._data for n in "qkv"]
+            else:
+                nds = [_as_nd(mx, t.clone()) for t in (q, k, v)]
+                for a in nds:
+                    a.attach_grad()
+                fn = (mx.nd.contrib.flash_attention if route == "nd"
+                      else (lambda *a: net(*a)))
+                with mx.autograd.record():
+                    out = fn(*nds) if route == "hybridized" else fn(
+                        *nds, causal=True)
+                out.backward(_as_nd(mx, do))
+                got = [out._data.detach()] + [a.grad._data for a in nds]
+            torch.cuda.synchronize()
+            errs = {n: rel_err(g, r) for n, g, r in
+                    zip(("o", "dq", "dk", "dv"), got, want)}
+            counts = dict(fa.LAUNCHES)
+            routes = {n: dict(fa.ROUTES[n]) for n in launches}
+            for n in launches:
+                launches[n] += counts[n]
+            rows.append({"route": route, "shape": [b, h, s_q, s_k, d],
+                         "rel_err": errs, "launches": {
+                             n: counts[n] for n in launches}})
+            log("contrib flash_attention %-10s %s bf16 causal: %s; "
+                "launches %s, routes %s" % (
+                    route, (b, h, s_q, s_k, d), " ".join(
+                        "%s=%.2e" % kv for kv in errs.items()),
+                    {n: counts[n] for n in launches}, routes))
+            bad = {n: e for n, e in errs.items() if e > lim[n]}
+            check(not bad, "contrib flash_attention %s %s: %s over %s"
+                  % (route, (b, h, s_q, s_k, d), bad, lim))
+            check(all(counts[n] == want_n and routes[n]["fma"] == want_n
+                      for n in launches), "contrib flash_attention %s: "
+                  "launches %s routes %s, expected %d fma launches each"
+                  % (route, counts, routes, want_n))
+    return {"rows": rows, "launches": launches}
+
+
+def lm_cli(torch, mx, fa):
+    """Phase 40: ``train_transformer_lm.main`` in-process at
+    benchmark.py:669's widths in float32 (the CLI's dtype), dense, then
+    with ``--num-experts 8`` (top-2, capacity factor 2.0), each with
+    ``--generate 32``: the printed lines, the loss falling on the
+    stream, 12 forward and 12 backward flash launches a step (float32:
+    the fma route), the paged kernels never, 32 tokens generated."""
+    import contextlib
+    import io
+    from mxnet_tpu_torch.examples import train_transformer_lm as cli
+    res = {}
+    for label, extra in (("dense", []), ("moe", ["--num-experts", "8"])):
+        argv = LM_CLI_ARGS + extra + LM_CLI_EXTRA
+        steps, layers, n_gen = (int(argv[len(argv) - 1 - argv[::-1].index(
+            flag) + 1]) for flag in ("--steps", "--n-layers", "--generate"))
+        fa.reset_launches()
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = cli.main(argv, device=mx.gpu(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lines = buf.getvalue().strip().splitlines()
+        for line in lines:
+            log("lm cli %s | %s" % (label, line))
+        launches = dict(fa.LAUNCHES)
+        routes = {n: dict(fa.ROUTES[n]) for n in ("flash_attention",
+                                                  "flash_attention_bwd")}
+        losses = [float(ln.split()[3]) for ln in lines
+                  if ln.startswith("step")]
+        n_params = sum(p.numel() for p in out["params"].parameters())
+        res[label] = {"lines": lines, "losses": losses, "wall_s": wall,
+                      "launches": launches, "routes": routes,
+                      "n_params": n_params, "match": out.get("match"),
+                      "steps": steps}
+        log("lm cli %s: %d params, %d steps + generate in %.1fs; losses "
+            "%s; flash launches %s, routes %s; match %.2f"
+            % (label, n_params, steps, wall, losses,
+               {k: launches[k] for k in routes}, routes, out["match"]))
+        check(all(np.isfinite(losses)), "lm cli %s: loss %s" % (label,
+                                                                  losses))
+        check(losses[-1] < losses[0], "lm cli %s: the loss did not fall: "
+              "%s" % (label, losses))
+        check(any(ln.startswith("mesh=") for ln in lines)
+              and any(ln.startswith("generated %d tokens" % n_gen)
+                      for ln in lines),
+              "lm cli %s: missing printed lines" % label)
+        check(tuple(out["generated"].shape) == (1, n_gen),
+              "lm cli %s: generated %s" % (label,
+                                           tuple(out["generated"].shape)))
+        for name in routes:
+            check(launches[name] == layers * steps
+                  and routes[name]["fma"] == launches[name],
+                  "lm cli %s: %s launched %d times (routes %s) for %d "
+                  "steps x %d layers" % (label, name, launches[name],
+                                         routes[name], steps, layers))
+        check(launches["paged_decode_attention"] == 0
+              and launches["flash_prefill_paged"] == 0,
+              "lm cli %s: the paged kernels ran: %s" % (label, launches))
+    return res
+
+
+def card_params(torch, cfg, seed, trainable=True):
+    """Full-width weights drawn on the card (std 0.02, ones / zeros for
+    the LayerNorms) from a seeded CUDA generator, in the port's layout:
+    the MoE experts' 805M draws would take the host ~30 s in numpy; the
+    numpy draw order is the CPU tests'."""
+    from mxnet_tpu_torch.parallel.transformer import (TransformerParams,
+                                                      expected_shapes)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    tensors = {}
+    for name, shape in expected_shapes(cfg).items():
+        if name.startswith("ln"):
+            fill = torch.ones if name.endswith("_g") else torch.zeros
+            tensors[name] = fill(shape, dtype=cfg.dtype, device=CARD)
+        else:
+            tensors[name] = (torch.randn(shape, generator=gen,
+                                         device=CARD) * 0.02).to(
+                cfg.dtype)
+    return TransformerParams(cfg, tensors, trainable=trainable)
+
+
+def active_params(cfg, n_params):
+    """Parameters a token runs through: all but the experts it skips
+    (an MoE layer's top-2 of num_experts)."""
+    if not cfg.num_experts:
+        return n_params
+    per_expert = 2 * cfg.d_model * cfg.d_ff
+    return n_params - cfg.n_layers * (cfg.num_experts - min(
+        cfg.moe_top_k, 2)) * per_expert
+
+
+def train_configs(torch, fa):
+    """Phase 41: ``make_transformer_train_step`` in bf16 at the train
+    path's widths (phase 8) in three configurations: MoE (8 experts,
+    top-2, capacity 2.0), dense with ``remat=True``, dense without. A
+    warm and a timed call of STEP_K steps each: tokens/s, ms/step, MFU
+    (6 N_active + 12 L d s / 2 a token: N_active counts a token's two
+    experts, not all eight), peak memory of the step, flash launches a
+    step (remat: two forwards a layer), one profiled step; then the loss
+    and every weight's gradient with remat, which must be bitwise those
+    without, from the same weights and batch."""
+    from mxnet_tpu_torch.parallel.transformer import (
+        TransformerConfig, _lm_local_loss, make_transformer_train_step)
+    rng = np.random.RandomState(41)
+    shape = (STEP_K, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = torch.tensor(rng.randint(0, TRAIN["vocab_size"], shape),
+                          dtype=torch.int32, device=CARD)
+    targets = torch.tensor(rng.randint(0, TRAIN["vocab_size"], shape),
+                           dtype=torch.int32, device=CARD)
+    res = {"flop_convention": "6 * N_active + 12 * L * d * s / 2 per "
+           "token; N_active = parameters less the (num_experts - 2) "
+           "experts a token skips in each MoE layer"}
+    for label, kw in STEP_CONFIGS:
+        cfg = TransformerConfig(dtype=torch.bfloat16, **dict(TRAIN, **kw))
+        params = card_params(torch, cfg, seed=41)
+        n_params = sum(p.numel() for p in params.parameters())
+        n_active = active_params(cfg, n_params)
+        loop = make_transformer_train_step(cfg, None, lr=TRAIN_LR,
+                                           device_loop=True)
+        calls = []
+        for i in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            params, loss = loop(params, tokens, targets)
+            loss = float(loss)
+            torch.cuda.synchronize()
+            calls.append({"wall_s": time.perf_counter() - t0, "loss": loss,
+                          "launches": dict(fa.LAUNCHES),
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            check(np.isfinite(loss), "train %s: loss %r" % (label, loss))
+        fwd = 2 if cfg.remat else 1
+        ln = calls[1]["launches"]
+        check(ln["flash_attention"] == fwd * cfg.n_layers * STEP_K
+              and ln["flash_attention_bwd"] == cfg.n_layers * STEP_K,
+              "train %s: flash launches %s for %d steps x %d layers"
+              % (label, ln, STEP_K, cfg.n_layers))
+        dt = calls[1]["wall_s"]
+        tps = TRAIN_BATCH * TRAIN_SEQ * STEP_K / dt
+        flop_tok = 6 * n_active + 12 * cfg.n_layers * cfg.d_model * \
+            TRAIN_SEQ * 0.5
+        mfu = tps * flop_tok / BF16_FLOPS
+        check(mfu <= 1.05, "train %s: MFU %.2f > 1" % (label, mfu))
+        step = make_transformer_train_step(cfg, None, lr=TRAIN_LR)
+        prof = profile_run(torch, lambda: step(params, tokens[0],
+                                               targets[0]))
+        log_profile("train %s profiled step" % label, prof)
+        res[label] = {"n_params": n_params, "n_active": n_active,
+                      "tokens_per_s": tps, "ms_per_step": dt * 1e3 / STEP_K,
+                      "mfu": mfu, "flop_per_token": flop_tok,
+                      "peak_mem_gb": calls[1]["peak_gb"], "calls": calls,
+                      "profiled_step": prof}
+        log("train %s (bf16, batch %d x %d): %d params (%d active), %.0f "
+            "tokens/s, %.2f ms/step, MFU %.3f (%.3g GFLOP/token), peak "
+            "memory %.2f GB, last loss %.4f, launches %s"
+            % (label, TRAIN_BATCH, TRAIN_SEQ, n_params, n_active, tps,
+               res[label]["ms_per_step"], mfu, flop_tok / 1e9,
+               calls[1]["peak_gb"], calls[1]["loss"],
+               {k: v for k, v in ln.items() if v}))
+        del params, loop, step
+    # remat against no remat: the same weights and batch, loss and grads
+    cfg = TransformerConfig(dtype=torch.bfloat16, **TRAIN)
+    params = card_params(torch, cfg, seed=42)
+    leaves = list(params.parameters())
+    names = [n for n, _ in params.named_parameters()]
+    out = {}
+    for remat in (False, True):
+        cfg.remat = remat
+        with torch.enable_grad():
+            loss = _lm_local_loss(params, tokens[0], targets[0], cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        out[remat] = (loss.detach(), grads)
+    cfg.remat = False
+    diff = {n: float((a.float() - b.float()).abs().max())
+            for n, a, b in zip(names, out[True][1], out[False][1])}
+    same = torch.equal(out[True][0], out[False][0]) and not any(
+        diff.values())
+    res["remat_vs_plain"] = {"bitwise": same, "loss": [
+        float(out[False][0]), float(out[True][0])],
+        "max_grad_diff": max(diff.values()),
+        "worst": max(diff, key=diff.get)}
+    log("train remat vs no remat (bf16, same weights and batch): loss %.6f "
+        "/ %.6f, %s; largest gradient difference %.3g (%s)"
+        % (float(out[False][0]), float(out[True][0]),
+           "bitwise equal" if same else "NOT bitwise equal",
+           max(diff.values()), max(diff, key=diff.get)))
+    # the recompute runs the forward's kernels on the same inputs, so
+    # the loss and every gradient must be bitwise those without remat
+    check(same, "train: remat is not bitwise equal to no remat: loss %s "
+          "vs %s, largest gradient difference %.3g (%s)"
+          % (float(out[True][0]), float(out[False][0]), max(diff.values()),
+             max(diff, key=diff.get)))
+    return res
+
+
+def generate_card(torch, mx, fa):
+    """Phase 42: ``transformer_generate`` at benchmark.py:736
+    decode_transformer_lm (bf16, GQA 16 / 4, RoPE, 12 layers, batch 8,
+    prompt 32, 128 steps, seeded weights): generated tokens/s of a
+    timed call after a warm one, the paged kernels never launched, and a
+    profiled call of 16 steps. Then
+    float32 at GEN_CHECK_LAYERS layers: the greedy tokens of the dense
+    cache on the card equal the CPU's and the paged ``DecodeEngine``'s
+    for the same prompts (the engine launching the paged kernels)."""
+    from mxnet_tpu_torch.parallel.transformer import (
+        TransformerConfig, init_transformer_params_np, transformer_generate)
+    from mxnet_tpu_torch.serve import DecodeConfig, DecodeEngine
+    cfg = TransformerConfig(dtype=torch.bfloat16, **FULL)
+    params = init_transformer_params_np(cfg, seed=0, device=mx.gpu(0))
+    rng = np.random.RandomState(42)
+    prompt = torch.tensor(rng.randint(0, cfg.vocab_size,
+                                      (GEN_BATCH, GEN_PROMPT)),
+                          dtype=torch.int32, device=CARD)
+    runs = []
+    for i in range(2):
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = transformer_generate(params, prompt, GEN_STEPS, cfg)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        check(all(v == 0 for v in fa.LAUNCHES.values()),
+              "generate launched %s" % fa.LAUNCHES)
+    check(tuple(out.shape) == (GEN_BATCH, GEN_STEPS)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "generate: tokens %s" % (tuple(out.shape),))
+    tps = GEN_BATCH * GEN_STEPS / runs[1]
+    res = {"tokens_per_s": tps, "wall_s": runs, "ms_per_token_step":
+           runs[1] * 1e3 / GEN_STEPS}
+    log("generate (bf16, GQA 16/4, RoPE, 12 layers, batch %d, prompt %d, "
+        "%d steps): warm %.3fs, timed %.3fs: %.1f generated tokens/s, "
+        "%.2f ms a step" % (GEN_BATCH, GEN_PROMPT, GEN_STEPS, runs[0],
+                            runs[1], tps, res["ms_per_token_step"]))
+    res["profiled_16_steps"] = profile_run(
+        torch, lambda: transformer_generate(params, prompt, 16, cfg))
+    log_profile("generate profiled (16 steps)", res["profiled_16_steps"])
+    del params
+    # float32 streams: dense cache (card, CPU) and the paged engine
+    cfg = TransformerConfig(dtype=torch.float32, **dict(
+        FULL, n_layers=GEN_CHECK_LAYERS))
+    p_cpu = init_transformer_params_np(cfg, seed=0, device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(CARD)
+    steps = 32
+    streams = {"cpu": transformer_generate(p_cpu, prompt.cpu(), steps, cfg),
+               "card": transformer_generate(p_gpu, prompt, steps,
+                                            cfg).cpu()}
+    eng = DecodeEngine(p_gpu, cfg, DecodeConfig(), device=CARD).start()
+    try:
+        fa.reset_launches()
+        sess = [eng.submit(p.tolist(), max_new_tokens=steps)
+                for p in prompt.cpu()]
+        streams["engine"] = torch.tensor([s.result() for s in sess],
+                                         dtype=torch.int32)
+        launches = dict(fa.LAUNCHES)
+    finally:
+        eng.close(drain=False)
+    agree = {k: float((v == streams["cpu"]).float().mean())
+             for k, v in streams.items()}
+    res["f32_streams"] = {"agree_with_cpu": agree, "engine_launches":
+                          launches}
+    log("generate f32 (%d layers, batch %d, %d steps): share of tokens "
+        "equal to the CPU's dense stream: %s; engine launches %s"
+        % (GEN_CHECK_LAYERS, GEN_BATCH, steps, agree,
+           {k: v for k, v in launches.items() if v}))
+    check(torch.equal(streams["card"], streams["cpu"]),
+          "generate: card stream differs from the CPU's")
+    check(torch.equal(streams["engine"], streams["cpu"]),
+          "generate: the paged engine's stream differs from the dense "
+          "cache's")
+    check(launches["paged_decode_attention"] > 0
+          and launches["flash_prefill_paged"] == cfg.n_layers * GEN_BATCH,
+          "generate: engine launches %s" % launches)
+    return res
+
+
+def moe_serve(torch, mx, fa):
+    """Phase 43: the decode config with 8 experts (bf16, 12 layers,
+    weights drawn on the card) through ``DecodeEngine``, GEN_REQUESTS
+    requests of phase 4's mix: every session's token count, the paged
+    kernels launched once a layer per prefill and per step on their
+    redesigned routes, tokens/s; then the same requests profiled."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.parallel.transformer import TransformerConfig
+    from mxnet_tpu_torch.serve import DecodeConfig, DecodeEngine
+    cfg = TransformerConfig(dtype=torch.bfloat16, num_experts=8, **FULL)
+    params = card_params(torch, cfg, seed=43, trainable=False)
+    rng = np.random.RandomState(0)
+    reqs = []
+    for _ in range(GEN_REQUESTS):
+        if rng.rand() < 0.5:
+            plen, mnew = rng.randint(4, 24), rng.randint(32, 64)
+        else:
+            plen, mnew = rng.randint(48, 128), rng.randint(4, 16)
+        reqs.append((list(rng.randint(0, cfg.vocab_size, (plen,))),
+                     int(mnew)))
+
+    def count(name):
+        return telemetry.snapshot().get(name, {"count": 0})["count"]
+
+    eng = DecodeEngine(params, cfg, DecodeConfig(), device=CARD).start()
+    try:
+        eng.warmup()
+        n_pre0, n_step0 = count("decode/prefill_seconds"), count(
+            "decode/step_seconds")
+        fa.reset_launches()
+        t0 = telemetry.monotonic()
+        outs = [s.result() for s in [eng.submit(p, max_new_tokens=m)
+                                     for p, m in reqs]]
+        wall = telemetry.monotonic() - t0
+        launches = dict(fa.LAUNCHES)
+        routes = {k: dict(fa.ROUTES[k]) for k in ("paged_decode_attention",
+                                                  "flash_prefill_paged")}
+        n_pre = count("decode/prefill_seconds") - n_pre0
+        n_step = count("decode/step_seconds") - n_step0
+        prof = profile_round(torch, eng, reqs)
+    finally:
+        eng.close(drain=False)
+    log_profile("moe serve profiled round", prof)
+    for (p, m), out in zip(reqs, outs):
+        check(len(out) == m, "moe serve: %d tokens, expected %d"
+              % (len(out), m))
+    check(launches["flash_prefill_paged"] == cfg.n_layers * n_pre
+          and launches["paged_decode_attention"] == cfg.n_layers * n_step
+          and n_step > 0, "moe serve: launches %s for %d prefills, %d "
+          "steps" % (launches, n_pre, n_step))
+    check(routes["paged_decode_attention"]["cluster"]
+          == launches["paged_decode_attention"]
+          and routes["flash_prefill_paged"]["mma"]
+          == launches["flash_prefill_paged"],
+          "moe serve: a launch off the redesigned routes: %s" % routes)
+    tokens = sum(len(o) for o in outs)
+    res = {"requests": len(reqs), "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "prefills": n_pre,
+           "decode_steps": n_step, "launches": launches, "routes": routes,
+           "profiled_round": prof}
+    log("moe serve (8 experts, bf16, 12 layers): %d requests, %d tokens in "
+        "%.3fs: %.1f tokens/s; %d prefills, %d steps; launches %s"
+        % (len(reqs), tokens, wall, res["tokens_per_s"], n_pre, n_step,
+           {k: v for k, v in launches.items() if v}))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="write the full report here (JSON)")
@@ -6404,6 +7076,14 @@ def main():
         shutil.rmtree(lm_dir, ignore_errors=True)
     lstm_b = lstm_gluon(torch, mx, fu)
     rnn_card = rnn_ctc_card(torch, mx)
+    timer = Timer(torch)
+    fma = check_flash_routes(torch, fa, timer)
+    del timer
+    contrib = contrib_card(torch, mx, fa)
+    lm = lm_cli(torch, mx, fa)
+    steps = train_configs(torch, fa)
+    generated = generate_card(torch, mx, fa)
+    moe = moe_serve(torch, mx, fa)
 
     sources = {"paged_decode_attention": (
         "mxnet_tpu_torch/ops/cuda/csrc/paged_decode_attention.cu",
@@ -6479,6 +7159,23 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the fma route's rows: launches of the bf16 shapes from phase 39's
+    # contrib op at the same head_dim / key length, of the float32 shape
+    # from phase 40's two CLI runs
+    for r in fma["timed"]:
+        src, rep = sources[r["name"]]
+        if r["label"].startswith("f32"):
+            n = sum(run["launches"][r["name"]] for run in lm.values())
+        else:
+            shape = CONTRIB_SHAPES[0 if "128" in r["label"] else 1]
+            n = sum(row["launches"][r["name"]] for row in contrib["rows"]
+                    if row["shape"] == list(shape))
+        kernels.append({
+            "name": "%s (fma route, %s)" % (r["name"], r["label"]),
+            "route": "cuda", "source": src, "replaces": rep,
+            "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     kind = torch.cuda.get_device_name(0)
     report = {"card": card, "torch": torch.__version__,
               "checks": checks, "timings": table, "serve": served,
@@ -6500,7 +7197,10 @@ def main():
               "mobilenet_gluon": mobile, "zoo_score": zoo,
               "zoo_vs_f64": zoo_cpu, "train_mnist": mnist,
               "lstm_bucketing": lstm_a, "gluon_lm": lstm_b,
-              "rnn_ctc_card": rnn_card, "kernels": kernels,
+              "rnn_ctc_card": rnn_card, "flash_fma_route": fma,
+              "contrib_flash_attention": contrib, "lm_cli": lm,
+              "train_configs": steps, "generate": generated,
+              "moe_serve": moe, "kernels": kernels,
               "update_launches": {
                   "module_fit": fitted["launches"]["sgd_fused_update"],
                   "gluon_fit": gluon["launches"]["sgd_fused_update"],

@@ -18,8 +18,8 @@ import torch
 from .base import MXNetError
 from .context import default_device
 from .ndarray.ndarray import NDArray
-from .parallel.transformer import (LAYER_KEYS, TransformerParams,
-                                   _validate, expected_shapes)
+from .parallel.transformer import (TransformerParams, _validate,
+                                   expected_shapes, layer_keys)
 
 __all__ = ["params_from_jax", "params_to_numpy", "module_params_from_numpy",
            "module_params_to_numpy", "gluon_params_from_jax",
@@ -46,28 +46,29 @@ def params_from_jax(np_params, cfg, device=None, trainable=False):
     in ``cfg.dtype`` on ``device`` (default ``cuda:0``), with gradients
     when ``trainable``.
 
-    Flattens each ``(pp, lps, ...)`` layer stack to ``(n_layers, ...)``;
-    raises :class:`MXNetError` on a missing or extra key or a wrong
+    Flattens each ``(pp, lps, ...)`` layer stack to ``(n_layers, ...)``
+    (an MoE config's ``gate``, ``we1`` and ``we2`` in place of ``w1`` and
+    ``w2``); raises :class:`MXNetError` on a missing or extra key or a wrong
     shape (the module checks every shape)."""
     _validate(cfg)
     device = default_device(device)
     shapes = expected_shapes(cfg)
-    top = set(k for k in shapes if k not in LAYER_KEYS) | {"layers"}
+    keys = layer_keys(cfg)
+    top = set(k for k in shapes if k not in keys) | {"layers"}
     got = set(np_params)
     if got != top:
         raise MXNetError("params keys: missing %s, extra %s"
                          % (sorted(top - got), sorted(got - top)))
     layers = np_params["layers"]
     got = set(layers)
-    if got != set(LAYER_KEYS):
+    if got != set(keys):
         raise MXNetError("params['layers'] keys: missing %s, extra %s"
-                         % (sorted(set(LAYER_KEYS) - got),
-                            sorted(got - set(LAYER_KEYS))))
+                         % (sorted(set(keys) - got), sorted(got - set(keys))))
     tensors = {}
     for name, shape in shapes.items():
-        arr = np.asarray(layers[name] if name in LAYER_KEYS
+        arr = np.asarray(layers[name] if name in keys
                          else np_params[name])
-        if name in LAYER_KEYS:
+        if name in keys:
             if (arr.ndim != len(shape) + 1
                     or arr.shape[0] * arr.shape[1] != cfg.n_layers):
                 raise MXNetError(

@@ -1,12 +1,13 @@
-"""Contrib operators: CTC.
+"""Contrib operators: CTC and flash attention.
 
 Counterpart of the CTC part of the JAX package's ``ops/contrib_ops.py``
 (:238-323; reference: src/operator/contrib/ctc_loss.cc). The JAX op is a
 ``lax.scan`` forward algorithm in log space that XLA compiles; here the
 same negative log likelihood is ``F.ctc_loss`` (a CUDA kernel on the
 card, ATen on the host), after the same ``log_softmax`` and relabelling.
-The file's other ops (ROI, detection, transformer helpers) are ROADMAP
-A15.
+``_contrib_flash_attention`` (:360-372) runs the port's
+``flash_attention`` kernels, forward and backward. The file's other ops
+(ROI, detection, the other transformer helpers) are ROADMAP A15.
 
 One case differs by construction: for an alignment that cannot exist
 (more labels, with their repeats, than time steps) torch gives ``inf``
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .cuda.flash_attention import flash_attention
 from .registry import alias, register
 
 
@@ -57,3 +59,28 @@ def _ctc_loss(data, label, data_lengths=None, label_lengths=None,
 alias("_contrib_CTCLoss", "CTCLoss")
 alias("ctc_loss", "CTCLoss")
 alias("_contrib_ctc_loss", "CTCLoss")
+
+
+@register("_contrib_flash_attention", attr_defaults={"causal": False,
+                                                     "sm_scale": None,
+                                                     "block_q": 128,
+                                                     "block_k": 128,
+                                                     "interpret": None})
+def _flash_attention_op(q, k, v, causal=False, sm_scale=None, block_q=128,
+                        block_k=128, interpret=None, **_ig):
+    """Flash attention over q (batch, heads, s_q, head_dim) and k, v
+    (batch, heads, s_k, head_dim): ``softmax(q k^T * sm_scale) v``,
+    causal as ``kpos <= qpos`` (reference: the fused attention of
+    src/operator/contrib/transformer-inl.h). ``sm_scale`` defaults to
+    1/sqrt(head_dim). The ``flash_attention`` kernel runs the forward and
+    ``flash_attention_bwd`` the gradients on the card (the plain versions
+    on the host). ``block_q``, ``block_k`` and ``interpret`` are the TPU
+    kernel's tile sizes and interpreter switch: accepted, and of no
+    effect on this card, whose kernels pick their own tiles."""
+    del block_q, block_k, interpret
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=bool(causal),
+                           sm_scale=None if sm_scale is None
+                           else float(sm_scale))

@@ -8,8 +8,11 @@
 // lse = m + log(l) in float32, which the backward recomputes from.
 //
 // Layouts (all contiguous):
-//   q, k, v, o   (b * heads, s, head_dim)   T
-//   lse          (b * heads, s)             float32
+//   q, o         (b * heads, s_q, head_dim)   T
+//   k, v         (b * heads, s_k, head_dim)   T
+//   lse          (b * heads, s_q)             float32
+// Causal means key kpos is visible to query qpos when kpos <= qpos, both
+// counted from 0, whatever s_q and s_k are (the TPU kernel's rule).
 //
 // Semantics kept from the TPU kernel: masked scores are -1e30 (finite,
 // so exp underflows to 0 without inf - inf); the running max starts at
@@ -52,10 +55,18 @@
 // ex2.approx of x * log2(e) (relative error ~2^-22, far below the bf16
 // rounding of p).
 //
-// Design, float32 (the exact reference path; the tensor cores have no
-// full-precision float32 product): one CTA per (16-row q tile, b *
-// head), scalar FMAs over tiles staged in shared memory, as in
-// flash_prefill_paged.cu.
+// Two routes, picked by the wrapper before the launch:
+// "wgmma" (bfloat16, s_q == s_k, head_dim 32 or 64, 16-byte aligned
+// storage) is the design above; "fma" takes every other call the TPU
+// kernel takes: float32 (the exact reference path; the tensor cores
+// have no full-precision float32 product), and bfloat16 at s_q != s_k or
+// another head_dim up to 256. One CTA per (16-row q tile, b * head),
+// scalar FMAs in float32 over tiles staged in shared memory (inputs
+// widened on load, q scaled in float32 before the dot as the Pallas
+// kernel does, o rounded once at the store), as in
+// flash_prefill_paged.cu. Its shared memory grows with head_dim (67 KB
+// at 256, within the 227 KB a CTA may take); it runs at CUDA-core
+// rate, far from the bf16 bound: a simple route that is right.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -246,23 +257,25 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // -------------------------------------------------------------------------
-// float32: CUDA cores
+// the "fma" route: float32, and bfloat16 outside the wgmma route
 // -------------------------------------------------------------------------
 
 constexpr int kThreads = 128;
 constexpr int kBQf = 16;
 constexpr int kBKf = 16;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int s, int hd, int causal,
-                     float sm_scale) {
+flash_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int s_q, int s_k, int hd,
+                     int causal, float sm_scale) {
   extern __shared__ float smem[];
   const int qi = gridDim.x - 1 - blockIdx.x;
-  const size_t base = static_cast<size_t>(blockIdx.y) * s;
+  const size_t qbase = static_cast<size_t>(blockIdx.y) * s_q;
+  const size_t kbase = static_cast<size_t>(blockIdx.y) * s_k;
   const int q_start = qi * kBQf;
-  const int q_rows = min(kBQf, s - q_start);
+  const int q_rows = min(kBQf, s_q - q_start);
   const int hdp = hd + 1;  // padded k row
   const int tid = threadIdx.x;
 
@@ -277,7 +290,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int i = tid; i < kBQf * hd; i += kThreads) {
     const int r = i / hd;
-    q_s[i] = r < q_rows ? q[(base + q_start) * hd + i] * sm_scale : 0.f;
+    q_s[i] = r < q_rows
+                 ? mxt::to_f32(q[(qbase + q_start) * hd + i]) * sm_scale
+                 : 0.f;
     acc[i] = 0.f;
   }
   for (int i = tid; i < kBQf; i += kThreads) {
@@ -286,15 +301,18 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();
 
-  const int k_end = causal ? min(s, q_start + kBQf) : s;
+  // causal: key kpos is visible to query qpos when kpos <= qpos, both
+  // counted from 0 whatever s_q and s_k are
+  const int k_end = causal ? min(s_k, q_start + kBQf) : s_k;
   for (int k_start = 0; k_start < k_end; k_start += kBKf) {
-    const int k_rows = min(kBKf, s - k_start);
+    const int k_rows = min(kBKf, s_k - k_start);
     for (int i = tid; i < kBKf * hd; i += kThreads) {
       const int t = i / hd;
       const int d = i - t * hd;
       const bool in = t < k_rows;
-      k_s[t * hdp + d] = in ? k[(base + k_start) * hd + i] : 0.f;
-      v_s[i] = in ? v[(base + k_start) * hd + i] : 0.f;
+      k_s[t * hdp + d] =
+          in ? mxt::to_f32(k[(kbase + k_start) * hd + i]) : 0.f;
+      v_s[i] = in ? mxt::to_f32(v[(kbase + k_start) * hd + i]) : 0.f;
     }
     __syncthreads();
 
@@ -306,7 +324,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* kv = k_s + t * hdp;
       float sc = 0.f;
       for (int d = 0; d < hd; ++d) sc = fmaf(qv[d], kv[d], sc);
-      const bool ok = kpos < s && (!causal || kpos <= q_start + r);
+      const bool ok = kpos < s_k && (!causal || kpos <= q_start + r);
       p_s[i] = ok ? sc : mxt::kNegInf;
     }
     __syncthreads();
@@ -343,12 +361,30 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int i = tid; i < q_rows * hd; i += kThreads) {
     const float l = l_s[i / hd];
-    o[(base + q_start) * hd + i] = acc[i] / (l == 0.f ? 1.f : l);
+    o[(qbase + q_start) * hd + i] =
+        mxt::from_f32<T>(acc[i] / (l == 0.f ? 1.f : l));
   }
   for (int r = tid; r < q_rows; r += kThreads) {
     const float l = l_s[r];
-    lse[base + q_start + r] = m_s[r] + logf(l == 0.f ? 1.f : l);
+    lse[qbase + q_start + r] = m_s[r] + logf(l == 0.f ? 1.f : l);
   }
+}
+
+template <typename T>
+int launch_fma(const void* q, const void* k, const void* v, void* o,
+               void* lse, int bh, int s_q, int s_k, int hd, int causal,
+               float sm_scale, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * (2 * kBQf * hd + kBKf * (2 * hd + 1) + kBQf * kBKf +
+                       3 * kBQf);
+  cudaError_t err = mxt::allow_smem(flash_fwd_fma_kernel<T>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s_q + kBQf - 1) / kBQf, bh);
+  flash_fwd_fma_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      s_q, s_k, hd, causal, sm_scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -373,23 +409,26 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Plain C entry points for ctypes; each returns the cudaError_t of the
-// launch (0 = launched). head_dim must be 32 or 64 (the wrapper checks).
-extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int bh,
-                                   int s, int hd, int causal, float sm_scale,
-                                   void* stream) {
-  const size_t smem =
-      sizeof(float) * (2 * kBQf * hd + kBKf * (2 * hd + 1) + kBQf * kBKf +
-                       3 * kBQf);
-  cudaError_t err = mxt::allow_smem(flash_fwd_f32_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s + kBQf - 1) / kBQf, bh);
-  flash_fwd_f32_kernel<<<grid, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), s, hd, causal, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+// launch (0 = launched). flash_attention_bf16 is the "wgmma" route:
+// s_q == s_k == s and head_dim 32 or 64 (the wrapper picks the route).
+// flash_attention_fma_{f32,bf16} is the "fma" route: q (b * heads, s_q,
+// hd), k and v (b * heads, s_k, hd), any head_dim up to 256.
+extern "C" int flash_attention_fma_f32(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       int bh, int s_q, int s_k, int hd,
+                                       int causal, float sm_scale,
+                                       void* stream) {
+  return launch_fma<float>(q, k, v, o, lse, bh, s_q, s_k, hd, causal,
+                           sm_scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_fma_bf16(const void* q, const void* k,
+                                        const void* v, void* o, void* lse,
+                                        int bh, int s_q, int s_k, int hd,
+                                        int causal, float sm_scale,
+                                        void* stream) {
+  return launch_fma<bf16>(q, k, v, o, lse, bh, s_q, s_k, hd, causal,
+                          sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,

@@ -15,9 +15,9 @@
 // Gradients are written in the inputs' type. Deterministic: every output
 // element is summed by one thread in a fixed order, no atomics.
 //
-// Layouts (all contiguous): q, k, v, o, do, dq, dk, dv (b * heads, s,
-// head_dim) T; lse (b * heads, s) float32; delta (b * heads, s) float32
-// scratch the wrapper allocates.
+// Layouts (all contiguous): q, o, do, dq (b * heads, s_q, head_dim) T;
+// k, v, dk, dv (b * heads, s_k, head_dim) T; lse (b * heads, s_q)
+// float32; delta (b * heads, s_q) float32 scratch the wrapper allocates.
 //
 // Bound: at the training shape (8 x 16 heads, s 1024, head_dim 64,
 // causal) the five products do 10 * head_dim flops per visible (query,
@@ -56,9 +56,15 @@
 // and ds). Registers (ptxas, sm_90a): dk/dv 160 (head_dim 64) / 128
 // (32), dq 138 / 120, no spills.
 //
-// Design, float32 (the exact reference path): three launches, a delta
-// pre-pass, a dk/dv pass over key tiles and a dq pass over q tiles,
-// with scalar FMAs over 16 x 16 tiles in shared memory.
+// Two routes, picked by the wrapper: "wgmma" (bfloat16, s_q == s_k,
+// head_dim 32 or 64, 16-byte aligned storage) is the design above;
+// "fma" takes every other call: float32 (the exact reference path), and
+// bfloat16 at s_q != s_k or another head_dim up to 256. Three launches,
+// a delta pre-pass, a dk/dv pass over key tiles and a dq pass over q
+// tiles, with scalar FMAs in float32 over 16 x 16 tiles in shared
+// memory (inputs widened on load, each gradient rounded once at its
+// store); 100 KB of shared memory at head_dim 256. Causal means kpos <=
+// qpos with both counted from 0, whatever s_q and s_k are.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -67,7 +73,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;  // the float32 kernels' CTA
+constexpr int kThreads = 32 * kWarps;  // the "fma" route's CTA
 
 // delta[r] = sum_d o[r, d] * do[r, d]; one warp per row
 template <typename T>
@@ -458,23 +464,24 @@ dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // -------------------------------------------------------------------------
-// float32: CUDA cores
+// the "fma" route: float32, and bfloat16 outside the wgmma route
 // -------------------------------------------------------------------------
 
 constexpr int kBf = 16;  // rows and keys per tile
 
-// a 16-row tile of a (rows_total, hd) float matrix into dst (row stride
-// ld), times scale; rows past rows_total read as zeros
-__device__ __forceinline__ void stage_f32(float* dst, int ld,
-                                          const float* src, int row0,
-                                          int rows_total, int hd,
-                                          float scale) {
+// a 16-row tile of a (rows_total, hd) matrix into dst in float32 (row
+// stride ld), times scale; rows past rows_total read as zeros
+template <typename T>
+__device__ __forceinline__ void stage_tile(float* dst, int ld, const T* src,
+                                           int row0, int rows_total, int hd,
+                                           float scale) {
   for (int i = threadIdx.x; i < kBf * hd; i += kThreads) {
     const int r = i / hd;
     const int d = i - r * hd;
-    dst[r * ld + d] = row0 + r < rows_total
-                          ? src[static_cast<size_t>(row0 + r) * hd + d] * scale
-                          : 0.f;
+    dst[r * ld + d] =
+        row0 + r < rows_total
+            ? mxt::to_f32(src[static_cast<size_t>(row0 + r) * hd + d]) * scale
+            : 0.f;
   }
 }
 
@@ -485,12 +492,15 @@ __device__ __forceinline__ float dot_f32(const float* a, const float* b,
   return acc;
 }
 
+// one CTA per (16-key tile, b * head): dk and dv of its keys, walking the
+// q tiles that can see them
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
+dkdv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ dk,
-                float* __restrict__ dv, int s, int hd, int causal,
+                const float* __restrict__ delta, T* __restrict__ dk,
+                T* __restrict__ dv, int s_q, int s_k, int hd, int causal,
                 float sm_scale) {
   extern __shared__ float smem[];
   const int hdp = hd + 1;
@@ -506,20 +516,23 @@ dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* dl_s = lse_s + kBf;        // kBf
 
   const int tid = threadIdx.x;
-  const size_t base = static_cast<size_t>(blockIdx.y) * s;
+  const size_t qbase = static_cast<size_t>(blockIdx.y) * s_q;
+  const size_t kbase = static_cast<size_t>(blockIdx.y) * s_k;
   const int k_start = blockIdx.x * kBf;
-  stage_f32(k_s, hdp, k + base * hd, k_start, s, hd, 1.f);
-  stage_f32(v_s, hdp, v + base * hd, k_start, s, hd, 1.f);
+  stage_tile(k_s, hdp, k + kbase * hd, k_start, s_k, hd, 1.f);
+  stage_tile(v_s, hdp, v + kbase * hd, k_start, s_k, hd, 1.f);
   for (int i = tid; i < kBf * hd; i += kThreads) dk_a[i] = dv_a[i] = 0.f;
 
-  for (int q_start = causal ? k_start : 0; q_start < s; q_start += kBf) {
+  // causal: no query before k_start sees these keys (kpos <= qpos); tiles
+  // of both are kBf rows, so the first q tile that can starts at k_start
+  for (int q_start = causal ? k_start : 0; q_start < s_q; q_start += kBf) {
     __syncthreads();
-    stage_f32(q_s, hdp, q + base * hd, q_start, s, hd, sm_scale);
-    stage_f32(do_s, hdp, dout + base * hd, q_start, s, hd, 1.f);
+    stage_tile(q_s, hdp, q + qbase * hd, q_start, s_q, hd, sm_scale);
+    stage_tile(do_s, hdp, dout + qbase * hd, q_start, s_q, hd, 1.f);
     for (int i = tid; i < kBf; i += kThreads) {
-      const bool in = q_start + i < s;
-      lse_s[i] = in ? lse[base + q_start + i] : 0.f;
-      dl_s[i] = in ? delta[base + q_start + i] : 0.f;
+      const bool in = q_start + i < s_q;
+      lse_s[i] = in ? lse[qbase + q_start + i] : 0.f;
+      dl_s[i] = in ? delta[qbase + q_start + i] : 0.f;
     }
     __syncthreads();
 
@@ -527,7 +540,7 @@ dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int t = i / kBf;  // key
       const int r = i - t * kBf;  // query
       const int kpos = k_start + t, qpos = q_start + r;
-      const bool ok = qpos < s && kpos < s && (!causal || kpos <= qpos);
+      const bool ok = qpos < s_q && kpos < s_k && (!causal || kpos <= qpos);
       const float sc = dot_f32(q_s + r * hdp, k_s + t * hdp, hd);
       const float dp = dot_f32(do_s + r * hdp, v_s + t * hdp, hd);
       const float p = ok ? expf(sc - lse_s[r]) : 0.f;
@@ -549,18 +562,20 @@ dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  const int k_rows = min(kBf, s - k_start);
+  const int k_rows = min(kBf, s_k - k_start);
   for (int i = tid; i < k_rows * hd; i += kThreads) {
-    dk[(base + k_start) * hd + i] = dk_a[i];
-    dv[(base + k_start) * hd + i] = dv_a[i];
+    dk[(kbase + k_start) * hd + i] = mxt::from_f32<T>(dk_a[i]);
+    dv[(kbase + k_start) * hd + i] = mxt::from_f32<T>(dv_a[i]);
   }
 }
 
+// one CTA per (16-row q tile, b * head): dq of its rows
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
+dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int s, int hd, int causal,
+              T* __restrict__ dq, int s_q, int s_k, int hd, int causal,
               float sm_scale) {
   extern __shared__ float smem[];
   const int hdp = hd + 1;
@@ -574,29 +589,30 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* dl_s = lse_s + kBf;        // kBf
 
   const int tid = threadIdx.x;
-  const size_t base = static_cast<size_t>(blockIdx.y) * s;
+  const size_t qbase = static_cast<size_t>(blockIdx.y) * s_q;
+  const size_t kbase = static_cast<size_t>(blockIdx.y) * s_k;
   const int q_start = (gridDim.x - 1 - blockIdx.x) * kBf;
-  stage_f32(q_s, hdp, q + base * hd, q_start, s, hd, sm_scale);
-  stage_f32(do_s, hdp, dout + base * hd, q_start, s, hd, 1.f);
+  stage_tile(q_s, hdp, q + qbase * hd, q_start, s_q, hd, sm_scale);
+  stage_tile(do_s, hdp, dout + qbase * hd, q_start, s_q, hd, 1.f);
   for (int i = tid; i < kBf; i += kThreads) {
-    const bool in = q_start + i < s;
-    lse_s[i] = in ? lse[base + q_start + i] : 0.f;
-    dl_s[i] = in ? delta[base + q_start + i] : 0.f;
+    const bool in = q_start + i < s_q;
+    lse_s[i] = in ? lse[qbase + q_start + i] : 0.f;
+    dl_s[i] = in ? delta[qbase + q_start + i] : 0.f;
   }
   for (int i = tid; i < kBf * hd; i += kThreads) dq_a[i] = 0.f;
 
-  const int k_end = causal ? min(s, q_start + kBf) : s;
+  const int k_end = causal ? min(s_k, q_start + kBf) : s_k;
   for (int k_start = 0; k_start < k_end; k_start += kBf) {
     __syncthreads();
-    stage_f32(k_s, hdp, k + base * hd, k_start, s, hd, 1.f);
-    stage_f32(v_s, hdp, v + base * hd, k_start, s, hd, 1.f);
+    stage_tile(k_s, hdp, k + kbase * hd, k_start, s_k, hd, 1.f);
+    stage_tile(v_s, hdp, v + kbase * hd, k_start, s_k, hd, 1.f);
     __syncthreads();
 
     for (int i = tid; i < kBf * kBf; i += kThreads) {
       const int r = i / kBf;  // query
       const int t = i - r * kBf;  // key
       const int kpos = k_start + t, qpos = q_start + r;
-      const bool ok = qpos < s && kpos < s && (!causal || kpos <= qpos);
+      const bool ok = qpos < s_q && kpos < s_k && (!causal || kpos <= qpos);
       const float sc = dot_f32(q_s + r * hdp, k_s + t * hdp, hd);
       const float dp = dot_f32(do_s + r * hdp, v_s + t * hdp, hd);
       const float p = ok ? expf(sc - lse_s[r]) : 0.f;
@@ -614,9 +630,9 @@ dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  const int q_rows = min(kBf, s - q_start);
+  const int q_rows = min(kBf, s_q - q_start);
   for (int i = tid; i < q_rows * hd; i += kThreads)
-    dq[(base + q_start) * hd + i] = dq_a[i] * sm_scale;
+    dq[(qbase + q_start) * hd + i] = mxt::from_f32<T>(dq_a[i] * sm_scale);
 }
 
 // -------------------------------------------------------------------------
@@ -629,6 +645,41 @@ int launch_delta(const void* o, const void* dout, void* delta, int rows,
   delta_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0, st>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout),
       static_cast<float*>(delta), rows, hd);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_fma(const void* q, const void* k, const void* v, const void* o,
+               const void* lse, const void* dout, void* dq, void* dk,
+               void* dv, void* delta, int bh, int s_q, int s_k, int hd,
+               int causal, float sm_scale, cudaStream_t st) {
+  int err = launch_delta<T>(o, dout, delta, bh * s_q, hd, st);
+  if (err != 0) return err;
+  const int hdp = hd + 1;
+  const size_t smem_kv =
+      sizeof(float) * (4 * kBf * hdp + 2 * kBf * kBf + 2 * kBf * hd +
+                       2 * kBf);
+  cudaError_t e = mxt::allow_smem(dkdv_fma_kernel<T>, smem_kv);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dkdv_fma_kernel<T><<<dim3((s_k + kBf - 1) / kBf, bh), kThreads, smem_kv,
+                       st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), s_q, s_k, hd, causal,
+      sm_scale);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const size_t smem_q =
+      sizeof(float) * (4 * kBf * hdp + kBf * kBf + kBf * hd + 2 * kBf);
+  e = mxt::allow_smem(dq_fma_kernel<T>, smem_q);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dq_fma_kernel<T><<<dim3((s_q + kBf - 1) / kBf, bh), kThreads, smem_q,
+                     st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), s_q, s_k, hd, causal, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -670,44 +721,31 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
-// Plain C entry points for ctypes, launching on `stream` (float32: the
-// delta, dk/dv and dq passes; bfloat16: the dq pass, which writes
-// delta, then the dk/dv pass); each returns the first non-zero
-// cudaError_t (0 = all launched). head_dim must be 32 or 64 (the
-// wrapper checks).
-extern "C" int flash_attention_bwd_f32(
+// Plain C entry points for ctypes, launching on `stream`; each returns
+// the first non-zero cudaError_t (0 = all launched).
+// flash_attention_bwd_fma_{f32,bf16}, the "fma" route: the delta, dk/dv
+// and dq passes; q, o, do, dq (b * heads, s_q, hd), k, v, dk, dv (b *
+// heads, s_k, hd), any head_dim up to 256. flash_attention_bwd_bf16,
+// the "wgmma" route: the dq pass, which writes delta, then the dk/dv
+// pass; s_q == s_k == s, head_dim 32 or 64 (the wrapper picks the route).
+extern "C" int flash_attention_bwd_fma_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* delta, int bh, int s, int hd, int causal, float sm_scale,
-    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = launch_delta<float>(o, dout, delta, bh * s, hd, st);
-  if (err != 0) return err;
-  const int hdp = hd + 1;
-  const size_t smem_kv =
-      sizeof(float) * (4 * kBf * hdp + 2 * kBf * kBf + 2 * kBf * hd +
-                       2 * kBf);
-  cudaError_t e = mxt::allow_smem(dkdv_f32_kernel, smem_kv);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((s + kBf - 1) / kBf, bh);
-  dkdv_f32_kernel<<<grid, kThreads, smem_kv, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), s, hd, causal,
-      sm_scale);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const size_t smem_q =
-      sizeof(float) * (4 * kBf * hdp + kBf * kBf + kBf * hd + 2 * kBf);
-  e = mxt::allow_smem(dq_f32_kernel, smem_q);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dq_f32_kernel<<<grid, kThreads, smem_q, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), s, hd, causal, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+    void* delta, int bh, int s_q, int s_k, int hd, int causal,
+    float sm_scale, void* stream) {
+  return launch_fma<float>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, s_q,
+                           s_k, hd, causal, sm_scale,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_bwd_fma_bf16(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* lse, const void* dout, void* dq, void* dk, void* dv,
+    void* delta, int bh, int s_q, int s_k, int hd, int causal,
+    float sm_scale, void* stream) {
+  return launch_fma<bf16>(q, k, v, o, lse, dout, dq, dk, dv, delta, bh, s_q,
+                          s_k, hd, causal, sm_scale,
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_bwd_bf16(

@@ -8,9 +8,9 @@ layouts, each backed by a CUDA C++ kernel for Hopper (``csrc/*.cu``) and
 beside it a plain PyTorch version of the same function, op for op the
 JAX package's XLA twin.
 
-The two serving kernels each have two routes, picked before the launch
-from dtype, shapes and alignment alone (:func:`decode_route`,
-:func:`prefill_route`, memoised); a failed launch raises and nothing
+Each kernel has two routes, picked before the launch from dtype,
+shapes and alignment alone (:func:`decode_route`, :func:`prefill_route`,
+:func:`flash_route`, memoised); a failed launch raises and nothing
 retries on the other route. ``paged_decode_attention``: "cluster" splits
 each (row, kv head) over a thread-block cluster of up to
 :data:`DECODE_CLUSTER` CTAs, each owning a contiguous range of the row's
@@ -21,6 +21,11 @@ not take. ``flash_prefill_paged``: "mma" runs bfloat16 on the tensor
 cores (mma.sync), one CTA per (q tile, kv head) for every query head of
 the group; "fma" is the first design, float32 FMAs on the CUDA cores,
 for float32 (where tensor cores would mean TF32) and other shapes.
+``flash_attention`` and ``flash_attention_bwd``: "wgmma" (TMA and wgmma,
+bfloat16, q, k and v of one length, head_dim 32 or 64) or "fma" (float32
+FMAs on the CUDA cores over tiles in shared memory) for every other call
+the TPU kernel takes: float32, k and v longer or shorter than q, and
+head dims up to :data:`MAX_HEAD_DIM`.
 
 A wrapper launches its kernel for CUDA tensors, on
 ``torch.cuda.current_stream()``, and raises when the launch returns a
@@ -43,7 +48,8 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_bwd", "paged_decode_attention",
            "flash_prefill_paged", "CUDA_KERNELS", "LAUNCHES", "ROUTES",
            "reset_launches", "decode_route", "decode_split_pages",
-           "live_pages", "prefill_route", "NEG_INF", "HEAD_DIMS",
+           "live_pages", "prefill_route", "flash_route", "NEG_INF",
+           "WGMMA_HEAD_DIMS", "MAX_HEAD_DIM",
            "DECODE_CLUSTER", "PREFILL_HEAD_DIMS", "PREFILL_MAX_GROUP"]
 
 # kernel-contract registry: every CUDA kernel maps to its plain PyTorch
@@ -57,17 +63,22 @@ CUDA_KERNELS = {
 }
 
 # kernel launches since the last reset_launches(), by kernel name, and
-# the serving kernels' by route
+# by route
 LAUNCHES = {name: 0 for name in CUDA_KERNELS}
 ROUTES = {"paged_decode_attention": {"cluster": 0, "serial": 0},
-          "flash_prefill_paged": {"mma": 0, "fma": 0}}
+          "flash_prefill_paged": {"mma": 0, "fma": 0},
+          "flash_attention": {"wgmma": 0, "fma": 0},
+          "flash_attention_bwd": {"wgmma": 0, "fma": 0}}
 
 NEG_INF = -1e30
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-# head dims the flash_attention kernels are built for (CUDA tensors only)
-HEAD_DIMS = (32, 64)
+# flash_attention / flash_attention_bwd on CUDA tensors: the head dims of
+# the "wgmma" route, and the largest head_dim of any route (ROADMAP B.5
+# queues the rest)
+WGMMA_HEAD_DIMS = (32, 64)
+MAX_HEAD_DIM = 256
 
 # the decode "cluster" route: the most CTAs a (row, kv head) is split over
 # (the portable thread-block cluster size)
@@ -98,6 +109,7 @@ _ROUTE_SYMBOLS = {
         ("fma", "bf16"): ("flash_prefill_paged_bf16", _PREFILL_ARGS),
         ("mma", "bf16"): ("flash_prefill_mma_bf16", _PREFILL_ARGS)},
 }
+# the flash kernels' "wgmma" entries (<name>_bf16)
 _SYMBOLS = {
     # q, k, v, o, lse, b*h, s, hd, causal, sm_scale, stream
     "flash_attention": [_P] * 5 + [_I] * 4 + [_F, _P],
@@ -105,6 +117,10 @@ _SYMBOLS = {
     # sm_scale, stream
     "flash_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
 }
+# and their "fma" entries (<name>_fma_f32, <name>_fma_bf16): s_q and s_k
+# in place of s
+_FMA_SYMBOLS = {name: args[:-4] + [_I] + args[-4:]
+                for name, args in _SYMBOLS.items()}
 
 
 def reset_launches():
@@ -116,11 +132,16 @@ def reset_launches():
             counts[route] = 0
 
 
-def _kernel_fn(name, dtype):
-    lib = _build.load(name, {
-        "%s_%s" % (name, tag): _SYMBOLS[name]
-        for tag in _KERNEL_DTYPES.values()})
-    return getattr(lib, "%s_%s" % (name, _KERNEL_DTYPES[dtype]))
+def _kernel_fn(name, route, dtype):
+    """The C entry point of flash kernel ``name`` on ``route`` for
+    ``dtype`` (the library built and loaded on first use)."""
+    symbols = {"%s_bf16" % name: _SYMBOLS[name]}
+    symbols.update({"%s_fma_%s" % (name, tag): _FMA_SYMBOLS[name]
+                    for tag in _KERNEL_DTYPES.values()})
+    lib = _build.load(name, symbols)
+    if route == "wgmma":
+        return getattr(lib, "%s_bf16" % name)
+    return getattr(lib, "%s_fma_%s" % (name, _KERNEL_DTYPES[dtype]))
 
 
 _route_fns = {}   # (kernel, route, dtype) -> ctypes function
@@ -460,19 +481,27 @@ def _flash_bwd_torch(q, k, v, o, lse, do, causal, sm_scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_attention(fn, float_args, lse=None):
-    """Checks shared by the flash_attention entries: q/k/v (and o, do)
-    one (b, h, s, head_dim) shape and dtype, contiguous, on one device;
-    ``lse`` float32 (b, h, s). On a CUDA device also a kernel head_dim
-    and 16-byte aligned storage (the kernels load 16 bytes at a time)."""
-    dev = _check_tensors(fn, float_args, [])
-    shape = tuple(float_args[0][1].shape)
+def _check_attention(fn, qs, kvs, lse=None):
+    """Checks shared by the flash_attention entries: ``qs`` (q, and o and
+    do) one (b, h, s_q, head_dim) shape, ``kvs`` (k, v) one (b, h, s_k,
+    head_dim) shape, one dtype, contiguous, on one device; ``lse``
+    float32 (b, h, s_q). On a CUDA device also a head_dim of at most
+    :data:`MAX_HEAD_DIM`. Returns (device, (b, h, s_q, s_k, head_dim))."""
+    dev = _check_tensors(fn, qs + kvs, [])
+    shape = tuple(qs[0][1].shape)
     _check(len(shape) == 4, "%s: q must be (b, heads, seq, head_dim), got "
            "%s", fn, shape)
-    for name, t in float_args[1:]:
+    for name, t in qs[1:]:
         _check(tuple(t.shape) == shape, "%s: %s has shape %s, expected %s "
-               "(q, k and v share one shape)", fn, name, tuple(t.shape),
-               shape)
+               "(q's)", fn, name, tuple(t.shape), shape)
+    kshape = tuple(kvs[0][1].shape)
+    _check(len(kshape) == 4 and kshape[:2] == shape[:2]
+           and kshape[3] == shape[3], "%s: k must be (b=%d, heads=%d, "
+           "s_k, head_dim=%d), got %s", fn, shape[0], shape[1], shape[3],
+           kshape)
+    for name, t in kvs[1:]:
+        _check(tuple(t.shape) == kshape, "%s: %s has shape %s, expected %s "
+               "(k's)", fn, name, tuple(t.shape), kshape)
     if lse is not None:
         _check(isinstance(lse, torch.Tensor) and lse.device == dev
                and lse.dtype == torch.float32 and lse.is_contiguous()
@@ -480,75 +509,103 @@ def _check_attention(fn, float_args, lse=None):
                "%s: lse must be a contiguous float32 %s tensor on %s", fn,
                shape[:3], dev)
     if dev.type == "cuda":
-        _check(shape[3] in HEAD_DIMS, "%s: head_dim %d has no kernel "
-               "(built for %s)", fn, shape[3], HEAD_DIMS)
-        # b * heads is the float32 grid's y dimension; the bf16 kernels'
+        _check(shape[3] <= MAX_HEAD_DIM, "%s: head_dim %d has no kernel "
+               "(at most %d on the card; larger head dims are ROADMAP "
+               "B.5)", fn, shape[3], MAX_HEAD_DIM)
+        # b * heads is the "fma" grid's y dimension; the wgmma kernels'
         # TMA coordinates into the (b * heads * s) lse are 32-bit
         _check(shape[0] * shape[1] <= 65535, "%s: b * heads = %d exceeds "
                "65535", fn, shape[0] * shape[1])
-        _check(shape[0] * shape[1] * shape[2] < 2 ** 31, "%s: b * heads * "
-               "seq = %d exceeds 2^31 - 1", fn,
-               shape[0] * shape[1] * shape[2])
-        for name, t in float_args:
-            _check(t.data_ptr() % 16 == 0, "%s: %s storage is not 16-byte "
-                   "aligned", fn, name)
-    return dev, shape
+        _check(shape[0] * shape[1] * max(shape[2], kshape[2]) < 2 ** 31,
+               "%s: b * heads * seq = %d exceeds 2^31 - 1", fn,
+               shape[0] * shape[1] * max(shape[2], kshape[2]))
+    return dev, shape[:3] + (kshape[2], shape[3])
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_route(dtype, head_dim, s_q, s_k, aligned=True):
+    """``"wgmma"`` or ``"fma"`` for a flash_attention call (forward and
+    backward alike). The wgmma route (TMA rings, bf16 tensor cores)
+    takes bfloat16 with q, k and v of one length, a head_dim in
+    :data:`WGMMA_HEAD_DIMS` and 16-byte aligned storage (``aligned``);
+    every other call, float32 among them, takes the fma route."""
+    if (dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
+            and s_q == s_k and aligned):
+        return "wgmma"
+    return "fma"
+
+
+def _attention_route(dtype, shape, tensors):
+    b, h, s_q, s_k, hd = shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    return flash_route(dtype, hd, s_q, s_k, aligned)
 
 
 def _flash_fwd(q, k, v, causal=False, sm_scale=None):
     """Attention forward that also returns the row log-sum-exp: ``(o,
-    lse)`` with ``o`` (b, h, s, head_dim) in q's dtype and ``lse`` (b, h,
-    s) float32, the pair ring attention merges by. Launches the
-    ``flash_attention`` kernel for CUDA tensors (head_dim 32 or 64); CPU
-    tensors take :func:`_flash_fwd_torch`.
+    lse)`` with ``o`` (b, h, s_q, head_dim) in q's dtype and ``lse`` (b,
+    h, s_q) float32, the pair ring attention merges by; k and v are (b,
+    h, s_k, head_dim). Launches the ``flash_attention`` kernel for CUDA
+    tensors on :func:`flash_route`'s route; CPU tensors take
+    :func:`_flash_fwd_torch`.
 
-    Rounding: in bfloat16 the kernel multiplies the float32 product q k^T
-    by ``sm_scale`` (the order of the JAX package's XLA twin) where the
-    Pallas kernel scales q in float32 before the dot. The two agree
-    exactly for a power-of-two scale (head_dim 64) and within about one
-    float32 ulp of the score otherwise (head_dim 32)."""
+    Rounding: on the wgmma route (bfloat16) the kernel multiplies the
+    float32 product q k^T by ``sm_scale`` (the order of the JAX package's
+    XLA twin) where the Pallas kernel and the fma route scale q in
+    float32 before the dot. The two agree exactly for a power-of-two
+    scale (head_dim 64) and within about one float32 ulp of the score
+    otherwise (head_dim 32)."""
     fn = "flash_attention"
-    dev, (b, h, s, hd) = _check_attention(
-        fn, [("q", q), ("k", k), ("v", v)])
+    dev, shape = _check_attention(fn, [("q", q)], [("k", k), ("v", v)])
+    b, h, s_q, s_k, hd = shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(hd)
     if dev.type == "cpu":
         return _flash_fwd_torch(q, k, v, bool(causal), float(sm_scale))
     o = torch.empty_like(q)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=dev)
     if o.numel() == 0:
         return o, lse
-    _launch(fn, dev, _kernel_fn(fn, q.dtype), (
+    route = _attention_route(q.dtype, shape, (q, k, v))
+    lens = (s_q,) if route == "wgmma" else (s_q, s_k)
+    _launch(fn, dev, _kernel_fn(fn, route, q.dtype), (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b * h, s, hd, int(bool(causal)), float(sm_scale)))
+        lse.data_ptr(), b * h) + lens + (hd, int(bool(causal)),
+                                         float(sm_scale)), route)
     return o, lse
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
     """Gradients ``(dq, dk, dv)`` of attention from the forward's ``o``
     and ``lse`` and the output gradient ``do`` (FlashAttention-2
-    recompute, the JAX package's ``_flash_bwd``). One launch of the
-    ``flash_attention_bwd`` kernel entry for CUDA tensors (bfloat16: a
-    dq pass that also computes delta, then a dk/dv pass; float32: a
-    delta pre-pass, then the two), deterministic: no atomics, every sum
-    in a fixed order. CPU tensors take :func:`_flash_bwd_torch`."""
+    recompute, the JAX package's ``_flash_bwd``); dk and dv have k's
+    shape (b, h, s_k, head_dim). One launch of the
+    ``flash_attention_bwd`` kernel entry for CUDA tensors on
+    :func:`flash_route`'s route (wgmma: a dq pass that also computes
+    delta, then a dk/dv pass; fma: a delta pre-pass, then the two),
+    deterministic: no atomics, every sum in a fixed order. CPU tensors
+    take :func:`_flash_bwd_torch`."""
     fn = "flash_attention_bwd"
-    dev, (b, h, s, hd) = _check_attention(
-        fn, [("q", q), ("k", k), ("v", v), ("o", o), ("do", do)], lse=lse)
+    dev, shape = _check_attention(
+        fn, [("q", q), ("o", o), ("do", do)], [("k", k), ("v", v)],
+        lse=lse)
+    b, h, s_q, s_k, hd = shape
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(hd)
     if dev.type == "cpu":
         return _flash_bwd_torch(q, k, v, o, lse, do, bool(causal),
                                 float(sm_scale))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    if dq.numel() == 0:
-        return dq, dk, dv
-    delta = torch.empty((b * h * s,), dtype=torch.float32, device=dev)
-    _launch(fn, dev, _kernel_fn(fn, q.dtype), (
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b * h * s_q,), dtype=torch.float32, device=dev)
+    route = _attention_route(q.dtype, shape, (q, k, v, o, do))
+    lens = (s_q,) if route == "wgmma" else (s_q, s_k)
+    _launch(fn, dev, _kernel_fn(fn, route, q.dtype), (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), b * h, s, hd, int(bool(causal)),
-        float(sm_scale)))
+        dv.data_ptr(), delta.data_ptr(), b * h) + lens + (
+            hd, int(bool(causal)), float(sm_scale)), route)
     return dq, dk, dv
 
 
@@ -578,9 +635,12 @@ def flash_attention(q, k, v, causal=False, sm_scale=None):
 
     Parameters
     ----------
-    q, k, v : (batch, heads, seq, head_dim), one shape, contiguous, on
-        one device; float32 or bfloat16 (head_dim 32 or 64 on CUDA).
-    causal : mask keys after each query position.
+    q : (batch, heads, s_q, head_dim); k, v : (batch, heads, s_k,
+        head_dim), s_k equal to s_q or not, as the TPU kernel takes them;
+        contiguous, on one device, float32 or bfloat16 (head_dim at most
+        :data:`MAX_HEAD_DIM` on CUDA).
+    causal : key position ``kpos`` is visible to query position ``qpos``
+        when ``kpos <= qpos``, both counted from 0.
     sm_scale : score scale; default ``1/sqrt(head_dim)``.
 
     Forward and backward are the ``flash_attention`` and

@@ -1,22 +1,28 @@
-"""Decoder-only transformer LM: decode serving and single-device training.
+"""Decoder-only transformer LM: decode serving, generation and
+single-device training.
 
-Counterpart of the JAX package's ``parallel/transformer.py`` for the
-paths a serving engine runs (the paged prefill and the paged decode
-step), the single-device reference forward, and the train step
-``make_transformer_train_step`` on a mesh of one device. Weights live in a
-:class:`TransformerParams` module in the JAX package's layout (``x @
-w``; per-layer stacks flattened from ``(pp, layers_per_stage, ...)`` to
-``(n_layers, ...)``), so the two packages load the same numbers
-(``convert.params_from_jax``, :func:`init_transformer_params_np`).
+Counterpart of the JAX package's ``parallel/transformer.py`` on a mesh of
+one device: the reference forward, the train step
+``make_transformer_train_step`` (with ``remat`` and MoE layers), the
+prefill and decode step over either KV cache (the dense dict of
+:func:`init_kv_cache` or a :class:`PagedKVCache`), and
+:func:`transformer_generate`. Weights live in a :class:`TransformerParams`
+module in the JAX package's layout (``x @ w``; per-layer stacks
+flattened from ``(pp, layers_per_stage, ...)`` to ``(n_layers, ...)``),
+so the two packages load the same numbers (``convert.params_from_jax``,
+:func:`init_transformer_params_np`).
 
-The page pool is updated IN PLACE: the paged prefill writes each
-layer's prompt K/V through the ``flash_prefill_paged`` kernel and the
+Caches are updated IN PLACE. The paged prefill writes each layer's
+prompt K/V through the ``flash_prefill_paged`` kernel and the paged
 decode step writes the new token's K/V before ``paged_decode_attention``
-reads the pool, on one stream. The train step runs the same layer math
-with the ``flash_attention`` kernel (forward and backward) and updates
-the weights in place. The dense KV cache, sharded meshes (dp/sp/tp/pp/ep
-above 1), ``remat``, ``transformer_generate`` and MoE layers come with
-later parts of the port.
+reads the pool, on one stream. The dense cache's attention is plain
+tensor ops (einsum, the ``<= pos`` mask at -1e30, softmax), as the JAX
+package leaves it to XLA. The train step runs the layer math with the
+``flash_attention`` kernel (forward and backward) and updates the
+weights in place. MoE layers route by index (``parallel/moe.py``); their
+capacity counts every token of the call, padded or idle rows included,
+as the JAX package's does. Sharded meshes (dp/sp/tp/pp/ep above 1) are
+ROADMAP A13/A15.
 """
 from __future__ import annotations
 
@@ -26,17 +32,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..base import MXNetError
+from ..context import default_device
 from ..ops.cuda.flash_attention import (flash_prefill_paged,
                                         paged_decode_attention)
+from .moe import moe_ffn
 from .ring_attention import ring_attention_local
 
 __all__ = ["TransformerConfig", "TransformerParams", "LAYER_KEYS",
-           "init_transformer_params_np", "transformer_forward_single",
-           "init_kv_pages", "PagedKVCache", "transformer_decode_step",
-           "transformer_decode_step_paged", "transformer_prefill_paged",
+           "MOE_LAYER_KEYS", "layer_keys", "init_transformer_params_np",
+           "transformer_forward_single", "init_kv_cache", "init_kv_pages",
+           "PagedKVCache", "transformer_decode_step",
+           "transformer_decode_step_paged", "transformer_prefill",
+           "transformer_prefill_paged", "transformer_generate",
            "make_transformer_train_step", "AXES"]
 
 NEG_INF = -1e30
@@ -47,6 +58,8 @@ AXES = ("dp", "sp", "tp", "pp", "ep")
 # per-layer weights of the dense (no-MoE) block, in the JAX layout
 LAYER_KEYS = ("ln1_g", "ln1_b", "ln2_g", "ln2_b", "wq", "wk", "wv", "wo",
               "w1", "w2")
+# and of the MoE block: the router and the stacked experts
+MOE_LAYER_KEYS = LAYER_KEYS[:-2] + ("gate", "we1", "we2")
 
 
 @dataclass
@@ -59,12 +72,14 @@ class TransformerConfig:
     n_layers: int = 4
     d_ff: int = 256
     max_len: int = 512
-    num_experts: int = 0          # 0 = dense FFN; MoE is not ported yet
+    num_experts: int = 0          # 0 = dense FFN; >0 = MoE FFN
+    moe_top_k: int = 2
+    capacity_factor: float = 2.0
     dtype: torch.dtype = torch.float32
     # sequence-parallel attention: "ring" or "ulysses"; on one device
     # both are the ring body's flash_attention call
     sp_attn: str = "ring"
-    # recompute each block in the backward (not ported yet)
+    # recompute each block in the backward (torch.utils.checkpoint)
     remat: bool = False
     # "learned" adds a trained position table; "rope" rotates q/k
     pos_type: str = "learned"
@@ -75,11 +90,18 @@ def _kv_heads(cfg):
     return cfg.n_kv_heads or cfg.n_heads
 
 
+def layer_keys(cfg):
+    """The per-layer weight names of ``cfg``'s block."""
+    return MOE_LAYER_KEYS if cfg.num_experts else LAYER_KEYS
+
+
 def _validate(cfg):
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "num_experts=%d: MoE layers are not ported yet (ROADMAP "
-            "A7)" % cfg.num_experts)
+    if cfg.num_experts < 0:
+        raise ValueError("num_experts must be >= 0, got %r"
+                         % (cfg.num_experts,))
+    if cfg.num_experts and cfg.moe_top_k < 1:
+        raise ValueError("moe_top_k must be >= 1, got %r"
+                         % (cfg.moe_top_k,))
     kvh = cfg.n_kv_heads
     if kvh is not None:
         if not isinstance(kvh, int) or kvh < 1:
@@ -106,7 +128,13 @@ def expected_shapes(cfg):
     shapes.update({
         "ln1_g": (L, d), "ln1_b": (L, d), "ln2_g": (L, d), "ln2_b": (L, d),
         "wq": (L, d, d), "wk": (L, d, kvd), "wv": (L, d, kvd),
-        "wo": (L, d, d), "w1": (L, d, f), "w2": (L, f, d)})
+        "wo": (L, d, d)})
+    if cfg.num_experts:
+        E = cfg.num_experts
+        shapes.update({"gate": (L, d, E), "we1": (L, E, d, f),
+                       "we2": (L, E, f, d)})
+    else:
+        shapes.update({"w1": (L, d, f), "w2": (L, f, d)})
     return shapes
 
 
@@ -114,7 +142,8 @@ class TransformerParams(nn.Module):
     """The model's weights: ``embed`` (tied output projection), final
     LayerNorm ``lnf_g``/``lnf_b``, ``pos`` for learned positions, and
     ``layers[name]`` stacked (n_layers, ...) for every name in
-    :data:`LAYER_KEYS`. Serving weights (the default) take no
+    :func:`layer_keys` (the MoE block's ``gate`` / ``we1`` / ``we2`` in
+    place of ``w1`` / ``w2``). Serving weights (the default) take no
     gradients; ``trainable=True`` makes every weight a leaf that does,
     for :func:`make_transformer_train_step`."""
 
@@ -135,7 +164,7 @@ class TransformerParams(nn.Module):
                     if "pos" in shapes else None)
         self.layers = nn.ParameterDict({
             k: nn.Parameter(tensors[k], requires_grad=grad)
-            for k in LAYER_KEYS})
+            for k in layer_keys(cfg)})
 
     def layer(self, li):
         """Layer ``li``'s weights as views, keyed like the JAX pytree."""
@@ -158,8 +187,15 @@ def _init_numpy(cfg, seed):
         "ln2_g": np.ones((1, L, d)), "ln2_b": np.zeros((1, L, d)),
         "wq": rand(1, L, d, d), "wk": rand(1, L, d, kvd),
         "wv": rand(1, L, d, kvd), "wo": rand(1, L, d, d),
-        "w1": rand(1, L, d, f), "w2": rand(1, L, f, d),
     }
+    if cfg.num_experts:
+        E = cfg.num_experts
+        layers["gate"] = rand(1, L, d, E)
+        layers["we1"] = rand(1, L, E, d, f)
+        layers["we2"] = rand(1, L, E, f, d)
+    else:
+        layers["w1"] = rand(1, L, d, f)
+        layers["w2"] = rand(1, L, f, d)
     params = {"embed": rand(V, d), "lnf_g": np.ones((d,)),
               "lnf_b": np.zeros((d,)), "layers": layers}
     if cfg.pos_type == "learned":
@@ -229,8 +265,15 @@ def _rope_token(t, pos_b, base):
     return _rope(t[..., None, :], pos_b[:, None, None], base)[..., 0, :]
 
 
-def _ffn(lp, x):
-    return _gelu(x @ lp["w1"]) @ lp["w2"]
+def _ffn(lp, x, cfg):
+    """The block's feed-forward over x (..., d) -> (out, aux): the dense
+    FFN (aux 0), or the MoE FFN over all of x's tokens at once, whose
+    capacity therefore counts every row of the call."""
+    if not cfg.num_experts:
+        return _gelu(x @ lp["w1"]) @ lp["w2"], None
+    out, aux = moe_ffn(x.reshape(-1, x.shape[-1]), lp["gate"], lp["we1"],
+                       lp["we2"], cfg.capacity_factor, cfg.moe_top_k)
+    return out.reshape(x.shape), aux
 
 
 def _embed(params, tokens, positions, cfg):
@@ -265,13 +308,13 @@ def transformer_forward_single(params, tokens, cfg: TransformerConfig):
         sc = torch.where(mask, sc, NEG_INF)
         o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), v)
         x = x + o.reshape(b, s, cfg.d_model) @ lp["wo"]
-        x = x + _ffn(lp, _ln(x, lp["ln2_g"], lp["ln2_b"]))
+        x = x + _ffn(lp, _ln(x, lp["ln2_g"], lp["ln2_b"]), cfg)[0]
     x = _ln(x, params.lnf_g, params.lnf_b)
     return x @ params.embed.T
 
 
 # ---------------------------------------------------------------------------
-# paged KV cache
+# KV caches: dense and paged
 # ---------------------------------------------------------------------------
 
 class PagedKVCache(object):
@@ -309,10 +352,27 @@ def init_kv_pages(cfg: TransformerConfig, num_pages, page_size,
             torch.zeros(shape, dtype=cfg.dtype, device=device))
 
 
-def _require_paged(cache):
-    if not isinstance(cache, PagedKVCache):
-        raise TypeError("the dense KV cache is not ported yet (ROADMAP "
-                        "queue A); pass a PagedKVCache")
+def init_kv_cache(cfg: TransformerConfig, batch, max_len=None,
+                  device=None):
+    """Zeroed dense K/V cache: ``{"k", "v"}``, each (layers, batch,
+    kv_heads, max_len, hd) in ``cfg.dtype`` on ``device`` (default
+    ``cuda:0``). GQA stores only the shared heads."""
+    max_len = max_len or cfg.max_len
+    hd = cfg.d_model // cfg.n_heads
+    shape = (cfg.n_layers, int(batch), _kv_heads(cfg), int(max_len), hd)
+    device = default_device(device)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def _check_cache(cache):
+    if isinstance(cache, PagedKVCache):
+        return
+    if not (isinstance(cache, dict) and set(cache) == {"k", "v"}
+            and all(isinstance(t, torch.Tensor) for t in cache.values())):
+        raise TypeError("cache must be a PagedKVCache or the dense dict "
+                        "{'k', 'v'} of init_kv_cache, got %r"
+                        % (type(cache).__name__,))
 
 
 def _positions_vec(pos, b, device):
@@ -325,9 +385,15 @@ def _positions_vec(pos, b, device):
 
 def _cache_write_token(cache, li, k_t, v_t, pos_b):
     """Write one token's K/V (b, kv_heads, hd) of layer ``li`` at each
-    row's position, in place. Padding rows all aim at the null page's
-    offset 0; which of those writes lands is unspecified and unread."""
+    row's position, in place, into either cache layout. Paged padding
+    rows all aim at the null page's offset 0; which of those writes lands
+    is unspecified and unread."""
     pos_l = pos_b.long()
+    if not isinstance(cache, PagedKVCache):
+        rows = torch.arange(k_t.shape[0], device=k_t.device)
+        cache["k"][li][rows, :, pos_l] = k_t.to(cache["k"].dtype)
+        cache["v"][li][rows, :, pos_l] = v_t.to(cache["v"].dtype)
+        return cache
     page = cache.block_tables.long().gather(
         1, (pos_l // cache.page_size)[:, None])[:, 0]
     off = pos_l % cache.page_size
@@ -337,15 +403,27 @@ def _cache_write_token(cache, li, k_t, v_t, pos_b):
 
 
 def _cache_attend(cache, li, q, pos_b, cfg):
-    """One-token GQA attention against layer ``li`` of the pool: q (b,
-    n_heads, hd) -> context (b, d_model). Rows see positions <= their
-    own, through the paged decode kernel."""
+    """One-token GQA attention against layer ``li`` of either cache: q
+    (b, n_heads, hd) -> context (b, d_model). Rows see positions <= their
+    own: through the paged decode kernel, or over the dense strip with
+    later positions masked at -1e30 (the JAX package's XLA math)."""
     b, nh, hd = q.shape
     kvh = _kv_heads(cfg)
-    o = paged_decode_attention(
-        q.reshape(b, kvh, nh // kvh, hd).contiguous(),
-        cache.k_pages[li], cache.v_pages[li], cache.block_tables,
-        pos_b + 1, sm_scale=1.0 / math.sqrt(hd))
+    if isinstance(cache, PagedKVCache):
+        o = paged_decode_attention(
+            q.reshape(b, kvh, nh // kvh, hd).contiguous(),
+            cache.k_pages[li], cache.v_pages[li], cache.block_tables,
+            pos_b + 1, sm_scale=1.0 / math.sqrt(hd))
+        return o.reshape(b, cfg.d_model)
+    kc = cache["k"][li]                           # (b, kvh, max_len, hd)
+    vc = cache["v"][li]
+    L = kc.shape[2]
+    visible = (torch.arange(L, device=q.device)[None, :]
+               <= pos_b.long()[:, None])                          # (b, L)
+    qg = q.reshape(b, kvh, nh // kvh, hd)
+    sc = torch.einsum("bkgd,bkld->bkgl", qg, kc) / math.sqrt(hd)
+    sc = torch.where(visible[:, None, None, :], sc, NEG_INF)
+    o = torch.einsum("bkgl,bkld->bkgd", torch.softmax(sc, -1), vc)
     return o.reshape(b, cfg.d_model)
 
 
@@ -353,10 +431,12 @@ def transformer_decode_step(params, cache, tokens_t, pos,
                             cfg: TransformerConfig):
     """One decode step: tokens_t (b,) at position(s) ``pos`` (a scalar
     or a (b,) vector, every row at its own depth) -> (logits (b, V),
-    cache). Each layer writes the token's K/V into the pool first, then
-    attends positions <= pos through the paged decode kernel."""
+    cache). ``cache`` is the dense dict of :func:`init_kv_cache` or a
+    :class:`PagedKVCache`; each layer writes the token's K/V into it
+    first, then attends positions <= pos. An MoE layer routes the b
+    tokens of the step together."""
     _validate(cfg)
-    _require_paged(cache)
+    _check_cache(cache)
     b = tokens_t.shape[0]
     hd = cfg.d_model // cfg.n_heads
     kvh = _kv_heads(cfg)
@@ -374,22 +454,38 @@ def transformer_decode_step(params, cache, tokens_t, pos,
         _cache_write_token(cache, li, k_t, v_t, pos_b)
         o = _cache_attend(cache, li, q, pos_b, cfg)
         x = x + o @ lp["wo"]
-        x = x + _ffn(lp, _ln(x, lp["ln2_g"], lp["ln2_b"]))
+        x = x + _ffn(lp, _ln(x, lp["ln2_g"], lp["ln2_b"]), cfg)[0]
     x = _ln(x, params.lnf_g, params.lnf_b)
     return x @ params.embed.T, cache
 
 
+def _cache_write_prompt(cache, li, kg, vg):
+    """Write a prompt's K/V (b, s, kv_heads, hd) of layer ``li`` into
+    the dense cache's positions [0, s), in place."""
+    s = kg.shape[1]
+    cache["k"][li][:, :, :s] = kg.transpose(1, 2).to(cache["k"].dtype)
+    cache["v"][li][:, :, :s] = vg.transpose(1, 2).to(cache["v"].dtype)
+    return cache
+
+
 def _prefill_impl(params, tokens, cache, cfg, lengths):
-    """One batched causal forward that fills each row's pages (through
-    the flash prefill kernel, layer by layer) and returns the logits of
-    each row's last real position ``lengths - 1`` (or position -1)."""
+    """One batched causal forward that fills each row's cache and
+    returns the logits of each row's last real position ``lengths - 1``
+    (or position -1). A paged cache's layers go through the flash
+    prefill kernel (attention and page write in one launch); the dense
+    cache takes the prompt's K/V as written and the JAX package's plain
+    causal attention (expanded K/V, einsum, -1e30 mask, softmax)."""
     _validate(cfg)
-    _require_paged(cache)
+    _check_cache(cache)
+    paged = isinstance(cache, PagedKVCache)
     b, s = tokens.shape
     hd = cfg.d_model // cfg.n_heads
     kvh = _kv_heads(cfg)
+    groups = cfg.n_heads // kvh
     pos = torch.arange(s, device=tokens.device)
     x = _embed(params, tokens, pos, cfg)
+    mask = None if paged else torch.tril(
+        torch.ones((s, s), dtype=torch.bool, device=tokens.device))
     for li in range(cfg.n_layers):
         lp = params.layer(li)
         h = _ln(x, lp["ln1_g"], lp["ln1_b"])
@@ -400,10 +496,19 @@ def _prefill_impl(params, tokens, cache, cfg, lengths):
             # rotate BEFORE caching: decode stores rotated keys too
             q = _rope_bshd(q, pos, cfg.rope_base).contiguous()
             kg = _rope_bshd(kg, pos, cfg.rope_base).contiguous()
-        o, _, _ = flash_prefill_paged(q, kg, vg, cache.k_pages[li],
-                                      cache.v_pages[li], cache.block_tables)
+        if paged:
+            o, _, _ = flash_prefill_paged(q, kg, vg, cache.k_pages[li],
+                                          cache.v_pages[li],
+                                          cache.block_tables)
+        else:
+            _cache_write_prompt(cache, li, kg, vg)
+            k = _expand_kv(kg, groups, 2)
+            v = _expand_kv(vg, groups, 2)
+            sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+            sc = torch.where(mask[None, None], sc, NEG_INF)
+            o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), v)
         x = x + o.reshape(b, s, cfg.d_model) @ lp["wo"]
-        x = x + _ffn(lp, _ln(x, lp["ln2_g"], lp["ln2_b"]))
+        x = x + _ffn(lp, _ln(x, lp["ln2_g"], lp["ln2_b"]), cfg)[0]
     if lengths is None:
         xl = x[:, -1]
     else:
@@ -411,6 +516,13 @@ def _prefill_impl(params, tokens, cache, cfg, lengths):
         xl = x[torch.arange(b, device=x.device), last]
     xl = _ln(xl, params.lnf_g, params.lnf_b)
     return xl @ params.embed.T, cache
+
+
+def transformer_prefill(params, tokens, cache, cfg: TransformerConfig):
+    """Fill ``cache`` (dense or paged) from the prompts ``tokens`` (b,
+    s) with one batched causal forward; returns (logits at position -1
+    (b, V), cache)."""
+    return _prefill_impl(params, tokens, cache, cfg, lengths=None)
 
 
 def transformer_prefill_paged(params, cache: PagedKVCache, tokens,
@@ -433,6 +545,72 @@ def transformer_decode_step_paged(params, k_pages, v_pages, block_tables,
     logits, paged = transformer_decode_step(params, paged, tokens_t, pos,
                                             cfg)
     return logits, paged.k_pages, paged.v_pages
+
+
+# ---------------------------------------------------------------------------
+# generation
+# ---------------------------------------------------------------------------
+
+def _step_generator(seed, step, device):
+    """The draw stream of one generation step: a ``torch.Generator`` on
+    ``device`` seeded from (seed, step), so that each step's draw depends
+    on the seed and the step alone."""
+    state = np.random.SeedSequence([int(seed) & 0xFFFFFFFF,
+                                    int(step)]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(
+        int(state[0]) & 0x7FFFFFFFFFFFFFFF)
+
+
+def _pick_token(logits, seed, step, temperature, top_k):
+    """Next-token rule: greedy ``argmax`` at temperature 0 (the first
+    index on ties; no generator is made); else the float32 logits over
+    ``temperature``, with ``top_k`` only the scores ``>=`` the k-th
+    largest kept, and one categorical draw a row from step ``step``'s
+    stream (:func:`_step_generator`; Gumbel-max over uniforms in
+    [tiny, 1), as ``jax.random.categorical`` draws; the numbers are the
+    port's own)."""
+    if temperature == 0.0:
+        return logits.argmax(-1).to(torch.int32)
+    gen = _step_generator(seed, step, logits.device)
+    scaled = logits.float() / temperature
+    if top_k:
+        kth = torch.sort(scaled, dim=-1).values[:, -int(top_k)][:, None]
+        scaled = torch.where(scaled >= kth, scaled,
+                             torch.full_like(scaled, -math.inf))
+    u = torch.rand(scaled.shape, generator=gen, device=scaled.device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return (scaled - torch.log(-torch.log(u))).argmax(-1).to(torch.int32)
+
+
+def transformer_generate(params, prompt, steps, cfg: TransformerConfig,
+                         max_len=None, temperature=0.0, top_k=0, seed=0):
+    """Generation: prompt (b, s) integers -> (b, steps) int32 on the
+    params' device. One batched prefill into a dense KV cache of
+    ``max_len`` (default ``cfg.max_len``) positions, then one decode
+    step a token. Greedy by default; ``temperature > 0`` samples
+    (top-k filtered when ``top_k``) with step ``t``'s draw from a
+    ``torch.Generator`` seeded by (``seed``, t)."""
+    _validate(cfg)
+    b, s = prompt.shape
+    max_len = max_len or cfg.max_len
+    if s + steps > max_len:
+        raise ValueError("prompt + steps = %d exceeds max_len %d"
+                         % (s + steps, max_len))
+    temperature, top_k = float(temperature), int(top_k)
+    dev = params.embed.device
+    prompt = torch.as_tensor(prompt, device=dev).long()
+    out = torch.empty((b, steps), dtype=torch.int32, device=dev)
+    if steps == 0:
+        return out
+    with torch.no_grad():
+        cache = init_kv_cache(cfg, b, max_len, device=dev)
+        logits, cache = transformer_prefill(params, prompt, cache, cfg)
+        out[:, 0] = _pick_token(logits, seed, 0, temperature, top_k)
+        for t in range(1, steps):
+            logits, cache = transformer_decode_step(
+                params, cache, out[:, t - 1], s + t - 1, cfg)
+            out[:, t] = _pick_token(logits, seed, t, temperature, top_k)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -501,40 +679,56 @@ def _attention_local(lp, x, cfg, attn_impl="auto"):
 
 
 def _block_local(lp, x, cfg, attn_impl="auto"):
-    """One pre-LN block: attention, then the dense FFN (``_ffn``, the
-    JAX package's ``_dense_ffn_local``), each added to the residual."""
+    """One pre-LN block: attention, then the FFN (the dense one, the JAX
+    package's ``_dense_ffn_local``, or its ``_moe_ffn_local`` over the
+    block's b * s tokens), each added to the residual. Returns (x, aux):
+    the MoE load-balancing loss, None for the dense block."""
     x = x + _attention_local(lp, _ln(x, lp["ln1_g"], lp["ln1_b"]), cfg,
                              attn_impl)
-    return x + _ffn(lp, _ln(x, lp["ln2_g"], lp["ln2_b"]))
+    f, aux = _ffn(lp, _ln(x, lp["ln2_g"], lp["ln2_b"]), cfg)
+    return x + f, aux
 
 
 def _stage_local(params, x, cfg, attn_impl="auto"):
     """Every layer in order: the JAX package's ``_stage_local`` scan, as
-    its ``_pipeline_stages_local`` runs it for pp = 1. The layer stacks
+    its ``_pipeline_stages_local`` runs it for pp = 1; returns (x, the
+    layers' summed aux loss, None for a dense model). With ``cfg.remat`` each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    dropped after the forward and recomputed in the backward, as
+    ``jax.checkpoint`` with ``nothing_saveable`` does. The layer stacks
     are split with one ``unbind`` each, whose backward stacks the
     layers' gradients in one op (indexing layer by layer would add a
     full-stack zero gradient per layer)."""
     stacks = {k: p.unbind(0) for k, p in params.layers.items()}
+    aux = None
     for li in range(cfg.n_layers):
-        x = _block_local({k: t[li] for k, t in stacks.items()}, x, cfg,
-                         attn_impl)
-    return x
+        lp = {k: t[li] for k, t in stacks.items()}
+        if cfg.remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _block_local, lp, x, cfg, attn_impl, use_reentrant=False)
+        else:
+            x, a = _block_local(lp, x, cfg, attn_impl)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def _lm_local_loss(params, tokens, targets, cfg, attn_impl="auto"):
     """Mean next-token negative log-likelihood of ``targets`` (b, s)
-    given ``tokens`` (b, s), as a float32 scalar: the JAX package's
-    ``_lm_local_loss`` on one device (the dense model's aux loss is 0).
-    ``attn_impl``: see :func:`_attention_local`."""
+    given ``tokens`` (b, s), plus ``0.01 *`` the MoE layers' summed aux
+    loss, as a float32 scalar: the JAX package's ``_lm_local_loss`` on
+    one device (the dense model's aux loss is 0). ``attn_impl``: see
+    :func:`_attention_local`."""
     s = tokens.shape[1]
     x = params.embed[tokens.long()]
     if cfg.pos_type == "learned":
         x = x + params.pos[:s]
-    x = _stage_local(params, x, cfg, attn_impl)
+    x, aux = _stage_local(params, x, cfg, attn_impl)
     x = _ln(x, params.lnf_g, params.lnf_b)
     logp = torch.log_softmax(x @ params.embed.T, dim=-1)
     nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
-    return nll.sum().float() / float(nll.numel())
+    loss = nll.sum().float() / float(nll.numel())
+    return loss if aux is None else loss + 0.01 * aux
 
 
 def make_transformer_train_step(cfg: TransformerConfig, mesh=None, lr=0.1,
@@ -553,17 +747,14 @@ def make_transformer_train_step(cfg: TransformerConfig, mesh=None, lr=0.1,
 
     ``mesh``: None or a dict of the five axis sizes ``dp, sp, tp, pp,
     ep``; sizes above 1 raise :class:`NotImplementedError` naming the
-    ROADMAP item, as do ``cfg.remat`` and MoE configs.
+    ROADMAP item. ``cfg.remat`` recomputes each block in the backward;
+    MoE configs add ``0.01 *`` their aux loss.
     ``num_microbatches`` matters only for pp > 1. ``device_loop=True``
     returns ``loop(params, tokens, targets)`` over stacked (k, batch,
     seq) batches instead: k steps in one call, returning the last
     loss."""
     _validate(cfg)
     _check_mesh(mesh)
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat=True: recomputing each block in the backward "
-            "(torch.utils.checkpoint) is not ported yet (ROADMAP A9.1)")
     del num_microbatches
     lr = float(lr)
 

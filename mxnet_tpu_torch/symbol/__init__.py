@@ -4,6 +4,7 @@ from .symbol import AUX_STATES, Group, Symbol, Variable, load, load_json, var
 from . import register as _register
 
 _register.populate(__name__)
+from . import contrib  # noqa: E402,F401  (sym.contrib, F.contrib)
 
 
 

@@ -1,0 +1,16 @@
+"""``sym.contrib``: every registered ``_contrib_*`` op under its public
+name, building graph nodes (``sym.contrib.flash_attention``, ...), the
+namespace a hybridized block reaches as ``F.contrib``; reference:
+python/mxnet/symbol/contrib.py."""
+from __future__ import annotations
+
+from ..ops import registry as _reg
+from .register import make_op_func
+
+__all__ = []
+for _name in _reg.list_ops():
+    if _name.startswith("_contrib_"):
+        _pub = _name[len("_contrib_"):]
+        globals()[_pub] = make_op_func(_reg.get_op(_name))
+        globals()[_pub].__name__ = _pub
+        __all__.append(_pub)

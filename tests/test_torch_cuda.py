@@ -22,11 +22,16 @@ backward fed the plain o and lse: o, dq, dk, dv within 1e-5 in float32
 and 1e-2 in bfloat16 (one bf16 rounding is 1.7e-3 RMS; the kernels
 round p and ds for the tensor cores and their outputs), lse within 1e-5
 in both, and a second run of both equals the first bitwise (the backward
-sums in a fixed order, no atomics). The engine on the card must give the
+sums in a fixed order, no atomics); the "fma" route likewise at key
+lengths other than the queries' and head dims up to 256, and the
+``_contrib_flash_attention`` op on the card the op on the CPU. The
+engine on the card must give the
 CPU engine's greedy streams, with the kernels launched once per layer
 per prefill and per decode step; the train step on the card must match
 the CPU's in float32, and in bfloat16 its gradients through the kernels
-must match those through the plain attention route. The fused optimizer
+must match those through the plain attention route; so must the MoE and
+``remat`` train steps, and ``transformer_generate`` on the card the CPU's
+tokens and the paged ``DecodeEngine``'s stream. The fused optimizer
 update kernel must equal its plain versions bitwise (SGD with and without
 momentum and clip, Adam; aligned and misaligned tensors; one launch per
 list), and a 2-step ResNet ``Module.fit`` on the card must match the
@@ -277,10 +282,175 @@ def test_flash_attention_kernels_match_plain(card, dtype, causal, shape):
         assert torch.equal(a, b), name
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,s_q,s_k,hd", [
+    (1, 2, 8, 16, 64),           # keys longer than queries
+    (1, 2, 16, 8, 64),           # and shorter
+    (2, 3, 100, 37, 32),         # ragged tiles both ways
+    (1, 4, 64, 64, 128),         # one length, head_dim 128
+    (2, 2, 40, 72, 80),
+    (1, 1, 24, 24, 256),         # the largest head_dim
+    (1, 2, 33, 33, 8),
+])
+def test_flash_attention_fma_route_matches_plain(card, dtype, causal, b, h,
+                                                 s_q, s_k, hd):
+    """The "fma" route at every shape the TPU kernel takes and the wgmma
+    route does not: o, lse, dq, dk, dv against the plain versions (the
+    limits of test_flash_attention_kernels_match_plain), each launch on
+    the route flash_route names, and a second run bitwise equal."""
+    rng = np.random.RandomState(hd + s_k)
+    dt = getattr(torch, dtype)
+    q, do = (torch.from_numpy(rng.randn(b, h, s_q, hd).astype(
+        np.float32)).to(card, dt) for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(b, h, s_k, hd).astype(
+        np.float32)).to(card, dt) for _ in range(2))
+    assert tfa.flash_route(dt, hd, s_q, s_k) == "fma"
+    r0 = {n: dict(tfa.ROUTES[n]) for n in ("flash_attention",
+                                           "flash_attention_bwd")}
+    o, lse = tfa._flash_fwd(q, k, v, causal)
+    grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for n in r0:
+        assert tfa.ROUTES[n]["fma"] == r0[n]["fma"] + 1, n
+        assert tfa.ROUTES[n]["wgmma"] == r0[n]["wgmma"], n
+    scale = 1.0 / hd ** 0.5
+    f = [t.float() for t in (q, k, v, do)]
+    ro, rl = tfa._flash_fwd_torch(f[0], f[1], f[2], causal, scale)
+    rg = tfa._flash_bwd_torch(f[0], f[1], f[2], ro.to(dt).float(), rl,
+                              f[3], causal, scale)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for name, got, ref in zip(("o", "lse", "dq", "dk", "dv"),
+                              (o, lse) + tuple(grads), (ro, rl) + tuple(rg)):
+        assert got.shape == ref.shape, name
+        assert _rel_err(got, ref) <= (1e-5 if got is lse else tol), name
+    o2, lse2 = tfa._flash_fwd(q, k, v, causal)
+    grads2 = tfa.flash_attention_bwd(q, k, v, o2, lse2, do, causal)
+    for name, a, b_ in zip(("o", "lse", "dq", "dk", "dv"),
+                           (o, lse) + tuple(grads),
+                           (o2, lse2) + tuple(grads2)):
+        assert torch.equal(a, b_), name
+
+
 def test_flash_attention_rejects_head_dim_without_kernel(card):
-    q = torch.zeros(1, 1, 16, 8, device=card)
-    with pytest.raises(tfa.MXNetError, match="head_dim"):
+    """Every head_dim up to 256 has a route on the card; above it the
+    call raises naming the ROADMAP item."""
+    q = torch.zeros(1, 1, 16, 264, device=card)
+    with pytest.raises(tfa.MXNetError, match="head_dim.*B.5"):
         tfa.flash_attention(q, q, q)
+
+
+def test_contrib_flash_attention_on_card_matches_cpu(card):
+    rng = np.random.RandomState(4)
+    arrays = [rng.randn(2, 2, n, 128).astype(np.float32)
+              for n in (24, 40, 40)]
+    head = rng.randn(2, 2, 24, 128).astype(np.float32)
+    out = {}
+    for ctx in (tmx.cpu(), tmx.gpu(0)):
+        nds = [tmx.nd.array(a, ctx=ctx) for a in arrays]
+        for a in nds:
+            a.attach_grad()
+        n0 = tfa.LAUNCHES["flash_attention"]
+        with tmx.autograd.record():
+            o = tmx.nd.contrib.flash_attention(*nds, causal=True)
+        o.backward(tmx.nd.array(head, ctx=ctx))
+        out[str(ctx)] = ([o.asnumpy()] + [a.grad.asnumpy() for a in nds],
+                         tfa.LAUNCHES["flash_attention"] - n0)
+    (cpu, n_cpu), (gpu, n_gpu) = out["cpu(0)"], out["gpu(0)"]
+    assert n_cpu == 0 and n_gpu == 1
+    for name, g, c in zip(("out", "dq", "dk", "dv"), gpu, cpu):
+        np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("remat,num_experts", [(True, 0), (False, 4)])
+def test_moe_and_remat_train_steps_on_card_match_cpu(card, remat,
+                                                     num_experts):
+    cfg = T.TransformerConfig(vocab_size=128, d_model=128, n_heads=2,
+                              n_layers=2, d_ff=256, max_len=96,
+                              remat=remat, num_experts=num_experts,
+                              capacity_factor=1.0)
+    rng = np.random.RandomState(9)
+    tok = torch.from_numpy(rng.randint(0, 128, (2, 2, 96)))
+    tgt = torch.from_numpy(rng.randint(0, 128, (2, 2, 96)))
+    step = T.make_transformer_train_step(cfg, lr=0.1)
+    runs = {}
+    for dev in ("cpu", card):
+        params = T.init_transformer_params_np(cfg, seed=5, device=dev,
+                                              trainable=True)
+        tfa.reset_launches()
+        losses = [float(step(params, tok[i], tgt[i])[1]) for i in range(2)]
+        runs[str(dev)] = (losses, params, dict(tfa.LAUNCHES))
+    (l_cpu, p_cpu, _), (l_gpu, p_gpu, launches) = runs["cpu"], runs[
+        str(card)]
+    fwd = 2 if remat else 1
+    assert launches["flash_attention"] == 2 * fwd * cfg.n_layers
+    assert launches["flash_attention_bwd"] == 2 * cfg.n_layers
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5, atol=1e-5)
+    for (name, a), (_, b) in zip(p_gpu.named_parameters(),
+                                 p_cpu.named_parameters()):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), atol=1e-5,
+                                   err_msg=name)
+
+
+def test_moe_ffn_queues_no_host_sync(card):
+    """The MoE layer's routing, dispatch by index and combine, forward
+    and backward, with tokens dropped (capacity 0.5), never wait for the
+    card: each sync would stall the host that queues the step. Its
+    output and gradients equal the CPU's within 1e-4 of each tensor's
+    largest magnitude (float32 sums in other orders)."""
+    from mxnet_tpu_torch.parallel.moe import moe_ffn
+    gen = torch.Generator().manual_seed(11)
+    shapes = (((256, 64), 1.0), ((64, 8), 0.5), ((8, 64, 128), 0.125),
+              ((8, 128, 64), 0.088))
+    cpu = [(torch.randn(*shape, generator=gen) * sd).requires_grad_()
+           for shape, sd in shapes]
+    head = torch.randn(256, 64, generator=gen)
+    dev = [t.detach().to(card).requires_grad_() for t in cpu]
+    head_d = head.to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe_ffn(*dev, capacity_factor=0.5)
+        ((out * head_d).sum() + aux).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out_c, aux_c = moe_ffn(*cpu, capacity_factor=0.5)
+    ((out_c * head).sum() + aux_c).backward()
+    pairs = [("out", out.detach(), out_c.detach()),
+             ("aux", aux.detach(), aux_c.detach())] + [
+        ("grad%d" % i, d.grad, c.grad) for i, (d, c) in
+        enumerate(zip(dev, cpu))]
+    for name, d, c in pairs:
+        c = c.numpy()
+        err = float(np.abs(d.cpu().numpy() - c).max())
+        assert err <= 1e-4 * max(float(np.abs(c).max()), 1.0), (name, err)
+
+
+@pytest.mark.parametrize("num_experts", [0, 4])
+def test_generate_on_card_matches_cpu_and_paged_engine(card, num_experts):
+    cfg = T.TransformerConfig(vocab_size=128, d_model=128, n_heads=4,
+                              n_kv_heads=2, n_layers=2, d_ff=256,
+                              max_len=64, pos_type="rope",
+                              num_experts=num_experts)
+    prompt = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 128, (1, 12)).astype(np.int32))
+    gen = {}
+    for dev in ("cpu", card):
+        params = T.init_transformer_params_np(cfg, seed=4, device=dev)
+        gen[str(dev)] = T.transformer_generate(params, prompt.to(dev), 10,
+                                               cfg).cpu()
+    assert torch.equal(gen["cpu"], gen[str(card)])
+    eng = DecodeEngine(params, cfg, DecodeConfig(
+        slots=4, page_size=16, num_pages=32, max_context=64)).start()
+    try:
+        tfa.reset_launches()
+        out = eng.submit(prompt[0].tolist(), max_new_tokens=10).result()
+    finally:
+        eng.close(drain=False)
+    assert out == gen["cpu"][0].tolist()
+    assert tfa.LAUNCHES["flash_prefill_paged"] == cfg.n_layers
+    assert tfa.LAUNCHES["paged_decode_attention"] == 9 * cfg.n_layers
 
 
 def test_train_step_on_card_matches_cpu(card):

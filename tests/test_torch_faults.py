@@ -26,11 +26,18 @@
   directory, and raises ``MXNetError`` naming the path without it
   (C.10): a seeded JAX ``resnet18_v1`` saved there gives the same
   logits in both packages within 1e-5.
+* ``flash_attention`` takes k and v of their own length ``s_k`` beside
+  q's ``s_q``, causal as ``kpos <= qpos`` counted from 0, as the TPU
+  kernel does (C.12): the forward and its gradients (dk, dv of k's
+  shape) against the Pallas kernel in interpret mode through its
+  ``custom_vjp``, within 1e-5.
 """
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
 import mxnet_tpu as jmx  # noqa: E402
 
@@ -395,3 +402,39 @@ def test_pretrained_loads_a_local_file_as_jax(tmp_path):
         with pytest.raises(mx.base.MXNetError, match="resnet18_v1.params"):
             mx.gluon.model_zoo.vision.get_model(
                 "resnet18_v1", pretrained=True, root=str(empty))
+
+
+# (b, heads, s_q, s_k, head_dim): shorter and longer keys than queries,
+# lengths no multiple of the Pallas kernel's 8-row blocks among them
+FLASH_LENGTHS = [(1, 2, 8, 16, 64), (1, 2, 16, 8, 64), (2, 3, 13, 40, 16)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_LENGTHS)
+def test_flash_attention_takes_own_key_length_as_jax(shape, causal):
+    """C.12: the port raised ``k has shape (1, 2, 16, 64), expected (1,
+    2, 8, 64)`` where the JAX kernel returns the attention."""
+    from mxnet_tpu.ops.pallas.flash_attention import (
+        flash_attention as jax_flash)
+    from mxnet_tpu_torch.ops.cuda.flash_attention import flash_attention
+    b, h, s_q, s_k, d = shape
+    rng = np.random.RandomState(12)
+    q, g = (rng.randn(b, h, s_q, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, h, s_k, d).astype(np.float32) for _ in range(2))
+
+    def jloss(q, k, v):
+        o = jax_flash(q, k, v, causal=causal, interpret=True)
+        return jnp.sum(o * g), o
+
+    (_, oj), gj = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                     has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    ot = flash_attention(qt, kt, vt, causal=causal)
+    gt = torch.autograd.grad(ot, (qt, kt, vt), torch.from_numpy(g))
+    np.testing.assert_allclose(ot.detach().numpy(), np.asarray(oj),
+                               rtol=1e-5, atol=1e-5)
+    for name, a, want in zip(("dq", "dk", "dv"), gt, gj):
+        assert a.shape == want.shape, name
+        np.testing.assert_allclose(a.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)

@@ -14,7 +14,11 @@ tolerance) and 1e-4 for the gradients (sums over blocks in another
 order). On CPU tensors the wrappers take the plain versions and launch
 nothing; bad dtypes, shapes, layouts and mixed devices raise. The CUDA
 kernels are held against these plain versions on the card by
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py and chip_smoke.py. The ``_contrib_flash_attention``
+op through ``nd.contrib``, a bound ``sym.contrib`` Symbol and a
+hybridized block's ``F.contrib``, at key lengths of their own and head
+dims 80 and 128, against the JAX package's op (output and gradients
+within 1e-4).
 """
 import importlib
 
@@ -161,7 +165,9 @@ def test_flash_fwd_rejects(bad):
     elif bad == "dims":
         q, k, v = q[0], k[0], v[0]
     elif bad == "k_shape":
-        k = k[:, :, :16].contiguous()
+        # k and v may be longer or shorter than q (C.12), but share its
+        # batch, heads and head_dim
+        k = k[..., :8].contiguous()
     elif bad == "v_dtype":
         v = v.bfloat16()
     elif bad == "contiguous":
@@ -189,3 +195,75 @@ def test_flash_bwd_rejects(bad):
         g = g.bfloat16()
     with pytest.raises(MXNetError):
         tfa.flash_attention_bwd(q, k, v, o, lse, g, True)
+
+
+# ---------------------------------------------------------------------------
+# the _contrib_flash_attention op (nd.contrib / sym.contrib / F.contrib)
+# ---------------------------------------------------------------------------
+
+# (b, heads, s_q, s_k, head_dim), causal: key lengths of their own and
+# head dims the card's "fma" route takes
+CONTRIB = [((1, 2, 8, 16, 80), True), ((2, 1, 12, 5, 128), False),
+           ((1, 3, 9, 9, 80), True)]
+
+
+def _contrib_run(mx, route, arrays, head, causal):
+    """(out, dq, dk, dv) of _contrib_flash_attention in package ``mx``,
+    through ``route``: the nd op, a bound Symbol, or a hybridized
+    block calling F.contrib.flash_attention."""
+    ctx = mx.cpu()
+    if route == "sym":
+        s = mx.sym.contrib.flash_attention(
+            mx.sym.var("q"), mx.sym.var("k"), mx.sym.var("v"),
+            causal=causal)
+        args = {n: mx.nd.array(a, ctx=ctx) for n, a in zip("qkv", arrays)}
+        grads = {n: mx.nd.zeros(a.shape, ctx=ctx)
+                 for n, a in zip("qkv", arrays)}
+        ex = s.bind(ctx, args, args_grad=grads)
+        out = ex.forward(is_train=True)[0].asnumpy()
+        ex.backward([mx.nd.array(head, ctx=ctx)])
+        return (out,) + tuple(grads[n].asnumpy() for n in "qkv")
+    nds = [mx.nd.array(a, ctx=ctx) for a in arrays]
+    for a in nds:
+        a.attach_grad()
+    if route == "nd":
+        def fn(q, k, v):
+            return mx.nd.contrib.flash_attention(q, k, v, causal=causal)
+    else:
+        class Attn(mx.gluon.HybridBlock):
+            def hybrid_forward(self, F, q, k, v):
+                return F.contrib.flash_attention(q, k, v, causal=causal)
+        fn = Attn()
+        fn.hybridize()
+    with mx.autograd.record():
+        out = fn(*nds)
+    out.backward(mx.nd.array(head, ctx=ctx))
+    return (out.asnumpy(),) + tuple(a.grad.asnumpy() for a in nds)
+
+
+@pytest.mark.parametrize("route", ["nd", "sym", "hybridized"])
+@pytest.mark.parametrize("shape,causal", CONTRIB)
+def test_contrib_flash_attention_matches_jax(route, shape, causal):
+    import mxnet_tpu as jmx
+    import mxnet_tpu_torch as tmx
+    b, h, s_q, s_k, d = shape
+    rng = np.random.RandomState(s_q + s_k)
+    arrays = [rng.randn(b, h, n, d).astype(np.float32)
+              for n in (s_q, s_k, s_k)]
+    head = rng.randn(b, h, s_q, d).astype(np.float32)
+    want = _contrib_run(jmx, route, arrays, head, causal)
+    got = _contrib_run(tmx, route, arrays, head, causal)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, err_msg=name, **GRAD_TOL)
+
+
+def test_contrib_flash_attention_takes_the_tpu_tile_attrs():
+    """block_q, block_k and interpret are accepted and change nothing
+    on this port."""
+    import mxnet_tpu_torch as tmx
+    q, k, v, _ = (tmx.nd.array(a, ctx=tmx.cpu()) for a in _case(7, SHAPES[1]))
+    base = tmx.nd.contrib.flash_attention(q, k, v, causal=True).asnumpy()
+    tiled = tmx.nd.contrib.flash_attention(q, k, v, causal=True, block_q=8,
+                                           block_k=16, interpret=True)
+    np.testing.assert_array_equal(tiled.asnumpy(), base)

@@ -7,7 +7,9 @@ reference forward held against the JAX functions on the CPU in float32
 (logits and pools within 1e-4), at the JAX decode tests' tiny config.
 The layer helpers that differ between the frameworks unless ported
 with care (tanh GELU, ``jnp.repeat``, RoPE's f32-then-cast order) each
-get a unit check.
+get a unit check. MoE configs and the dense KV cache, refused until they
+were ported, are held here at their entry points (and at length in
+tests/test_torch_moe.py and tests/test_torch_generate.py).
 """
 import numpy as np
 import pytest
@@ -108,9 +110,15 @@ def test_params_from_jax_rejects_bad_trees(model, bad):
 
 
 def test_moe_config_not_ported():
-    _, ct = _configs(num_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        T.init_transformer_params_np(ct, device="cpu")
+    """MoE configs were refused until they were ported; now the init
+    gives the JAX package's MoE weights (gate, we1, we2 for w1, w2)."""
+    cj, ct = _configs(num_experts=4)
+    pt = params_to_numpy(T.init_transformer_params_np(ct, seed=2,
+                                                      device="cpu"))
+    pj = _np_tree(J.init_transformer_params(cj, _mesh(), seed=2)[0])
+    assert set(pt["layers"]) == set(pj["layers"]) == set(T.MOE_LAYER_KEYS)
+    for k in pj["layers"]:
+        np.testing.assert_array_equal(pt["layers"][k], pj["layers"][k])
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +265,17 @@ def test_prefill_then_decode_tracks_forward_single(model):
 
 
 def test_dense_cache_not_ported(model):
+    """The dense cache was refused until it was ported; now a decode
+    step over it gives the paged step's logits, and only a malformed
+    cache raises."""
     _, ct, _, pt = model
-    with pytest.raises(TypeError, match="dense KV cache"):
-        T.transformer_decode_step(pt, {"k": None, "v": None},
-                                  torch.zeros(1, dtype=torch.int32), 0, ct)
+    tok = torch.tensor([5], dtype=torch.int32)
+    dense, _ = T.transformer_decode_step(
+        pt, T.init_kv_cache(ct, 1, 16, device="cpu"), tok, 0, ct)
+    kt, vt = T.init_kv_pages(ct, 8, PAGE, device="cpu")
+    paged, _ = T.transformer_decode_step(
+        pt, T.PagedKVCache(kt, vt, torch.arange(1, 5, dtype=torch.int32)[
+            None], PAGE), tok, 0, ct)
+    np.testing.assert_allclose(dense.numpy(), paged.numpy(), **TOL)
+    with pytest.raises(TypeError, match="dense dict"):
+        T.transformer_decode_step(pt, {"k": None, "v": None}, tok, 0, ct)

@@ -90,8 +90,10 @@ def main():
     this_kernel_fn = fa._kernel_fn
 
     def use(version):
+        # the shape's bf16 calls take the "wgmma" route, whose entries
+        # (<name>_bf16) both versions share
         fa._kernel_fn = (this_kernel_fn if version == "this"
-                         else (lambda name, dtype: other_fns[name]))
+                         else (lambda name, route, dtype: other_fns[name]))
 
     shape = tuple(int(x) for x in args.shape.split(","))
     scale = 1.0 / shape[3] ** 0.5
