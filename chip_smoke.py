@@ -294,17 +294,22 @@ Phases, each fatal on failure (no phase's failure is caught):
     bidirectional, LSTMP; outputs, states, gradients) and ``CTCLoss``
     (both blank labels, with and without lengths; loss and gradient); a
     planted i/f gate swap must fail;
-38. the flash kernels' "fma" route (the TPU kernel's whole domain: k and
-    v of their own length s_k, head dims up to 256, float32 and bf16)
-    against the plain versions by phase 6's limits, causal and full, each
-    launch on the route ``flash_route`` names; a planted fault (a key
-    tile hidden at s_q 512 < s_k 1024) that must fail; each route timed
-    beside its bound, plain version and causal SDPA at the same shape
-    (bf16 head_dim 128; bf16 s_q 512 < s_k 1024; the CLI's f32 shape);
+38. both routes of the flash kernels over the TPU kernel's whole domain
+    (k and v of their own length s_k, head dims up to 256, float32 and
+    bf16): "wgmma" (bf16 at head_dim 32 / 64 / 128, any s_q and s_k) and
+    "fma" (float32, other head dims), against the plain versions by
+    phase 6's limits, causal and full, each launch on the route
+    ``flash_route`` names, a second run bitwise equal; planted faults
+    that must fail on each route (a key tile hidden; at head_dim 128 also
+    k's second 64-column box read as zeros); each timed shape beside its
+    bound, plain version and causal SDPA (float32 with TF32 off) at the
+    same shape (bf16 head_dim 128; bf16 s_q 512 < s_k 1024; the CLI's
+    f32 shape; the train path's bf16 head_dim 64);
 39. ``_contrib_flash_attention`` on the card (bf16, causal; head_dim 128,
     and s_k twice s_q) through ``nd.contrib``, a bound ``sym.contrib``
     Symbol and a hybridized block (CUDA graphs): output and gradients
-    against the plain versions, one fma launch each a call;
+    against the plain versions, one launch each a call on the route
+    ``flash_route`` names;
 40. the ``train_transformer_lm`` CLI in-process at benchmark.py:669's
     widths (d 1024, 16 heads, 12 layers, d_ff 4096, vocab 32768, seq
     1024, batch 8) in float32, dense and with ``--num-experts 8``, each
@@ -436,9 +441,10 @@ class Timer(object):
 
 
 def kernel_label(mangled):
-    """``flash_fwd_bf16_kernel<64>`` from a mangled entry name: the last
-    length-prefixed identifier that ends in ``kernel``, and its integer
-    template argument if it has one."""
+    """``flash_fwd_bf16_kernel<64>`` (or ``dq_fma_kernel<float, 64, 32,
+    2, 2>``) from a mangled entry name: the last length-prefixed
+    identifier that ends in ``kernel``, and its template arguments
+    (integers, float, bf16) if it has them."""
     best = None
     for i in range(len(mangled)):
         for j in range(i + 1, min(i + 4, len(mangled))):
@@ -450,8 +456,12 @@ def kernel_label(mangled):
                 best = (ident, j + len(ident))
     if best is None:
         return mangled
-    arg = re.match(r"ILi(\d+)E", mangled[best[1]:])
-    return best[0] + ("<%s>" % arg.group(1) if arg else "")
+    args = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E", mangled[best[1]:])
+    if not args:
+        return best[0]
+    return best[0] + "<%s>" % ", ".join(
+        "float" if a == "f" else "bf16" if a.startswith("13") else a[2:-1]
+        for a in re.findall(r"f|13__nv_bfloat16|Li\d+E", args.group(1)))
 
 
 def ptxas_summary(out):
@@ -6344,23 +6354,39 @@ def rnn_ctc_card(torch, mx, dev=None):
 # phases 38-43: the rest of the transformer LM family
 # ---------------------------------------------------------------------------
 
-# phase 38: (b, heads, s_q, s_k, head_dim, dtype) held on the "fma" route:
-# key lengths of their own (C.12), causal and full, and the head dims the
-# wgmma route does not take, up to 256
-FMA_CHECKS = [(1, 2, 8, 16, 64, "float32"), (1, 2, 16, 8, 64, "bfloat16"),
-              (2, 3, 100, 37, 32, "bfloat16"), (2, 8, 512, 1024, 64,
-                                                "bfloat16"),
-              (2, 8, 256, 256, 128, "bfloat16"), (2, 8, 256, 256, 128,
-                                                  "float32"),
-              (1, 4, 130, 70, 80, "bfloat16"), (1, 2, 64, 64, 256,
-                                                "bfloat16")]
+# phase 38: (b, heads, s_q, s_k, head_dim, dtype) held on each route. The
+# wgmma route: head_dim 128 at s_q = s_k and not, the ragged (100, 37)
+# case, queries against twice as many keys, fewer keys than queries; the
+# fma route: float32 at head dims 64 and 128 (s_k != s_q), and bf16 at
+# the head dims the wgmma route does not take, up to 256
+ROUTE_CHECKS = {
+    "wgmma": [(2, 8, 256, 256, 128, "bfloat16"),
+              (1, 2, 130, 70, 128, "bfloat16"),
+              (2, 3, 100, 37, 32, "bfloat16"),
+              (2, 8, 512, 1024, 64, "bfloat16"),
+              (1, 2, 16, 8, 64, "bfloat16")],
+    "fma": [(1, 2, 8, 16, 64, "float32"), (2, 8, 256, 256, 128, "float32"),
+            (1, 2, 33, 33, 8, "bfloat16"), (1, 4, 130, 70, 80, "bfloat16"),
+            (1, 2, 64, 64, 256, "bfloat16")]}
+# the planted faults (route, shape, fault), causal, each must fail phase
+# 6's limits: a key tile hidden from the last query rows, and at head_dim
+# 128 on wgmma the second 64-column box of k read as zeros
+PLANTED = [("wgmma", (2, 8, 512, 1024, 64, "bfloat16"), "hidden key tile"),
+           ("wgmma", (2, 8, 256, 256, 128, "bfloat16"), "hidden key tile"),
+           ("wgmma", (2, 8, 256, 256, 128, "bfloat16"),
+            "k columns 64-127 zero"),
+           ("fma", (2, 8, 256, 256, 128, "float32"), "hidden key tile"),
+           ("fma", (1, 4, 130, 70, 80, "bfloat16"), "hidden key tile")]
 # phase 38's timed shapes, causal, L2 flushed: (label, b, heads, s_q, s_k,
 # head_dim, dtype). A d_model 1024 model with 8 heads of 128; queries
 # against twice as many keys; the train_transformer_lm CLI's own float32
-# attention at full width (its flash launches take this route)
-FMA_TIMED = [("bf16 head_dim 128", 8, 8, 1024, 1024, 128, "bfloat16"),
-             ("bf16 s_q 512 < s_k 1024", 8, 16, 512, 1024, 64, "bfloat16"),
-             ("f32 CLI shape", 8, 16, 1024, 1024, 64, "float32")]
+# attention at full width (its flash launches take the fma route); the
+# train path's shape (bf16 head_dim 64, phase 7's) beside them
+ROUTE_TIMED = [("bf16 head_dim 128", 8, 8, 1024, 1024, 128, "bfloat16"),
+               ("bf16 s_q 512 < s_k 1024", 8, 16, 512, 1024, 64,
+                "bfloat16"),
+               ("f32 CLI shape", 8, 16, 1024, 1024, 64, "float32"),
+               ("bf16 head_dim 64", 8, 16, 1024, 1024, 64, "bfloat16")]
 # phase 39: the _contrib_flash_attention op's shapes on the card, causal
 CONTRIB_SHAPES = [(2, 8, 256, 256, 128), (2, 8, 256, 512, 64)]
 # phase 40: the CLI at benchmark.py:669's widths (float32, its own dtype)
@@ -6404,141 +6430,181 @@ def attn_bound(torch, nbytes, flops, dtype):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def hidden_key_tile(torch, fa, q, k, v, causal, scale):
-    """(o, lse) of the plain function with keys 0..15 hidden from the
-    last 16 query rows: what a kernel that skipped that one tile pair
-    would compute."""
+def planted_attention(torch, fa, q, k, v, causal, scale, fault):
+    """(o, lse) of the plain function under a planted fault: "hidden key
+    tile" hides keys 0..15 from the last 16 query rows (what a kernel
+    that skipped that one tile pair would compute); "k columns 64-127
+    zero" reads k's second 64-column box as zeros (what a head_dim-128
+    kernel that lost its second TMA box would compute)."""
     s_q, s_k = q.shape[2], k.shape[2]
     keep = torch.ones(s_q, s_k, dtype=torch.bool, device=q.device)
     if causal:
         keep = (torch.arange(s_k, device=q.device)[None, :]
                 <= torch.arange(s_q, device=q.device)[:, None])
-    keep[s_q - 16:, :16] = False
-    sc = torch.where(keep, q.float() @ k.float().transpose(-1, -2) * scale,
+    kf = k.float()
+    if fault == "k columns 64-127 zero":
+        kf = kf.clone()
+        kf[..., 64:] = 0.0
+    else:
+        keep[s_q - 16:, :16] = False
+    sc = torch.where(keep, q.float() @ kf.transpose(-1, -2) * scale,
                      fa.NEG_INF)
     lse = torch.logsumexp(sc, -1)
     return torch.exp(sc - lse[..., None]) @ v.float(), lse
 
 
 def check_flash_routes(torch, fa, timer):
-    """Phase 38: the "fma" route of both flash kernels (C.12's domain:
-    s_k != s_q, head dims up to 256) against the plain versions by
-    phase 6's relative-RMS limits, each launch on the route flash_route
-    names; a planted fault (a key tile hidden at s_q 512 < s_k 1024)
-    that must fail; then each timed shape (FMA_TIMED) beside its bound,
-    its plain version and causal scaled_dot_product_attention at the
-    same shape (top-left causal alignment, kpos <= qpos, as the kernel's
-    rule)."""
+    """Phase 38: both routes of both flash kernels over the TPU kernel's
+    domain (ROUTE_CHECKS: s_k != s_q, head dims up to 256) against the
+    plain versions by phase 6's limits, each launch on the route
+    flash_route names and a second run bitwise equal; the planted faults
+    (PLANTED) must fail on each route; then each timed shape
+    (ROUTE_TIMED) beside its bound, its plain version and causal
+    scaled_dot_product_attention at the same shape (top-left causal
+    alignment, kpos <= qpos, as the kernel's rule; float32 with TF32
+    off)."""
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(38)
-    rows, planted = [], None
-    for b, h, s_q, s_k, d, dt in FMA_CHECKS:
-        dtype = getattr(torch, dt)
-        lim = flash_limits(dtype, torch)
-        for causal in (True, False):
-            q, do = (torch.randn(b, h, s_q, d, generator=gen).to(
-                CARD, dtype) for _ in range(2))
-            k, v = (torch.randn(b, h, s_k, d, generator=gen).to(
-                CARD, dtype) for _ in range(2))
-            scale = 1.0 / d ** 0.5
-            check(fa.flash_route(dtype, d, s_q, s_k) == "fma",
-                  "flash_route %s for an fma shape" % ((dt, d, s_q, s_k),))
-            r0 = {n: dict(fa.ROUTES[n]) for n in ("flash_attention",
-                                                  "flash_attention_bwd")}
-            o, lse = fa._flash_fwd(q, k, v, causal)
-            dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
-            torch.cuda.synchronize()
-            for n in r0:
-                check(fa.ROUTES[n]["fma"] == r0[n]["fma"] + 1
-                      and fa.ROUTES[n]["wgmma"] == r0[n]["wgmma"],
-                      "%s: not one launch on the fma route: %s"
-                      % (n, fa.ROUTES[n]))
-            ref = plain_flash(torch, fa, q, k, v, do, causal, scale)
-            errs = {n: rel_err(g, r) for n, g, r in
-                    zip(FLASH_OUTS, (o, lse, dq, dk, dv), ref)}
-            rows.append({"dtype": dt, "shape": [b, h, s_q, s_k, d],
-                         "causal": causal, "rel_err": errs})
-            log("check flash fma route %-8s (b, h, s_q, s_k, d) %-24s "
-                "causal=%d %s" % (dt, (b, h, s_q, s_k, d), causal,
-                                  " ".join("%s=%.2e" % kv
-                                           for kv in errs.items())))
-            bad = {n: e for n, e in errs.items() if e > lim[n]}
-            check(not bad, "flash fma route %s %s causal=%s: %s over %s"
-                  % (dt, (b, h, s_q, s_k, d), causal, bad, lim))
-            if s_q < s_k and causal and dtype == torch.bfloat16 \
-                    and planted is None:
-                po, plse = hidden_key_tile(torch, fa, q, k, v, causal,
-                                           scale)
-                planted = {"o": rel_err(po, ref[0]),
-                           "lse": rel_err(plse, ref[1])}
-                log("planted fault (key tile hidden at s_q %d < s_k %d): "
-                    "o=%.2e lse=%.2e" % (s_q, s_k, planted["o"],
-                                         planted["lse"]))
-                check(planted["o"] > lim["o"] and planted["lse"]
-                      > lim["lse"], "planted fault (hidden key tile) "
-                      "passes the checks: %s" % planted)
-    check(planted is not None, "no planted fault ran")
+    names = ("flash_attention", "flash_attention_bwd")
+    rows, planted = [], []
+    for want, shapes in ROUTE_CHECKS.items():
+        for b, h, s_q, s_k, d, dt in shapes:
+            dtype = getattr(torch, dt)
+            lim = flash_limits(dtype, torch)
+            route = fa.flash_route(dtype, d, s_q, s_k)
+            check(route == want, "flash_route %s: %s, expected %s"
+                  % ((dt, d, s_q, s_k), route, want))
+            for causal in (True, False):
+                q, do = (torch.randn(b, h, s_q, d, generator=gen).to(
+                    CARD, dtype) for _ in range(2))
+                k, v = (torch.randn(b, h, s_k, d, generator=gen).to(
+                    CARD, dtype) for _ in range(2))
+                scale = 1.0 / d ** 0.5
+                r0 = {n: dict(fa.ROUTES[n]) for n in names}
+                o, lse = fa._flash_fwd(q, k, v, causal)
+                dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    causal)
+                torch.cuda.synchronize()
+                for n in names:
+                    check(all(fa.ROUTES[n][r] == r0[n][r] + (r == route)
+                              for r in r0[n]),
+                          "%s: not one launch on the %s route: %s"
+                          % (n, route, fa.ROUTES[n]))
+                ref = plain_flash(torch, fa, q, k, v, do, causal, scale)
+                errs = {n: rel_err(g, r) for n, g, r in
+                        zip(FLASH_OUTS, (o, lse, dq, dk, dv), ref)}
+                rows.append({"route": route, "dtype": dt,
+                             "shape": [b, h, s_q, s_k, d],
+                             "causal": causal, "rel_err": errs})
+                log("check flash %-5s route %-8s (b, h, s_q, s_k, d) %-24s "
+                    "causal=%d %s" % (route, dt, (b, h, s_q, s_k, d), causal,
+                                      " ".join("%s=%.2e" % kv
+                                               for kv in errs.items())))
+                bad = {n: e for n, e in errs.items() if e > lim[n]}
+                check(not bad, "flash %s route %s %s causal=%s: %s over %s"
+                      % (route, dt, (b, h, s_q, s_k, d), causal, bad, lim))
+                rows[-1]["bitwise_repeat"] = flash_repeat(
+                    torch, fa, q, k, v, do, causal, (o, lse, dq, dk, dv))
+                for p_route, p_shape, fault in PLANTED:
+                    if not causal or p_route != route or p_shape != (
+                            b, h, s_q, s_k, d, dt):
+                        continue
+                    po, plse = planted_attention(torch, fa, q, k, v, causal,
+                                                 scale, fault)
+                    perr = {"o": rel_err(po, ref[0]),
+                            "lse": rel_err(plse, ref[1])}
+                    planted.append({"route": route, "fault": fault,
+                                    "shape": list(p_shape), "rel_err": perr})
+                    log("planted fault (%s route %s, %s): o=%.2e lse=%.2e"
+                        % (route, fault, p_shape, perr["o"], perr["lse"]))
+                    check(perr["o"] > lim["o"] and perr["lse"] > lim["lse"],
+                          "planted fault (%s route, %s) passes the checks: "
+                          "%s" % (route, fault, perr))
+    check(len(planted) == len(PLANTED), "%d of %d planted faults ran"
+          % (len(planted), len(PLANTED)))
     timed = []
-    for label, b, h, s_q, s_k, d, dt in FMA_TIMED:
-        dtype = getattr(torch, dt)
-        q, do = (torch.randn(b, h, s_q, d, generator=gen).to(CARD, dtype)
-                 for _ in range(2))
-        k, v = (torch.randn(b, h, s_k, d, generator=gen).to(CARD, dtype)
-                for _ in range(2))
-        scale = 1.0 / d ** 0.5
-        route = fa.flash_route(dtype, d, s_q, s_k)
-        o, lse = fa._flash_fwd(q, k, v, True)
-        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
-        ref = plain_flash(torch, fa, q, k, v, do, True, scale)
-        # the timed shapes are held to the same limits: the CLI's f32
-        # shape is the one phase 40 launches, at its full grid
-        lim = flash_limits(dtype, torch)
-        errs = {n: rel_err(g, r_) for n, g, r_ in
-                zip(FLASH_OUTS, (o, lse, dq, dk, dv), ref)}
-        rows.append({"dtype": dt, "shape": [b, h, s_q, s_k, d],
-                     "causal": True, "rel_err": errs, "label": label})
-        log("check flash %s route %-24s %s" % (
-            route, label, " ".join("%s=%.2e" % kv for kv in errs.items())))
-        bad = {n: e for n, e in errs.items() if e > lim[n]}
-        check(not bad, "flash %s route %s %s causal: %s over %s"
-              % (route, label, (b, h, s_q, s_k, d), bad, lim))
-        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
-        item = q.element_size()
-        for name, fn, plain, lib, backward, err in (
-                ("flash_attention", lambda: fa._flash_fwd(q, k, v, True),
-                 lambda: fa._flash_fwd_torch(q, k, v, True, scale),
-                 lambda: F.scaled_dot_product_attention(q, k, v,
-                                                        is_causal=True),
-                 False, max_err(o, ref[0])),
-                ("flash_attention_bwd",
-                 lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True),
-                 lambda: fa._flash_bwd_torch(q, k, v, o, lse, do, True,
-                                             scale),
-                 lambda: torch.autograd.grad(lo, (lq, lk, lv), do,
-                                             retain_graph=True),
-                 True, max(max_err(a, r) for a, r in
-                           zip((dq, dk, dv), ref[2:])))):
-            nbytes, flops = attn_cost(b, h, s_q, s_k, d, item, True,
-                                      backward)
-            bound, by = attn_bound(torch, nbytes, flops, dtype)
-            r = {"name": name, "label": label, "route": route,
-                 "shape": "b=%d h=%d s_q=%d s_k=%d d=%d causal %s"
-                 % (b, h, s_q, s_k, d, dt), "ms": timer(fn, iters=10),
-                 "plain_ms": timer(plain, iters=5),
-                 "library_ms": timer(lib, iters=10), "bound_ms": bound,
-                 "bound_by": by, "max_abs_err": err, "flops": flops}
-            r["of_bound"] = bound / r["ms"]
-            r["vs_library"] = r["ms"] / r["library_ms"]
-            timed.append(r)
-            log("time %-20s %s (%s route) ms=%.4f plain_ms=%.4f "
-                "library_ms=%.4f (kernel/SDPA %.2fx) bound_ms=%.4f (%s; "
-                "%.1f%% of it) %.2f TFLOP/s max_abs_err=%.3g"
-                % (name, r["shape"], route, r["ms"], r["plain_ms"],
-                   r["library_ms"], r["vs_library"], bound, by,
-                   100 * r["of_bound"], flops / (r["ms"] * 1e-3) / 1e12,
-                   err))
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for label, b, h, s_q, s_k, d, dt in ROUTE_TIMED:
+            timed += time_flash_shape(torch, fa, timer, gen, label, b, h,
+                                      s_q, s_k, d, dt, rows)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
     return {"rows": rows, "planted": planted, "timed": timed}
+
+
+def time_flash_shape(torch, fa, timer, gen, label, b, h, s_q, s_k, d, dt,
+                     rows):
+    """Phase 38's timing of one shape (causal): both kernels held to
+    phase 6's limits first (appended to ``rows``), then each beside its
+    bound, its plain version and SDPA (forward; backward through
+    torch.autograd.grad)."""
+    import torch.nn.functional as F
+    dtype = getattr(torch, dt)
+    q, do = (torch.randn(b, h, s_q, d, generator=gen).to(CARD, dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, s_k, d, generator=gen).to(CARD, dtype)
+            for _ in range(2))
+    scale = 1.0 / d ** 0.5
+    route = fa.flash_route(dtype, d, s_q, s_k)
+    o, lse = fa._flash_fwd(q, k, v, True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    ref = plain_flash(torch, fa, q, k, v, do, True, scale)
+    # the timed shapes are held to the same limits: the CLI's f32 shape
+    # is the one phase 40 launches, at its full grid
+    lim = flash_limits(dtype, torch)
+    errs = {n: rel_err(g, r_) for n, g, r_ in
+            zip(FLASH_OUTS, (o, lse, dq, dk, dv), ref)}
+    rows.append({"route": route, "dtype": dt, "shape": [b, h, s_q, s_k, d],
+                 "causal": True, "rel_err": errs, "label": label})
+    log("check flash %s route %-24s %s" % (
+        route, label, " ".join("%s=%.2e" % kv for kv in errs.items())))
+    bad = {n: e for n, e in errs.items() if e > lim[n]}
+    check(not bad, "flash %s route %s %s causal: %s over %s"
+          % (route, label, (b, h, s_q, s_k, d), bad, lim))
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    item = q.element_size()
+    timed = []
+    for name, fn, plain, lib, backward, err in (
+            ("flash_attention", lambda: fa._flash_fwd(q, k, v, True),
+             lambda: fa._flash_fwd_torch(q, k, v, True, scale),
+             lambda: F.scaled_dot_product_attention(q, k, v,
+                                                    is_causal=True),
+             False, max_err(o, ref[0])),
+            ("flash_attention_bwd",
+             lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, True),
+             lambda: fa._flash_bwd_torch(q, k, v, o, lse, do, True, scale),
+             lambda: torch.autograd.grad(lo, (lq, lk, lv), do,
+                                         retain_graph=True),
+             True, max(max_err(a, r) for a, r in
+                       zip((dq, dk, dv), ref[2:])))):
+        nbytes, flops = attn_cost(b, h, s_q, s_k, d, item, True, backward)
+        bound, by = attn_bound(torch, nbytes, flops, dtype)
+        r = {"name": name, "label": label, "route": route,
+             "shape": "b=%d h=%d s_q=%d s_k=%d d=%d causal %s"
+             % (b, h, s_q, s_k, d, dt),
+             # the hold keeps the wrapper's host time (and autograd's,
+             # for SDPA's backward) out of the device time
+             "ms": timer(fn, iters=10, hold_ms=0.5),
+             "plain_ms": timer(plain, iters=5),
+             "library_ms": timer(lib, iters=10, hold_ms=0.5),
+             "bound_ms": bound,
+             "bound_by": by, "max_abs_err": err, "flops": flops}
+        r["of_bound"] = bound / r["ms"]
+        r["vs_library"] = r["ms"] / r["library_ms"]
+        timed.append(r)
+        log("time %-20s %s (%s route) ms=%.4f plain_ms=%.4f "
+            "library_ms=%.4f (kernel/SDPA %.2fx) bound_ms=%.4f (%s; "
+            "%.1f%% of it) %.2f TFLOP/s max_abs_err=%.3g"
+            % (name, r["shape"], route, r["ms"], r["plain_ms"],
+               r["library_ms"], r["vs_library"], bound, by,
+               100 * r["of_bound"], flops / (r["ms"] * 1e-3) / 1e12, err))
+    return timed
 
 
 def _as_nd(mx, t):
@@ -6551,8 +6617,9 @@ def contrib_card(torch, mx, fa):
     at CONTRIB_SHAPES (head_dim 128; s_k twice s_q), through
     ``nd.contrib``, a bound ``sym.contrib`` Symbol and a hybridized
     block (its CUDA graphs): output and q, k, v gradients against the
-    plain versions at phase 6's limits, every launch on the fma route;
-    the launches are counted (the kernels line's fma entries)."""
+    plain versions at phase 6's limits, every launch on the route
+    flash_route names (wgmma at both shapes); the launches are counted
+    (the kernels line's entries for phase 38's bf16 shapes)."""
     gen = torch.Generator().manual_seed(39)
     lim = flash_limits(torch.bfloat16, torch)
     launches = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -6569,6 +6636,7 @@ def contrib_card(torch, mx, fa):
             CARD, torch.bfloat16) for _ in range(2))
         ref = plain_flash(torch, fa, q, k, v, do, True, 1.0 / d ** 0.5)
         want = [ref[0]] + list(ref[2:])
+        want_route = fa.flash_route(torch.bfloat16, d, s_q, s_k)
         net = Attn()
         net.hybridize()
         for i, route in enumerate(("nd", "sym", "hybridized",
@@ -6618,10 +6686,11 @@ def contrib_card(torch, mx, fa):
             bad = {n: e for n, e in errs.items() if e > lim[n]}
             check(not bad, "contrib flash_attention %s %s: %s over %s"
                   % (route, (b, h, s_q, s_k, d), bad, lim))
-            check(all(counts[n] == want_n and routes[n]["fma"] == want_n
+            check(all(counts[n] == want_n
+                      and routes[n][want_route] == want_n
                       for n in launches), "contrib flash_attention %s: "
-                  "launches %s routes %s, expected %d fma launches each"
-                  % (route, counts, routes, want_n))
+                  "launches %s routes %s, expected %d %s launches each"
+                  % (route, counts, routes, want_n, want_route))
     return {"rows": rows, "launches": launches}
 
 
@@ -6630,16 +6699,21 @@ def lm_cli(torch, mx, fa):
     benchmark.py:669's widths in float32 (the CLI's dtype), dense, then
     with ``--num-experts 8`` (top-2, capacity factor 2.0), each with
     ``--generate 32``: the printed lines, the loss falling on the
-    stream, 12 forward and 12 backward flash launches a step (float32:
-    the fma route), the paged kernels never, 32 tokens generated."""
+    stream, 12 forward and 12 backward flash launches a step on the
+    route flash_route names (float32: fma), the paged kernels never, 32
+    tokens generated."""
     import contextlib
     import io
     from mxnet_tpu_torch.examples import train_transformer_lm as cli
     res = {}
     for label, extra in (("dense", []), ("moe", ["--num-experts", "8"])):
         argv = LM_CLI_ARGS + extra + LM_CLI_EXTRA
-        steps, layers, n_gen = (int(argv[len(argv) - 1 - argv[::-1].index(
-            flag) + 1]) for flag in ("--steps", "--n-layers", "--generate"))
+        steps, layers, n_gen, d_model, heads, seq = (
+            int(argv[len(argv) - 1 - argv[::-1].index(flag) + 1])
+            for flag in ("--steps", "--n-layers", "--generate",
+                         "--d-model", "--n-heads", "--seq-len"))
+        want_route = fa.flash_route(torch.float32, d_model // heads, seq,
+                                    seq)
         fa.reset_launches()
         buf = io.StringIO()
         torch.cuda.synchronize()
@@ -6678,7 +6752,7 @@ def lm_cli(torch, mx, fa):
                                            tuple(out["generated"].shape)))
         for name in routes:
             check(launches[name] == layers * steps
-                  and routes[name]["fma"] == launches[name],
+                  and routes[name][want_route] == launches[name],
                   "lm cli %s: %s launched %d times (routes %s) for %d "
                   "steps x %d layers" % (label, name, launches[name],
                                          routes[name], steps, layers))
@@ -7077,7 +7151,7 @@ def main():
     lstm_b = lstm_gluon(torch, mx, fu)
     rnn_card = rnn_ctc_card(torch, mx)
     timer = Timer(torch)
-    fma = check_flash_routes(torch, fa, timer)
+    routes38 = check_flash_routes(torch, fa, timer)
     del timer
     contrib = contrib_card(torch, mx, fa)
     lm = lm_cli(torch, mx, fa)
@@ -7159,19 +7233,23 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    # the fma route's rows: launches of the bf16 shapes from phase 39's
-    # contrib op at the same head_dim / key length, of the float32 shape
-    # from phase 40's two CLI runs
-    for r in fma["timed"]:
+    # phase 38's timed rows of both routes: launches of the bf16 shapes
+    # from phase 39's contrib op at the same head_dim / key length, of
+    # the float32 shape from phase 40's two CLI runs (the train shape is
+    # phase 7's row above, its launches phase 8's)
+    for r in routes38["timed"]:
         src, rep = sources[r["name"]]
         if r["label"].startswith("f32"):
             n = sum(run["launches"][r["name"]] for run in lm.values())
+        elif r["label"] == ROUTE_TIMED[-1][0]:
+            continue
         else:
             shape = CONTRIB_SHAPES[0 if "128" in r["label"] else 1]
             n = sum(row["launches"][r["name"]] for row in contrib["rows"]
                     if row["shape"] == list(shape))
         kernels.append({
-            "name": "%s (fma route, %s)" % (r["name"], r["label"]),
+            "name": "%s (%s route, %s)" % (r["name"], r["route"],
+                                           r["label"]),
             "route": "cuda", "source": src, "replaces": rep,
             "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -7197,7 +7275,7 @@ def main():
               "mobilenet_gluon": mobile, "zoo_score": zoo,
               "zoo_vs_f64": zoo_cpu, "train_mnist": mnist,
               "lstm_bucketing": lstm_a, "gluon_lm": lstm_b,
-              "rnn_ctc_card": rnn_card, "flash_fma_route": fma,
+              "rnn_ctc_card": rnn_card, "flash_routes": routes38,
               "contrib_flash_attention": contrib, "lm_cli": lm,
               "train_configs": steps, "generate": generated,
               "moe_serve": moe, "kernels": kernels,

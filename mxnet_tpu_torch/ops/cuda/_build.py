@@ -34,7 +34,8 @@ BUILD_DIR = os.path.join(
     "build", "mxnet_tpu_torch_kernels")
 
 # kernel name -> its translation unit; the attention and update units
-# include common.cuh (the bf16 flash attention units also hopper.cuh),
+# include common.cuh (the flash attention units also hopper.cuh and
+# flash_fma.cuh),
 # the int8 units common.cuh, int8_gemm.cuh and int8_wgmma.cuh (which
 # includes hopper.cuh). Every header of csrc/ is in _HEADERS, so that an
 # edit of any of them rebuilds every library.
@@ -52,7 +53,8 @@ SOURCES = {
 # libraries a kernel library links beyond the CUDA runtime (image_decode:
 # the CUDA toolkit's nvJPEG, preloaded by its module before the load)
 LINK = {"image_decode": ("-lnvjpeg",)}
-_HEADERS = ("common.cuh", "hopper.cuh", "int8_gemm.cuh", "int8_wgmma.cuh")
+_HEADERS = ("common.cuh", "flash_fma.cuh", "hopper.cuh", "int8_gemm.cuh",
+            "int8_wgmma.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

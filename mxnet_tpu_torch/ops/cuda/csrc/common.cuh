@@ -59,6 +59,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// 2^x by ex2.approx (relative error ~2^-22; flushes subnormals to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // dynamic shared memory above 48 KB needs a per-kernel opt-in
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -3,15 +3,22 @@
 // (wgmma), all as inline PTX so that a kernel builds in seconds.
 //
 // Shared-memory tiles are what TMA writes with the tensor map's swizzle:
-// rows of head_dim bf16 (128 bytes for head_dim 64, 64 bytes for 32),
-// 16-byte chunks XOR-swizzled by (row % 8) within each 8-row atom
-// (1024 or 512 bytes). A wgmma descriptor of the same swizzle reads such
-// a tile either K-major (the row is the reduction dimension: q, k and do
-// as the left operand or as the "B = X^T" operand) or MN-major through
-// the transpose bit (the row is the output dimension: v in o += p v, q
-// and do in dk += ds^T q and dv += p^T do, k in dq += ds k). Every tile
-// starts on a 1024-byte boundary, so the swizzle phase is 0.
+// box rows of at most 64 bf16 (128 bytes for head_dim 64 and 128, 64
+// bytes for 32), 16-byte chunks XOR-swizzled by (row % 8) within each
+// 8-row atom (1024 or 512 bytes). A head_dim-128 row is two boxes: the
+// tile holds columns 0-63 of all its rows, then columns 64-127, one
+// "span" (rows x 128 bytes) further. A wgmma descriptor of the same
+// swizzle reads such a tile either K-major (the row is the reduction
+// dimension: q, k and do as the left operand or as the "B = X^T"
+// operand; a k step past column 63 moves to the second span) or MN-major
+// through the transpose bit (the row is the output dimension: v in o +=
+// p v, q and do in dk += ds^T q and dv += p^T do, k in dq += ds k; an
+// output of 128 columns covers both spans, the leading byte offset
+// apart). Every tile and span starts on a 1024-byte boundary, so the
+// swizzle phase is 0.
 #pragma once
+
+#include "common.cuh"
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -82,6 +89,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// -- named barriers -----------------------------------------------------------
+
+// barrier `id` (1..15; 0 is __syncthreads) over `n` threads: sync waits
+// for all n, arrive counts this thread and goes on
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // -- TMA ----------------------------------------------------------------------
 
 // tile (c0, c1, c2) of a 3-D map into shared memory, completing on `bar`
@@ -105,6 +123,18 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// rows [row, row + rows) of head bh of a map_rows<D> map into `dst`, every
+// column span (`span` bytes apart), completing on `bar`
+template <int D>
+__device__ __forceinline__ void tma_load_rows(unsigned char* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int row, int bh,
+                                              uint32_t span) {
+#pragma unroll
+  for (int sp = 0; sp < D / (D > 64 ? 64 : D); ++sp)
+    tma_load_3d(dst + sp * span, map, bar, sp * 64, row, bh);
+}
+
 // -- wgmma ------------------------------------------------------------------
 
 // shared-memory matrix descriptor: start address, leading and stride
@@ -117,25 +147,35 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(swz) << 62);
 }
 
-// swizzle geometry of a tile whose rows are D bf16
+// swizzle geometry of a tile whose rows are D bf16 (D = 32, 64 or 128)
 template <int D>
 struct Swz {
-  static constexpr uint32_t kRowBytes = D * 2;        // 128 or 64
+  static constexpr int kBox = D > 64 ? 64 : D;        // values a box row
+  static constexpr int kSpans = D / kBox;             // 1, or 2 at 128
+  static constexpr uint32_t kRowBytes = kBox * 2;     // 128 or 64
   static constexpr uint32_t kAtom = 8 * kRowBytes;    // 1024 or 512
-  static constexpr uint32_t kMode = D == 64 ? 1 : 2;  // 128 B or 64 B
+  static constexpr uint32_t kMode = kBox == 64 ? 1 : 2;  // 128 B or 64 B
   static constexpr CUtensorMapSwizzle kTma =
-      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  // K-major: the 16-element k step k of rows from `tile` (row 0 there)
-  __device__ static uint64_t kmajor(uint32_t tile, int k) {
-    return make_desc(tile + 32 * k, 16, kAtom, kMode);
+      kBox == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  // bytes of a span of a tile of `rows` rows
+  __host__ __device__ static constexpr uint32_t span(int rows) {
+    return rows * kRowBytes;
   }
-  // MN-major (transpose bit): k step k = 16 rows further. N = D is one
-  // swizzle span, so the leading offset (between spans) is never used;
-  // it is set equal to the stride offset (between 8-row groups), so the
-  // descriptor reads the same whichever of the two the hardware takes
-  // for the k groups.
-  __device__ static uint64_t mnmajor(uint32_t tile, int k) {
-    return make_desc(tile + 16 * kRowBytes * k, kAtom, kAtom, kMode);
+  // K-major: the 16-element k step k of rows from `tile` (row 0 there);
+  // `span` bytes between the tile's column spans
+  __device__ static uint64_t kmajor(uint32_t tile, int k, uint32_t span) {
+    constexpr int kPer = kBox / 16;   // k steps a span
+    return make_desc(tile + (k / kPer) * span + 32 * (k % kPer), 16, kAtom,
+                     kMode);
+  }
+  // MN-major (transpose bit): k step k = 16 rows further. The leading
+  // offset steps between the 64-column spans of the output dimension,
+  // the stride offset between 8-row groups. With one span (D <= 64) the
+  // leading offset is never used; it is set equal to the stride offset,
+  // so the descriptor reads the same whichever the hardware takes.
+  __device__ static uint64_t mnmajor(uint32_t tile, int k, uint32_t span) {
+    return make_desc(tile + 16 * kRowBytes * k,
+                     kSpans == 1 ? kAtom : span, kAtom, kMode);
   }
 };
 
@@ -227,11 +267,55 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "r"(scale_d), "n"(TB));
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d), "n"(TB));
 }
+
+// o += p v for an output of N = 32, 64 or 128 columns
+template <int N>
+__device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2],
+                                      const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 128)
+    wgmma_rs_n128<1>(d, a, db, 1);
+  else if constexpr (N == 64)
+    wgmma_rs_n64<1>(d, a, db, 1);
+  else
+    wgmma_rs_n32<1>(d, a, db, 1);
+}
+
+using mxt::ex2;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -279,8 +363,9 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A (bh, s, D) contiguous bf16 tensor as a 3-D map of (D, rows, 1)
-// boxes: rows past s (in a head) read as zeros, never the next head's
+// A (bh, s, D) contiguous bf16 tensor as a 3-D map of (min(D, 64), rows,
+// 1) boxes: rows past s (in a head) read as zeros, never the next
+// head's; a head_dim-128 tile takes two boxes a row (tma_load_rows)
 template <int D>
 inline bool map_rows(CUtensorMap* m, const void* base, int bh, int s,
                      int rows) {
@@ -291,7 +376,7 @@ inline bool map_rows(CUtensorMap* m, const void* base, int bh, int s,
                         static_cast<cuuint64_t>(bh)};
   cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
                            static_cast<cuuint64_t>(s) * D * 2};
-  cuuint32_t box[3] = {static_cast<cuuint32_t>(D),
+  cuuint32_t box[3] = {static_cast<cuuint32_t>(Swz<D>::kBox),
                        static_cast<cuuint32_t>(rows), 1};
   cuuint32_t estr[3] = {1, 1, 1};
   return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),

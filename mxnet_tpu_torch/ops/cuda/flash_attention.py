@@ -21,18 +21,20 @@ not take. ``flash_prefill_paged``: "mma" runs bfloat16 on the tensor
 cores (mma.sync), one CTA per (q tile, kv head) for every query head of
 the group; "fma" is the first design, float32 FMAs on the CUDA cores,
 for float32 (where tensor cores would mean TF32) and other shapes.
-``flash_attention`` and ``flash_attention_bwd``: "wgmma" (TMA and wgmma,
-bfloat16, q, k and v of one length, head_dim 32 or 64) or "fma" (float32
-FMAs on the CUDA cores over tiles in shared memory) for every other call
-the TPU kernel takes: float32, k and v longer or shorter than q, and
-head dims up to :data:`MAX_HEAD_DIM`.
+``flash_attention`` and ``flash_attention_bwd``: "wgmma" (TMA rings and
+wgmma, bfloat16 at head_dim 32, 64 or 128, q and k, v of any lengths,
+16-byte aligned storage) or "fma" (register-tiled float32 FMAs on the
+CUDA cores, cp.async double-buffered tiles) for every other call the TPU
+kernel takes: float32 at every head_dim (the exact path: no TF32), and
+bfloat16 at other head dims up to :data:`MAX_HEAD_DIM` or on unaligned
+storage.
 
 A wrapper launches its kernel for CUDA tensors, on
 ``torch.cuda.current_stream()``, and raises when the launch returns a
 CUDA error. It takes the plain version only because the tensors it was
 given lie on the CPU; nothing falls back to it. Every kernel launch adds
-one to :data:`LAUNCHES` and, for the serving kernels, to its route's
-count in :data:`ROUTES` (plain calls do not).
+one to :data:`LAUNCHES` and to its route's count in :data:`ROUTES`
+(plain calls do not).
 """
 from __future__ import annotations
 
@@ -77,7 +79,7 @@ _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # flash_attention / flash_attention_bwd on CUDA tensors: the head dims of
 # the "wgmma" route, and the largest head_dim of any route (ROADMAP B.5
 # queues the rest)
-WGMMA_HEAD_DIMS = (32, 64)
+WGMMA_HEAD_DIMS = (32, 64, 128)
 MAX_HEAD_DIM = 256
 
 # the decode "cluster" route: the most CTAs a (row, kv head) is split over
@@ -109,18 +111,15 @@ _ROUTE_SYMBOLS = {
         ("fma", "bf16"): ("flash_prefill_paged_bf16", _PREFILL_ARGS),
         ("mma", "bf16"): ("flash_prefill_mma_bf16", _PREFILL_ARGS)},
 }
-# the flash kernels' "wgmma" entries (<name>_bf16)
+# the flash kernels' entries, one form for both routes: <name>_bf16
+# ("wgmma") and <name>_fma_f32 / <name>_fma_bf16 ("fma")
 _SYMBOLS = {
-    # q, k, v, o, lse, b*h, s, hd, causal, sm_scale, stream
-    "flash_attention": [_P] * 5 + [_I] * 4 + [_F, _P],
-    # q, k, v, o, lse, do, dq, dk, dv, delta, b*h, s, hd, causal,
+    # q, k, v, o, lse, b*h, s_q, s_k, hd, causal, sm_scale, stream
+    "flash_attention": [_P] * 5 + [_I] * 5 + [_F, _P],
+    # q, k, v, o, lse, do, dq, dk, dv, delta, b*h, s_q, s_k, hd, causal,
     # sm_scale, stream
-    "flash_attention_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
+    "flash_attention_bwd": [_P] * 10 + [_I] * 5 + [_F, _P],
 }
-# and their "fma" entries (<name>_fma_f32, <name>_fma_bf16): s_q and s_k
-# in place of s
-_FMA_SYMBOLS = {name: args[:-4] + [_I] + args[-4:]
-                for name, args in _SYMBOLS.items()}
 
 
 def reset_launches():
@@ -135,9 +134,8 @@ def reset_launches():
 def _kernel_fn(name, route, dtype):
     """The C entry point of flash kernel ``name`` on ``route`` for
     ``dtype`` (the library built and loaded on first use)."""
-    symbols = {"%s_bf16" % name: _SYMBOLS[name]}
-    symbols.update({"%s_fma_%s" % (name, tag): _FMA_SYMBOLS[name]
-                    for tag in _KERNEL_DTYPES.values()})
+    symbols = {"%s_%s" % (name, tag): _SYMBOLS[name]
+               for tag in ("bf16", "fma_f32", "fma_bf16")}
     lib = _build.load(name, symbols)
     if route == "wgmma":
         return getattr(lib, "%s_bf16" % name)
@@ -512,8 +510,9 @@ def _check_attention(fn, qs, kvs, lse=None):
         _check(shape[3] <= MAX_HEAD_DIM, "%s: head_dim %d has no kernel "
                "(at most %d on the card; larger head dims are ROADMAP "
                "B.5)", fn, shape[3], MAX_HEAD_DIM)
-        # b * heads is the "fma" grid's y dimension; the wgmma kernels'
-        # TMA coordinates into the (b * heads * s) lse are 32-bit
+        # b * heads is every flash grid's x dimension; the wgmma
+        # kernels' TMA coordinates into the (b * heads * s_q) lse are
+        # 32-bit
         _check(shape[0] * shape[1] <= 65535, "%s: b * heads = %d exceeds "
                "65535", fn, shape[0] * shape[1])
         _check(shape[0] * shape[1] * max(shape[2], kshape[2]) < 2 ** 31,
@@ -526,11 +525,12 @@ def _check_attention(fn, qs, kvs, lse=None):
 def flash_route(dtype, head_dim, s_q, s_k, aligned=True):
     """``"wgmma"`` or ``"fma"`` for a flash_attention call (forward and
     backward alike). The wgmma route (TMA rings, bf16 tensor cores)
-    takes bfloat16 with q, k and v of one length, a head_dim in
-    :data:`WGMMA_HEAD_DIMS` and 16-byte aligned storage (``aligned``);
-    every other call, float32 among them, takes the fma route."""
+    takes bfloat16 at a head_dim in :data:`WGMMA_HEAD_DIMS`, q and k, v
+    of any lengths ``s_q``, ``s_k`` >= 1, and 16-byte aligned storage
+    (``aligned``); every other call, float32 among them, takes the fma
+    route (register-tiled float32 FMAs on the CUDA cores)."""
     if (dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS
-            and s_q == s_k and aligned):
+            and s_q >= 1 and s_k >= 1 and aligned):
         return "wgmma"
     return "fma"
 
@@ -549,12 +549,11 @@ def _flash_fwd(q, k, v, causal=False, sm_scale=None):
     tensors on :func:`flash_route`'s route; CPU tensors take
     :func:`_flash_fwd_torch`.
 
-    Rounding: on the wgmma route (bfloat16) the kernel multiplies the
-    float32 product q k^T by ``sm_scale`` (the order of the JAX package's
-    XLA twin) where the Pallas kernel and the fma route scale q in
-    float32 before the dot. The two agree exactly for a power-of-two
-    scale (head_dim 64) and within about one float32 ulp of the score
-    otherwise (head_dim 32)."""
+    Rounding: on the wgmma route (bfloat16) the kernel applies
+    ``sm_scale`` to the float32 product q k^T (the order of the JAX
+    package's XLA twin), folded into the softmax's exponent, where the
+    Pallas kernel and the fma route scale q in float32 before the dot.
+    The orders agree within about one float32 ulp of the score."""
     fn = "flash_attention"
     dev, shape = _check_attention(fn, [("q", q)], [("k", k), ("v", v)])
     b, h, s_q, s_k, hd = shape
@@ -567,11 +566,10 @@ def _flash_fwd(q, k, v, causal=False, sm_scale=None):
     if o.numel() == 0:
         return o, lse
     route = _attention_route(q.dtype, shape, (q, k, v))
-    lens = (s_q,) if route == "wgmma" else (s_q, s_k)
     _launch(fn, dev, _kernel_fn(fn, route, q.dtype), (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b * h) + lens + (hd, int(bool(causal)),
-                                         float(sm_scale)), route)
+        lse.data_ptr(), b * h, s_q, s_k, hd, int(bool(causal)),
+        float(sm_scale)), route)
     return o, lse
 
 
@@ -582,7 +580,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
     shape (b, h, s_k, head_dim). One launch of the
     ``flash_attention_bwd`` kernel entry for CUDA tensors on
     :func:`flash_route`'s route (wgmma: a dq pass that also computes
-    delta, then a dk/dv pass; fma: a delta pre-pass, then the two),
+    delta, then a dk/dv pass; fma: a delta pre-pass, a dk/dv pass and a
+    dq pass),
     deterministic: no atomics, every sum in a fixed order. CPU tensors
     take :func:`_flash_bwd_torch`."""
     fn = "flash_attention_bwd"
@@ -600,12 +599,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b * h * s_q,), dtype=torch.float32, device=dev)
     route = _attention_route(q.dtype, shape, (q, k, v, o, do))
-    lens = (s_q,) if route == "wgmma" else (s_q, s_k)
     _launch(fn, dev, _kernel_fn(fn, route, q.dtype), (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), delta.data_ptr(), b * h) + lens + (
-            hd, int(bool(causal)), float(sm_scale)), route)
+        dv.data_ptr(), delta.data_ptr(), b * h, s_q, s_k, hd,
+        int(bool(causal)), float(sm_scale)), route)
     return dq, dk, dv
 
 

@@ -25,9 +25,28 @@ def _cbrt(x):
     return torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
 
 
+def _sign(x):
+    """``jnp.sign``: NaN stays NaN and a zero keeps its sign bit, where
+    ``torch.sign`` gives +0 for both (C.14); the gradient is 0."""
+    keep = (x == 0) | torch.isnan(x)
+    return torch.where(keep, x.detach(), torch.sign(x))
+
+
+def _mod(a, b):
+    """``jnp.mod``: the floored remainder, where an integer divisor of 0
+    gives 0 (``jnp.mod`` divides by 1 there; ``torch.remainder`` raises
+    on the CPU and gives garbage on the card) (C.13)."""
+    if a.is_floating_point() or (torch.is_tensor(b) and
+                                 b.is_floating_point()):
+        return torch.remainder(a, b)
+    if not torch.is_tensor(b):
+        return torch.remainder(a, b if b != 0 else 1)
+    return torch.remainder(a, torch.where(b == 0, torch.ones_like(b), b))
+
+
 _UNARY = {
     "abs": torch.abs,
-    "sign": torch.sign,
+    "sign": _sign,
     "rint": torch.round,
     "round": torch.round,
     "ceil": torch.ceil,
@@ -119,7 +138,7 @@ _BINARY = {
     "broadcast_sub": torch.sub,
     "broadcast_mul": torch.mul,
     "broadcast_div": torch.div,
-    "broadcast_mod": torch.remainder,
+    "broadcast_mod": _mod,
     "broadcast_power": torch.pow,
     "broadcast_maximum": torch.maximum,
     "broadcast_minimum": torch.minimum,
@@ -195,8 +214,8 @@ _scalar_op("_rminus_scalar", lambda x, s: s - x)
 _scalar_op("_mul_scalar", torch.mul)
 _scalar_op("_div_scalar", torch.div)
 _scalar_op("_rdiv_scalar", lambda x, s: s / x)
-_scalar_op("_mod_scalar", torch.remainder)
-_scalar_op("_rmod_scalar", _rscalar(torch.remainder))
+_scalar_op("_mod_scalar", _mod)
+_scalar_op("_rmod_scalar", _rscalar(_mod))
 _scalar_op("_power_scalar", torch.pow)
 _scalar_op("_rpower_scalar", _rscalar(torch.pow))
 _scalar_op("_maximum_scalar", lambda x, s: torch.maximum(

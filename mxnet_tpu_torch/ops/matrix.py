@@ -432,6 +432,25 @@ def _index(indices):
         indices.to(torch.int32).to(torch.int64)
 
 
+def _take_along(x, idx, dim):
+    """``torch.gather`` with ``jnp.take_along_axis``'s bounds: a negative
+    index counts from the end once, and one still out of range gives the
+    fill value (NaN; the least value of a signed integer type, the
+    largest of an unsigned one) where torch raises or clamps (C.15)."""
+    n = x.shape[dim]
+    idx = torch.where(idx < 0, idx + n, idx)
+    out = torch.gather(x, dim, idx.clamp(0, n - 1))
+    if x.is_floating_point():
+        fill = float("nan")
+    elif x.dtype == torch.bool:
+        fill = True
+    else:
+        info = torch.iinfo(x.dtype)
+        fill = info.min if info.min < 0 else info.max
+    return torch.where((idx >= 0) & (idx < n), out,
+                       torch.full_like(out, fill))
+
+
 @register("take", attr_defaults={"axis": 0, "mode": "clip"})
 def _take(x, indices, axis=0, mode="clip"):
     """``x``'s slices along ``axis`` at ``indices``: out-of-range indices
@@ -451,8 +470,7 @@ def _take(x, indices, axis=0, mode="clip"):
 
 @register("batch_take")
 def _batch_take(x, indices):
-    idx = _index(indices).clamp(0, x.shape[1] - 1)
-    return torch.gather(x, 1, idx[:, None])[:, 0]
+    return _take_along(x, _index(indices)[:, None], 1)[:, 0]
 
 
 @register("Embedding", attr_defaults={"input_dim": 0, "output_dim": 0,
@@ -478,8 +496,13 @@ def _one_hot(indices, depth=0, on_value=1.0, off_value=0.0,
 
 @register("gather_nd")
 def _gather_nd(data, indices):
+    """``data`` at the index tuples of ``indices``' first axis; as jnp
+    indexing, a negative index counts from the end once and the result
+    is then clamped into range (C.15)."""
     idx = _index(indices)
-    return data[tuple(idx[i] for i in range(idx.shape[0]))]
+    return data[tuple(
+        torch.where(idx[i] < 0, idx[i] + data.shape[i], idx[i]).clamp(
+            0, data.shape[i] - 1) for i in range(idx.shape[0]))]
 
 
 @register("scatter_nd", attr_defaults={"shape": ()})
@@ -526,14 +549,16 @@ def _sequence_mask(data, sequence_length=None, use_sequence_length=False,
                                          "axis": 0})
 def _sequence_last(data, sequence_length=None, use_sequence_length=False,
                    axis=0):
-    """Each sequence's last valid step."""
+    """Each sequence's last valid step; a length of 0 reads the last
+    step and one past the end the fill value, as the JAX package's
+    ``take_along_axis`` (C.15)."""
     if not use_sequence_length or sequence_length is None:
         return data.select(axis, -1)
     moved = data.movedim(axis, 0)
     last = _index(sequence_length) - 1
     idx = last.reshape((1, -1) + (1,) * (moved.dim() - 2)).expand(
         (1,) + moved.shape[1:])
-    return torch.gather(moved, 0, idx)[0]
+    return _take_along(moved, idx, 0)[0]
 
 
 @register("SequenceReverse", attr_defaults={"use_sequence_length": False,

@@ -22,8 +22,9 @@ backward fed the plain o and lse: o, dq, dk, dv within 1e-5 in float32
 and 1e-2 in bfloat16 (one bf16 rounding is 1.7e-3 RMS; the kernels
 round p and ds for the tensor cores and their outputs), lse within 1e-5
 in both, and a second run of both equals the first bitwise (the backward
-sums in a fixed order, no atomics); the "fma" route likewise at key
-lengths other than the queries' and head dims up to 256, and the
+sums in a fixed order, no atomics); both routes likewise at key lengths
+other than the queries' and head dims up to 256, each launch on the
+route ``flash_route`` names, and the
 ``_contrib_flash_attention`` op on the card the op on the CPU. The
 engine on the card must give the
 CPU engine's greedy streams, with the kernels launched once per layer
@@ -292,28 +293,35 @@ def test_flash_attention_kernels_match_plain(card, dtype, causal, shape):
     (2, 2, 40, 72, 80),
     (1, 1, 24, 24, 256),         # the largest head_dim
     (1, 2, 33, 33, 8),
+    (1, 2, 130, 70, 128),        # head_dim 128, ragged, s_q > s_k
+    (1, 2, 70, 200, 128),        # and s_q < s_k
+    (2, 4, 256, 512, 64),        # several key tiles a query tile
 ])
 def test_flash_attention_fma_route_matches_plain(card, dtype, causal, b, h,
                                                  s_q, s_k, hd):
-    """The "fma" route at every shape the TPU kernel takes and the wgmma
-    route does not: o, lse, dq, dk, dv against the plain versions (the
-    limits of test_flash_attention_kernels_match_plain), each launch on
-    the route flash_route names, and a second run bitwise equal."""
+    """Both routes at every shape the TPU kernel takes: bfloat16 at head
+    dims 32 / 64 / 128 on "wgmma" at any s_q and s_k, every other call on
+    "fma"; o, lse, dq, dk, dv against the plain versions (the limits of
+    test_flash_attention_kernels_match_plain), each launch on the route
+    flash_route names, and a second run bitwise equal."""
     rng = np.random.RandomState(hd + s_k)
     dt = getattr(torch, dtype)
     q, do = (torch.from_numpy(rng.randn(b, h, s_q, hd).astype(
         np.float32)).to(card, dt) for _ in range(2))
     k, v = (torch.from_numpy(rng.randn(b, h, s_k, hd).astype(
         np.float32)).to(card, dt) for _ in range(2))
-    assert tfa.flash_route(dt, hd, s_q, s_k) == "fma"
+    route = tfa.flash_route(dt, hd, s_q, s_k)
+    assert route == ("wgmma" if dtype == "bfloat16"
+                     and hd in (32, 64, 128) else "fma")
+    other = "fma" if route == "wgmma" else "wgmma"
     r0 = {n: dict(tfa.ROUTES[n]) for n in ("flash_attention",
                                            "flash_attention_bwd")}
     o, lse = tfa._flash_fwd(q, k, v, causal)
     grads = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal)
     torch.cuda.synchronize()
     for n in r0:
-        assert tfa.ROUTES[n]["fma"] == r0[n]["fma"] + 1, n
-        assert tfa.ROUTES[n]["wgmma"] == r0[n]["wgmma"], n
+        assert tfa.ROUTES[n][route] == r0[n][route] + 1, n
+        assert tfa.ROUTES[n][other] == r0[n][other], n
     scale = 1.0 / hd ** 0.5
     f = [t.float() for t in (q, k, v, do)]
     ro, rl = tfa._flash_fwd_torch(f[0], f[1], f[2], causal, scale)

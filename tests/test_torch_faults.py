@@ -31,6 +31,14 @@
   kernel does (C.12): the forward and its gradients (dk, dv of k's
   shape) against the Pallas kernel in interpret mode through its
   ``custom_vjp``, within 1e-5.
+* Integer ``%`` by zero (``a % b``, ``a % 0``, ``0 % a``) gives 0, as
+  ``jnp.mod``, where torch raised (C.13).
+* ``sign`` keeps NaN and the sign bit of -0.0, as ``jnp.sign`` (C.14).
+* Out-of-range indices follow the JAX package: ``gather_nd`` counts a
+  negative index from the end once and then clamps; ``batch_take`` and
+  ``SequenceLast`` (a length of 0 reads the last step) give the fill
+  value (NaN, or the least int32) for an index still out of range
+  (C.15).
 """
 import numpy as np
 import pytest
@@ -438,3 +446,64 @@ def test_flash_attention_takes_own_key_length_as_jax(shape, causal):
         assert a.shape == want.shape, name
         np.testing.assert_allclose(a.numpy(), np.asarray(want), rtol=1e-5,
                                    atol=1e-5, err_msg=name)
+
+
+def _both(fn):
+    """``fn(mx)`` of each package, as numpy (JAX package first)."""
+    return [fn(mx).asnumpy() for mx in (jmx, tmx)]
+
+
+def _i32(mx, values):
+    return mx.nd.array(np.asarray(values, np.int32), dtype="int32",
+                       ctx=mx.cpu())
+
+
+@pytest.mark.parametrize("form", ["array", "scalar", "rscalar"])
+def test_integer_mod_by_zero_matches_jax(form):
+    """C.13: torch.remainder raised ``ZeroDivisionError`` on an int32
+    divisor of 0 where ``jnp.mod`` gives 0."""
+    a, b = [7, -7, 5, -5, 0], [0, 0, 3, -3, 0]
+    fns = {"array": lambda mx: _i32(mx, a) % _i32(mx, b),
+           "scalar": lambda mx: _i32(mx, a) % 0,
+           "rscalar": lambda mx: 7 % _i32(mx, b)}
+    want, got = _both(fns[form])
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert (got[:2] == 0).all()
+
+
+def test_sign_keeps_nan_and_negative_zero_bits_as_jax():
+    """C.14: torch.sign gave [0, 0, 1] for [nan, -0.0, 2]."""
+    x = np.array([np.nan, -0.0, 2.0, 0.0, -3.0], np.float32)
+    want, got = _both(lambda mx: mx.nd.sign(mx.nd.array(x, ctx=mx.cpu())))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert np.isnan(got[0]) and np.signbit(got[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_out_of_range_indices_match_jax(dtype):
+    """C.15: gather_nd raised IndexError, SequenceLast with a length of
+    0 raised, batch_take clamped 5 and -4 where the JAX package gives
+    the fill value."""
+    data = np.arange(12).reshape(4, 3).astype(dtype)
+
+    def arr(mx, a):
+        return mx.nd.array(a, dtype=dtype, ctx=mx.cpu())
+
+    cases = [
+        lambda mx: mx.nd.gather_nd(
+            arr(mx, np.arange(4).astype(dtype)),
+            _i32(mx, [[5, -1, -2, -7, 3]])),
+        lambda mx: mx.nd.gather_nd(
+            arr(mx, np.arange(18).reshape(2, 3, 3).astype(dtype)),
+            _i32(mx, [[1, 2, -1], [5, -4, 0]])),
+        lambda mx: mx.nd.batch_take(arr(mx, data), _i32(mx, [5, -1, -3,
+                                                              -4])),
+        lambda mx: mx.nd.SequenceLast(
+            arr(mx, data), mx.nd.array(np.array([0, 5, -1], np.float32),
+                                       ctx=mx.cpu()),
+            use_sequence_length=True)]
+    for fn in cases:
+        want, got = _both(fn)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)

@@ -197,6 +197,38 @@ def test_flash_bwd_rejects(bad):
         tfa.flash_attention_bwd(q, k, v, o, lse, g, True)
 
 
+# flash_route's table, (dtype, head_dim, s_q, s_k, aligned) -> route:
+# bfloat16 at head_dim 32 / 64 / 128 on "wgmma" at any s_q and s_k with
+# 16-byte aligned storage; float32, other head dims, unaligned storage
+# and an empty side on "fma"
+_BF16, _F32 = torch.bfloat16, torch.float32
+ROUTE_TABLE = [
+    ((_BF16, d, s_q, s_k, True), "wgmma")
+    for d in (32, 64, 128)
+    for s_q, s_k in ((1024, 1024), (512, 1024), (1024, 512), (100, 37))
+] + [
+    ((_BF16, 64, 1024, 1024, False), "fma"),    # unaligned storage
+    ((_BF16, 128, 512, 1024, False), "fma"),
+    ((_F32, 64, 1024, 1024, True), "fma"),      # the CLI's own dtype
+    ((_F32, 128, 256, 256, True), "fma"),
+    ((_F32, 32, 8, 16, True), "fma"),
+    ((_BF16, 8, 33, 33, True), "fma"),          # head dims off the table
+    ((_BF16, 80, 130, 70, True), "fma"),
+    ((_BF16, 256, 64, 64, True), "fma"),
+    ((_BF16, 96, 64, 64, True), "fma"),
+    ((_BF16, 64, 0, 16, True), "fma"),          # an empty side
+    ((_BF16, 64, 16, 0, True), "fma"),
+]
+
+
+@pytest.mark.parametrize("args,want", ROUTE_TABLE)
+def test_flash_route_table(args, want):
+    """Which route a CUDA flash call takes, from dtype, head_dim, the
+    two lengths and alignment alone (no card needed)."""
+    assert tfa.flash_route(*args) == want
+    assert (args[1] in tfa.WGMMA_HEAD_DIMS) == (args[1] in (32, 64, 128))
+
+
 # ---------------------------------------------------------------------------
 # the _contrib_flash_attention op (nd.contrib / sym.contrib / F.contrib)
 # ---------------------------------------------------------------------------

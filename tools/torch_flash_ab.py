@@ -9,16 +9,19 @@ OTHER_ROOT is the root of another checkout of the repository, for
 example the parent commit unpacked by ``git archive`` into a directory
 that ``.gitignore`` lists. Its ``flash_attention.cu`` and
 ``flash_attention_bwd.cu`` are built with this checkout's nvcc flags and
-bound through the same C entry points (the two versions must share
-them), then both versions run on the same seeded causal bf16 inputs at
-``--shape`` (default: the train path's (8, 16, 1024, 64)):
+bound through the same C entry points (an older entry that takes one
+length for q, k and v gets s_q), then both versions run on the same
+seeded causal bf16 inputs at ``--shape`` (default: the train path's (8,
+16, 1024, 64)):
 
 * each version's outputs against the plain versions (relative RMS error
   per (batch, head) slice, the largest), and whether a second run of
   each version is bitwise equal to its first;
 * forward and backward ms by CUDA events with the L2 flushed before
-  every launch (``chip_smoke.Timer``), in turns: other, this, this,
-  other, then ``scaled_dot_product_attention`` twice;
+  every launch and a 0.5 ms device-side wait after it, so the host's
+  enqueue time stays out of the device time (``chip_smoke.Timer``), in
+  turns: other, this, this, other, then ``scaled_dot_product_attention``
+  twice;
 * this checkout's device time per kernel (``torch.profiler``, 10 calls
   of each), so the backward's passes show apart.
 
@@ -28,11 +31,13 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ("flash_attention", "flash_attention_bwd")
+HOLD_MS = 0.5   # device-side wait before each timed launch
 
 
 def build_other(other, out_dir, nvcc, flags):
@@ -54,6 +59,23 @@ def build_other(other, out_dir, nvcc, flags):
                                % (name, out))
         libs[name] = path
     return libs
+
+
+def bind_other(other, name, path, argtypes):
+    """The other checkout's "wgmma" entry <name>_bf16, called with this
+    checkout's arguments (..., b*h, s_q, s_k, hd, causal, sm_scale,
+    stream). An older entry that takes one length s for q, k and v (the
+    shape here has s_q == s_k) gets s_q and not s_k."""
+    fn = getattr(ctypes.CDLL(path), name + "_bf16")
+    fn.restype = ctypes.c_int
+    with open(os.path.join(other, "mxnet_tpu_torch", "ops", "cuda", "csrc",
+                           name + ".cu")) as f:
+        src = f.read()
+    if re.search(r"%s_bf16\([^)]*\bint s, int hd" % name, src):
+        fn.argtypes = argtypes[:-5] + argtypes[-4:]
+        return lambda *a: fn(*(a[:-5] + a[-4:]))
+    fn.argtypes = argtypes
+    return fn
 
 
 def main():
@@ -81,12 +103,9 @@ def main():
     other_dir = os.path.join(_build.BUILD_DIR, "ab_other_%d" % os.getpid())
     paths = build_other(os.path.abspath(args.other), other_dir,
                         _build._nvcc(), _build.NVCC_FLAGS)
-    other_fns = {}
-    for name, path in paths.items():
-        fn = getattr(ctypes.CDLL(path), name + "_bf16")
-        fn.argtypes = fa._SYMBOLS[name]
-        fn.restype = ctypes.c_int
-        other_fns[name] = fn
+    other_fns = {name: bind_other(os.path.abspath(args.other), name, path,
+                                  fa._SYMBOLS[name])
+                 for name, path in paths.items()}
     this_kernel_fn = fa._kernel_fn
 
     def use(version):
@@ -122,9 +141,11 @@ def main():
     for version in ("other", "this", "this", "other"):
         use(version)
         o, lse = saved[version]
-        fwd = timer(lambda: fa._flash_fwd(q, k, v, True), iters=args.iters)
+        fwd = timer(lambda: fa._flash_fwd(q, k, v, True), iters=args.iters,
+                    hold_ms=HOLD_MS)
         bwd = timer(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
-                                                   True), iters=args.iters)
+                                                   True), iters=args.iters,
+                    hold_ms=HOLD_MS)
         result["turns"].append({"version": version, "fwd_ms": fwd,
                                 "bwd_ms": bwd})
         print("%-5s fwd %.4f ms bwd %.4f ms" % (version, fwd, bwd),
@@ -134,9 +155,11 @@ def main():
     lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
     for _ in range(2):
         fwd = timer(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), iters=args.iters)
+            q, k, v, is_causal=True), iters=args.iters,
+            hold_ms=HOLD_MS)
         bwd = timer(lambda: torch.autograd.grad(
-            lo, (lq, lk, lv), do, retain_graph=True), iters=args.iters)
+            lo, (lq, lk, lv), do, retain_graph=True), iters=args.iters,
+            hold_ms=HOLD_MS)
         result["sdpa"].append({"fwd_ms": fwd, "bwd_ms": bwd})
         print("sdpa  fwd %.4f ms bwd %.4f ms" % (fwd, bwd), flush=True)
     o, lse = saved["this"]
