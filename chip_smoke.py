@@ -191,7 +191,17 @@ Phases, each fatal on failure (no phase's failure is caught):
     ``nproc`` decode threads; one batch's upload from pageable and from
     pinned memory; staged batches (python route through the pinned ring,
     native route) bitwise equal to synchronous copies of the same
-    records;
+    records; then ``build/smoke_data/domain.rec``, 256 seeded JPEGs at
+    original sizes (short side 60-500, a tenth below 224) in six chroma
+    subsamplings: the kernel bitwise equal to its plain version at
+    resize 0, 256 and 160 (below the crop: two launches) and one
+    channel, and on random planes of every kind (4:1:0 included) with a
+    downscale past the dense window; two planted faults (a cubic
+    coefficient off by one, the vertical pass in integers) must fail;
+    the native route against the python route at resize 256 within
+    RESIZE_LEVEL_TOL / RESIZE_MEAN_TOL; the kernel timed at resize 256
+    beside its bound (a call's CUDA event time, as every row of the
+    kernels line, and the kernel's profiler device time beside it);
 25. the north-star CLI in-process, ``train_imagenet.main([... "--benchmark",
     "1", "--max-batches", "48", ...])``: img/s from its Speedometer
     lines against phase 13's, ``sgd_fused_update`` once a step and its
@@ -389,6 +399,7 @@ TRAIN_BF16_GRAD_TOL = 2e-2  # bf16 train gradients, kernels vs the plain
                         # gross faults only; the kernels themselves are
                         # held per launch at FA_BF16_TOL / FA_LSE_TOL
 HBM_BPS = 3.35e12       # H100 SXM device memory
+PTXAS = {}              # nvcc's output of each library this run built
 BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 
 
@@ -440,6 +451,27 @@ class Timer(object):
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+def kernel_device_ms(torch, timer, fn, match, iters=20, evict=None):
+    """Device time of the kernels named ``match`` that one call of ``fn``
+    launches (all of them summed), from torch.profiler over ``iters``
+    calls, each after ``evict()`` (by default the timer's L2-evicting
+    write): the wrapper's host work and its copies stay out."""
+    from torch.profiler import ProfilerActivity, profile
+    if evict is None:
+        evict = timer.flush.zero_
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            evict()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.end - ev.time_range.start for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and match in ev.name)
+    return us / iters / 1e3
+
+
 def kernel_label(mangled):
     """``flash_fwd_bf16_kernel<64>`` (or ``dq_fma_kernel<float, 64, 32,
     2, 2>``) from a mangled entry name: the last length-prefixed
@@ -456,12 +488,15 @@ def kernel_label(mangled):
                 best = (ident, j + len(ident))
     if best is None:
         return mangled
-    args = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E)+)E", mangled[best[1]:])
+    args = re.match(r"I((?:f|13__nv_bfloat16|Li\d+E|Lb[01]E)+)E",
+                    mangled[best[1]:])
     if not args:
         return best[0]
     return best[0] + "<%s>" % ", ".join(
-        "float" if a == "f" else "bf16" if a.startswith("13") else a[2:-1]
-        for a in re.findall(r"f|13__nv_bfloat16|Li\d+E", args.group(1)))
+        "float" if a == "f" else "bf16" if a.startswith("13") else
+        ("true" if a == "Lb1E" else "false") if a.startswith("Lb") else
+        a[2:-1] for a in re.findall(r"f|13__nv_bfloat16|Li\d+E|Lb[01]E",
+                                   args.group(1)))
 
 
 def ptxas_summary(out):
@@ -4193,6 +4228,24 @@ CLI_STD = (58.393, 57.12, 57.375)       # an ImageNet --rgb-std
 # moves the values 7-13 levels.
 DECODE_LEVEL_TOL = 4    # max |native - python| in uint8 levels
 DECODE_MEAN_TOL = 0.1   # mean |native - python| in levels
+# phase 24's second record set: images at original ImageNet-like sizes,
+# mostly 4:2:0, the resize path's inputs
+DOMAIN_RECORDS = 256
+DOMAIN_SHORT = (60, 500)    # short side; the long side up to 500
+DOMAIN_SMALL = 0.1          # share of images with the short side < 224
+# (kind, cv2 sampling-factor constant, share); gray is a 1-channel JPEG
+DOMAIN_SAMPLINGS = (("420", "IMWRITE_JPEG_SAMPLING_FACTOR_420", 0.6),
+                    ("444", "IMWRITE_JPEG_SAMPLING_FACTOR_444", 0.08),
+                    ("422", "IMWRITE_JPEG_SAMPLING_FACTOR_422", 0.08),
+                    ("440", "IMWRITE_JPEG_SAMPLING_FACTOR_440", 0.08),
+                    ("411", "IMWRITE_JPEG_SAMPLING_FACTOR_411", 0.08),
+                    ("gray", None, 0.08))
+# native vs python route at resize=256: the inverse DCTs' <= 3 levels
+# pass through the cubic (sum of |coefficients| 1.1875 an axis), and
+# Python cv2's cubic is itself 1 level off the reference's on ~4% of
+# values
+RESIZE_LEVEL_TOL = 6
+RESIZE_MEAN_TOL = 0.15
 CLI_BATCHES = 48        # phase 25: --max-batches
 DECODE_BACKEND = "nvjpeg"   # the H100 machines this script targets have
                             # nvJPEG and no OpenCV C++ headers
@@ -4277,19 +4330,32 @@ def _levels(torch, a, b):
     return (a.double().cpu() - b.double().cpu()).abs() * std
 
 
-def _plane_cost(items, oh, ow):
-    """Bytes crop_mirror_normalize must move: each crop's Y samples and
-    the chroma samples under it read once, float32 NCHW written once."""
+def _source_span(idec, n_in, n_out, start, count):
+    """Source samples an axis reads for outputs start .. start + count - 1
+    of its n_in -> n_out resize: the span of their cubic taps (the crop
+    itself without a resize)."""
+    if n_in == n_out:
+        return count
+    taps = idec._cubic_tables(n_in, n_out)[0][start:start + count]
+    return int(taps.max() - taps.min() + 1)
+
+
+def _plane_cost(items, oh, ow, c=3):
+    """Bytes crop_mirror_normalize must move: the Y samples each crop
+    reads (the span of its resize's taps, or the crop) and the chroma
+    samples under them read once, float32 NCHW written once."""
+    from mxnet_tpu_torch.ops.cuda import image_decode as idec
     total = 0
     for row in items.tolist():
-        kind, ch, cw = row[6], row[7], row[8]
-        total += oh * ow + 12 * oh * ow
-        if kind == 3:               # 4:2:0: a chroma row covers 2 rows
-            total += 2 * min(ch, oh // 2 + 2) * min(cw, ow // 2 + 2)
-        elif kind == 2:
-            total += 2 * oh * min(cw, ow // 2 + 2)
-        elif kind == 1:
-            total += 2 * oh * ow
+        h, w, x0, y0 = row[1], row[2], row[3], row[4]
+        kind, ch, cw, rh, rw, crh, crw = row[6:13]
+        rows = _source_span(idec, h, rh, y0, crh)
+        cols = _source_span(idec, w, rw, x0, crw)
+        total += 4 * c * oh * ow + rows * cols
+        if c == 3 and kind > 0:
+            hs, vs = idec._SUBSAMPLING[kind]
+            total += 2 * (min(ch, rows // vs + 2) if vs > 1 else rows) * (
+                min(cw, cols // hs + 2) if hs > 1 else cols)
     return total
 
 
@@ -4355,17 +4421,20 @@ def data_pipeline(torch, mx, idec, rec, timer):
     check(not torch.equal(got, faulty), "planted fault (mean shifted one "
           "channel) passed the kernel check")
     kinds = sorted(set(items[:, 6].tolist()))
-    # the wrapper's host side (checking the items, their pinned copy)
-    # outlasts the L2 flush: hold the card so only device time is timed
-    ms = timer(lambda: idec.crop_mirror_normalize(src, items, (3, 224, 224),
-                                                  mean, std), hold_ms=0.5)
+    # the call's time as every row of the kernels line is timed (CUDA
+    # events, the card held 0.5 ms: the items' copy included); beside it
+    # the kernel's device time alone (torch.profiler)
+    call = lambda: idec.crop_mirror_normalize(  # noqa: E731
+        src, items, (3, 224, 224), mean, std)
+    ms = timer(call, hold_ms=0.5)
+    device_ms = kernel_device_ms(torch, timer, call, "crop_mirror_normalize")
     plain_ms = timer(lambda: idec._crop_mirror_normalize_plain(
         src, items, (3, 224, 224), mean, std), iters=3)
     nbytes = _plane_cost(items, 224, 224)
     row = {"name": "crop_mirror_normalize", "max_abs_err": 0.0, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BPS * 1e3,
            "bound_by": "bytes", "library_ms": None, "kinds": kinds,
-           "bytes": nbytes}
+           "bytes": nbytes, "device_ms": device_ms}
     # ImageRecordIter alone, as the CLI builds it (random crop and mirror,
     # staged onto the card by its prefetch thread)
     nproc = os.cpu_count()
@@ -4444,16 +4513,278 @@ def data_pipeline(torch, mx, idec, rec, timer):
         "%.2f); planted mean shift: max %.1f levels"
         % (backend, lmax, lmean, 100 * frac, DECODE_LEVEL_TOL,
            DECODE_MEAN_TOL, res["planted_levels_max"]))
-    log("data: with resize: not compared, the nvjpeg route does not resize "
-        "(ROADMAP A8.1b; the records are written at the training size)")
-    log("data: crop_mirror_normalize (32 images, planes %s) %.4f ms, plain "
-        "%.3f ms, bound %.4f ms (bytes), bitwise vs plain (card and CPU)"
-        % (kinds, ms, plain_ms, row["bound_ms"]))
+    log("data: crop_mirror_normalize (32 images, planes %s) %.4f ms a call "
+        "(events, the items' copy included; %.0f%% of the bound), %.4f ms "
+        "device (profiler, %.0f%%), plain %.3f ms, bound %.4f ms (bytes), "
+        "bitwise vs plain (card and CPU)"
+        % (kinds, ms, 100 * row["bound_ms"] / ms, device_ms,
+           100 * row["bound_ms"] / device_ms, plain_ms, row["bound_ms"]))
     log("data: ImageRecordIter alone, batch 32 3x224x224, random crop + "
         "mirror, staged: %s img/s (threads: img/s; nproc %d)"
         % ({k: round(v, 1) for k, v in rates.items()}, nproc))
     log("data: one batch upload (19.3 MB): pageable %.3f ms, pinned %.3f ms"
         % (res["upload_ms"]["pageable"], res["upload_ms"]["pinned"]))
+    return res
+
+
+def domain_records(mx, path, n=DOMAIN_RECORDS, seed=1):
+    """Phase 24's second record set: ``n`` seeded images at original
+    ImageNet-like sizes (short side 60-500, a tenth below 224, long side
+    up to 500, either orientation), smooth fields plus noise as
+    :func:`smoke_records`', JPEG quality 95 in the chroma subsamplings
+    of ``DOMAIN_SAMPLINGS`` (cv2's encoder). Returns {kind: count}."""
+    import cv2
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    w = mx.recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                      path, "w")
+    shares = np.array([p for _, _, p in DOMAIN_SAMPLINGS])
+    counts = {}
+    for i in range(n):
+        if rng.rand() < DOMAIN_SMALL:
+            short = int(rng.randint(DOMAIN_SHORT[0], 224))
+        else:
+            short = int(rng.randint(224, DOMAIN_SHORT[1] + 1))
+        long_side = int(rng.randint(short, DOMAIN_SHORT[1] + 1))
+        h, wd = (short, long_side) if rng.rand() < 0.75 else (long_side,
+                                                                short)
+        grid = rng.uniform(0, 255, (6, 8, 3)).astype(np.float32)
+        field = cv2.resize(grid, (wd, h), interpolation=cv2.INTER_CUBIC)
+        noise = rng.randint(-16, 17, (h, wd, 3)).astype(np.float32)
+        img = np.clip(field + noise, 0, 255).astype(np.uint8)
+        kind, factor, _ = DOMAIN_SAMPLINGS[rng.choice(len(shares),
+                                                      p=shares / shares.sum())]
+        params = [cv2.IMWRITE_JPEG_QUALITY, SMOKE_QUALITY]
+        if factor is not None:
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, getattr(cv2, factor)]
+        ok, buf = cv2.imencode(".jpg", img[..., 0] if kind == "gray" else img,
+                               params)
+        check(ok, "cv2 could not encode a %s JPEG" % kind)
+        counts[kind] = counts.get(kind, 0) + 1
+        w.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, float(rng.randint(0, 1000)), i, 0),
+            buf.tobytes()))
+    w.close()
+    return counts
+
+
+def _resize_int_vertical(torch, idec):
+    """A planted fault: the cubic resize's vertical pass in integer
+    arithmetic ((sum beta*S + 2^21) >> 22) for every value."""
+    def resize(img, nh, nw):
+        h, w, c = img.shape
+        if (nh, nw) == (h, w):
+            return img
+        tx, ax = (torch.from_numpy(v).to(img.device)
+                  for v in idec._cubic_tables(w, nw))
+        ty, ay = (torch.from_numpy(v).to(img.device)
+                  for v in idec._cubic_tables(h, nh))
+        hor = (img[:, tx].long() * ax[None, :, :, None]).sum(2)
+        v = ((hor[ty] * ay[:, :, None, None]).sum(1) + (1 << 21)) >> 22
+        return v.clamp(0, 255).to(torch.uint8)
+    return resize
+
+
+def _random_planes(rng, shapes):
+    """Random planes of (kind, h, w) images, one flat uint8 array, and
+    their (offset, h, w, kind, chroma h, chroma w) rows."""
+    from mxnet_tpu_torch.ops.cuda import image_decode as idec
+    parts, rows, off = [], [], 0
+    for kind, h, w in shapes:
+        hs, vs = idec._SUBSAMPLING.get(kind, (1, 1))
+        ch, cw = (-(-h // vs), -(-w // hs)) if kind else (0, 0)
+        p = rng.randint(0, 256, h * w + 2 * ch * cw).astype(np.uint8)
+        parts.append(p)
+        rows.append((off, h, w, kind, ch, cw))
+        off += len(p)
+    return np.concatenate(parts), rows
+
+
+def decode_domain(torch, mx, idec, rec, timer):
+    """Phase 24, second half: the nvjpeg route over the JAX decoder's
+    whole domain on ``domain_records``: the kernel against its plain
+    version bitwise at resize 0 (small images resized to the crop), 256
+    and 160 (below the crop: two launches), one channel, and on random
+    planes of every kind (4:1:0 included, which cv2 cannot encode, and a
+    downscale past the dense window); two planted faults; the native
+    route against the python route at resize=256; the kernel timed at
+    resize=256 beside its bound."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda", 0)
+    mean = np.array(CLI_MEAN, np.float32)
+    std = np.array(CLI_STD, np.float32)
+    reader = mx.recordio.MXIndexedRecordIO(
+        os.path.splitext(rec)[0] + ".idx", rec, "r")
+    bufs = [mx.recordio.unpack(reader.read_idx(k))[1]
+            for k in range(len(reader.keys))]
+    reader.close()
+    # the native route against the python route (Python cv2 decodes and
+    # resizes), resize=256, center crop, every record
+    kw = dict(path_imgrec=rec, mean=mean, std=std, resize=256)
+    native = mx.image.ImageIter(64, (3, 224, 224), preprocess_threads=4,
+                                ctx=dev, **kw)
+    python = mx.image.ImageIter(64, (3, 224, 224), **kw)
+    check(native.route == "native" and python.route == "python",
+          "routes %s / %s" % (native.route, python.route))
+    lmax = lsum = cnt = 0.0
+    for _ in range(len(bufs) // 64):
+        lv = _levels(torch, native.next().data[0]._data,
+                     python.next().data[0]._data)
+        lmax = max(lmax, float(lv.max()))
+        lsum += float(lv.sum())
+        cnt += lv.numel()
+    lmean = lsum / cnt
+    check(lmax <= RESIZE_LEVEL_TOL and lmean <= RESIZE_MEAN_TOL,
+          "native vs python decode at resize=256: max %.3f, mean %.4f levels"
+          % (lmax, lmean))
+    # the kernel against its plain version, batches of 32 on every path
+    paths = {}
+    for label, resize, shape in (("resize 0", 0, (3, 224, 224)),
+                                 ("resize 256", 256, (3, 224, 224)),
+                                 ("resize 160", 160, (3, 224, 224)),
+                                 ("resize 256, 1 channel", 256,
+                                  (1, 224, 224))):
+        c = shape[0]
+        dec = mx.image.NativeImageDecoder(
+            shape, resize=resize, rand_crop=True, rand_mirror=True,
+            mean=mean[:c], std=std[:c], num_threads=4, backend="nvjpeg")
+        seen = {"images": 0, "crop_resized": 0, "both": 0, "launches": 0,
+                "kinds": set()}
+        for b in range(0, len(bufs), 32):
+            src, items = dec.decode_planes(bufs[b:b + 32], base=b)
+            rows = items.numpy()
+            small = (rows[:, 11] < shape[1]) | (rows[:, 12] < shape[2])
+            resized = (rows[:, 9] != rows[:, 1]) | (rows[:, 10] != rows[:, 2])
+            idec.reset_launches()
+            got = idec.crop_mirror_normalize(src, items, shape, mean[:c],
+                                             std[:c])
+            n_launch = idec.LAUNCHES["crop_mirror_normalize"]
+            check(n_launch == 1 + int((small & resized).any()),
+                  "%s: %d launches for a batch" % (label, n_launch))
+            plain = idec._crop_mirror_normalize_plain(src, items, shape,
+                                                      mean[:c], std[:c])
+            check(torch.equal(got, plain), "crop_mirror_normalize (%s) "
+                  "differs from its plain version in %d values"
+                  % (label, int((got != plain).sum())))
+            if b == 0:
+                check(torch.equal(got.cpu(), idec._crop_mirror_normalize_plain(
+                    src.cpu(), items, shape, mean[:c], std[:c])),
+                      "%s: the plain version differs on the CPU" % label)
+            seen["images"] += len(rows)
+            seen["crop_resized"] += int(small.sum())
+            seen["both"] += int((small & resized).sum())
+            seen["launches"] += n_launch
+            seen["kinds"] |= set(rows[:, 6].tolist())
+        seen["kinds"] = sorted(seen["kinds"])
+        paths[label] = seen
+    check(paths["resize 0"]["crop_resized"] > 0
+          and paths["resize 160"]["both"] > 0,
+          "the record set misses a path: %s" % paths)
+    # random planes of every kind, 4:1:0 included; a 1400 x 1100 image
+    # resized to 64 spreads its taps past the dense window
+    rng = np.random.RandomState(24)
+    shapes = [(k, int(rng.randint(20, 400)), int(rng.randint(20, 400)))
+              for k in range(7) for _ in range(3)] + [(6, 1400, 1100),
+                                                     (3, 1100, 1400)]
+    planes, prow = _random_planes(rng, shapes)
+    src = torch.from_numpy(planes).to(dev)
+    for resize, shape in ((0, (3, 224, 224)), (256, (3, 224, 224)),
+                          (64, (3, 48, 48)), (64, (3, 224, 224))):
+        dec = mx.image.NativeImageDecoder(shape, resize=resize,
+                                          rand_crop=True, rand_mirror=True,
+                                          mean=mean, std=std,
+                                          backend="nvjpeg")
+        hw = np.array([[h, w] for _, h, w, _, _, _ in prow], np.int32)
+        plan = dec.plan(hw, base=resize)
+        items = torch.from_numpy(np.array(
+            [[r[0], r[1], r[2]] + list(p[:3]) + [r[3], r[4], r[5]]
+             + list(p[3:]) for r, p in zip(prow, plan.tolist())],
+            dtype=np.int64))
+        got = idec.crop_mirror_normalize(src, items, shape, mean, std)
+        plain = idec._crop_mirror_normalize_plain(src, items, shape, mean,
+                                                  std)
+        check(torch.equal(got, plain), "crop_mirror_normalize on random "
+              "planes (resize %d, %s) differs from its plain version in %d "
+              "values" % (resize, shape, int((got != plain).sum())))
+    # planted faults at resize 256: one cubic coefficient off by one;
+    # the vertical pass in integer arithmetic
+    dec = mx.image.NativeImageDecoder((3, 224, 224), resize=256,
+                                      rand_crop=True, rand_mirror=True,
+                                      mean=mean, std=std, num_threads=4,
+                                      backend="nvjpeg")
+    src, items = dec.decode_planes(bufs[:32], base=0)
+    got = idec.crop_mirror_normalize(src, items, (3, 224, 224), mean, std)
+    tables = idec._cubic_tables
+
+    def off_by_one(n_in, n_out):
+        taps, alpha = tables(n_in, n_out)
+        alpha = alpha.copy()
+        alpha[n_out // 2, 1] += 1
+        return taps, alpha
+
+    planted = {}
+    for name, attr, fault in (
+            ("coefficient off by one", "_cubic_tables", off_by_one),
+            ("integer vertical pass", "_resize_cubic_plain",
+             _resize_int_vertical(torch, idec))):
+        real = getattr(idec, attr)
+        setattr(idec, attr, fault)
+        try:
+            bad = idec._crop_mirror_normalize_plain(src, items,
+                                                    (3, 224, 224), mean, std)
+        finally:
+            setattr(idec, attr, real)
+        planted[name] = int((bad != got).sum())
+        check(planted[name] > 0, "planted fault (%s) passed the kernel "
+              "check" % name)
+    # the kernel timed at resize 256 (32 images, random crop and mirror)
+    call = lambda: idec.crop_mirror_normalize(  # noqa: E731
+        src, items, (3, 224, 224), mean, std)
+    ms = timer(call, hold_ms=0.5)
+    device_ms = kernel_device_ms(torch, timer, call, "crop_mirror_normalize")
+    plain_ms = timer(lambda: idec._crop_mirror_normalize_plain(
+        src, items, (3, 224, 224), mean, std), iters=3)
+    nbytes = _plane_cost(items, 224, 224)
+    # context, not the same function: a float bicubic resize of the
+    # crops' source windows and a normalise
+    rows = items.numpy()
+    side = int(round(224 * float(np.mean(rows[:, 1] / rows[:, 9]))))
+    win = torch.randint(0, 256, (len(rows), 3, side, side), device=dev,
+                        dtype=torch.uint8).float()
+    m_t = torch.tensor(mean, device=dev).reshape(1, 3, 1, 1)
+    s_t = torch.tensor(std, device=dev).reshape(1, 3, 1, 1)
+    interp_ms = timer(lambda: (F.interpolate(
+        win, size=(224, 224), mode="bicubic", align_corners=False) - m_t)
+        / s_t)
+    row = {"name": "crop_mirror_normalize (resize 256)", "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": nbytes / HBM_BPS * 1e3,
+           "bound_by": "bytes", "library_ms": None, "bytes": nbytes,
+           "device_ms": device_ms,
+           "max_abs_err": 0.0, "interpolate_context_ms": interp_ms,
+           "interpolate_window": side}
+    res = {"records": len(bufs), "paths": paths,
+           "levels_max_resize_256": lmax, "levels_mean_resize_256": lmean,
+           "planted": planted, "kernel_resize": row,
+           "ptxas": ptxas_summary(PTXAS.get("image_decode", ""))}
+    log("data (domain set, %d records): native vs python at resize=256: "
+        "max %.3f, mean %.4f levels (bound %d / %.2f)"
+        % (len(bufs), lmax, lmean, RESIZE_LEVEL_TOL, RESIZE_MEAN_TOL))
+    log("data: crop_mirror_normalize bitwise vs plain (card; CPU on a "
+        "batch): %s; random planes of kinds 0-6 at resize 0 / 256 / 64; "
+        "planted faults differ in %s values"
+        % ("; ".join("%s: %d images, %d crops resized, %d both, %d "
+                     "launches, kinds %s" % (k, v["images"],
+                                             v["crop_resized"], v["both"],
+                                             v["launches"], v["kinds"])
+                     for k, v in paths.items()), planted))
+    log("data: crop_mirror_normalize (resize 256, 32 images) %.4f ms a call "
+        "(events; %.0f%% of the bound), %.4f ms device (profiler, %.0f%%), "
+        "plain %.3f ms, bound %.4f ms (bytes, %d B); context, not the same "
+        "function: F.interpolate bicubic of a %dx%d float window + "
+        "normalise %.4f ms; %s"
+        % (ms, 100 * row["bound_ms"] / ms, device_ms,
+           100 * row["bound_ms"] / device_ms, plain_ms, row["bound_ms"],
+           nbytes, side, side, interp_ms, "; ".join(res["ptxas"])))
     return res
 
 
@@ -7072,6 +7403,7 @@ def main():
                                        sys.version.split()[0]))
     t0 = time.time()
     logs = _build.build_all()
+    PTXAS.update(logs)
     log("build_s %.2f (%s)" % (time.time() - t0, ", ".join(sorted(logs))
                                or "cached"))
     for name in sorted(logs):
@@ -7127,6 +7459,11 @@ def main():
            rec_s, os.path.relpath(rec, root)))
     timer = Timer(torch)
     data = data_pipeline(torch, mx, idec, rec, timer)
+    rec2 = os.path.join(root, "build", "smoke_data", "domain.rec")
+    kinds = domain_records(mx, rec2)
+    log("data: wrote %d records of original sizes, subsamplings %s: %s"
+        % (DOMAIN_RECORDS, kinds, os.path.relpath(rec2, root)))
+    data["domain"] = decode_domain(torch, mx, idec, rec2, timer)
     del timer
     data.update(records=SMOKE_RECORDS, rec_bytes=rec_bytes, rec_write_s=rec_s)
     cli_synth = cli_synthetic(torch, mx, fu, fitted["img_per_s"])

@@ -104,9 +104,10 @@ def recordio_lib():
         "rio_free": (None, [ctypes.c_void_p])})
 
 
+# n, hw, base, seed, resize, out_h, out_w, rand_crop, rand_mirror, plan
 _PLAN_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_uint64,
               ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_void_p]
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def imageplan_lib():

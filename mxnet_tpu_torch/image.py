@@ -22,9 +22,9 @@ every batch by route in :data:`ROUTES`:
   has, counted by batch in :data:`BACKENDS`: ``opencv`` (OpenCV's C++
   API on host threads, ``native/imagedec.cc``; the JAX package's
   decoder) or ``nvjpeg`` (the CUDA toolkit's nvJPEG on the card, then
-  one ``crop_mirror_normalize`` kernel; the batch stays on the card; no
-  resize yet, ROADMAP A8.1b). A backend that is missing or cannot build
-  raises.
+  the ``crop_mirror_normalize`` kernel, which resizes as the JAX
+  package's decoder does, bit for bit; the batch stays on the card). A
+  backend that is missing or cannot build raises.
 * ``python``: every other augmentation: one image at a time through the
   Augmenter list, as in the reference.
 
@@ -450,8 +450,9 @@ class NativeImageDecoder(object):
     naming one that is missing raises, as does a machine with none.
     ``opencv`` decodes on ``num_threads`` host threads (0: one a core)
     into host memory and returns numpy; ``nvjpeg`` decodes on the card
-    ``ctx`` (default ``cuda:0``) and returns a CUDA tensor (it does not
-    resize yet: ROADMAP A8.1b)."""
+    ``ctx`` (default ``cuda:0``) and returns a CUDA tensor. Both resize
+    as OpenCV's ``INTER_CUBIC`` does, the short side to ``resize`` and a
+    crop larger than the image to the output, with the same bits."""
 
     def __init__(self, data_shape, resize=0, rand_crop=False,
                  rand_mirror=False, mean=None, std=None, num_threads=0,
@@ -488,6 +489,7 @@ class NativeImageDecoder(object):
 
         self.backend = backend
         self._shape = (c, h, w)
+        self._resize = int(resize)
         self._seed = int(seed)
         self._rand = (int(bool(rand_crop)), int(bool(rand_mirror)))
         self._mean = per_channel(mean, 0.0)
@@ -498,7 +500,7 @@ class NativeImageDecoder(object):
             self._lib = _native.imagedec_lib()
             fp = ctypes.POINTER(ctypes.c_float)
             self._h = self._lib.imgdec_create(
-                int(num_threads), h, w, c, int(resize), *self._rand,
+                int(num_threads), h, w, c, self._resize, *self._rand,
                 self._mean.ctypes.data_as(fp), self._std.ctypes.data_as(fp),
                 self._seed)
             if not self._h:
@@ -506,11 +508,6 @@ class NativeImageDecoder(object):
         else:
             from .context import default_device
             from .ops.cuda import image_decode
-            if resize:
-                raise MXNetError(
-                    "the nvjpeg decoder backend does not resize yet "
-                    "(resize=%d; ROADMAP A8.1b): write the records at the "
-                    "training size (tools/im2rec.py --resize)" % resize)
             dev = default_device(ctx)
             if dev.type != "cuda":
                 raise MXNetError("the nvjpeg decoder backend decodes on "
@@ -542,22 +539,18 @@ class NativeImageDecoder(object):
         return out
 
     def plan(self, hw, base=0):
-        """(n, 3) int32 crop origins and mirror flags of images of
-        heights and widths ``hw`` (n, 2) at stream positions ``base``,
-        ``base + 1``, ... (the draws both backends take)."""
+        """(n, 7) int32 of images of heights and widths ``hw`` (n, 2) at
+        stream positions ``base``, ``base + 1``, ...: crop origin x0,
+        y0, mirror flag, the size the resize gives (height, width; the
+        image's own without one) and the crop's (height, width: the
+        output's, clipped to the resized image). The draws both backends
+        take."""
         lib = self._plan if self.backend == "nvjpeg" else self._lib
         hw = np.ascontiguousarray(hw, dtype=np.int32)
-        plan = np.empty((hw.shape[0], 3), dtype=np.int32)
+        plan = np.empty((hw.shape[0], 7), dtype=np.int32)
         c, h, w = self._shape
-        small = lib.imgdec_plan(hw.shape[0], hw.ctypes.data, int(base),
-                                self._seed, h, w, *self._rand,
-                                plan.ctypes.data)
-        if small:
-            raise MXNetError(
-                "image %d of the batch (%dx%d) is smaller than the %dx%d "
-                "crop; the nvjpeg decoder backend does not resize yet "
-                "(ROADMAP A8.1b)" % (small - 1, hw[small - 1, 1],
-                                     hw[small - 1, 0], w, h))
+        lib.imgdec_plan(hw.shape[0], hw.ctypes.data, int(base), self._seed,
+                        self._resize, h, w, *self._rand, plan.ctypes.data)
         return plan
 
     def decode_planes(self, bufs, base=0):
@@ -576,8 +569,8 @@ class NativeImageDecoder(object):
                           device=self.device)
         self._pool.decode(bufs, src, offsets, info)
         items = np.concatenate(
-            [offsets[:, None], info[:, :2], plan, kinds[:, None],
-             info[:, 4:6]], axis=1).astype(np.int64)
+            [offsets[:, None], info[:, :2], plan[:, :3], kinds[:, None],
+             info[:, 4:6], plan[:, 3:]], axis=1).astype(np.int64)
         return src, torch.from_numpy(items)
 
     def _decode_nvjpeg(self, bufs, base, out):

@@ -2,8 +2,8 @@
 //
 // Two parts, one source:
 //
-// * imgdec_plan (always built, no dependency): the per-image crop and
-//   mirror decisions. The generator is keyed by IMAGE, (seed, stream
+// * imgdec_plan (always built, no dependency): the per-image resized
+//   size, crop and mirror decisions. The generator is keyed by IMAGE, (seed, stream
 //   position), not by thread, so any thread count or schedule draws the
 //   same decisions. The nvJPEG backend (ops/cuda/csrc/image_decode.cu)
 //   decodes on the card and takes its plan from here.
@@ -43,28 +43,49 @@ inline void plan_one(uint64_t seed, uint64_t pos, int img_w, int img_h,
       ((rng() >> 11) * 0x1.0p-53 < 0.5);   // uniform [0,1) < p
 }
 
+// The size an h x w image takes when its short side is resized to
+// ``resize`` (the long side scaled and floored), or its own for 0.
+inline void resized_size(int h, int w, int resize, int* nh, int* nw) {
+  if (resize <= 0) {
+    *nh = h;
+    *nw = w;
+  } else if (h > w) {
+    *nw = resize;
+    *nh = (int)((int64_t)resize * h / w);
+  } else {
+    *nh = resize;
+    *nw = (int)((int64_t)resize * w / h);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // hw: n x (height, width) of the decoded images; plan: n x (x0, y0,
-// mirror). Returns the index + 1 of the first image smaller than the
-// output (its crop would need a resize), else 0.
+// mirror, resized height, resized width, crop height, crop width): the
+// short side resized to ``resize`` (0: no resize), the crop drawn over
+// the resized image, clipped to it (the caller resizes a smaller crop to
+// the output). Returns 0.
 int imgdec_plan(int n, const int32_t* hw, uint64_t base, uint64_t seed,
-                int out_h, int out_w, int rand_crop, int rand_mirror,
-                int32_t* plan) {
-  int small = 0;
+                int resize, int out_h, int out_w, int rand_crop,
+                int rand_mirror, int32_t* plan) {
   for (int i = 0; i < n; ++i) {
-    int x0, y0, cw, ch;
+    int nh, nw, x0, y0, cw, ch;
     bool mirror;
-    plan_one(seed, base + (uint64_t)i, hw[2 * i + 1], hw[2 * i], out_w,
-             out_h, rand_crop, rand_mirror, &x0, &y0, &cw, &ch, &mirror);
-    plan[3 * i] = x0;
-    plan[3 * i + 1] = y0;
-    plan[3 * i + 2] = mirror ? 1 : 0;
-    if ((cw != out_w || ch != out_h) && !small) small = i + 1;
+    resized_size(hw[2 * i], hw[2 * i + 1], resize, &nh, &nw);
+    plan_one(seed, base + (uint64_t)i, nw, nh, out_w, out_h, rand_crop,
+             rand_mirror, &x0, &y0, &cw, &ch, &mirror);
+    int32_t* row = plan + 7 * i;
+    row[0] = x0;
+    row[1] = y0;
+    row[2] = mirror ? 1 : 0;
+    row[3] = nh;
+    row[4] = nw;
+    row[5] = ch;
+    row[6] = cw;
   }
-  return small;
+  return 0;
 }
 
 }  // extern "C"
@@ -212,9 +233,8 @@ class Decoder {
     if (channels_ == 3) cv::cvtColor(img, img, cv::COLOR_BGR2RGB);
 
     if (resize_ > 0) {
-      int h = img.rows, w = img.cols, nh, nw;
-      if (h > w) { nw = resize_; nh = (int)((int64_t)resize_ * h / w); }
-      else       { nh = resize_; nw = (int)((int64_t)resize_ * w / h); }
+      int nh, nw;
+      resized_size(img.rows, img.cols, resize_, &nh, &nw);
       cv::resize(img, img, cv::Size(nw, nh), 0, 0, cv::INTER_CUBIC);
     }
 

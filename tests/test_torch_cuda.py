@@ -1250,8 +1250,9 @@ def _jpeg_records(tmp_path, n=24, sampling=None, gray=False):
 
 
 @pytest.mark.parametrize("sampling,gray", [
-    (None, False), (0x111111, False), (0x211111, False), (None, True)],
-    ids=["420", "444", "422", "gray"])
+    (None, False), (0x111111, False), (0x211111, False), (None, True),
+    (0x121111, False), (0x411111, False)],
+    ids=["420", "444", "422", "gray", "440", "411"])
 def test_nvjpeg_route_matches_python_route(card, tmp_path, sampling, gray):
     """The native route (nvJPEG planes, crop_mirror_normalize) against
     the python route (cv2, Augmenters) on the same records: within 4
@@ -1284,6 +1285,52 @@ def test_nvjpeg_route_matches_python_route(card, tmp_path, sampling, gray):
         assert torch.equal(got.cpu(), ref.cpu())
     with pytest.raises(tmx.MXNetError, match="decode"):
         dec.decode_batch([bufs[0], b"\xff\xd8 not a jpeg"])
+
+
+@pytest.mark.parametrize("channels", [3, 1])
+@pytest.mark.parametrize("resize,shape", [
+    (0, (48, 56)), (96, (48, 56)), (40, (48, 56)), (24, (16, 20))],
+    ids=["crop", "resize", "below_crop", "downscale"])
+def test_crop_mirror_normalize_every_kind_and_path(card, resize, shape,
+                                                   channels):
+    """crop_mirror_normalize against its plain version bitwise on random
+    planes of every kind (4:1:0 included), sizes 9-300 and one of 900 x
+    700: the crop alone and resized to the output where the image is
+    smaller (resize 0), the short side resized (96), resized below the
+    crop (40: two launches) and far down (24: taps spread past the dense
+    window)."""
+    from mxnet_tpu_torch import image as timg
+    from mxnet_tpu_torch.ops.cuda import image_decode as idec
+    rng = np.random.RandomState(resize + channels)
+    shapes = [(k, int(rng.randint(9, 300)), int(rng.randint(9, 300)))
+              for k in range(7) for _ in range(2)] + [(6, 900, 700)]
+    parts, rows, off = [], [], 0
+    for kind, h, w in shapes:
+        hs, vs = idec._SUBSAMPLING.get(kind, (1, 1))
+        ch, cw = (-(-h // vs), -(-w // hs)) if kind else (0, 0)
+        parts.append(rng.randint(0, 256, h * w + 2 * ch * cw).astype(
+            np.uint8))
+        rows.append((off, h, w, kind, ch, cw))
+        off += len(parts[-1])
+    full = (channels,) + shape
+    dec = timg.NativeImageDecoder(full, resize=resize, rand_crop=True,
+                                  rand_mirror=True, seed=resize,
+                                  backend="nvjpeg", ctx=card)
+    plan = dec.plan(np.array([r[1:3] for r in rows], np.int32))
+    items = torch.tensor(
+        [[r[0], r[1], r[2]] + p[:3] + [r[3], r[4], r[5]] + p[3:]
+         for r, p in zip(rows, plan.tolist())], dtype=torch.int64)
+    both = ((items[:, 9] != items[:, 1]) | (items[:, 10] != items[:, 2])) \
+        & ((items[:, 11] != shape[0]) | (items[:, 12] != shape[1]))
+    mean, std = _CLI_MEAN[:channels], _CLI_STD[:channels]
+    src = torch.from_numpy(np.concatenate(parts)).to(card)
+    before = idec.LAUNCHES["crop_mirror_normalize"]
+    got = idec.crop_mirror_normalize(src, items, full, mean, std)
+    assert idec.LAUNCHES["crop_mirror_normalize"] - before == \
+        1 + int(bool(both.any()))
+    want = idec._crop_mirror_normalize_plain(src.cpu(), items, full, mean,
+                                             std)
+    assert torch.equal(got.cpu(), want)
 
 
 def test_staged_batches_equal_synchronous_copies(card, tmp_path):

@@ -39,6 +39,11 @@
   ``SequenceLast`` (a length of 0 reads the last step) give the fill
   value (NaN, or the least int32) for an index still out of range
   (C.15).
+* The nvjpeg decoder backend takes the JAX decoder's whole domain
+  (C.16): its plan resizes the short side and no longer refuses images
+  smaller than the crop, 4:4:0, 4:1:1 and 4:1:0 planes convert, and
+  the plain version of its kernel gives the JAX package's native
+  decoder's bits for a resize below the crop.
 """
 import numpy as np
 import pytest
@@ -507,3 +512,41 @@ def test_out_of_range_indices_match_jax(dtype):
         want, got = _both(fn)
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
+
+
+def test_nvjpeg_backend_takes_jax_decoders_domain():
+    """C.16: the nvjpeg backend's plan raised for an image smaller than
+    the crop (and its decoder for any ``resize``), and 4:4:0 / 4:1:1 /
+    4:1:0 planes raised; the JAX package's decoder computes them all."""
+    cv2 = pytest.importorskip("cv2")
+    import mxnet_tpu.image as jimg
+    from mxnet_tpu_torch import image as timg
+    from mxnet_tpu_torch.ops.cuda import image_decode as idec
+    dec = timg.NativeImageDecoder((3, 64, 72), resize=56, rand_crop=True,
+                                  seed=2)
+    plan = dec.plan(np.array([[100, 150], [40, 30], [300, 200]]))
+    assert plan[:, 3:].tolist() == [[56, 84, 56, 72], [74, 56, 64, 56],
+                                    [84, 56, 64, 56]]
+    info = np.array([[10, 12, 3, css, 5, 12] for css in (3, 4, 5)],
+                    np.int32)
+    assert idec.plane_layout(info, 3)[0].tolist() == [
+        idec.KINDS["440"], idec.KINDS["411"], idec.KINDS["410"]]
+    rng = np.random.RandomState(5)
+    bufs = [cv2.imencode(".jpg", rng.randint(0, 255, (h, w), np.uint8))[1]
+            .tobytes() for h, w in ((50, 90), (120, 70), (30, 40))]
+    want = jimg.NativeImageDecoder((3, 64, 72), resize=56, rand_crop=True,
+                                   rand_mirror=True, seed=2).decode_batch(
+                                       bufs, base=4)
+    dec = timg.NativeImageDecoder((3, 64, 72), resize=56, rand_crop=True,
+                                  rand_mirror=True, seed=2)
+    planes = [cv2.imdecode(np.frombuffer(b, np.uint8), 0) for b in bufs]
+    hw = np.array([p.shape for p in planes])
+    plan = dec.plan(hw, base=4)
+    offs = np.concatenate([[0], np.cumsum(hw[:, 0] * hw[:, 1])[:-1]])
+    items = np.concatenate([offs[:, None], hw, plan[:, :3],
+                            np.zeros((3, 3)), plan[:, 3:]], 1)
+    got = idec.crop_mirror_normalize(
+        torch.from_numpy(np.concatenate([p.ravel() for p in planes])),
+        torch.from_numpy(items.astype(np.int64)), (3, 64, 72), [0.0] * 3,
+        [1.0] * 3)
+    np.testing.assert_array_equal(got.numpy(), want)

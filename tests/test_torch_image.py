@@ -9,11 +9,13 @@ package's ``image.py``.
 * ``NativeImageDecoder`` on its ``opencv`` backend is bitwise equal to the JAX package's for the same
   (seed, stream position) and any thread count; a corrupt buffer
   raises.
-* The ``nvjpeg`` backend's host half: its crop / mirror plan
+* The ``nvjpeg`` backend's host half: its resize / crop / mirror plan
   (``imgdec_plan``) and the plain version of its kernel,
   ``_crop_mirror_normalize_plain`` (the ``crop_mirror_normalize``
   kernel's), applied to the python route's decode, equal the JAX
-  package's native decoder bitwise.
+  package's native decoder bitwise, with and without ``resize`` and for
+  images smaller than the crop; so does its cubic resize of RGB images
+  (PNG inputs, which decode exactly).
 * ``ImageIter`` picks its route before the first batch and counts it;
   a backend that is missing raises.
 
@@ -237,25 +239,61 @@ def _y_items(bufs, dec, base, kind):
     sizes = hw[:, 0].astype(np.int64) * hw[:, 1]
     offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
     plan = dec.plan(hw, base=base)
-    items = np.concatenate([offs[:, None], hw, plan,
+    items = np.concatenate([offs[:, None], hw, plan[:, :3],
                             np.full((len(bufs), 1), kind),
-                            np.zeros((len(bufs), 2))], 1).astype(np.int64)
+                            np.zeros((len(bufs), 2)), plan[:, 3:]],
+                           1).astype(np.int64)
     src = torch.from_numpy(np.concatenate([p.ravel() for p in planes]))
     return src, torch.from_numpy(items)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(), dict(rand_crop=True), dict(rand_crop=True, rand_mirror=True),
-    dict(rand_mirror=True, mean=MEAN, std=STD),
-], ids=range(4))
-def test_nvjpeg_plan_and_plain_kernel_match_jax_decoder(kw):
+@pytest.fixture
+def one_thread():
+    """The plain resizes' tensors are small: torch's intra-op threads
+    only contend with the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _small_jpegs(n, gray, seed=3):
+    """JPEGs of 40-120 px a side, most smaller than a 64 x 72 crop."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        h, w = rng.randint(40, 121, 2)
+        im = rng.randint(0, 255, (h, w) if gray else (h, w, 3),
+                         dtype=np.uint8)
+        out.append(cv2.imencode(".jpg", im)[1].tobytes())
+    return out
+
+
+@pytest.mark.parametrize("kw,small", [
+    (dict(), False), (dict(rand_crop=True), False),
+    (dict(rand_crop=True, rand_mirror=True), False),
+    (dict(rand_mirror=True, mean=MEAN, std=STD), False),
+    (dict(resize=160, rand_crop=True, rand_mirror=True), False),
+    (dict(resize=256, mean=MEAN, std=STD), False),
+    (dict(rand_crop=True, rand_mirror=True), True),
+    (dict(resize=56, rand_crop=True, rand_mirror=True), True),
+], ids=range(8))
+def test_nvjpeg_plan_and_plain_kernel_match_jax_decoder(kw, small,
+                                                        one_thread):
     """The nvjpeg backend's host plan and the plain version of its
     kernel (crop_mirror_normalize's _crop_mirror_normalize_plain), fed
     the Y planes libjpeg decodes, equal the JAX package's native decoder
-    (no resize) bitwise: one output channel from colour JPEGs, and three
-    from grayscale JPEGs (R = G = B = Y)."""
-    for channels, bufs, kind in ((1, _jpegs(8, hw=80), "420"),
-                                 (3, _gray_jpegs(8), "gray")):
+    bitwise: one output channel from colour JPEGs, and three from
+    grayscale JPEGs (R = G = B = Y); with the short side resized up
+    (160, 256) or below the crop (56), and for images smaller than the
+    crop, which are resized to it."""
+    for channels, kind in ((1, "420"), (3, "gray")):
+        if small:
+            bufs = _small_jpegs(6, gray=channels == 3)
+        else:
+            # the resize cases take 6 images: the plain resize is slow
+            n = 6 if "resize" in kw else 8
+            bufs = _jpegs(n, hw=80) if channels == 1 else _gray_jpegs(n)
         shape = (channels, 64, 72)
         m = dict(kw)
         if channels == 1 and "mean" in m:
@@ -264,6 +302,8 @@ def test_nvjpeg_plan_and_plain_kernel_match_jax_decoder(kw):
                                        **m).decode_batch(bufs, base=3)
         dec = timg.NativeImageDecoder(shape, seed=9, **m)
         src, items = _y_items(bufs, dec, 3, idec.KINDS[kind])
+        if small:
+            assert (items[:, 11:] < torch.tensor([64, 72])).any()
         for fn in (idec.crop_mirror_normalize,
                    idec._crop_mirror_normalize_plain):
             got = fn(src, items, shape, dec._mean, dec._std)
@@ -271,15 +311,54 @@ def test_nvjpeg_plan_and_plain_kernel_match_jax_decoder(kw):
     assert idec.LAUNCHES["crop_mirror_normalize"] == 0      # CPU: plain
 
 
+@pytest.mark.parametrize("resize", [0, 160, 256, 48])
+def test_plain_resize_matches_jax_decoder_on_rgb(resize, one_thread):
+    """_resize_cubic_plain on RGB images (through _augment_plain: resize,
+    crop, the crop's resize, mirror) equals the JAX package's native
+    decoder on the same images as PNGs (whose decode is exact), OpenCV's
+    INTER_CUBIC bit for bit, crops larger than the image included."""
+    rng = np.random.RandomState(resize)
+    imgs, bufs = [], []
+    for _ in range(5):
+        h, w = rng.randint(30, 140, 2)
+        im = rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+        imgs.append(im)
+        bufs.append(cv2.imencode(".png", im[..., ::-1])[1].tobytes())
+    shape = (3, 56, 64)
+    kw = dict(resize=resize, rand_crop=True, rand_mirror=True, mean=MEAN,
+              std=STD)
+    want = jimg.NativeImageDecoder(shape, seed=4, num_threads=2,
+                                   **kw).decode_batch(bufs, base=11)
+    dec = timg.NativeImageDecoder(shape, seed=4, **kw)
+    plan = dec.plan(np.array([im.shape[:2] for im in imgs]), base=11)
+    for im, row, w in zip(imgs, plan.tolist(), want):
+        item = [0, 0, 0] + row[:3] + [0, 0, 0] + row[3:]
+        crop = idec._augment_plain(torch.from_numpy(im), item, 56, 64)
+        got = (crop.permute(2, 0, 1).float() - torch.from_numpy(MEAN)[
+            :, None, None]) / torch.from_numpy(STD)[:, None, None]
+        np.testing.assert_array_equal(got.numpy(), w)
+
+
 def _libjpeg_upsample(c, kind, h, w):
     """libjpeg-turbo's jdsample.c loops, transliterated: h2v1 / h2v2
-    "fancy" upsampling with its special first and last columns, the
-    rows above and below replicated at the edges (jdmainct.c); box
-    replication where the plane is at most 2 samples wide."""
+    "fancy" upsampling with its special first and last columns, h1v2
+    fancy upsampling, the rows above and below replicated at the edges
+    (jdmainct.c); box replication where an h2 plane is at most 2
+    samples wide, and int_upsample (4:1:1, 4:1:0)."""
     c = c.astype(np.int64)
     ch, cw = c.shape
     if kind == "444":
         return c
+    if kind in ("411", "410"):
+        # int_upsample: each sample h_expand x v_expand times
+        v_expand = 2 if kind == "410" else 1
+        rows = []
+        for r in range(ch):
+            out = []
+            for k in range(cw):
+                out += [c[r, k]] * 4
+            rows += [out] * v_expand
+        return np.array(rows, dtype=np.int64)[:h, :w]
     rows = []
     for r in range(h if kind == "422" else 2 * ch):
         if kind == "422":
@@ -290,7 +369,11 @@ def _libjpeg_upsample(c, kind, h, w):
             far = c[min(max((r >> 1) + (1 if r & 1 else -1), 0), ch - 1)]
             src = near * 3 + far
         out = []
-        if cw <= 2:
+        if kind == "440":
+            # h1v2_fancy_upsample: v = 0 takes the row above (bias 1),
+            # v = 1 the row below (bias 2)
+            out = [(src[k] + (2 if r & 1 else 1)) >> 2 for k in range(cw)]
+        elif cw <= 2:
             base = c[r] if kind == "422" else c[r >> 1]
             out = [base[k >> 1] for k in range(2 * cw)]
         elif kind == "422":
@@ -322,7 +405,7 @@ def _libjpeg_rgb(y, cb, cr):
                      y + cb_b[cb]], -1).clip(0, 255)
 
 
-@pytest.mark.parametrize("kind", ["444", "422", "420"])
+@pytest.mark.parametrize("kind", ["444", "422", "420", "440", "411", "410"])
 @pytest.mark.parametrize("h,w", [(7, 9), (8, 8), (13, 4), (5, 3), (2, 2)])
 def test_plain_kernel_converts_planes_as_libjpeg(kind, h, w):
     """_crop_mirror_normalize_plain (the crop_mirror_normalize kernel's
@@ -330,8 +413,8 @@ def test_plain_kernel_converts_planes_as_libjpeg(kind, h, w):
     against a transliteration of its C loops, odd sizes and planes of 1
     and 2 samples included; then crops, mirrors and normalises."""
     rng = np.random.RandomState(h * 31 + w)
-    ch = h if kind != "420" else (h + 1) // 2
-    cw = w if kind == "444" else (w + 1) // 2
+    hs, vs = idec._SUBSAMPLING[idec.KINDS[kind]]
+    ch, cw = -(-h // vs), -(-w // hs)
     y = rng.randint(0, 256, (h, w)).astype(np.uint8)
     cb = rng.randint(0, 256, (ch, cw)).astype(np.uint8)
     cr = rng.randint(0, 256, (ch, cw)).astype(np.uint8)
@@ -342,7 +425,7 @@ def test_plain_kernel_converts_planes_as_libjpeg(kind, h, w):
     oh, ow = max(1, h - 1), max(1, w - 2)
     for x0, y0, mirror in ((0, 0, 0), (w - ow, h - oh, 1)):
         items = torch.tensor([[3, h, w, x0, y0, mirror, idec.KINDS[kind],
-                               ch, cw]])
+                               ch, cw, h, w, oh, ow]])
         got = idec._crop_mirror_normalize_plain(src, items, (3, oh, ow),
                                                 MEAN, STD)
         crop = rgb[y0:y0 + oh, x0:x0 + ow]
@@ -355,26 +438,33 @@ def test_plain_kernel_converts_planes_as_libjpeg(kind, h, w):
 
 def test_plane_layout_and_nvjpeg_plan_refusals():
     info = np.array([[10, 12, 3, 2, 5, 6], [10, 12, 1, 6, 0, 0],
-                     [10, 12, 3, 0, 10, 12], [10, 12, 3, 1, 10, 6]],
-                    np.int32)
+                     [10, 12, 3, 0, 10, 12], [10, 12, 3, 1, 10, 6],
+                     [10, 12, 3, 3, 5, 12], [10, 12, 3, 4, 10, 3],
+                     [10, 12, 3, 5, 5, 3]], np.int32)
     kinds, nbytes = idec.plane_layout(info, 3)
-    assert kinds.tolist() == [3, 0, 1, 2]
-    assert nbytes.tolist() == [120 + 60, 120, 120 + 240, 120 + 120]
-    assert idec.plane_layout(info, 1)[1].tolist() == [120] * 4
-    with pytest.raises(tmx.MXNetError, match="4:4:0|A8.1b"):
-        idec.plane_layout(np.array([[10, 12, 3, 3, 5, 12]], np.int32), 3)
+    assert kinds.tolist() == [3, 0, 1, 2, 4, 5, 6]
+    assert nbytes.tolist() == [120 + 60, 120, 120 + 240, 120 + 120,
+                               120 + 120, 120 + 60, 120 + 30]
+    assert idec.plane_layout(info, 1)[1].tolist() == [120] * 7
+    with pytest.raises(tmx.MXNetError, match="4:1:0 vertical|A8.1b"):
+        idec.plane_layout(np.array([[10, 12, 3, 7, 5, 6]], np.int32), 3)
     with pytest.raises(tmx.MXNetError, match="A8.1b"):
         idec.plane_layout(np.array([[10, 12, 4, 0, 10, 12]], np.int32), 3)
 
 
 def test_nvjpeg_plan_refuses_resize_and_kernel_checks():
-    dec = timg.NativeImageDecoder((3, 64, 64), rand_crop=True)
-    with pytest.raises(tmx.MXNetError, match="A8.1b"):
-        dec.plan(np.array([[100, 100], [40, 100]], np.int32))
+    with pytest.raises(tmx.MXNetError, match="CMYK.*A8.1b"):
+        idec.plane_layout(np.array([[100, 100, 3, 7, 50, 50],
+                                    [100, 100, 4, 0, 100, 100]], np.int32), 3)
     src = torch.zeros(100 * 100 * 2, dtype=torch.uint8)
-    items = torch.tensor([[0, 100, 100, 0, 0, 0, 3, 50, 50]])
+    items = torch.tensor([[0, 100, 100, 0, 0, 0, 3, 50, 50, 100, 100, 8, 8]])
     with pytest.raises(tmx.MXNetError, match="channels"):
         idec.crop_mirror_normalize(src, items, (2, 8, 8), [0, 0], [1, 1])
+    # a crop wider than the output: the kernel would write past its slot
+    wide = items.clone()
+    wide[0, 12] = 9
+    with pytest.raises(tmx.MXNetError, match="reaches outside"):
+        idec.crop_mirror_normalize(src, wide, (3, 8, 8), [0] * 3, [1] * 3)
     with pytest.raises(tmx.MXNetError, match="int64"):
         idec.crop_mirror_normalize(src, items[:, :6], (3, 8, 8), [0] * 3,
                                    [1] * 3)
