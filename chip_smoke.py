@@ -339,16 +339,54 @@ Phases, each fatal on failure (no phase's failure is caught):
     requests of phase 4's mix: the paged kernels launched once a layer
     per prefill and step on their redesigned routes, tokens/s, and the
     requests again profiled;
-44. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
+44. ResNet-50 (1000 classes, 3x224x224) through
+    ``parallel.ShardedTrainer.run_steps``, ``benchmark.py``'s
+    ``train_resnet`` rows: batch 32 float32 (TF32 off), batch 32, 128 and
+    256 bf16, SGD lr 0.05 momentum 0.9; 8 distinct staged batches a call,
+    the 8 steps ONE CUDA graph replay (captured once), a capturing call,
+    a warm one and 3 timed (synced on the loss and an updated weight):
+    img/s, ms/step, MFU over the network's own conv / FC FLOPs (67
+    TFLOP/s f32, 989 bf16; above 1.05 an error), peak memory, one
+    profiled replay (host launches, busy share, device ms by class);
+    phase 13's ``Module.fit`` img/s beside the f32 row as context;
+45. ``run_steps`` against 8 eager ``step`` calls from one state
+    (ResNet-50 f32 batch 32, deterministic cuDNN): the last loss and
+    every parameter and momentum within 1e-5 relative, twice (the second
+    over new batches written into the same static stack); a planted
+    fault (the stack never written again) must fail;
+46. the trainer's update against a float64 replay of the JAX trainer's
+    rule over the executor's gradients (the MLP, from nonzero momenta),
+    and a bf16 ResNet-50 step's moving statistics against the float32
+    update of the same forward's batch statistics (float32, within
+    1e-5); planted faults (MXNet's momentum rule, lr inside; the moving
+    statistics kept in bf16) must fail;
+47. ``benchmark.py``'s ``train_inception`` (the zoo's inceptionv3 traced
+    under ``SoftmaxOutput``, batch 32 float32 3x299x299, 4 steps a graph;
+    its Dropout draws anew on every replay) and one bf16 step, finite;
+    ``train_mlp`` (batch 64, 32 steps a graph): steps/s;
+48. ``e2e_train_resnet``: 512 seeded 256x256 noise JPEGs written to
+    ``build/smoke_data/e2e.rec``, ``ImageRecordIter`` (nvJPEG route,
+    resize 256, random crop and mirror, ``prefetch_buffer=2``) feeding
+    ``ShardedTrainer.step`` with its device tensors, bf16 ResNet-50 at
+    batch 64: img/s, MFU, one ``crop_mirror_normalize`` launch a decoded
+    batch, a profiled window (busy share);
+49. ``DataPipeline(RecordBatchSource)`` over that file (batch 128,
+    3x224x224, resize 224, random crop and mirror) with 0, 2 and
+    ``nproc`` workers, staged on the card: img/s, the first 4 batches
+    bitwise equal across the worker counts; then the MLP's
+    ``Module.fit`` fed by ``DataPipeline(ArrayBatchSource)`` (2 workers,
+    3 epochs of 24 batches of 64): ``sgd_fused_update`` once a step, no
+    executor copy;
+50. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
     20, its launches from phase 21; the flash kernels' fma-route rows'
     times from phase 38, their launches from phases 39 and 40;
     ``crop_mirror_normalize``'s times from phase 24, its launches from
-    phase 26; ``sgd_fused_update``'s
+    phases 26 and 48; ``sgd_fused_update``'s
     launches from phase 22's first hybridized window, phase 28's four CLI
     runs, phase 30's fit, phase 31's first hybridized window, phase 34's
-    runs, phase 35's fit and phase 36's first hybridized window;
-    ``batch_norm_inference``'s from phase 27's and phase 32's windows),
-    the card line, and last ``{"ok": true, "device": {...}}``.
+    runs, phase 35's fit, phase 36's first hybridized window and phase
+    49's fit; ``batch_norm_inference``'s from phase 27's and phase 32's
+    windows), the card line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or without
 the package beside it. ``--report PATH`` also writes every measurement
@@ -6733,7 +6771,7 @@ STEP_CONFIGS = (("moe", dict(num_experts=8)), ("remat", dict(remat=True)),
 GEN_BATCH, GEN_PROMPT, GEN_STEPS = 8, 32, 128
 GEN_CHECK_LAYERS = 2    # the f32 stream checks
 GEN_REQUESTS = 16       # phase 43: phase 4's mix
-CARD = "cuda"           # the device of phases 38-43 ("cpu": a rehearsal)
+CARD = "cuda"           # the device of phases 38-49 ("cpu": a rehearsal)
 
 
 def attn_cost(b, h, s_q, s_k, d, item, causal, backward):
@@ -7375,6 +7413,649 @@ def moe_serve(torch, mx, fa):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 44-49: the JAX package's headline training path (ShardedTrainer,
+# benchmark.py's train_resnet / train_inception / train_mlp /
+# e2e_train_resnet) and DataPipeline
+# ---------------------------------------------------------------------------
+
+# benchmark.py:3288-3318: the train_resnet jobs at 3x224x224, 1000 classes
+SHARDED_ROWS = (("resnet50_train", 32, "float32"),
+                ("resnet50_train_bf16", 32, "bfloat16"),
+                ("resnet50_train_b128_bf16", 128, "bfloat16"),
+                ("resnet50_train_b256_bf16", 256, "bfloat16"))
+SHARDED_IMAGE = (3, 224, 224)
+SHARDED_K = 8           # train_resnet's steps_per_call
+SHARDED_WARM = 1        # run_steps calls after the capturing one, untimed
+SHARDED_CALLS = 3       # timed calls: 24 steps a row
+SHARDED_HYPER = dict(lr=0.05, momentum=0.9)     # benchmark.py:380
+# run_steps against k eager steps from one state: the losses, every
+# parameter and momentum, relative to each tensor's norm (the JAX
+# package's own test, tests/test_parallel_5d.py:493, holds rtol 1e-5)
+SHARDED_EQ_TOL = 1e-5
+SHARDED_EQ_BATCH = 32   # the check at the first row's batch, float32
+SHARDED_PLANT_BATCH = 8     # the planted stale-stack fault, cheaper
+# the trainer's update against a float64 replay of the JAX rule over the
+# executor's gradients (float32 rounding of one step: ~1e-7 relative);
+# and a bf16 step's moving statistics against the same forward's float32
+# batch statistics (the same kernels: equal in a sound run)
+RULE_TOL = 1e-5
+AUX_TOL = 1e-5
+INCEPTION_K = 4         # benchmark.py:514 train_inception
+INCEPTION_CALLS = 3
+INCEPTION_SIDE = 299
+MLP_BATCH, MLP_K, MLP_CALLS = 64, 32, 4     # benchmark.py:1788 train_mlp
+E2E_RECORDS = 512       # benchmark.py:595 e2e_train_resnet: 512 JPEGs of
+E2E_SIDE = 256          # 256 x 256, batch 64, bf16, resize 256, 8 steps
+E2E_BATCH = 64
+E2E_ITERS = 8
+E2E_PROFILED = 4        # steps in the profiled window
+PIPE_BATCH = 128        # benchmark.py:461 data_pipeline: batch 128, 224
+PIPE_ITERS = 6          # timed batches a worker count, after a warm one
+PIPE_COMPARED = 4       # batches held bitwise across worker counts
+PROBE = dict(batch=64, batches=24, epochs=3, workers=2)     # :407
+
+def _sync(torch):
+    if CARD == "cuda":
+        torch.cuda.synchronize()
+
+
+def _sharded_mesh(mx):
+    return mx.parallel.make_mesh(devices=[CARD])
+
+
+def _sharded_ctx(mx):
+    return mx.gpu(0) if CARD == "cuda" else mx.cpu()
+
+
+def _rel_norm(torch, got, ref):
+    den = float(ref.double().norm())
+    num = float((got.double() - ref.double()).norm())
+    return num / den if den > 0 else num
+
+
+def _state_err(torch, a, b):
+    """The largest relative norm of the difference over two states'
+    tensors (parameters and momenta)."""
+    return max(_rel_norm(torch, a[i][n], b[i][n])
+               for i in range(2) for n in b[i])
+
+
+def _clone_state(state):
+    return [{n: t.clone() for n, t in d.items()} for d in state]
+
+
+def measure_sharded(torch, tr, batch, image, classes, k, calls, flop, peak,
+                    label, warm=SHARDED_WARM, finite=True):
+    """``benchmark.py``'s ``_measure_train`` through ``run_steps``: init,
+    ``stage_many`` of k distinct seeded batches,
+    a capturing call and ``warm`` more, then ``calls`` timed calls of k
+    steps synced on the loss and an updated weight; img/s, ms/step, MFU
+    (refused above 1.05); with ``finite`` the loss must be finite."""
+    state = list(tr.init((batch,) + image, (batch,)))
+    # seeded batches drawn on the device (a host draw of batch 256's
+    # 1.2 GB takes seconds): stage_many copies them into its stack
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    data = torch.randn((k, batch) + image, generator=gen,
+                       device=CARD)
+    lab = torch.randint(0, classes, (k, batch), generator=gen,
+                        device=CARD).float()
+    d, l = tr.stage_many(data, lab)
+    del data
+    first = next(iter(state[0]))
+
+    def call():
+        state[0], state[1], state[2], loss = tr.run_steps(*state, d, l)
+        return loss
+
+    def synced(loss):
+        return float(loss), float(state[0][first].reshape(-1)[0])
+
+    t0 = time.perf_counter()
+    synced(call())
+    capture_s = time.perf_counter() - t0
+    for _ in range(warm):
+        synced(call())
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        loss = call()
+    loss_v, _w = synced(loss)
+    dt = (time.perf_counter() - t0) / (calls * k)
+    img_s = batch / dt
+    mfu = img_s * flop / peak
+    check(np.isfinite(loss_v) or not finite, "%s: loss %r"
+          % (label, loss_v))
+    check(mfu <= 1.05, "%s: %.0f img/s implies MFU %.2f > 1: the clock "
+          "does not block" % (label, img_s, mfu))
+    return {"batch": batch, "k": k, "timed_steps": calls * k,
+            "img_per_s": img_s, "ms_per_step": dt * 1e3, "mfu": mfu,
+            "gflop_per_img": flop / 1e9, "loss": loss_v,
+            "first_call_s": capture_s, "captures": tr.captures,
+            "call": call}
+
+
+def sharded_rows(torch, mx, module_img_s):
+    """Phase 44: ResNet-50 (``examples/train_imagenet.py``'s network, 1000
+    classes) through ``ShardedTrainer.run_steps`` as ``benchmark.py``'s
+    ``train_resnet`` rows run it: batch 32 float32 (TF32 off), batch 32,
+    128 and 256 bf16; k = 8 distinct staged batches a call, ONE CUDA
+    graph replay a call (captured once); img/s, ms/step, MFU over the
+    network's own conv / FC FLOPs (67 TFLOP/s f32, 989 bf16), peak
+    memory, one profiled replay (host launches, busy share, device ms by
+    class); phase 13's ``Module.fit`` img/s beside the f32 row as
+    context."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    mesh = _sharded_mesh(mx)
+    sym = resnet_symbol(mx)
+    flop = network_flops(mx, sym, SHARDED_IMAGE)
+    rows = {}
+    for name, batch, dtype in SHARDED_ROWS:
+        mx.random.seed(44)
+        tr = mx.parallel.ShardedTrainer(
+            sym, mesh, compute_dtype=None if dtype == "float32" else dtype,
+            **SHARDED_HYPER)
+        if CARD == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        peak = F32_FLOPS if dtype == "float32" else BF16_FLOPS
+        res = measure_sharded(torch, tr, batch, SHARDED_IMAGE, 1000,
+                              SHARDED_K, SHARDED_CALLS, flop, peak, name)
+        call = res.pop("call")
+        check(tr.captures == 1, "%s: %d CUDA graph captures for one shape"
+              % (name, tr.captures))
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+            if CARD == "cuda" else None
+        prof = profile_run(torch, call, _resnet_class)
+        check(tr.captures == 1, "%s: the profiled call captured again"
+              % name)
+        res.update(dtype=dtype, profiled_call=prof)
+        rows[name] = res
+        log("%s: ShardedTrainer.run_steps, batch %d %s x 3x224x224, %d "
+            "steps a call (one CUDA graph), %d timed steps: %.1f img/s, "
+            "%.2f ms/step, MFU %.3f (%.2f GFLOP/img from its conv/FC "
+            "shapes over %s TFLOP/s); first call (warm-up + capture + "
+            "replay) %.2fs; peak memory %s GB; loss %.4f"
+            % (name, batch, dtype, SHARDED_K, res["timed_steps"],
+               res["img_per_s"], res["ms_per_step"], res["mfu"],
+               flop / 1e9, "67" if dtype == "float32" else "989",
+               res["first_call_s"], None if res["peak_mem_gb"] is None
+               else "%.2f" % res["peak_mem_gb"], res["loss"]))
+        log_profile("%s profiled replay (%d steps)" % (name, SHARDED_K),
+                    prof)
+        del tr, call
+    f32 = rows[SHARDED_ROWS[0][0]]["img_per_s"]
+    log("ShardedTrainer f32 batch %d: %.1f img/s against phase 13's "
+        "Module.fit at batch %d: %.1f img/s (%.3fx; context, not a target)"
+        % (SHARDED_ROWS[0][1], f32, RESNET_BATCH, module_img_s,
+           f32 / module_img_s))
+    rows["module_fit_img_per_s"] = module_img_s
+    return rows
+
+
+def sharded_vs_eager(torch, mx, batch=SHARDED_EQ_BATCH, plant=None):
+    """Phase 45: ``run_steps`` (one CUDA graph of k steps) against k eager
+    ``step`` calls from the same state, ResNet-50 float32 under
+    deterministic cuDNN: the last loss, every parameter and momentum
+    within SHARDED_EQ_TOL; then a second ``stage_many`` of new batches
+    (written into the same static stack) and both again. ``plant``
+    replaces the trainer's ``_restage`` (a planted fault)."""
+    mesh = _sharded_mesh(mx)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mx.random.seed(45)
+        tr = mx.parallel.ShardedTrainer(resnet_symbol(mx), mesh,
+                                        **SHARDED_HYPER)
+        if plant is not None:
+            tr._restage = plant
+        graph = list(tr.init((batch,) + SHARDED_IMAGE, (batch,)))
+        eager = _clone_state(graph)
+        gen = torch.Generator().manual_seed(45)
+        errs = []
+        for _round in range(2):
+            x = torch.randn((SHARDED_K, batch) + SHARDED_IMAGE,
+                            generator=gen)
+            y = torch.randint(0, 1000, (SHARDED_K, batch),
+                              generator=gen).float()
+            d, l = tr.stage_many(x, y)
+            *graph[:3], loss_g = tr.run_steps(*graph, d, l)
+            for i in range(SHARDED_K):
+                *eager[:3], loss_e = tr.step(*eager, x[i], y[i])
+            _sync(torch)
+            err = max(_state_err(torch, graph, eager),
+                      abs(float(loss_g) - float(loss_e))
+                      / max(1.0, abs(float(loss_e))))
+            errs.append(err)
+            check(err <= SHARDED_EQ_TOL, "run_steps vs %d eager steps "
+                  "(round %d): relative error %.3g > %g"
+                  % (SHARDED_K, _round + 1, err, SHARDED_EQ_TOL))
+        check(tr.captures == 1, "run_steps captured %d graphs for one "
+              "shape" % tr.captures)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return errs
+
+
+def _stale_stack():
+    """A planted fault: the static stack is written once, then never
+    again (a later stage_many leaves the captured graph reading the first
+    batches)."""
+    written = []
+
+    def restage(static, src):
+        if len(written) < 2:
+            written.append(1)
+            static.copy_(src)
+    return restage
+
+
+def sharded_update_rule(torch, mx, plant=None):
+    """Phase 46a: one trainer step of the MLP (float32, lr 0.1, momentum
+    0.9, wd 1e-4) from nonzero momenta against a float64 replay of the
+    JAX trainer's rule (``g = grad + wd * p; m = momentum * m + g; p = p -
+    lr * m``) over the executor's gradients of the same batch (another
+    code path): parameters and momenta within RULE_TOL. ``plant``
+    replaces the trainer module's update rule."""
+    from mxnet_tpu_torch.parallel import trainer as trm
+    lr, mom, wd = 0.1, 0.9, 1e-4
+    sym = mx.models.mlp()
+    mesh = _sharded_mesh(mx)
+    mx.random.seed(46)
+    tr = mx.parallel.ShardedTrainer(sym, mesh, lr=lr, momentum=mom, wd=wd)
+    p, m, a = tr.init((MLP_BATCH, 784), (MLP_BATCH,))
+    gen = torch.Generator().manual_seed(46)
+    for t in m.values():
+        t.copy_(torch.randn(t.shape, generator=gen) * 0.01)
+    x = torch.randn(MLP_BATCH, 784, generator=gen)
+    y = torch.randint(0, 10, (MLP_BATCH,), generator=gen).float()
+    dev = torch.device(CARD)
+    args = {n: mx.nd.NDArray(t.clone()) for n, t in p.items()}
+    args["data"] = mx.nd.NDArray(x.to(dev))
+    args["softmax_label"] = mx.nd.NDArray(y.to(dev))
+    exe = sym.bind(dev, args, grad_req={n: "write" for n in p})
+    exe.forward(is_train=True)
+    exe.backward()
+    want_p, want_m = {}, {}
+    for n in p:
+        g = exe.grad_dict[n]._data.double() + wd * p[n].double()
+        want_m[n] = mom * m[n].double() + g
+        want_p[n] = p[n].double() - lr * want_m[n]
+    real = trm._sgd_momentum
+    if plant is not None:
+        trm._sgd_momentum = plant
+    try:
+        tr.step(p, m, a, x, y)
+    finally:
+        trm._sgd_momentum = real
+    err = _state_err(torch, [p, m], [want_p, want_m])
+    check(err <= RULE_TOL, "trainer update against the JAX rule: "
+          "relative error %.3g > %g" % (err, RULE_TOL))
+    return err
+
+
+def mxnet_rule(ps, grads, ms, lr, momentum, wd):
+    """A planted fault: MXNet's ``sgd_mom_update`` (lr inside the
+    momentum: ``mom = momentum * mom - lr * (g + wd * w); w += mom``)."""
+    import torch
+    with torch.no_grad():
+        for p, g, m in zip(ps, grads, ms):
+            m.mul_(momentum).sub_(lr * (g + wd * p))
+            p.add_(m)
+
+
+def sharded_bf16_aux(torch, mx, plant=None):
+    """Phase 46b: one bf16 ResNet-50 step at batch 32: every auxiliary
+    state float32 and equal (within AUX_TOL) to the moving update of the
+    float32 batch statistics of the same bf16 forward, evaluated apart
+    through ``_graph_eval_fn``. ``plant`` replaces the trainer module's
+    moving-statistics update."""
+    from mxnet_tpu_torch.parallel import trainer as trm
+    from mxnet_tpu_torch.symbol.symbol import (_graph_eval_fn,
+                                               update_moving_stats)
+    sym = resnet_symbol(mx)
+    mesh = _sharded_mesh(mx)
+    mx.random.seed(47)
+    batch = RESNET_BATCH
+    tr = mx.parallel.ShardedTrainer(sym, mesh, compute_dtype="bfloat16",
+                                    **SHARDED_HYPER)
+    p, m, a = tr.init((batch,) + SHARDED_IMAGE, (batch,))
+    gen = torch.Generator().manual_seed(47)
+    for n, t in a.items():
+        r = torch.rand(t.shape, generator=gen)
+        t.copy_(r + 0.5 if n.endswith("_var") else r - 0.5)
+    x = torch.randn((batch,) + SHARDED_IMAGE, generator=gen).to(CARD)
+    y = torch.randint(0, 1000, (batch,), generator=gen).float().to(
+        CARD)
+    # the step's own forward, apart: bf16 casts of fresh leaves
+    with torch.enable_grad():
+        env = {n: t.detach().requires_grad_().to(torch.bfloat16)
+               for n, t in p.items()}
+        env.update(a)
+        env.update(data=x.to(torch.bfloat16), softmax_label=y)
+        _outs, stats = _graph_eval_fn(sym, True)(env)
+    want = {n: t.clone() for n, t in a.items()}
+    update_moving_stats(stats, want)
+    del env, _outs, stats
+    real = trm.update_moving_stats
+    if plant is not None:
+        trm.update_moving_stats = plant
+    try:
+        tr.step(p, m, a, x, y)
+    finally:
+        trm.update_moving_stats = real
+    _sync(torch)
+    check(all(t.dtype == torch.float32 for t in a.values()),
+          "bf16 step: auxiliary states of types %s"
+          % sorted({str(t.dtype) for t in a.values()}))
+    err = max(_rel_norm(torch, a[n], want[n]) for n in a)
+    check(err <= AUX_TOL, "bf16 step: moving statistics %.3g from the "
+          "float32 batch statistics' update > %g" % (err, AUX_TOL))
+    return err
+
+
+def bf16_moving_stats(stats, aux):
+    """A planted fault: the moving statistics updated in bf16 and kept
+    at bf16's precision."""
+    import torch
+    from mxnet_tpu_torch.symbol.symbol import update_moving_stats
+    half = {n: t.to(torch.bfloat16) for n, t in aux.items()}
+    update_moving_stats(stats, half)
+    with torch.no_grad():
+        for n, t in half.items():
+            aux[n].copy_(t)
+
+
+def planted(fn, *args, **kw):
+    """True when ``fn`` fails its check (a planted fault must)."""
+    try:
+        fn(*args, **kw)
+    except RuntimeError as e:
+        if "chip_smoke:" not in str(e):
+            raise
+        log("planted fault caught: %s" % str(e)[len("chip_smoke: "):])
+        return True
+    return False
+
+
+def sharded_checks(torch, mx):
+    """Phases 45-46: run_steps against eager steps, the update rule and
+    the bf16 moving statistics, each with a planted fault that must
+    fail."""
+    res = {"graph_vs_eager": sharded_vs_eager(torch, mx),
+           "update_rule": sharded_update_rule(torch, mx),
+           "bf16_aux": sharded_bf16_aux(torch, mx)}
+    check(planted(sharded_vs_eager, torch, mx, SHARDED_PLANT_BATCH,
+                  _stale_stack()), "a run_steps graph over a stale staged "
+          "stack passed")
+    check(planted(sharded_update_rule, torch, mx, mxnet_rule),
+          "MXNet's momentum rule (lr inside the momentum) passed")
+    check(planted(sharded_bf16_aux, torch, mx, bf16_moving_stats),
+          "a bf16 step with bf16 moving statistics passed")
+    log("ShardedTrainer checks: run_steps vs %d eager steps (ResNet-50 "
+        "f32, batch %d, deterministic cuDNN) relative %s (limit %g); the "
+        "update vs the JAX rule in float64 %.3g (limit %g); bf16 moving "
+        "statistics vs their float32 update %.3g (limit %g); three planted "
+        "faults failed" % (SHARDED_K, SHARDED_EQ_BATCH,
+                           ["%.3g" % e for e in res["graph_vs_eager"]],
+                           SHARDED_EQ_TOL, res["update_rule"], RULE_TOL,
+                           res["bf16_aux"], AUX_TOL))
+    return res
+
+
+def sharded_inception_mlp(torch, mx):
+    """Phase 47: ``benchmark.py``'s ``train_inception`` (the zoo's
+    inceptionv3 traced by ``_trace_symbol`` under ``SoftmaxOutput``, batch
+    32 of float32 3x299x299, k = 4, Dropout drawing on every replay from
+    the port's generator registered with the graph) and one bf16 step,
+    finite; and ``train_mlp`` (the MLP at batch 64, k = 32): steps/s."""
+    mesh = _sharded_mesh(mx)
+    net = zoo_net(mx, "inceptionv3", _sharded_ctx(mx), 30)
+    image = (3, INCEPTION_SIDE, INCEPTION_SIDE)
+    sym = mx.sym.SoftmaxOutput(net._trace_symbol(), name="softmax")
+    del net
+    flop = network_flops(mx, sym, image)
+    mx.random.seed(47)
+    tr = mx.parallel.ShardedTrainer(sym, mesh, **SHARDED_HYPER)
+    incep = measure_sharded(torch, tr, RESNET_BATCH, image, 1000,
+                            INCEPTION_K, INCEPTION_CALLS, flop, F32_FLOPS,
+                            "inceptionv3")
+    incep.pop("call")
+    del tr
+    tr16 = mx.parallel.ShardedTrainer(sym, mesh, compute_dtype="bfloat16",
+                                      **SHARDED_HYPER)
+    state = tr16.init((RESNET_BATCH,) + image, (RESNET_BATCH,))
+    gen = torch.Generator().manual_seed(48)
+    *state, loss16 = tr16.step(*state, torch.randn(
+        (RESNET_BATCH,) + image, generator=gen), torch.randint(
+        0, 1000, (RESNET_BATCH,), generator=gen).float())
+    loss16 = float(loss16)
+    check(np.isfinite(loss16) and all(
+        bool(torch.isfinite(t).all()) for t in state[0].values()),
+        "inceptionv3 bf16 step: loss %r" % loss16)
+    incep["bf16_step_loss"] = loss16
+    del tr16, state
+    log("inceptionv3: ShardedTrainer.run_steps, batch %d f32 x 3x299x299, "
+        "%d steps a call, %d timed: %.1f img/s, %.2f ms/step, MFU %.3f "
+        "(%.2f GFLOP/img); first call %.2fs; one bf16 step, loss %.4f"
+        % (RESNET_BATCH, INCEPTION_K, incep["timed_steps"],
+           incep["img_per_s"], incep["ms_per_step"], incep["mfu"],
+           flop / 1e9, incep["first_call_s"], loss16))
+    sym = mx.models.mlp()
+    mlp_flop = network_flops(mx, sym, (784,))
+    mx.random.seed(48)
+    tr = mx.parallel.ShardedTrainer(sym, mesh, lr=0.1, momentum=0.9)
+    # lr 0.1 on SoftmaxOutput's batch-summed gradient diverges from some
+    # initializations, in the JAX package's job too: the loss is printed
+    mlp = measure_sharded(torch, tr, MLP_BATCH, (784,), 10, MLP_K,
+                          MLP_CALLS, mlp_flop, F32_FLOPS, "mlp", warm=2,
+                          finite=False)
+    mlp.pop("call")
+    mlp["steps_per_s"] = 1e3 / mlp["ms_per_step"]
+    log("mlp: ShardedTrainer.run_steps, batch %d, %d steps a call (one "
+        "CUDA graph), %d timed: %.1f steps/s (%.4f ms/step, %.0f img/s); "
+        "loss %.4f" % (MLP_BATCH, MLP_K, mlp["timed_steps"],
+                       mlp["steps_per_s"], mlp["ms_per_step"],
+                       mlp["img_per_s"], mlp["loss"]))
+    return {"inceptionv3": incep, "mlp": mlp}
+
+
+def synth_records(mx, path, n=E2E_RECORDS, side=E2E_SIDE, seed=0):
+    """``benchmark.py``'s ``_write_synth_rec``: ``n`` seeded uniform-noise
+    JPEGs of side x side (cv2's default quality), labels i % 10, in an
+    indexed ``.rec``. Returns seconds."""
+    import cv2
+    t0 = time.perf_counter()
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    rec = mx.recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                        path, "w")
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        im = rng.randint(0, 255, (side, side, 3), dtype=np.uint8)
+        _ok, buf = cv2.imencode(".jpg", im)
+        rec.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, float(i % 10), i, 0), buf.tobytes()))
+    rec.close()
+    return time.perf_counter() - t0
+
+
+def e2e_train(torch, mx, idec, rec):
+    """Phase 48: ``benchmark.py``'s ``e2e_train_resnet``: ``ImageRecordIter
+    (resize=256, rand_crop, rand_mirror, prefetch_buffer=2)`` over the
+    512-record file on the native route (nvJPEG + ``crop_mirror_normalize``,
+    ``nproc`` decode threads) feeding ``ShardedTrainer.step`` with the
+    iterator's device tensors, bf16 ResNet-50 at batch 64: 2 warm steps,
+    then E2E_ITERS timed (synced on the loss and an updated weight);
+    img/s, MFU, one ``crop_mirror_normalize`` launch a decoded batch, no
+    input copied; a profiled window (busy share)."""
+    from mxnet_tpu_torch import image as mximage
+    mesh = _sharded_mesh(mx)
+    it = mx.io.ImageRecordIter(
+        path_imgrec=rec, data_shape=SHARDED_IMAGE, batch_size=E2E_BATCH,
+        shuffle=True, rand_crop=True, rand_mirror=True, resize=256,
+        preprocess_threads=os.cpu_count(), prefetch_buffer=2,
+        ctx=_sharded_ctx(mx))
+    sym = resnet_symbol(mx)
+    flop = network_flops(mx, sym, SHARDED_IMAGE)
+    mx.random.seed(48)
+    tr = mx.parallel.ShardedTrainer(sym, mesh, compute_dtype="bfloat16",
+                                    **SHARDED_HYPER)
+    state = list(tr.init((E2E_BATCH,) + SHARDED_IMAGE, (E2E_BATCH,)))
+    first = next(iter(state[0]))
+    idec.reset_launches()
+    mximage.reset_routes()
+    seen = [0]
+
+    def feed():
+        try:
+            b = next(it)
+        except StopIteration:
+            it.reset()
+            b = next(it)
+        seen[0] += 1
+        return b
+
+    def step(b):
+        check(b.data[0]._data.device.type == CARD,
+              "e2e: a batch on %s" % b.data[0]._data.device)
+        state[0], state[1], state[2], loss = tr.step(
+            *state, b.data[0]._data, b.label[0]._data)
+        return loss
+
+    def synced(loss):
+        return float(loss), float(state[0][first].reshape(-1)[0])
+
+    for _ in range(2):
+        loss = step(feed())
+    synced(loss)
+    n = 0
+    t0 = time.perf_counter()
+    for _ in range(E2E_ITERS):
+        b = feed()
+        loss = step(b)
+        n += b.data[0].shape[0] - (b.pad or 0)
+    loss_v, _w = synced(loss)
+    dt = time.perf_counter() - t0
+    img_s = n / dt
+    mfu = img_s * flop / BF16_FLOPS
+    check(np.isfinite(loss_v), "e2e: loss %r" % loss_v)
+    check(mfu <= 1.05, "e2e: %.0f img/s implies MFU %.2f > 1"
+          % (img_s, mfu))
+
+    def window():
+        for _ in range(E2E_PROFILED):
+            step(feed())
+    prof = profile_run(torch, window, _resnet_class)
+    it.close()
+    launches = idec.LAUNCHES["crop_mirror_normalize"]
+    routes = dict(mximage.ROUTES)
+    check(routes.get("python", 0) == 0 and launches == routes["native"]
+          and launches >= seen[0], "e2e: routes %s, crop_mirror_normalize "
+          "launched %d times for %d batches consumed"
+          % (routes, launches, seen[0]))
+    res = {"batch": E2E_BATCH, "dtype": "bfloat16", "timed_steps": E2E_ITERS,
+           "img_per_s": img_s, "mfu": mfu, "loss": loss_v,
+           "decode_threads": os.cpu_count(), "kernel_launches": launches,
+           "batches_consumed": seen[0], "routes": routes,
+           "profiled_window": prof}
+    log("e2e_train_resnet: ImageRecordIter (nvJPEG, %d threads, resize "
+        "256, random crop and mirror) -> ShardedTrainer.step, ResNet-50 "
+        "bf16 batch %d: %.1f img/s over %d steps, MFU %.3f; "
+        "crop_mirror_normalize %d launches for %d batches consumed "
+        "(%s); loss %.4f" % (os.cpu_count(), E2E_BATCH, img_s, E2E_ITERS,
+                             mfu, launches, seen[0], routes, loss_v))
+    log_profile("e2e profiled window (%d steps)" % E2E_PROFILED, prof)
+    return res
+
+
+def pipeline_phase(torch, mx, fu, rec):
+    """Phase 49: ``DataPipeline(RecordBatchSource)`` as ``benchmark.py``'s
+    ``data_pipeline`` runs it (batch 128, 3x224x224, resize 224, random
+    crop and mirror, python decode in the workers) with 0, 2 and
+    ``nproc`` workers, staged on the card: img/s of PIPE_ITERS batches
+    after a warm one, every batch on the card, the first PIPE_COMPARED
+    batches bitwise equal across the worker counts; then its
+    ``_pipeline_train_probe``: the MLP's ``Module.fit`` fed by
+    ``DataPipeline(ArrayBatchSource)`` (2 workers, 3 epochs of 24 batches
+    of 64), ``sgd_fused_update`` once a step, no input copied by the
+    executor."""
+    from mxnet_tpu_torch import executor
+    dev = _sharded_ctx(mx)
+    curve, ref = {}, None
+    nproc = os.cpu_count() or 1
+    for workers in sorted({0, 2, nproc}):
+        src = mx.io.RecordBatchSource(
+            rec, SHARDED_IMAGE, PIPE_BATCH, shuffle=True, seed=0,
+            aug_kwargs=dict(resize=224, rand_crop=True, rand_mirror=True))
+        got = []
+        with mx.io.DataPipeline(src, num_workers=workers, prefetch=2,
+                                ctx=dev) as pipe:
+            b = next(pipe)
+            got.append(b)
+            n = 0
+            t0 = time.perf_counter()
+            while n < PIPE_ITERS * PIPE_BATCH:
+                try:
+                    b = next(pipe)
+                except StopIteration:
+                    pipe.reset()
+                    b = next(pipe)
+                if len(got) < PIPE_COMPARED:
+                    got.append(b)
+                n += b.data[0].shape[0] - (b.pad or 0)
+            _sync(torch)
+            dt = time.perf_counter() - t0
+        check(all(x._data.device.type == CARD
+                  for g in got for x in g.data + g.label),
+              "data_pipeline: a batch off the card")
+        if ref is None:
+            ref = got
+        else:
+            same = all(torch.equal(a._data, c._data)
+                       for g, h in zip(got, ref)
+                       for a, c in zip(g.data + g.label, h.data + h.label))
+            check(same, "data_pipeline: %d workers' stream differs from "
+                  "the inline one" % workers)
+        curve["workers_%d" % workers] = n / dt
+        log("data_pipeline workers=%d: %.1f img/s (batch %d, %d batches "
+            "timed, staged on %s)" % (workers, n / dt, PIPE_BATCH,
+                                      PIPE_ITERS, got[0].data[0]._data.device))
+    del ref, got
+    rng = np.random.RandomState(0)
+    nb = PROBE["batch"] * PROBE["batches"]
+    src = mx.io.ArrayBatchSource(
+        rng.randn(nb, 784).astype(np.float32),
+        rng.randint(0, 10, (nb,)).astype(np.float32),
+        batch_size=PROBE["batch"], shuffle=True, seed=0)
+    pipe = mx.io.DataPipeline(src, num_workers=PROBE["workers"], prefetch=2,
+                              ctx=dev)
+    mod = mx.mod.Module(mx.models.mlp(), context=dev)
+    fu.reset_launches()
+    executor.INPUT_COPIES["count"] = 0
+    t0 = time.perf_counter()
+    mod.fit(pipe, num_epoch=PROBE["epochs"], optimizer="sgd",
+            optimizer_params={"learning_rate": 0.05, "momentum": 0.9},
+            initializer=mx.init.Uniform(0.1))
+    _sync(torch)
+    fit_s = time.perf_counter() - t0
+    steps = PROBE["batches"] * PROBE["epochs"]
+    launches = fu.LAUNCHES["sgd_fused_update"]
+    check(launches == steps, "pipeline fit: sgd_fused_update launched %d "
+          "times for %d steps" % (launches, steps))
+    check(executor.INPUT_COPIES["count"] == 0, "pipeline fit: the executor "
+          "copied %d inputs (the pipeline stages on the card)"
+          % executor.INPUT_COPIES["count"])
+    out = mod.get_outputs()[0].asnumpy()
+    check(np.isfinite(out).all(), "pipeline fit: outputs not finite")
+    log("pipeline fit (MLP Module.fit over DataPipeline(ArrayBatchSource), "
+        "%d workers): %d steps in %.2fs (%.1f img/s with the pool's start), "
+        "sgd_fused_update %d launches, 0 executor copies"
+        % (PROBE["workers"], steps, fit_s, nb * PROBE["epochs"] / fit_s,
+           launches))
+    return {"img_per_s": curve, "batch": PIPE_BATCH, "host_cpus": nproc,
+            "fit": {"steps": steps, "wall_s": fit_s, "launches": launches}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="write the full report here (JSON)")
@@ -7495,6 +8176,16 @@ def main():
     steps = train_configs(torch, fa)
     generated = generate_card(torch, mx, fa)
     moe = moe_serve(torch, mx, fa)
+    sharded = sharded_rows(torch, mx, fitted["img_per_s"])
+    sharded_chk = sharded_checks(torch, mx)
+    sharded_more = sharded_inception_mlp(torch, mx)
+    e2e_rec = os.path.join(root, "build", "smoke_data", "e2e.rec")
+    e2e_write_s = synth_records(mx, e2e_rec)
+    log("data: wrote %d %dx%d noise JPEGs in %.2fs: %s"
+        % (E2E_RECORDS, E2E_SIDE, E2E_SIDE, e2e_write_s,
+           os.path.relpath(e2e_rec, root)))
+    e2e = e2e_train(torch, mx, idec, e2e_rec)
+    pipeline = pipeline_phase(torch, mx, fu, e2e_rec)
 
     sources = {"paged_decode_attention": (
         "mxnet_tpu_torch/ops/cuda/csrc/paged_decode_attention.cu",
@@ -7539,7 +8230,8 @@ def main():
     # a step beside the CUDA graphs), phase 28's four CLI runs, phase 30's
     # Inception fit, phase 31's first hybridized window, phase 34's two
     # train_mnist runs, phase 35's lstm_bucketing fit and phase 36's first
-    # hybridized window, Adam's from Module.fit (4 steps)
+    # hybridized window, phase 49's pipeline-fed fit, Adam's from
+    # Module.fit (4 steps)
     launches = dict(served["launches"])
     for name in ("flash_attention", "flash_attention_bwd"):
         launches[name] = trained["calls"][1]["launches"][name]
@@ -7547,7 +8239,8 @@ def main():
         + sum(r["launches"] for r in networks.values()) \
         + incep["launches"] + mobile["launches"] \
         + sum(r["launches"] for r in mnist.values()) \
-        + lstm_a["launches"] + lstm_b["launches"]
+        + lstm_a["launches"] + lstm_b["launches"] \
+        + pipeline["fit"]["launches"]
     launches["adam_fused_update"] = fitted["adam_launches"]
     # the int8 kernels' from the int8 correctness set of phase 17; the
     # BatchNorm kernel's from phase 27's timed windows (its replays of
@@ -7558,8 +8251,10 @@ def main():
         + zoo["window_launches"]
     # rtc's from the custom op of phase 21 (its forward and backward)
     launches["rtc"] = custom["launches"]
-    # the augment kernel's from the records fit of phase 26
-    launches["crop_mirror_normalize"] = cli_rec["kernel_launches"]
+    # the augment kernel's from the records fit of phase 26 and phase
+    # 48's e2e steps
+    launches["crop_mirror_normalize"] = cli_rec["kernel_launches"] \
+        + e2e["kernel_launches"]
     kernels = []
     for r in main_rows + flash_rows + fused_rows + int8_rows + [
             rtc_row, data["kernel"]]:
@@ -7615,7 +8310,10 @@ def main():
               "rnn_ctc_card": rnn_card, "flash_routes": routes38,
               "contrib_flash_attention": contrib, "lm_cli": lm,
               "train_configs": steps, "generate": generated,
-              "moe_serve": moe, "kernels": kernels,
+              "moe_serve": moe, "sharded_trainer": sharded,
+              "sharded_checks": sharded_chk,
+              "sharded_inception_mlp": sharded_more, "e2e_train": e2e,
+              "data_pipeline_pool": pipeline, "kernels": kernels,
               "update_launches": {
                   "module_fit": fitted["launches"]["sgd_fused_update"],
                   "gluon_fit": gluon["launches"]["sgd_fused_update"],
@@ -7627,7 +8325,8 @@ def main():
                   "train_mnist": {k: v["launches"]
                                   for k, v in mnist.items()},
                   "lstm_bucketing": lstm_a["launches"],
-                  "gluon_lm": lstm_b["launches"]},
+                  "gluon_lm": lstm_b["launches"],
+                  "pipeline_fit": pipeline["fit"]["launches"]},
               "wall_s": time.time() - t_all}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

@@ -50,7 +50,13 @@ Ported so far:
 - recurrent language models: the ``RNN`` op (cuDNN on the card) and
   ``CTCLoss``, ``gluon.rnn`` and ``gluon.contrib.rnn``, the legacy
   ``rnn`` API (cells, ``BucketSentenceIter``, checkpoints),
-  ``mod.BucketingModule`` and every metric (``Perplexity``).
+  ``mod.BucketingModule`` and every metric (``Perplexity``);
+- the JAX package's headline training path on one device:
+  ``parallel.make_mesh`` and ``parallel.ShardedTrainer`` (the fused
+  SGD-momentum step in float32 or bf16, ``run_steps`` as one CUDA
+  graph), fed by ``io.DataPipeline`` (worker processes over
+  ``ArrayBatchSource`` / ``RecordBatchSource``, a seekable cursor that
+  ``fit(resume=True)`` restores), and ``io.CSVIter`` / ``MNISTIter``.
 
 Importing the package imports no triton, loads no CUDA library (nor
 NVRTC) and touches no GPU.

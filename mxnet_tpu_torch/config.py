@@ -101,6 +101,32 @@ VARS = {
                                   "package, where 0 selects the XLA "
                                   "rules; the port has no second route "
                                   "on the card, so 0 raises."),
+    "MXNET_IO_WORKERS": (int, 0,
+                         "Decode worker processes for io.DataPipeline. "
+                         "0 = inline decode on the staging thread "
+                         "(the same stream, no parallelism); -1 = host "
+                         "cores minus one."),
+    "MXNET_IO_PREFETCH": (int, 2,
+                          "Depth of the DataPipeline staging buffer: how "
+                          "many decoded batches are staged on the card "
+                          "ahead of the consumer. Also bounds in-flight "
+                          "decode (workers + prefetch), the pipeline's "
+                          "backpressure."),
+    "MXNET_IO_WORKER_RESTARTS": (int, 4,
+                                 "Restart budget for crashed DataPipeline "
+                                 "decode workers. In-flight batches are "
+                                 "decoded again on restart; past the "
+                                 "budget the pipeline raises."),
+    "MXNET_DATALOADER_START_METHOD": (str, "fork",
+                                      "Process start method for "
+                                      "io.DataPipeline workers (fork / "
+                                      "spawn / forkserver). fork shares "
+                                      "the source copy-on-write; the "
+                                      "workers never touch CUDA, so a "
+                                      "parent holding a CUDA context "
+                                      "forks safely. spawn / forkserver "
+                                      "pickle the source and need the "
+                                      "script's __main__ guard."),
 }
 
 

@@ -6,13 +6,15 @@ batch drawn and prepared, the batch-end callbacks; at each epoch's end
 the logged metric, a parameter sync, the epoch-end callbacks, scoring
 on ``eval_data`` and the iterator reset), with the JAX package's
 checkpoints: ``checkpoint_prefix`` saves every ``checkpoint_period``
-epochs (parameters, optimizer states, manifest) and ``resume`` restarts
-from the newest checkpoint that verifies, at its epoch and, for a save
-made within an epoch, by replaying the batches it had trained. What the
-JAX ``fit`` adds beyond that is refused by name until its ROADMAP item
-comes: elastic training (``MXNET_ELASTIC_*``, A13), monitors and
-``sparse_row_id_fn`` (A8.6). The SIGTERM grace-window save waits for
-A16, the seek of an iterator to a manifest's cursor for A8.1b.
+epochs (parameters, optimizer states, manifest, and the iterator's
+cursor when it has one) and ``resume`` restarts from the newest
+checkpoint that verifies, at its epoch and, for a save made within an
+epoch, at its batch: an iterator with a cursor (``DataPipeline``) seeks
+to the manifest's, one without replays the batches the save had
+trained. What the JAX ``fit`` adds beyond that is refused by name until
+its ROADMAP item comes: elastic training (``MXNET_ELASTIC_*``, A13),
+monitors and ``sparse_row_id_fn`` (A8.6). The SIGTERM grace-window save
+waits for A16.
 """
 from __future__ import annotations
 
@@ -172,12 +174,15 @@ class BaseModule(object):
 
         ``checkpoint_prefix``: save a checkpoint after every
         ``checkpoint_period`` epochs, numbered by completed epochs, with
-        the optimizer states when ``save_optimizer_states``. ``resume``:
-        start from the newest valid checkpoint under the prefix (a torn
-        or corrupt one is skipped): its parameters, optimizer states and
-        random state, at its epoch; a checkpoint saved within an epoch
-        (``nbatch`` > 0) replays that many batches of the iterator
-        untrained. With an iterator that replays deterministically the
+        the optimizer states when ``save_optimizer_states`` and the
+        iterator's ``checkpoint_state`` cursor when it has one.
+        ``resume``: start from the newest valid checkpoint under the
+        prefix (a torn or corrupt one is skipped): its parameters,
+        optimizer states and random state, at its epoch and batch. An
+        iterator with ``restore_state`` seeks to the manifest's cursor
+        (nothing is drawn on the way); otherwise a checkpoint saved
+        within an epoch (``nbatch`` > 0) replays that many batches of the
+        iterator untrained. With a seekable or deterministic iterator the
         resumed run then repeats the uninterrupted one's steps. The data
         iterators' ``close()`` runs when the fit ends."""
         if num_epoch is None:
@@ -198,6 +203,7 @@ class BaseModule(object):
                                       "arrays are not ported (ROADMAP A8.6)")
         resume_state = None
         skip_nbatch = 0
+        io_seeked = False
         if resume:
             if checkpoint_prefix is None:
                 raise MXNetError("fit(resume=True) needs checkpoint_prefix "
@@ -210,10 +216,24 @@ class BaseModule(object):
                 allow_missing = False
                 begin_epoch = resume_state.epoch
                 skip_nbatch = resume_state.nbatch
+                # the iterator's cursor, where it has one: a seek, with
+                # the shuffle seed; a cursor of another stream falls back
+                # to replaying
+                cur = resume_state.io_cursor
+                if cur and hasattr(train_data, "restore_state"):
+                    try:
+                        train_data.restore_state(cur)
+                        io_seeked = True
+                    except MXNetError as e:
+                        self.logger.warning(
+                            "io cursor in %s-%04d does not fit this "
+                            "iterator (%s); replaying the epoch instead",
+                            checkpoint_prefix, resume_state.epoch, e)
                 self.logger.info("resuming from checkpoint %s-%04d (epoch "
-                                 "%d, batch %d)", checkpoint_prefix,
+                                 "%d, batch %d%s)", checkpoint_prefix,
                                  resume_state.epoch, resume_state.epoch,
-                                 resume_state.nbatch)
+                                 resume_state.nbatch,
+                                 ", iterator seeked" if io_seeked else "")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
@@ -243,15 +263,21 @@ class BaseModule(object):
                 eval_metric.reset()
                 nbatch = 0
                 data_iter = iter(train_data)
-                # a checkpoint saved within this epoch: draw (untrained)
-                # the batches it had trained on
-                for _ in range(skip_nbatch):
-                    try:
-                        next(data_iter)
-                    except StopIteration:
-                        break
-                    nbatch += 1
+                if io_seeked:
+                    # the iterator is at the cursor already: only the
+                    # batch numbering lines up
+                    nbatch = skip_nbatch
+                else:
+                    # a checkpoint saved within this epoch: draw
+                    # (untrained) the batches it had trained on
+                    for _ in range(skip_nbatch):
+                        try:
+                            next(data_iter)
+                        except StopIteration:
+                            break
+                        nbatch += 1
                 skip_nbatch = 0
+                io_seeked = False
                 end_of_batch = False
                 eval_name_vals = eval_metric.get_name_value()
                 try:
@@ -289,8 +315,10 @@ class BaseModule(object):
                         callback(epoch, self.symbol, arg_p, aux_p)
                 if checkpoint_prefix is not None and \
                         (epoch + 1) % int(checkpoint_period) == 0:
-                    self.save_checkpoint(checkpoint_prefix, epoch + 1,
-                                         save_optimizer_states)
+                    cursor = getattr(train_data, "checkpoint_state", None)
+                    self.save_checkpoint(
+                        checkpoint_prefix, epoch + 1, save_optimizer_states,
+                        io_cursor=cursor(epoch + 1, 0) if cursor else None)
                 if eval_data is not None:
                     res = self.score(eval_data, validation_metric,
                                      score_end_callback=eval_end_callback,

@@ -39,6 +39,7 @@ from ..base import MXNetError
 from ..context import default_device
 from ..ops.cuda.flash_attention import (flash_prefill_paged,
                                         paged_decode_attention)
+from .mesh import check_axis
 from .moe import moe_ffn
 from .ring_attention import ring_attention_local
 
@@ -617,16 +618,13 @@ def transformer_generate(params, prompt, steps, cfg: TransformerConfig,
 # single-device training
 # ---------------------------------------------------------------------------
 
-# the ROADMAP item that ports each mesh axis above size 1
-_MESH_ITEMS = {"dp": "A13", "sp": "A13/A15", "tp": "A15", "pp": "A15",
-               "ep": "A15"}
-
-
 def _check_mesh(mesh):
-    """``mesh``: None (every axis 1) or a dict of the five axis sizes,
-    as the JAX package's Mesh carries them. Only size 1 is ported."""
+    """``mesh``: None (every axis 1), a dict of the five axis sizes, or a
+    :class:`~.mesh.Mesh` (its ``shape``), as the JAX package's Mesh
+    carries them. Only size 1 is ported."""
     if mesh is None:
         return
+    mesh = getattr(mesh, "shape", mesh)
     for ax in AXES:
         if ax not in mesh:
             raise ValueError("mesh is missing axis %r" % ax)
@@ -638,11 +636,7 @@ def _check_mesh(mesh):
         n = int(mesh[ax])
         if n < 1:
             raise ValueError("mesh axis %r has size %d" % (ax, n))
-        if n > 1:
-            raise NotImplementedError(
-                "mesh axis %r = %d: only a one-device mesh is ported; "
-                "sharded training over torch.distributed is ROADMAP %s"
-                % (ax, n, _MESH_ITEMS[ax]))
+        check_axis(ax, n)
 
 
 def _attention_local(lp, x, cfg, attn_impl="auto"):

@@ -1362,3 +1362,117 @@ def test_staged_batches_equal_synchronous_copies(card, tmp_path):
     mod.fit(tmx.io.ResizeIter(it, 3), num_epoch=1, optimizer="sgd",
             initializer=tmx.init.Xavier())
     assert executor.INPUT_COPIES["count"] == 0
+
+
+def _sharded_resnet():
+    return tmx.models.resnet(num_classes=10, num_layers=20,
+                             image_shape=(3, 28, 28))
+
+
+def test_sharded_run_steps_graph_matches_eager_steps(card):
+    """``ShardedTrainer.run_steps`` (k steps as one CUDA graph) against k
+    eager ``step`` calls from the same state, a CIFAR ResNet-20 in
+    float32 under deterministic cuDNN: the last loss, every parameter,
+    momentum and moving statistic within rtol 1e-5 / atol 1e-6 (the JAX
+    package's test of its scan), twice, the second time over new
+    batches that ``stage_many`` writes into the same static stack; one
+    capture."""
+    k, batch = 3, 8
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tmx.random.seed(9)
+        tr = tmx.parallel.ShardedTrainer(_sharded_resnet(),
+                                         tmx.parallel.make_mesh(), lr=0.05,
+                                         momentum=0.9, wd=1e-4)
+        graph = list(tr.init((batch, 3, 28, 28), (batch,)))
+        eager = [{n: t.clone() for n, t in d.items()} for d in graph]
+        rng = np.random.RandomState(9)
+        for _ in range(2):
+            x = rng.randn(k, batch, 3, 28, 28).astype(np.float32)
+            y = rng.randint(0, 10, (k, batch)).astype(np.float32)
+            d, lab = tr.stage_many(x, y)
+            assert d.device.type == "cuda" and d.dtype == torch.float32
+            *graph[:3], loss_g = tr.run_steps(*graph, d, lab)
+            for i in range(k):
+                *eager[:3], loss_e = tr.step(*eager, x[i], y[i])
+            assert abs(float(loss_g) - float(loss_e)) <= 1e-6
+            for got, want in zip(graph, eager):
+                for n in want:
+                    torch.testing.assert_close(got[n], want[n], rtol=1e-5,
+                                               atol=1e-6, msg=n)
+        assert tr.captures == 1
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def _dropout_sym():
+    x = tmx.sym.FullyConnected(tmx.sym.Variable("data"), num_hidden=64,
+                               name="fc1")
+    x = tmx.sym.Dropout(tmx.sym.Activation(x, act_type="relu"), p=0.5)
+    x = tmx.sym.FullyConnected(x, num_hidden=10, name="fc2")
+    return tmx.sym.SoftmaxOutput(x, name="softmax")
+
+
+def test_sharded_run_steps_graph_draws_anew_each_replay(card):
+    """A graph that draws (Dropout): an int key gives the same update
+    from the same state on every replay and another key another update;
+    a generator key advances, so two replays from the same state
+    differ."""
+    tr = tmx.parallel.ShardedTrainer(_dropout_sym(),
+                                     tmx.parallel.make_mesh(), lr=0.1)
+    tmx.random.seed(10)
+    start = tr.init((16, 32), (16,))
+    rng = np.random.RandomState(10)
+    d, lab = tr.stage_many(rng.randn(4, 16, 32).astype(np.float32),
+                           rng.randint(0, 10, (4, 16)).astype(np.float32))
+
+    kept = [{n: t.clone() for n, t in s.items()} for s in start]
+
+    def run(key):
+        # the graph reads the storage it was captured over: the start
+        # state is copied into it
+        for s, t in zip(kept, start):
+            for n in s:
+                s[n].copy_(t[n])
+        tr.run_steps(*kept, d, lab, key=key)
+        return kept[0]["fc1_weight"].clone()
+
+    a, b, c = run(3), run(3), run(4)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    gen = torch.Generator(device=card).manual_seed(3)
+    e, f = run(gen), run(gen)
+    assert not torch.equal(e, f)
+    assert tr.captures == 2         # one a key mode
+
+
+def test_data_pipeline_stages_on_the_card(card):
+    """``DataPipeline`` with 2 workers staged on the card: every batch a
+    CUDA tensor equal to the host pipeline's, bitwise, over 2 epochs; the
+    executor binds the batches without a copy."""
+    from mxnet_tpu_torch import executor
+
+    def src():
+        return tmx.io.ArrayBatchSource(
+            np.random.RandomState(11).randn(70, 12).astype(np.float32),
+            np.arange(70, dtype=np.float32) % 10, batch_size=8,
+            shuffle=True, seed=11)
+    host = tmx.io.DataPipeline(src(), num_workers=0, ctx=tmx.cpu())
+    with tmx.io.DataPipeline(src(), num_workers=2, prefetch=2) as p:
+        assert p.staged_device.type == "cuda"
+        n = 0
+        for _ in range(2):
+            for a, b in zip(p, host):
+                for x, y in zip(a.data + a.label, b.data + b.label):
+                    assert x._data.device.type == "cuda"
+                    assert torch.equal(x._data.cpu(), y._data)
+                n += 1
+            p.reset()
+            host.reset()
+        assert n == 18
+        sym = tmx.sym.SoftmaxOutput(tmx.sym.FullyConnected(
+            tmx.sym.Variable("data"), num_hidden=10), name="softmax")
+        executor.INPUT_COPIES["count"] = 0
+        tmx.mod.Module(sym, context=card).fit(p, num_epoch=1)
+        assert executor.INPUT_COPIES["count"] == 0
+    host.close()
