@@ -377,7 +377,32 @@ Phases, each fatal on failure (no phase's failure is caught):
     ``Module.fit`` fed by ``DataPipeline(ArrayBatchSource)`` (2 workers,
     3 epochs of 24 batches of 64): ``sgd_fused_update`` once a step, no
     executor copy;
-50. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
+50. hold every rule of the update kernel (SGD, NAG, signSGD / Signum,
+    Adam, AdaGrad, RMSProp plain and centered, AdaDelta, FTRL, FTML,
+    Adamax, Test; Adam and FTML at steps 1 and 7) against its plain
+    version, bitwise, over all 157 ResNet-50 parameter shapes, on
+    float32, bf16 and float16 weights, clip on and off, and the master
+    mode (float16 weights, float32 states and master) for SGD, SGD with
+    momentum and Adam, one launch a call; then three planted faults that
+    must fail (the hypers applied in float32 at bf16, the weight written
+    from the pre-update master, FTML's v and z swapped);
+51. time bf16 SGD with momentum, master-mode SGD at float16 and each
+    other rule at float32 over the ResNet-50 list (L2 flushed) beside its
+    bound, plain version, host ms and ``torch._fused_sgd_`` for bf16 SGD
+    and (nesterov) NAG;
+52. Gluon resnet50_v1 cast to bf16 and hybridized, batch 64 of bf16
+    3x224x224, ``Trainer("sgd", lr 0.1, momentum 0.9, wd 1e-4)``: 8 warm
+    steps, two timed windows of 24 (img/s, ms/step, MFU over 989 TFLOP/s,
+    peak memory), one ``sgd_fused_update`` launch a step over bf16 and
+    float32 (BatchNorm) tensors, a profiled step; each other optimizer's
+    rule for two steps of that net (one launch a step); the same net in
+    float16 with ``multi_precision`` (one window, one master-mode launch
+    a step); one bf16 step at batch 2 on the card, on the CPU and in
+    float64 (the witness): the card's errors within 1.5x the CPU's own,
+    a planted BatchNorm fault that must miss; ``train_imagenet.main``
+    with ``--optimizer nag --benchmark 1`` for 16 batches (one
+    ``nag_fused_update`` a step);
+53. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
     20, its launches from phase 21; the flash kernels' fma-route rows'
     times from phase 38, their launches from phases 39 and 40;
     ``crop_mirror_normalize``'s times from phase 24, its launches from
@@ -386,7 +411,8 @@ Phases, each fatal on failure (no phase's failure is caught):
     runs, phase 30's fit, phase 31's first hybridized window, phase 34's
     runs, phase 35's fit, phase 36's first hybridized window and phase
     49's fit; ``batch_norm_inference``'s from phase 27's and phase 32's
-    windows), the card line, and last ``{"ok": true, "device": {...}}``.
+    windows; phase 51's rows with their launches from phase 52), the card
+    line, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or without
 the package beside it. ``--report PATH`` also writes every measurement
@@ -3936,11 +3962,17 @@ def gamma_grad_scaled(torch, real, factor):
     return fn
 
 
+def host64(a):
+    """An NDArray as a float64 numpy array (bf16 too, without ml_dtypes,
+    which the card's machine lacks)."""
+    return a._data.detach().double().cpu().numpy()
+
+
 class _GluonSide(object):
-    """One side of phase 23: the zoo's resnet50_v1 made from a common
-    state on ``ctx`` in ``dtype``, stepped by ``Trainer`` (float32) or, in
-    float64, by the plain SGD rule with the hypers an SGD optimizer
-    gives (the kernel and ``Trainer`` take float32 only)."""
+    """One side of phases 23 and 52: the zoo's resnet50_v1 made from a
+    common state on ``ctx`` in ``dtype``, stepped by ``Trainer`` (float32,
+    bfloat16) or, in float64, by the plain SGD rule with the hypers an SGD
+    optimizer gives (the kernel takes float32, bfloat16 and float16)."""
 
     def __init__(self, torch, mx, fu, state, x, y, ctx, dtype="float32",
                  hybridize=False):
@@ -3949,12 +3981,14 @@ class _GluonSide(object):
             "resnet50_v1", classes=1000, prefix="g23_")
         self.params = self.net.collect_params()
         mx.convert.gluon_params_from_jax(state, self.params, ctx=ctx)
-        if dtype == "float64":
-            self.net.cast("float64")
+        if dtype != "float32":
+            self.net.cast(dtype)
         if hybridize:
             self.net.hybridize()
         self.x = mx.nd.array(x, ctx=ctx, dtype=dtype)
-        self.y = mx.nd.array(y, ctx=ctx, dtype=dtype)
+        # class ids as float32 (bfloat16 holds integers to 256 only)
+        self.y = mx.nd.array(y, ctx=ctx, dtype="float64"
+                             if dtype == "float64" else "float32")
         self.loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
         self.f64 = dtype == "float64"
         opt = dict(GLUON_OPT)
@@ -3969,12 +4003,15 @@ class _GluonSide(object):
         else:
             self.trainer = mx.gluon.Trainer(self.params, "sgd", opt)
 
-    def step(self):
+    def step(self, grads=None):
+        """The step's (outputs, parameters, running statistics); the
+        gradients of ``grads`` (names) are stored in ``self.grads``."""
         mx, torch = self.mx, self.torch
         with mx.autograd.record():
             out = self.net(self.x)
             loss = self.loss_fn(out, self.y)
         loss.backward()
+        self.grads = {k: host64(self.params[k].grad()) for k in grads or ()}
         if self.f64:
             hyper = [self.opt.fused_hyper(i)
                      for i in range(len(self.trained))]
@@ -3984,11 +4021,11 @@ class _GluonSide(object):
                                    [(m,) for m in self.mom], hyper)
         else:
             self.trainer.step(self.x.shape[0])
-        return (out.asnumpy().astype(np.float64),
-                {k: p.data().asnumpy().astype(np.float64)
-                 for k, p in self.params.items() if "running" not in k},
-                {k: p.data().asnumpy().astype(np.float64)
-                 for k, p in self.params.items() if "running" in k})
+        return (host64(out),
+                {k: host64(p.data()) for k, p in self.params.items()
+                 if "running" not in k},
+                {k: host64(p.data()) for k, p in self.params.items()
+                 if "running" in k})
 
 
 def gluon_vs_cpu(torch, mx, fu, batch=2, steps=2):
@@ -8056,6 +8093,780 @@ def pipeline_phase(torch, mx, fu, rec):
             "fit": {"steps": steps, "wall_s": fit_s, "launches": launches}}
 
 
+# ---------------------------------------------------------------------------
+# phases 50-52: the update kernel's other rules, bf16 / float16 weights and
+# the master mode; low-precision Gluon ResNet-50 training
+# ---------------------------------------------------------------------------
+
+# each rule's hypers beside lr, wd, rescale_grad and clip_gradient (step t
+# for the bias corrections), and its state counts
+def rule_extra(rule, n_state, lr, t):
+    b1, b2 = 0.9, 0.999
+    if rule in ("sgd", "nag"):
+        return {"momentum": 0.9} if n_state else {}
+    if rule == "signum":
+        return ({"momentum": 0.9, "one_minus_momentum": 0.1,
+                 "wdlh_coef": 1.0 - lr * 0.01, "lr_wd": lr * 1e-4}
+                if n_state else {})
+    if rule == "adam":
+        return {"lr": lr * float(np.sqrt(1 - b2 ** t) / (1 - b1 ** t)),
+                "beta1": b1, "beta2": b2, "one_minus_beta1": 1 - b1,
+                "one_minus_beta2": 1 - b2, "epsilon": 1e-8}
+    if rule == "adagrad":
+        return {"eps": 1e-7}
+    if rule == "rmsprop":
+        h = {"gamma1": 0.9, "one_minus_gamma1": 0.1, "epsilon": 1e-8,
+             "clip_weights": 0.2}
+        if n_state == 3:
+            h["gamma2"] = 0.9
+        return h
+    if rule == "adadelta":
+        return {"rho": 0.9, "one_minus_rho": 0.1, "epsilon": 1e-5}
+    if rule == "ftrl":
+        return {"lamda1": 0.01, "beta": 1.0}
+    if rule == "ftml":
+        return {"beta1": 0.6, "one_minus_beta1": 0.4, "beta2": b2,
+                "one_minus_beta2": 1 - b2, "epsilon": 1e-8,
+                "d_coef": (1 - 0.6 ** t) / lr, "v_coef": 1 - b2 ** t}
+    if rule == "adamax":
+        return {"lr": lr / (1 - b1 ** t), "beta1": b1,
+                "one_minus_beta1": 1 - b1, "beta2": b2}
+    return {}
+
+
+# (rule, state count, step)
+RULE_VARIANTS = (("sgd", 0, 1), ("sgd", 1, 1), ("nag", 0, 1), ("nag", 1, 1),
+                 ("signum", 0, 1), ("signum", 1, 1), ("adam", 2, 1),
+                 ("adam", 2, 7), ("adagrad", 1, 1), ("rmsprop", 1, 1),
+                 ("rmsprop", 3, 1), ("adadelta", 2, 1), ("ftrl", 2, 1),
+                 ("ftml", 3, 1), ("ftml", 3, 7), ("adamax", 2, 1),
+                 ("test", 1, 1))
+RULE_DTYPES = ("float32", "bfloat16", "float16")
+# the master mode (float16 weights, float32 states and master)
+MASTER_VARIANTS = (("sgd", 0, 1), ("sgd", 1, 1), ("adam", 2, 1))
+
+
+def rule_base(torch, shapes, seed):
+    """float32 weights, gradients and three states (non-negative: the
+    rules' second moments) on the card for every shape."""
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+
+    def rnd(shape, scale):
+        return torch.randn(shape, generator=gen, device=CARD) * scale
+
+    return {"w": [rnd(s, 0.05) for _, s in shapes],
+            "g": [rnd(s, 1.0) for _, s in shapes],
+            "s": [[rnd(s, 0.01).abs_() for _, s in shapes]
+                  for _ in range(3)]}
+
+
+def rule_hypers(shapes, rule, n_state, clip, t):
+    """Per-tensor hypers as update_inputs gives them (lr and wd differing
+    between tensors, wd 0 on biases and betas)."""
+    hypers = []
+    for i, (name, _) in enumerate(shapes):
+        decays = name.endswith("_weight") or name.endswith("_gamma")
+        lr = 0.1 * (1 + (i % 7) / 7.0)
+        h = {"lr": lr, "wd": 1e-4 * (1 + i % 3) if decays else 0.0,
+             "rescale_grad": 1.0 / RESNET_BATCH}
+        if rule == "test":
+            del h["wd"]
+        elif clip:
+            h["clip_gradient"] = 0.02
+        h.update(rule_extra(rule, n_state, lr, t))
+        hypers.append(h)
+    return hypers
+
+
+def rule_run(torch, fu, base, rule, n_state, dtype, master, hypers, plain,
+             order=None):
+    """Copies of the inputs in ``dtype`` (float32 states and masters in the
+    master mode), updated by the kernel or (``plain``) the plain version;
+    ``order`` permutes the state tensors given to the call."""
+    dt = getattr(torch, dtype)
+    sdt = torch.float32 if master else dt
+    ws = [w.to(dt, copy=True) for w in base["w"]]
+    gs = [g.to(dt, copy=True) for g in base["g"]]
+    states = [tuple(base["s"][k][i].to(sdt, copy=True)
+                    for k in range(n_state)) for i in range(len(ws))]
+    masters = [w.float() for w in ws] if master else None
+    given = states if order is None else [tuple(st[k] for k in order)
+                                          for st in states]
+    fn = getattr(fu, ("_%s_fused" if plain else "%s_fused_update") % rule)
+    fn(ws, gs, given, hypers, masters)
+    torch.cuda.synchronize()
+    return ws, states, masters
+
+
+def same_bits(torch, a, b):
+    """Bitwise equal, a NaN equal to any NaN."""
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return bool(((a.view(ints) == b.view(ints))
+                 | (a.isnan() & b.isnan())).all())
+
+
+def run_diff(torch, a, b):
+    """(bitwise equal, max abs difference) of two rule_run results."""
+    pairs = list(zip(a[0], b[0])) + [
+        (x, y) for sa, sb in zip(a[1], b[1]) for x, y in zip(sa, sb)] + (
+        list(zip(a[2], b[2])) if a[2] is not None else [])
+    same = all(same_bits(torch, x, y) for x, y in pairs)
+    err = max(float((x.float() - y.float()).abs().nan_to_num(0.0).max())
+              for x, y in pairs)
+    return same, err
+
+
+def check_rules(torch, mx, fu):
+    """Phase 50: every rule of ``fused_update.cu`` against its plain
+    version on the card, bitwise, over all 157 ResNet-50 parameter
+    shapes: each rule and state count (Adam and FTML at steps 1 and 7)
+    x float32 / bf16 / float16 weights x clip on and off, and the master
+    mode (float16 weights, float32 states and master) for SGD, SGD with
+    momentum and Adam; one launch a call. Then three planted faults that
+    must fail: the hyperparameters applied in float32 at bf16 (Python
+    scalars, PyTorch's opmath), the master mode writing the weight from
+    the pre-update master, and FTML's v and z swapped."""
+    shapes = resnet_param_shapes(mx)
+    base = rule_base(torch, shapes, 50)
+    cases = [(r, n, t, d, False) for r, n, t in RULE_VARIANTS
+             for d in RULE_DTYPES] + [(r, n, t, "float16", True)
+                                      for r, n, t in MASTER_VARIANTS]
+    rows, bad = [], []
+    t0 = time.time()
+    for rule, n_state, t, dtype, master in cases:
+        for clip in (False, True):
+            if rule == "test" and clip:
+                continue            # Test has no clipping
+            hypers = rule_hypers(shapes, rule, n_state, clip, t)
+            name = "%s_fused_update" % rule
+            n0 = fu.LAUNCHES[name]
+            got = rule_run(torch, fu, base, rule, n_state, dtype, master,
+                           hypers, False)
+            launched = fu.LAUNCHES[name] - n0
+            ref = rule_run(torch, fu, base, rule, n_state, dtype, master,
+                           hypers, True)
+            same, err = run_diff(torch, got, ref)
+            rows.append({"rule": rule, "states": n_state, "step": t,
+                         "dtype": dtype, "master": master, "clip": clip,
+                         "bitwise": same, "max_abs_err": err,
+                         "launches": launched})
+            if not same or launched != 1:
+                bad.append(rows[-1])
+            del got, ref
+    log("check fused_update rules over %d tensors: %d cases (%d rule "
+        "variants x float32/bf16/float16 x clip, master mode for %s) in "
+        "%.1fs: %d bitwise and one launch each; %s"
+        % (len(shapes), len(rows), len(RULE_VARIANTS),
+           ", ".join("%s/%d" % (r, n) for r, n, _ in MASTER_VARIANTS),
+           time.time() - t0, len(rows) - len(bad), bad or "none off"))
+    check(not bad, "fused_update rules off their plain versions: %s" % bad)
+    planted = {}
+    # (a) bf16, the hypers as Python floats (float32 opmath) in the plain
+    hypers = rule_hypers(shapes, "sgd", 1, False, 1)
+    got = rule_run(torch, fu, base, "sgd", 1, "bfloat16", False, hypers,
+                   False)
+    ws = [w.to(torch.bfloat16) for w in base["w"]]
+    gs = [g.to(torch.bfloat16) for g in base["g"]]
+    sts = [(s.to(torch.bfloat16),) for s in base["s"][0]]
+    for w, g, st, h in zip(ws, gs, sts, hypers):
+        w_new, st_new = fu._sgd(w, g, st, h)
+        w.copy_(w_new)
+        st[0].copy_(st_new[0])
+    torch.cuda.synchronize()
+    planted["hypers in float32 at bf16"] = run_diff(torch, got,
+                                                     (ws, sts, None))
+    # (b) master mode, the weight from the pre-update master
+    hypers = rule_hypers(shapes, "sgd", 1, False, 1)
+    got = rule_run(torch, fu, base, "sgd", 1, "float16", True, hypers, False)
+    ref = rule_run(torch, fu, base, "sgd", 1, "float16", True, hypers, True)
+    old = [w.to(torch.float16) for w in base["w"]]
+    planted["weight from the old master"] = run_diff(torch, got,
+                                                      (old,) + ref[1:])
+    # (c) FTML's v and z pointers swapped in the kernel's call
+    hypers = rule_hypers(shapes, "ftml", 3, False, 1)
+    got = rule_run(torch, fu, base, "ftml", 3, "float32", False, hypers,
+                   False, order=(0, 2, 1))
+    ref = rule_run(torch, fu, base, "ftml", 3, "float32", False, hypers,
+                   True)
+    planted["FTML's v and z swapped"] = run_diff(torch, got, ref)
+    for what, (same, err) in planted.items():
+        log("planted fault (%s): bitwise %s, max abs err %.3g"
+            % (what, same, err))
+        check(not same, "planted fault (%s) passes the bitwise check"
+              % what)
+    return {"cases": rows, "planted": {k: {"bitwise": v[0],
+                                           "max_abs_err": v[1]}
+                                       for k, v in planted.items()}}
+
+
+# phase 51's rows: (label, rule, state count, dtype, master, operations
+# a value counted from the kernel's rule)
+RULE_TIMED = (("sgd bf16", "sgd", 1, "bfloat16", False, 7),
+              ("sgd float16 master", "sgd", 1, "float16", True, 7),
+              ("nag", "nag", 1, "float32", False, 9),
+              ("signum", "signum", 1, "float32", False, 10),
+              ("adagrad", "adagrad", 1, "float32", False, 10),
+              ("rmsprop", "rmsprop", 1, "float32", False, 12),
+              ("adadelta", "adadelta", 2, "float32", False, 18),
+              ("ftrl", "ftrl", 2, "float32", False, 19),
+              ("ftml", "ftml", 3, "float32", False, 20),
+              ("adamax", "adamax", 2, "float32", False, 12),
+              ("test", "test", 1, "float32", False, 4))
+
+
+def rule_bytes(n_state, dtype, master, n):
+    """Bytes a call must move: each input read once, each output written
+    once. The weight is not read in the master mode."""
+    item = {"float32": 4, "bfloat16": 2, "float16": 2}[dtype]
+    if master:      # g read; states and master read and written; w written
+        return n * (item + 2 * 4 * n_state + 2 * 4 + item)
+    return n * item * (2 + 2 * n_state + 1)
+
+
+def time_rules(torch, mx, fu, timer):
+    """Phase 51: each RULE_TIMED row over the whole ResNet-50 parameter
+    list (25.55M values), L2 flushed before every launch (a 2 ms hold
+    before each, as phase 12), beside its bound, the plain version, the
+    wrapper's host ms and a PyTorch call where one computes the rule:
+    ``torch._fused_sgd_`` on the same bf16 tensors for bf16 SGD (its
+    arithmetic in float32 with one rounding at the end: the same bytes,
+    not the same function) and ``torch._fused_sgd_(nesterov=True)`` for
+    NAG (float32; it may contract multiply-adds); otherwise null."""
+    shapes = resnet_param_shapes(mx)
+    n = sum(int(np.prod(s)) for _, s in shapes)
+    base = rule_base(torch, shapes, 51)
+    rows = []
+    for label, rule, n_state, dtype, master, ops in RULE_TIMED:
+        hypers = rule_hypers(shapes, rule, n_state, False, 1)
+        got = rule_run(torch, fu, base, rule, n_state, dtype, master,
+                       hypers, False)
+        ref = rule_run(torch, fu, base, rule, n_state, dtype, master,
+                       hypers, True)
+        _, err = run_diff(torch, got, ref)
+        ws, states, masters = got
+        del ref
+        gs = [g.to(getattr(torch, dtype), copy=True) for g in base["g"]]
+        kernel = getattr(fu, "%s_fused_update" % rule)
+        plain = getattr(fu, "_%s_fused" % rule)
+        lib = None
+        if rule == "sgd" and not master:
+            lib = lambda: torch._fused_sgd_(   # noqa: E731
+                ws, gs, [s[0] for s in states], weight_decay=1e-4,
+                momentum=0.9, lr=0.1, dampening=0.0, nesterov=False,
+                maximize=False, is_first_step=False)
+        elif rule == "nag":
+            lib = lambda: torch._fused_sgd_(   # noqa: E731
+                ws, gs, [s[0] for s in states], weight_decay=1e-4,
+                momentum=0.9, lr=0.1, dampening=0.0, nesterov=True,
+                maximize=False, is_first_step=False)
+
+        def fn():
+            kernel(ws, gs, states, hypers, masters)
+
+        def fn_plain():
+            plain(ws, gs, states, hypers, masters)
+
+        nbytes = rule_bytes(n_state, dtype, master, n)
+        t_bytes, t_ops = nbytes / HBM_BPS, ops * n / F32_FLOPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        rows.append({
+            "name": "%s_fused_update" % rule, "label": label,
+            "shape": "ResNet-50: 157 tensors, %d values, %s%s"
+                     % (n, dtype, ", float32 master" if master else ""),
+            "ms": timer(fn, hold_ms=2.0), "plain_ms": timer(fn_plain,
+                                                            iters=5),
+            "library_ms": timer(lib, hold_ms=2.0) if lib else None,
+            "host_ms": host_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "max_abs_err": err})
+        del ws, gs, states, masters, got
+    for r in rows:
+        log("time %-22s %-18s ms=%.4f plain_ms=%.3f library_ms=%s "
+            "bound_ms=%.4f (%s, %.0f%% of it) %.0f GB/s host_ms=%.3f "
+            "max_abs_err=%.3g" % (
+                r["name"], r["label"], r["ms"], r["plain_ms"],
+                "%.4f" % r["library_ms"] if r["library_ms"] else "null",
+                r["bound_ms"], r["bound_by"],
+                100 * r["bound_ms"] / r["ms"],
+                r["bytes"] / (r["ms"] * 1e-3) / 1e9, r["host_ms"],
+                r["max_abs_err"]))
+    return rows
+
+
+LOWP_BATCH = 64         # phase 52: bf16 / float16 Gluon ResNet-50
+LOWP_WARM, LOWP_TIMED = 8, 24
+BF16_RATIO_TOL = 1.5    # the card's bf16 error against float64 at most
+                        # this times the CPU's own bf16 error (the ratio
+                        # tests/test_torch_trainer.py holds bf16 steps to)
+BF16_GRAD_TOL = 1.15    # the same for each group of gradients: a sound
+                        # card run reads 0.99-1.02 of the CPU in every
+                        # group, gamma's gradient x2 1.42 (PERF.md)
+LOWP_PLANT = 2.0        # the planted BatchNorm gamma-gradient factor
+CLI_NAG_BATCHES = 16
+
+
+class _UpdateSpy(object):
+    """Records each call of a fused-update wrapper: the weights' and
+    states' types and how many tensors had a master. With ``plain`` (the
+    wrapper's plain version), each call's inputs are also cloned and
+    updated by ``plain``, and the kernel's weights, states and masters
+    held against those bitwise (``self.held``: one row a call)."""
+
+    def __init__(self, fu, name, torch=None, plain=None):
+        self.fu, self.name, self.torch, self.plain = fu, name, torch, plain
+        self.real = getattr(fu, name)
+        self.calls, self.held = [], []
+
+    def __enter__(self):
+        real = self.real
+
+        def spy(ws, gs, states, hypers, masters=None):
+            self.calls.append({
+                "weights": sorted({str(w.dtype) for w in ws}),
+                "states": sorted({str(t.dtype) for st in states
+                                  for t in st}),
+                "masters": sum(m is not None for m in masters or ())})
+            if self.plain is None:
+                return real(ws, gs, states, hypers, masters)
+            cw = [w.clone() for w in ws]
+            cs = [tuple(t.clone() for t in st) for st in states]
+            cm = None if masters is None else [
+                None if m is None else m.clone() for m in masters]
+            real(ws, gs, states, hypers, masters)
+            self.plain(cw, gs, cs, hypers, cm)
+            self.torch.cuda.synchronize()
+            pairs = list(zip(ws, cw)) + [
+                (a, b) for sa, sb in zip(states, cs)
+                for a, b in zip(sa, sb)] + [
+                (a, b) for a, b in zip(masters or (), cm or ())
+                if a is not None]
+            kinds = {}
+            for w, m in zip(ws, masters or [None] * len(ws)):
+                k = str(w.dtype)[6:] + (" + master" if m is not None
+                                        else "")
+                kinds[k] = kinds.get(k, 0) + 1
+            self.held.append({
+                "tensors": kinds, "compared": len(pairs),
+                "values": sum(w.numel() for w in ws),
+                "bitwise": all(same_bits(self.torch, a, b)
+                               for a, b in pairs),
+                "max_abs_err": max(float((a.float() - b.float()).abs()
+                                         .nan_to_num(0.0).max())
+                                   for a, b in pairs)})
+
+        setattr(self.fu, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.fu, self.name, self.real)
+
+
+def lowp_net(torch, mx, dtype, prefix, seed=52):
+    mx.random.seed(seed)
+    net = mx.gluon.model_zoo.vision.get_model("resnet50_v1", classes=1000,
+                                              prefix=prefix)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=mx.gpu(0))
+    net.cast(dtype)
+    net.hybridize()
+    return net
+
+
+def lowp_fit(torch, mx, fu, dtype, multi_precision, windows, flop,
+             keep=False):
+    """One low-precision run of phase 52: the zoo's resnet50_v1 cast to
+    ``dtype`` and hybridized, batch LOWP_BATCH of ``dtype`` 3x224x224,
+    ``Trainer("sgd", lr 0.1, momentum 0.9, wd 1e-4[, multi_precision])``;
+    LOWP_WARM warm steps, then ``windows`` timed windows of LOWP_TIMED
+    (host clock, synchronized at both ends), one profiled step; the
+    update one ``sgd_fused_update`` launch a step and never its plain
+    version, every call's weight and state types recorded."""
+    rng = np.random.RandomState(52)
+    x = mx.nd.array(rng.uniform(-1, 1, (LOWP_BATCH, 3, 224, 224)).astype(
+        np.float32), ctx=mx.gpu(0)).astype(dtype)
+    y = mx.nd.array(rng.randint(0, 1000, (LOWP_BATCH,)).astype(np.float32),
+                    ctx=mx.gpu(0))
+    net = lowp_net(torch, mx, dtype, "g52%s_" % dtype[:4])
+    opt = dict(GLUON_OPT)
+    if multi_precision:
+        opt["multi_precision"] = True
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", opt)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def run(steps):
+        for _ in range(steps):
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(LOWP_BATCH)
+        return loss
+
+    plain_calls = [0]
+    real_plain = fu._sgd_fused
+
+    def plain_spy(*args):
+        plain_calls[0] += 1
+        return real_plain(*args)
+
+    fu._sgd_fused = plain_spy
+    res = {"dtype": dtype, "multi_precision": multi_precision,
+           "batch": LOWP_BATCH, "windows": []}
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run(LOWP_WARM)
+        torch.cuda.synchronize()
+        res["warm_s"] = time.perf_counter() - t0
+        for _ in range(windows):
+            fu.reset_launches()
+            with _UpdateSpy(fu, "sgd_fused_update") as spy:
+                t0 = time.perf_counter()
+                loss = run(LOWP_TIMED)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            img_s = LOWP_BATCH * LOWP_TIMED / dt
+            res["windows"].append({
+                "s": dt, "img_per_s": img_s,
+                "ms_per_step": dt * 1e3 / LOWP_TIMED,
+                "mfu": img_s * flop / BF16_FLOPS,
+                "launches": fu.LAUNCHES["sgd_fused_update"],
+                "calls": spy.calls,
+                "loss_mean": float(loss._data.detach().float().mean())})
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # one step's launch, its whole mixed table, against the plain rule
+        with _UpdateSpy(fu, "sgd_fused_update", torch, real_plain) as spy:
+            run(1)
+        res["held"] = spy.held
+        fu.reset_launches()
+        res["profiled_step"] = profile_run(torch, lambda: run(1),
+                                           _resnet_class)
+        res["profiled_launches"] = fu.LAUNCHES["sgd_fused_update"]
+    finally:
+        fu._sgd_fused = real_plain
+    res["plain_calls"] = plain_calls[0]
+    params = net.collect_params()
+    n_trained = sum(p.grad_req != "null" for p in params.values())
+    for w in res["windows"]:
+        check(w["launches"] == LOWP_TIMED and len(w["calls"]) == LOWP_TIMED,
+              "%s gluon: sgd_fused_update launched %d times (%d calls) in "
+              "%d steps" % (dtype, w["launches"], len(w["calls"]),
+                            LOWP_TIMED))
+        want_w = sorted({"torch." + dtype, "torch.float32"})
+        check(all(c["weights"] == want_w for c in w["calls"]),
+              "%s gluon: update calls on %s" % (dtype, w["calls"][:1]))
+        if multi_precision:
+            check(all(c["masters"] > 0 and c["states"] == ["torch.float32"]
+                      for c in w["calls"]),
+                  "%s gluon: not the master mode: %s" % (dtype,
+                                                         w["calls"][:1]))
+        else:
+            check(all(c["states"] == want_w for c in w["calls"]),
+                  "%s gluon: states %s" % (dtype, w["calls"][:1]))
+        check(np.isfinite(w["loss_mean"]) and w["mfu"] <= 1.05,
+              "%s gluon: loss %s, MFU %.3f" % (dtype, w["loss_mean"],
+                                               w["mfu"]))
+    check(res["plain_calls"] == 0, "%s gluon: the plain SGD rule ran %d "
+          "times" % (dtype, res["plain_calls"]))
+    check(len(res["held"]) == 1 and res["held"][0]["bitwise"],
+          "%s gluon: a step's sgd_fused_update off its plain version: %s"
+          % (dtype, res["held"]))
+    log("%s gluon: one step's sgd_fused_update held against _sgd_fused on "
+        "clones of its inputs: %s" % (dtype, res["held"]))
+    check(res["profiled_launches"] == 1, "%s gluon: the profiled step "
+          "launched sgd_fused_update %d times"
+          % (dtype, res["profiled_launches"]))
+    masters = res["windows"][0]["calls"][0]["masters"]
+    res.update(params_trained=n_trained, masters=masters,
+               img_per_s=float(np.mean([w["img_per_s"]
+                                        for w in res["windows"]])))
+    res["mfu"] = res["img_per_s"] * flop / BF16_FLOPS
+    for w in res["windows"]:
+        del w["calls"]
+    prof = res["profiled_step"]
+    log("gluon resnet50_v1 %s%s batch %d: windows %s; MFU %.4f (%.2f "
+        "GFLOP/img, 989 TFLOP/s bf16 peak); peak %.2f GB; %d trained "
+        "tensors, one sgd_fused_update a step (%d on master copies); "
+        "profiled step: wall %.3fs, device busy %s, host launches %s"
+        % (dtype, " multi_precision" if multi_precision else "",
+           LOWP_BATCH, ", ".join("%.1f img/s %.2f ms" % (
+               w["img_per_s"], w["ms_per_step"]) for w in res["windows"]),
+           res["mfu"], flop / 1e9, res["peak_gb"], n_trained, masters,
+           prof["wall_s"], "not measured" if prof["busy_share"] is None
+           else "%.1f%%" % (100 * prof["busy_share"]),
+           prof["host_launches"]))
+    if keep:
+        res["kept"] = (net, x, y)
+    return res
+
+
+# the other rules on phase 52's bf16 net: (optimizer, its arguments).
+# Adamax divides by u = max(beta2 u, |g|), 0 where a gradient is 0 (the
+# conv biases before a BatchNorm, and bf16 gradients that are 0): NaN
+# there after its first step, in both packages, so a NaN loss at its
+# second
+OTHER_RULES = (("signum", {"momentum": 0.9}), ("adagrad", {}),
+               ("rmsprop", {}), ("rmsprop", {"centered": True}),
+               ("adadelta", {}), ("ftrl", {}), ("ftml", {}), ("test", {}),
+               ("adam", {}), ("adamax", {}))
+OTHER_STEPS = 2
+
+
+def other_rules(torch, mx, fu, net, x, y):
+    """Phase 52: each other optimizer with a fused rule takes OTHER_STEPS
+    Trainer steps of the bf16 net (learning rate 1e-4), each from the
+    state the bf16 run left (parameters and running statistics restored
+    in place before every rule): one launch of its kernel a step, none of
+    any other; the first step's loss the same for every rule (the same
+    state, the same batch), every loss finite. Adamax's NaN after its
+    first step must lie only in values whose gradient was 0, and its
+    second loss is not held."""
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    params = net.collect_params()
+    saved = {k: p.data()._data.clone() for k, p in params.items()}
+    res = {}
+    for name, kw in OTHER_RULES:
+        tag = name + ("_centered" if kw.get("centered") else "")
+        with torch.no_grad():
+            for k, p in params.items():
+                p.data()._data.copy_(saved[k])
+        trainer = mx.gluon.Trainer(params, name,
+                                   dict(kw, learning_rate=1e-4))
+        fu.reset_launches()
+        losses, bad, off = [], 0, 0
+        for step in range(OTHER_STEPS):
+            with mx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(x.shape[0])
+            losses.append(float(loss._data.detach().float().mean()))
+            for p in params.values() if step == 0 else ():
+                if p.grad_req != "null":
+                    nan = ~p.data()._data.isfinite()
+                    bad += int(nan.sum())
+                    off += int((nan & (p.grad()._data != 0)).sum())
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in fu.LAUNCHES.items() if v}
+        kernel = "%s_fused_update" % name
+        check(launched == {kernel: OTHER_STEPS}, "gluon bf16 %s: launches "
+              "%s in %d steps" % (tag, launched, OTHER_STEPS))
+        held = losses if name != "adamax" else losses[:1]
+        check(np.isfinite(held).all(), "gluon bf16 %s: losses %s"
+              % (tag, losses))
+        check(off == 0 if name == "adamax" else bad == 0, "gluon bf16 %s: "
+              "%d values non-finite after one step, %d where the gradient "
+              "was not 0" % (tag, bad, off))
+        res[tag] = {"launches": launched.get(kernel, 0), "losses": losses,
+                    "non_finite_after_1": bad}
+    first = [v["losses"][0] for v in res.values()]
+    check(max(first) - min(first) <= 1e-3 * abs(first[0]),
+          "gluon bf16 other rules: first losses %s differ (not one state)"
+          % first)
+    log("gluon resnet50_v1 bf16, %d Trainer steps each from one state "
+        "(first loss %.4f): %s" % (OTHER_STEPS, first[0], ", ".join(
+            "%s %d launches (loss %s%s)" % (
+                k, v["launches"], " -> ".join("%.4f" % l
+                                              for l in v["losses"]),
+                "; %d values NaN after step 1" % v["non_finite_after_1"]
+                if v["non_finite_after_1"] else "")
+            for k, v in res.items())))
+    return res
+
+
+def bf16_misses(side, cpu):
+    """The keys in which ``side``'s bf16 errors against the float64
+    witness exceed BF16_RATIO_TOL times the CPU's own bf16 errors
+    (BF16_GRAD_TOL for the gradient groups, ``g_*``)."""
+    return ["%s %.3g > %g x the CPU's %.3g" % (k, side[k], tol, cpu[k])
+            for k in sorted(side)
+            for tol in (BF16_GRAD_TOL if k.startswith("g_")
+                        else BF16_RATIO_TOL,)
+            if side[k] > tol * cpu[k]]
+
+
+def grad_rel(got, wit, keys):
+    """||gradient - the witness's|| / ||the witness's|| over every tensor
+    of ``keys`` together."""
+    d = np.concatenate([got[k].ravel() for k in keys])
+    w = np.concatenate([wit[k].ravel() for k in keys])
+    return float(np.linalg.norm(d - w) / max(np.linalg.norm(w), 1e-30))
+
+
+def group_rel(new, wit, start, keys):
+    """||change - the witness's change|| / ||the witness's change|| over
+    every tensor of ``keys`` together."""
+    d = np.concatenate([(new[k] - start[k]).ravel() for k in keys])
+    w = np.concatenate([(wit[k] - start[k]).ravel() for k in keys])
+    return float(np.linalg.norm(d - w) / max(np.linalg.norm(w), 1e-30))
+
+
+def lowp_vs_cpu(torch, mx, fu, batch=2):
+    """Phase 52's check: one bf16 ``Trainer`` step of resnet50_v1 at batch
+    2 from one state on the card (hybridized) and on the CPU, and in
+    float64 on the CPU (the witness, phase 23's). The card's errors
+    against the witness (outputs; the change of the bf16 weights, of the
+    float32 BatchNorm gamma and beta, of the moving statistics, each as
+    one relative norm over its group) within BF16_RATIO_TOL times the
+    CPU's own; the gradients, taken before the update, by depth (the
+    classifier, each stage, the stem; BatchNorm's gamma and beta) within
+    BF16_GRAD_TOL times the CPU's. At this initial state the backward
+    amplifies bf16's rounding with depth: the classifier's gradient is
+    ~9% off the witness's, the stages' ~130% (uncorrelated: cosine
+    ~0.14 at the stem) on the card and the CPU alike, and so is the
+    update. The planted fault, BatchNorm's gamma gradient LOWP_PLANT
+    times the sound one, must miss."""
+    from mxnet_tpu_torch.ops import registry as reg
+    rng = np.random.RandomState(52)
+    x = rng.uniform(-1, 1, (batch, 3, 224, 224)).astype(np.float32)
+    y = rng.randint(0, 1000, (batch,)).astype(np.float32)
+    mx.random.seed(52)
+    init = mx.gluon.model_zoo.vision.get_model("resnet50_v1", classes=1000,
+                                               prefix="g23_")
+    init.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2), ctx=mx.cpu())
+    with mx.autograd.predict_mode():
+        init(mx.nd.array(x, ctx=mx.cpu()))
+    # every side starts from the bf16 values (BatchNorm's stay float32)
+    state = {k: (v if "batchnorm" in k else torch.from_numpy(v).to(
+        torch.bfloat16).float().numpy())
+        for k, v in mx.convert.gluon_params_to_numpy(init).items()}
+    del init
+    sides = {"witness": _GluonSide(torch, mx, fu, state, x, y, mx.cpu(),
+                                   "float64"),
+             "cpu": _GluonSide(torch, mx, fu, state, x, y, mx.cpu(),
+                               "bfloat16"),
+             "dev": _GluonSide(torch, mx, fu, state, x, y, mx.gpu(0),
+                               "bfloat16", hybridize=True),
+             "planted": _GluonSide(torch, mx, fu, state, x, y, mx.gpu(0),
+                                   "bfloat16", hybridize=True)}
+    start = {k: v.astype(np.float64) for k, v in state.items()}
+    zero_grad = re.compile(r"conv2d\d+_bias$")     # see phase 23
+    groups = {"dw_bf16": [k for k in state if "batchnorm" not in k
+                          and not zero_grad.search(k)],
+              "dw_f32": [k for k in state if "batchnorm" in k
+                         and "running" not in k],
+              "ds": [k for k in state if "running" in k]}
+    bn = reg.get_op("BatchNorm")
+    sound = bn.fn
+    graded = groups["dw_bf16"] + groups["dw_f32"]
+    # the gradients by depth (the classifier, then each stage down to the
+    # stem: bf16's rounding is amplified on the way down), and BatchNorm's
+    # gamma and beta together
+    stages = {"g_%s" % st: [k for k in graded if st in k]
+              for st in ("dense0", "stage4", "stage3", "stage2", "stage1")}
+    stages["g_stem"] = [k for k in graded if "stage" not in k
+                        and "dense0" not in k]
+    stages["g_bn"] = groups["dw_f32"]
+    o_w, a_w, s_w = sides["witness"].step(graded)
+    g_w = sides["witness"].grads
+    a_w.update(s_w)
+    row = {}
+    for side in ("cpu", "dev", "planted"):
+        fu.reset_launches()
+        if side == "planted":
+            bn.fn = gamma_grad_scaled(torch, sound, LOWP_PLANT)
+        try:
+            out, a, s = sides[side].step(graded)
+        finally:
+            bn.fn = sound
+        check(side == "cpu" or fu.LAUNCHES["sgd_fused_update"] == 1,
+              "bf16 gluon vs cpu: %d launches in one %s step"
+              % (fu.LAUNCHES["sgd_fused_update"], side))
+        check(np.isfinite(out).all() and out.shape == (batch, 1000),
+              "bf16 gluon vs cpu: %s outputs %s" % (side, out.shape))
+        a.update(s)
+        row[side] = {"out_rel": rel_rms(out, o_w)}
+        row[side].update((g, grad_rel(sides[side].grads, g_w, keys))
+                         for g, keys in stages.items())
+        sides[side].grads = None
+        row[side].update((g, group_rel(a, a_w, start, keys))
+                         for g, keys in groups.items())
+    misses = bf16_misses(row["dev"], row["cpu"])
+    planted = bf16_misses(row["planted"], row["cpu"])
+    order = ["out_rel"] + list(stages) + list(groups)
+    log("bf16 gluon vs f64 (batch %d, one step; relative norms: %s): %s; "
+        "the planted gamma-gradient fault (x%g) misses %s"
+        % (batch, " / ".join(order), "; ".join(
+            "%s %s" % (k, " / ".join("%.3e" % r[c] for c in order))
+            for k, r in row.items()), LOWP_PLANT, planted or "nothing"))
+    check(not misses, "bf16 gluon vs f64: the card is off: %s"
+          % "; ".join(misses))
+    check(planted, "bf16 gluon vs f64: the planted BatchNorm fault passes")
+    row["planted_misses"] = planted
+    return row
+
+
+def cli_nag(torch, mx, fu):
+    """Phase 52's CLI run: ``train_imagenet.main(--network resnet
+    --num-layers 50 --optimizer nag --benchmark 1)`` for CLI_NAG_BATCHES
+    batches: one ``nag_fused_update`` launch a step (none of
+    ``sgd_fused_update``), its plain version never, finite outputs."""
+    from mxnet_tpu_torch.examples import train_imagenet
+    plain_calls = [0]
+    real_plain = fu._nag_fused
+
+    def spy(*args):
+        plain_calls[0] += 1
+        return real_plain(*args)
+
+    fu.reset_launches()
+    fu._nag_fused = spy
+    try:
+        with LogLines() as logs:
+            t0 = time.perf_counter()
+            mod = train_imagenet.main(cli_args(
+                "--optimizer", "nag", "--benchmark", "1", "--num-epochs",
+                "1", "--max-batches", str(CLI_NAG_BATCHES)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        fu._nag_fused = real_plain
+    launches = dict(fu.LAUNCHES)
+    check(launches["nag_fused_update"] == CLI_NAG_BATCHES
+          and launches["sgd_fused_update"] == 0,
+          "CLI nag: launches %s for %d steps" % (launches, CLI_NAG_BATCHES))
+    check(plain_calls[0] == 0, "CLI nag: the plain NAG rule ran")
+    out = mod.get_outputs()[0].asnumpy()
+    check(np.isfinite(out).all(), "CLI nag: non-finite outputs")
+    speeds = logs.speeds(0)
+    del mod
+    res = {"wall_s": wall, "launches": launches["nag_fused_update"],
+           "speedometer": speeds}
+    log("cli --optimizer nag --benchmark 1: %d steps in %.2fs; Speedometer "
+        "img/s %s; nag_fused_update %d launches"
+        % (CLI_NAG_BATCHES, wall, [round(v, 1) for v in speeds],
+           res["launches"]))
+    return res
+
+
+def gluon_lowp(torch, mx, fu):
+    """Phase 52: low-precision Gluon ResNet-50 v1 training on the card:
+    bf16 (two timed windows), the other optimizers' rules on that net,
+    float16 with ``multi_precision`` (one window), the batch-2 bf16 step
+    against the CPU and float64, and the CLI with ``--optimizer nag``."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    probe = mx.gluon.model_zoo.vision.get_model("resnet50_v1", classes=1000,
+                                                prefix="g52p_")
+    probe.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    flop, _ = gluon_flops(mx, probe)
+    del probe
+    res = {"train_flop_per_img": flop,
+           "bf16": lowp_fit(torch, mx, fu, "bfloat16", False, 2, flop,
+                            keep=True)}
+    res["other_rules"] = other_rules(torch, mx, fu,
+                                     *res["bf16"].pop("kept"))
+    res["float16_multi_precision"] = lowp_fit(torch, mx, fu, "float16",
+                                              True, 1, flop)
+    res["bf16_vs_cpu"] = lowp_vs_cpu(torch, mx, fu)
+    res["cli_nag"] = cli_nag(torch, mx, fu)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="write the full report here (JSON)")
@@ -8186,6 +8997,11 @@ def main():
            os.path.relpath(e2e_rec, root)))
     e2e = e2e_train(torch, mx, idec, e2e_rec)
     pipeline = pipeline_phase(torch, mx, fu, e2e_rec)
+    rule_checks = check_rules(torch, mx, fu)
+    timer = Timer(torch)
+    rule_rows = time_rules(torch, mx, fu, timer)
+    del timer
+    lowp = gluon_lowp(torch, mx, fu)
 
     sources = {"paged_decode_attention": (
         "mxnet_tpu_torch/ops/cuda/csrc/paged_decode_attention.cu",
@@ -8286,6 +9102,26 @@ def main():
             "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # phase 51's rows: the bf16 and master-mode SGD rows' launches from
+    # phase 52's first timed window of each, NAG's from its CLI run, the
+    # other rules' from their Trainer steps on the bf16 net
+    src, rep = sources["sgd_fused_update"]
+    for r in rule_rows:
+        rule = r["name"][:-len("_fused_update")]
+        if rule == "sgd":
+            run = lowp["float16_multi_precision" if "master" in r["label"]
+                       else "bf16"]
+            n = run["windows"][0]["launches"]
+            name = "sgd_fused_update (%s)" % r["label"][4:]
+        else:
+            n = (lowp["cli_nag"] if rule == "nag"
+                 else lowp["other_rules"][rule])["launches"]
+            name = r["name"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     kind = torch.cuda.get_device_name(0)
     report = {"card": card, "torch": torch.__version__,
               "checks": checks, "timings": table, "serve": served,
@@ -8313,7 +9149,10 @@ def main():
               "moe_serve": moe, "sharded_trainer": sharded,
               "sharded_checks": sharded_chk,
               "sharded_inception_mlp": sharded_more, "e2e_train": e2e,
-              "data_pipeline_pool": pipeline, "kernels": kernels,
+              "data_pipeline_pool": pipeline,
+              "fused_update_rules": rule_checks,
+              "fused_update_rule_timings": rule_rows,
+              "gluon_low_precision": lowp, "kernels": kernels,
               "update_launches": {
                   "module_fit": fitted["launches"]["sgd_fused_update"],
                   "gluon_fit": gluon["launches"]["sgd_fused_update"],
@@ -8326,7 +9165,13 @@ def main():
                                   for k, v in mnist.items()},
                   "lstm_bucketing": lstm_a["launches"],
                   "gluon_lm": lstm_b["launches"],
-                  "pipeline_fit": pipeline["fit"]["launches"]},
+                  "pipeline_fit": pipeline["fit"]["launches"],
+                  "gluon_bf16": lowp["bf16"]["windows"][0]["launches"],
+                  "gluon_float16_master": lowp["float16_multi_precision"][
+                      "windows"][0]["launches"],
+                  "cli_nag": lowp["cli_nag"]["launches"],
+                  "other_rules": {k: v["launches"] for k, v in
+                                  lowp["other_rules"].items()}},
               "wall_s": time.time() - t_all}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

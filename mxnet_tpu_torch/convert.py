@@ -9,6 +9,14 @@ there, ``Module.set_params`` / ``fit(arg_params=...)`` here); Gluon
 parameters likewise, by name (``gluon_params_from_jax``). The caller
 turns the JAX arrays into numpy first (``np.asarray`` /
 ``NDArray.asnumpy()``), so this module never imports JAX.
+
+Types cross as they are: float16 stays float16, and bfloat16, which
+numpy has not, comes as a numpy array of ``ml_dtypes.bfloat16`` (what
+``asnumpy`` of a bfloat16 array returns in both packages; the same bits
+read as a uint16 view); float64 becomes float32. Optimizer states cross
+as the packages' state files (``Updater.get_states`` / ``set_states``,
+Gluon's ``Trainer.save_states`` / ``load_states``), a ``multi_precision``
+float16 weight's state as ``(state, weight32)`` in both.
 """
 from __future__ import annotations
 
@@ -39,6 +47,13 @@ def _to_torch(arr, dtype, device):
             arr = arr.copy()
         t = torch.from_numpy(arr)
     return t.to(dtype).to(device)
+
+
+def _own_type(arr):
+    """The torch type ``arr`` crosses as: its own, float64 as float32."""
+    name = np.asarray(arr).dtype.name
+    return {"bfloat16": torch.bfloat16,
+            "float16": torch.float16}.get(name, torch.float32)
 
 
 def params_from_jax(np_params, cfg, device=None, trainable=False):
@@ -104,13 +119,13 @@ def params_to_numpy(params, pp=1):
 def module_params_from_numpy(arg_params, aux_params, device=None):
     """Module parameters as name -> numpy dicts (the JAX
     ``Module.get_params()`` through ``.asnumpy()``) -> (arg, aux) dicts of
-    float32 NDArrays on ``device`` (default ``cuda:0``), what
-    ``Module.set_params`` and ``Module.fit(arg_params=..., aux_params=...)``
-    take."""
+    NDArrays of their own types (float64 as float32) on ``device``
+    (default ``cuda:0``), what ``Module.set_params`` and
+    ``Module.fit(arg_params=..., aux_params=...)`` take."""
     device = default_device(device)
 
     def conv(params):
-        return {name: NDArray(_to_torch(arr, torch.float32, device))
+        return {name: NDArray(_to_torch(arr, _own_type(arr), device))
                 for name, arr in (params or {}).items()}
 
     return conv(arg_params), conv(aux_params)
@@ -143,7 +158,7 @@ def gluon_params_from_jax(jax_params, params, ctx=None):
         if not isinstance(value, np.ndarray) and callable(
                 getattr(value, "data", None)):
             value = value.data().asnumpy()
-        loaded[name] = NDArray(_to_torch(value, torch.float32, "cpu"))
+        loaded[name] = NDArray(_to_torch(value, _own_type(value), "cpu"))
     missing = sorted(set(params.keys()) - set(loaded))
     extra = sorted(set(loaded) - set(params.keys()))
     if missing or extra:

@@ -30,6 +30,14 @@ class DeferredInitializationError(MXNetError):
     gluon/parameter.py DeferredInitializationError)."""
 
 
+def _dtype(dtype):
+    """numpy dtype of ``dtype``; bfloat16, which numpy has not, as its
+    name (what ``NDArray.dtype`` gives)."""
+    if dtype is torch.bfloat16 or str(dtype) == "bfloat16":
+        return "bfloat16"
+    return np.dtype(dtype)
+
+
 class Parameter(object):
     """A Block parameter (reference: gluon/parameter.py:37)."""
 
@@ -44,7 +52,7 @@ class Parameter(object):
         # JAX package
         self.name = name
         self.shape = tuple(shape) if shape is not None else None
-        self.dtype = np.dtype(dtype)
+        self.dtype = _dtype(dtype)
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self.init = init
@@ -200,7 +208,7 @@ class Parameter(object):
         return sym_var(self.name, shape=self.shape, dtype=self.dtype)
 
     def cast(self, dtype):
-        self.dtype = np.dtype(dtype)
+        self.dtype = _dtype(dtype)
         if self._data is not None:
             self._data = NDArray(self._data._data.detach().to(
                 to_torch_dtype(dtype)))
@@ -266,7 +274,7 @@ class ParameterDict(object):
                 elif param.shape is None:
                     param.shape = v
             elif k == "dtype" and v is not None:
-                param.dtype = np.dtype(v)
+                param.dtype = _dtype(v)
             elif v is not None and getattr(param, k, None) is None:
                 setattr(param, k, v)
         return param

@@ -5,11 +5,14 @@ python/mxnet/gluon/trainer.py): applies an optimizer to a list of
 Parameters after ``autograd.backward``. On one device, with kvstore
 ``None``, ``"device"`` or ``"local"`` (there is nothing to reduce),
 ``step(batch_size)`` sets ``rescale_grad = scale / batch_size`` and runs
-``optimizer.fused_apply``: every parameter's update in ONE call of the
-optimizer's fused rule, which on CUDA tensors is one launch of the
-``sgd_fused_update`` / ``adam_fused_update`` kernel (the plain version
-runs for CPU tensors only). Other kvstores, several devices and sparse
-gradients are ROADMAP A12.6 / A13.
+``optimizer.apply_all``: every parameter's update in ONE call of the
+optimizer's fused rule, which on CUDA tensors is one launch of its kernel
+(``sgd_fused_update``, ``adam_fused_update``, ...; the plain version
+runs for CPU tensors only). With ``multi_precision`` the float16
+weights update on their float32 master copies in that same launch. An
+optimizer without a fused rule (Nadam, SGLD, DCASGD, LBSGD) updates
+parameter by parameter, as in the JAX package. Other kvstores, several
+devices and sparse gradients are ROADMAP A12.6 / A13.
 """
 from __future__ import annotations
 
@@ -86,7 +89,8 @@ class Trainer(object):
                 raise MXNetError("Parameter %s has not been initialized"
                                  % p.name)
             if self._states[i] is None:
-                self._states[i] = self._optimizer.create_state(i, p.data())
+                self._states[i] = \
+                    self._optimizer.create_state_multi_precision(i, p.data())
             items.append((i, p.data(), p.grad(), self._states[i]))
         return items
 
@@ -98,8 +102,10 @@ class Trainer(object):
     def update(self, batch_size, ignore_stale_grad=False):
         self._optimizer.rescale_grad = self._scale / batch_size
         items = self._items(ignore_stale_grad)
-        if items:
-            opt_mod.fused_apply(self._optimizer, items)
+        if items and not opt_mod.apply_all(self._optimizer, items):
+            for i, weight, grad, state in items:
+                self._optimizer.update_multi_precision(i, weight, grad,
+                                                       state)
 
     def save_states(self, fname):
         """Write the optimizer states (reference: trainer.py save_states;

@@ -3,12 +3,12 @@ reference: example/image-classification/symbols/alexnet.py).
 
 The JAX package's ``models/alexnet.py`` over this package's symbol API,
 with the same layer names, so the same argument and auxiliary-state
-names; only float32 is ported (other types are ROADMAP A8.4).
+names. ``dtype`` is accepted and, as there, builds the same float32
+graph whatever it is.
 """
 from __future__ import annotations
 
 from .. import symbol as sym
-from ._dtype import check_dtype
 
 __all__ = ["get_symbol"]
 
@@ -20,7 +20,6 @@ def _conv_relu(x, name, num_filter, kernel, stride=(1, 1), pad=(0, 0)):
 
 
 def get_symbol(num_classes=1000, dtype="float32"):
-    check_dtype(dtype)
     data = sym.Variable("data")
     x = _conv_relu(data, "conv1", 96, (11, 11), stride=(4, 4), pad=(2, 2))
     x = sym.LRN(x, name="lrn1", nsize=5, alpha=1e-4, beta=0.75, knorm=2)

@@ -4,12 +4,12 @@ example/image-classification/symbols/inception-bn.py).
 
 The JAX package's ``models/inception_bn.py`` over this package's symbol API,
 with the same layer names, so the same argument and auxiliary-state
-names; only float32 is ported (other types are ROADMAP A8.4).
+names. ``dtype`` is accepted and, as there, builds the same float32
+graph whatever it is.
 """
 from __future__ import annotations
 
 from .. import symbol as sym
-from ._dtype import check_dtype
 
 __all__ = ["get_symbol"]
 
@@ -51,7 +51,6 @@ def _inception_b(x, name, n3x3r, n3x3, nd3x3r, nd3x3):
 
 
 def get_symbol(num_classes=1000, dtype="float32"):
-    check_dtype(dtype)
     data = sym.Variable("data")
     x = _conv_bn_relu(data, "conv1", 64, (7, 7), stride=(2, 2), pad=(3, 3))
     x = sym.Pooling(x, name="pool1", kernel=(3, 3), stride=(2, 2),

@@ -4,12 +4,12 @@ mobilenet.py).
 
 The JAX package's ``models/mobilenet.py`` over this package's symbol API,
 with the same layer names, so the same argument and auxiliary-state
-names; only float32 is ported (other types are ROADMAP A8.4).
+names. ``dtype`` is accepted and, as there, builds the same float32
+graph whatever it is.
 """
 from __future__ import annotations
 
 from .. import symbol as sym
-from ._dtype import check_dtype
 
 __all__ = ["get_symbol"]
 
@@ -33,7 +33,6 @@ def _dw_sep(x, name, in_ch, out_ch, stride=(1, 1), multiplier=1.0):
 
 
 def get_symbol(num_classes=1000, multiplier=1.0, dtype="float32"):
-    check_dtype(dtype)
     data = sym.Variable("data")
     x = _conv_block(data, "conv0", int(32 * multiplier), stride=(2, 2))
     cfg = [  # (in, out, stride)

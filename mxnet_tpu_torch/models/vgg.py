@@ -3,12 +3,12 @@ example/image-classification/symbols/vgg.py).
 
 The JAX package's ``models/vgg.py`` over this package's symbol API,
 with the same layer names, so the same argument and auxiliary-state
-names; only float32 is ported (other types are ROADMAP A8.4).
+names. ``dtype`` is accepted and, as there, builds the same float32
+graph whatever it is.
 """
 from __future__ import annotations
 
 from .. import symbol as sym
-from ._dtype import check_dtype
 
 __all__ = ["get_symbol"]
 
@@ -23,7 +23,6 @@ _FILTERS = (64, 128, 256, 512, 512)
 
 def get_symbol(num_classes=1000, num_layers=16, batch_norm=False,
                dtype="float32"):
-    check_dtype(dtype)
     if num_layers not in _STAGES:
         raise ValueError("vgg depth must be one of %s" % (sorted(_STAGES),))
     data = sym.Variable("data")

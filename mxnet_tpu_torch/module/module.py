@@ -8,7 +8,10 @@ parameter list is updated by one kernel launch. Under
 ``MXNET_FUSED_STEP=0``, with ``inputs_need_grad``, or when
 ``get_outputs()`` is read before ``update()``, the unfused path runs
 instead: forward, backward, then the updater per parameter (the same
-rule on a list of one).
+rule on a list of one). With ``multi_precision`` a float16 weight updates
+on its float32 master copy (its state ``(state, weight32)``) in that one
+launch; the JAX ``Module`` takes its unfused path then, which computes
+the same function.
 
 Checkpoints are the JAX package's files, which each package loads:
 ``save_checkpoint`` writes the symbol, the parameters, optionally the
@@ -17,16 +20,15 @@ numpy state}``) and a checksum manifest, each file atomically; ``load``
 reads them back.
 
 Refused until their ROADMAP items: more than one context, kvstores and
-gradient compression (A8.3/A13), monitors (A8.6), weights other than
-float32 (A8.4); ``bind(shared_module=)`` is refused as in the JAX
+gradient compression (A8.3/A13), monitors (A8.6); ``bind(shared_module=)``
+is refused as in the JAX
 package (``BucketingModule`` aliases its buckets' arrays instead).
 """
 from __future__ import annotations
 
+import functools
 import logging
 import warnings
-
-import numpy as np
 
 from .. import optimizer as opt
 from ..context import default_device
@@ -266,13 +268,6 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        bad = [n for n in self._param_names
-               if self._exec.arg_dict[n].dtype != np.float32]
-        if bad:
-            raise NotImplementedError(
-                "parameters %s are not float32; mxnet_tpu_torch trains "
-                "float32 weights only (bf16 / multi-precision: ROADMAP A8.4)"
-                % bad[:3])
         if self._params_dirty:
             self._sync_params_from_devices()
         kvstore, update_on_kvstore = _create_kvstore(
@@ -360,16 +355,25 @@ class Module(BaseModule):
 
     def _run_fused_step(self, data_batch):
         exe = self._exec
-        update_names, states, hyper = [], {}, {}
+        update_names, states, hyper, masters = [], {}, {}, []
         for i, name in enumerate(self._param_names):
             if exe._grad_req.get(name, "null") == "null":
                 continue
             update_names.append(name)
-            states[name] = opt.fused_state_arrays(
-                self._updater.ensure_state(i, exe.arg_dict[name]))
+            weight = exe.arg_dict[name]
+            state = self._updater.ensure_state(i, weight)
+            master = None
+            if self._optimizer._mastered(weight):
+                state, master = state
+                master = master._data
+            masters.append(master)
+            states[name] = opt.fused_state_arrays(state)
             hyper[name] = self._optimizer.fused_hyper(i)
-        exe.train_step(self._optimizer.fused_rule(), update_names, states,
-                       hyper, feed=self._build_feed(data_batch))
+        rule = self._optimizer.fused_rule()
+        if any(m is not None for m in masters):
+            rule = functools.partial(rule, masters=masters)
+        exe.train_step(rule, update_names, states, hyper,
+                       feed=self._build_feed(data_batch))
 
     def update(self):
         """Apply the optimizer (reference: module.py:644). With a deferred

@@ -47,7 +47,7 @@ def to_torch_dtype(dtype):
         return torch.float32
     if isinstance(dtype, torch.dtype):
         return dtype
-    if isinstance(dtype, str) and dtype == "bfloat16":
+    if str(dtype) == "bfloat16":    # the name, or ml_dtypes' numpy type
         return torch.bfloat16
     try:
         return _DTYPES[np.dtype(dtype)]
@@ -69,7 +69,9 @@ def invoke_op(name, inputs, attrs=None, out=None):
     device; a creation op (no array input) puts its output on ``ctx``,
     by default the current context. The op runs with torch's grad mode
     on exactly while ``autograd.record()`` is. With ``out`` the result
-    is bound into that NDArray (or list)."""
+    is bound into that NDArray (or list). An optimizer update
+    (``mutate_inputs``) writes its weight and states in place and returns
+    the weight."""
     from .. import autograd
     from ..ops.registry import apply, get_op
     op = get_op(name)
@@ -82,6 +84,8 @@ def invoke_op(name, inputs, attrs=None, out=None):
         attrs["ctx"] = _device(attrs.get("ctx"))
     with torch.set_grad_enabled(autograd.is_recording()):
         res = apply(op, tensors, attrs)
+    if op.mutate_inputs:       # updated in place: the weight comes back
+        return inputs[op.mutate_inputs[0]]
     outs = [NDArray(t) for t in res]
     if out is not None:
         targets = out if isinstance(out, (list, tuple)) else [out]
@@ -154,12 +158,14 @@ class NDArray(object):
         same bits (numpy has no bfloat16 of its own; ``ml_dtypes`` is
         imported for that case alone)."""
         t = self._data.detach()
-        if t.dtype == torch.bfloat16:
+        bf16 = t.dtype == torch.bfloat16
+        if bf16:
+            t = t.view(torch.int16)
+        a = t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+        if bf16:
             import ml_dtypes
-            return t.view(torch.int16).cpu().numpy().view(
-                ml_dtypes.bfloat16)
-        return t.numpy().copy() if t.device.type == "cpu" \
-            else t.cpu().numpy()
+            return a.view(ml_dtypes.bfloat16)
+        return a
 
     def asscalar(self):
         if self.size != 1:
@@ -552,9 +558,12 @@ def array(source_array, ctx=None, dtype=None):
     if dtype is None:
         dtype = arr.dtype if typed and arr.dtype != np.float64 \
             else np.float32
-    t = torch.from_numpy(np.ascontiguousarray(arr)).to(
-        _device(ctx), to_torch_dtype(dtype), copy=True)
-    return NDArray(t)
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":    # ml_dtypes' (asnumpy's), same bits
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return NDArray(t.to(_device(ctx), to_torch_dtype(dtype), copy=True))
 
 
 def zeros(shape, ctx=None, dtype=None, **_kw):

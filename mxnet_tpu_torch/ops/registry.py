@@ -42,20 +42,24 @@ class OpDef(object):
     needs_rng : ``fn`` takes a leading ``torch.Generator`` (``gen``).
     differentiable : False for integer-valued and discrete ops: their
         outputs carry no gradient.
+    mutate_inputs : indices of the inputs the op updates in place (the
+        optimizer updates): output i is input ``mutate_inputs[i]``.
     attr_defaults : attr name -> default; every other positional
         parameter of ``fn`` is an input.
     """
 
     __slots__ = ("name", "fn", "num_outputs", "needs_rng", "differentiable",
-                 "attr_defaults", "doc")
+                 "mutate_inputs", "attr_defaults", "doc")
 
     def __init__(self, name, fn, num_outputs=1, needs_rng=False,
-                 differentiable=True, attr_defaults=None, doc=None):
+                 differentiable=True, mutate_inputs=(), attr_defaults=None,
+                 doc=None):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
         self.needs_rng = needs_rng
         self.differentiable = differentiable
+        self.mutate_inputs = tuple(mutate_inputs)
         self.attr_defaults = dict(attr_defaults or {})
         self.doc = doc or (fn.__doc__ if fn else None)
 
@@ -84,6 +88,7 @@ def alias(new_name, existing_name):
     _REGISTRY[new_name] = OpDef(new_name, op.fn, num_outputs=op.num_outputs,
                                 needs_rng=op.needs_rng,
                                 differentiable=op.differentiable,
+                                mutate_inputs=op.mutate_inputs,
                                 attr_defaults=op.attr_defaults, doc=op.doc)
     return _REGISTRY[new_name]
 

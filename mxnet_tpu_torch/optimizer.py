@@ -1,21 +1,31 @@
-"""Optimizers: SGD and Adam, with the fused update rules.
+"""Optimizers, with the fused update rules.
 
-Counterpart of the JAX package's ``optimizer.py``. ``Optimizer`` keeps
-the bookkeeping as there (learning-rate schedule, per-parameter lr/wd
-multipliers, per-index update counts, ``fused_hyper``); the update math
-is the fused rule of ``ops/cuda/fused_update.py``. A rule here takes
-whole lists, ``rule(weights, grads, states, hypers)``, and updates the
+Counterpart of the JAX package's ``optimizer.py``: its 15 optimizers
+under the same names. ``Optimizer`` keeps the bookkeeping as there
+(learning-rate schedule, per-parameter lr/wd multipliers, per-index
+update counts, ``fused_hyper``); the update math is the fused rule of
+``ops/cuda/fused_update.py``. A rule here takes whole lists,
+``rule(weights, grads, states, hypers, masters=None)``, and updates the
 tensors in place: ``fused_rule()`` returns the hand-written kernel's
-wrapper (``sgd_fused_update`` / ``adam_fused_update``, one launch over
-every parameter on the card; the plain version for CPU tensors only).
-``MXNET_PALLAS_FUSED_UPDATE=0``, which selects the XLA rules in the JAX
-package, raises here: the port has no other route on the card. The
-unfused path (``update(index, ...)``) calls the same rule on a list of
-one, so the fused and unfused steps compute the same function, as the
-JAX package holds them bitwise equal (tests/test_fused_step.py).
+wrapper (``sgd_fused_update``, ``adam_fused_update``, ``nag_fused_update``,
+..., one launch over every parameter on the card; the plain version for
+CPU tensors only). ``MXNET_PALLAS_FUSED_UPDATE=0``, which selects the
+XLA rules in the JAX package, raises here: the port has no other route
+on the card. The unfused path (``update(index, ...)``) calls the same
+rule on a list of one, so the fused and unfused steps compute the same
+function, as the JAX package holds them bitwise equal
+(tests/test_fused_step.py). ``Nadam``, ``SGLD``, ``DCASGD`` and
+``LBSGD`` have no fused rule in the JAX package either: they update per
+parameter in plain PyTorch (LBSGD's step through ``sgd_fused_update``).
 
-Multi-precision and weights other than float32 are refused. The other
-optimizers (NAG, Signum, AdaGrad, RMSProp, ...) come with ROADMAP A8.5.
+Weights may be float32, bfloat16 or float16; a rule rounds every
+operation to the weight's type, as the JAX rule does. With
+``multi_precision`` a float16 weight (float16 only, as in the JAX
+package: a bfloat16 weight takes its plain update) keeps a float32
+master copy: its state is ``(state, weight32)``, the rule runs in
+float32 on the master and the weight becomes the master rounded
+(``create_state_multi_precision`` / ``update_multi_precision``;
+:func:`apply_all` does a whole list in one launch).
 ``Updater.get_states`` / ``set_states`` read and write the JAX package's
 optimizer-state files.
 """
@@ -23,6 +33,7 @@ from __future__ import annotations
 
 import io
 import logging
+import math
 import pickle
 
 import numpy
@@ -30,11 +41,13 @@ import torch
 
 from .base import MXNetError
 from .config import get as _cfg
-from .ndarray.ndarray import NDArray, zeros
+from .ndarray.ndarray import NDArray, array, zeros
 from .ops.cuda import fused_update as _fu
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
-           "register", "fused_state_arrays", "fused_apply"]
+__all__ = ["Optimizer", "SGD", "Signum", "NAG", "Adam", "AdaGrad", "RMSProp",
+           "AdaDelta", "Ftrl", "FTML", "Adamax", "Nadam", "SGLD", "DCASGD",
+           "LBSGD", "Test", "Updater", "get_updater", "create", "register",
+           "fused_state_arrays", "fused_apply", "apply_all"]
 
 
 def fused_state_arrays(state):
@@ -66,18 +79,12 @@ class Optimizer(object):
     def create_optimizer(name, **kwargs):
         if name.lower() in Optimizer.opt_registry:
             return Optimizer.opt_registry[name.lower()](**kwargs)
-        raise MXNetError("optimizer %r is not ported to mxnet_tpu_torch "
-                         "(sgd and adam are; the other rules are ROADMAP "
-                         "A8.5)" % name)
+        raise ValueError("Cannot find optimizer %s" % name)
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None):
-        if multi_precision:
-            raise NotImplementedError("multi_precision (low-precision "
-                                      "weights with float32 master copies) "
-                                      "is not ported yet (ROADMAP A8.4)")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -90,7 +97,7 @@ class Optimizer(object):
         self.num_update = begin_num_update
         self._index_update_count = {}
         self.clip_gradient = clip_gradient
-        self.multi_precision = False
+        self.multi_precision = multi_precision
         if param_idx2name is None:
             param_idx2name = {}
         if not isinstance(param_idx2name, dict):
@@ -124,24 +131,68 @@ class Optimizer(object):
     def create_state(self, index, weight):
         """Create the state for ``weight``. Override."""
 
+    def _mastered(self, weight):
+        """Whether ``weight`` trains on a float32 master copy."""
+        return self.multi_precision and weight.dtype == numpy.float16
+
+    def create_state_multi_precision(self, index, weight):
+        """``create_state``, except that with ``multi_precision`` a
+        float16 weight gets a float32 master copy and the state
+        ``(state of the master, master)`` (reference: optimizer.py
+        create_state_multi_precision)."""
+        if self._mastered(weight):
+            master = weight.astype(numpy.float32)
+            return (self.create_state(index, master), master)
+        if weight.dtype == numpy.float16:
+            logging.warning("Accumulating with float16 in optimizer can lead "
+                            "to poor accuracy or slow convergence. Consider "
+                            "using multi_precision=True option.")
+        return self.create_state(index, weight)
+
     def update(self, index, weight, grad, state):
         """Update one weight in place (the unfused path): the fused rule
         on a list of one, with this index's hypers."""
+        self._rule_call([(index, weight, grad, state)], master=False)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """``update``, on the float32 master copy of a float16 weight
+        with ``multi_precision`` (its state ``(state, master)``)."""
+        if self.fused_rule() is not None:
+            self._rule_call([(index, weight, grad, state)], master=True)
+        elif self._mastered(weight):
+            inner, master = state
+            self.update(index, master, grad.astype(numpy.float32), inner)
+            with torch.no_grad():
+                weight._data.copy_(master._data)
+        else:
+            self.update(index, weight, grad, state)
+
+    def _rule_call(self, items, master):
+        """One call of the fused rule over ``items`` ((index, weight,
+        grad, state)), a float16 weight on its master copy where
+        ``master`` and ``multi_precision``."""
         rule = self.fused_rule()
         if rule is None:
             raise NotImplementedError("%s has no update rule"
                                       % type(self).__name__)
-        if weight.dtype != numpy.float32:
-            raise MXNetError("%s: weight dtype %s; mxnet_tpu_torch updates "
-                             "float32 weights only (ROADMAP A8.4)"
-                             % (type(self).__name__, weight.dtype))
-        rule([weight._data], [grad._data],
-             [tuple(s._data for s in fused_state_arrays(state))],
-             [self.fused_hyper(index)])
+        ws, gs, states, masters = [], [], [], []
+        for _i, w, g, s in items:
+            m = None
+            if master and self._mastered(w):
+                s, m = s
+                m = m._data
+            ws.append(w._data)
+            gs.append(g._data)
+            states.append(tuple(a._data for a in fused_state_arrays(s)))
+            masters.append(m)
+        hypers = [self.fused_hyper(i) for i, _w, _g, _s in items]
+        with torch.no_grad():       # the weights are autograd leaves
+            rule(ws, gs, states, hypers,
+                 masters if any(m is not None for m in masters) else None)
 
     def fused_rule(self):
-        """``rule(weights, grads, states, hypers)`` over lists of tensors,
-        in place; None when the optimizer has none."""
+        """``rule(weights, grads, states, hypers, masters=None)`` over
+        lists of tensors, in place; None when the optimizer has none."""
         return None
 
     def fused_hyper(self, index):
@@ -210,6 +261,17 @@ class Optimizer(object):
             wd *= self.wd_mult.get(self.idx2name[index], 1.0)
         return wd
 
+    def _prep_grad(self, grad, weight=None, wd=0.0):
+        """The unfused optimizers' gradient: ``grad * rescale_grad`` (+
+        ``wd * weight`` where given), clipped whenever ``clip_gradient``
+        is set, as their JAX ``update`` does."""
+        g = grad * self.rescale_grad
+        if weight is not None:
+            g = g + wd * weight
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        return g
+
 
 def _kernel_rule(wrapper):
     """``wrapper``, the kernel's; the knob cannot pin another route."""
@@ -225,6 +287,10 @@ register = Optimizer.register
 create = Optimizer.create_optimizer
 
 
+def _zeros_like(weight):
+    return zeros(weight.shape, ctx=weight.context, dtype=weight.dtype)
+
+
 @register
 class SGD(Optimizer):
     """SGD with momentum (reference: optimizer.py SGD)."""
@@ -237,10 +303,60 @@ class SGD(Optimizer):
     def create_state(self, index, weight):
         if self.momentum == 0.0:
             return None
-        return zeros(weight.shape, ctx=weight.context, dtype=weight.dtype)
+        return _zeros_like(weight)
 
     def fused_rule(self):
         return _kernel_rule(_fu.sgd_fused_update)
+
+    def fused_hyper(self, index):
+        h = super().fused_hyper(index)
+        h["momentum"] = float(self.momentum)
+        return h
+
+
+@register
+class Signum(Optimizer):
+    """Sign-of-gradient SGD with momentum (reference: optimizer.py
+    Signum); signSGD without."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return _zeros_like(weight)
+
+    def fused_rule(self):
+        return _kernel_rule(_fu.signum_fused_update)
+
+    def fused_hyper(self, index):
+        h = super().fused_hyper(index)
+        h["momentum"] = float(self.momentum)
+        h["one_minus_momentum"] = 1.0 - float(self.momentum)
+        h["wdlh_coef"] = 1.0 - h["lr"] * float(self.wd_lh)
+        h["lr_wd"] = h["lr"] * h["wd"]
+        return h
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated gradient (reference: optimizer.py NAG)."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return _zeros_like(weight)
+
+    def fused_rule(self):
+        return _kernel_rule(_fu.nag_fused_update)
 
     def fused_hyper(self, index):
         h = super().fused_hyper(index)
@@ -262,8 +378,7 @@ class Adam(Optimizer):
         self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
-        return (zeros(weight.shape, ctx=weight.context, dtype=weight.dtype),
-                zeros(weight.shape, ctx=weight.context, dtype=weight.dtype))
+        return (_zeros_like(weight), _zeros_like(weight))
 
     def fused_rule(self):
         return _kernel_rule(_fu.adam_fused_update)
@@ -280,6 +395,365 @@ class Adam(Optimizer):
         h["one_minus_beta2"] = 1.0 - float(self.beta2)
         h["epsilon"] = float(self.epsilon)
         return h
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (reference: optimizer.py AdaGrad)."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def fused_rule(self):
+        return _kernel_rule(_fu.adagrad_fused_update)
+
+    def fused_hyper(self, index):
+        h = super().fused_hyper(index)
+        h["eps"] = float(self.float_stable_eps)
+        if self.clip_gradient is not None:
+            # the JAX update() clips whenever clip_gradient is set
+            h["clip_gradient"] = float(self.clip_gradient)
+        return h
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, plain (Tieleman) or centered (Graves) (reference:
+    optimizer.py RMSProp)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:       # n, g, delta
+            return tuple(_zeros_like(weight) for _ in range(3))
+        return _zeros_like(weight)
+
+    def fused_rule(self):
+        return _kernel_rule(_fu.rmsprop_fused_update)
+
+    def fused_hyper(self, index):
+        h = super().fused_hyper(index)
+        h["gamma1"] = float(self.gamma1)
+        h["one_minus_gamma1"] = 1.0 - float(self.gamma1)
+        h["epsilon"] = float(self.epsilon)
+        if self.centered:
+            h["gamma2"] = float(self.gamma2)
+        if self.clip_weights is not None and self.clip_weights > 0:
+            h["clip_weights"] = float(self.clip_weights)
+        return h
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta (reference: optimizer.py AdaDelta)."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def fused_rule(self):
+        return _kernel_rule(_fu.adadelta_fused_update)
+
+    def fused_hyper(self, index):
+        h = super().fused_hyper(index)
+        h["rho"] = float(self.rho)
+        h["one_minus_rho"] = 1.0 - float(self.rho)
+        h["epsilon"] = float(self.epsilon)
+        if self.clip_gradient is not None:
+            h["clip_gradient"] = float(self.clip_gradient)
+        return h
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (reference: optimizer.py Ftrl)."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))    # z, n
+
+    def fused_rule(self):
+        return _kernel_rule(_fu.ftrl_fused_update)
+
+    def fused_hyper(self, index):
+        h = super().fused_hyper(index)
+        h["lamda1"] = float(self.lamda1)
+        h["beta"] = float(self.beta)
+        return h
+
+
+@register
+class FTML(Optimizer):
+    """FTML (reference: optimizer.py FTML); the step's coefficients are
+    folded per index on the host."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return tuple(_zeros_like(weight) for _ in range(3))   # d, v, z
+
+    def fused_rule(self):
+        return _kernel_rule(_fu.ftml_fused_update)
+
+    def fused_hyper(self, index):
+        h = super().fused_hyper(index)
+        t = self._index_update_count[index]
+        h["beta1"] = float(self.beta1)
+        h["one_minus_beta1"] = 1.0 - float(self.beta1)
+        h["beta2"] = float(self.beta2)
+        h["one_minus_beta2"] = 1.0 - float(self.beta2)
+        h["epsilon"] = float(self.epsilon)
+        h["d_coef"] = (1.0 - self.beta1 ** t) / h["lr"]
+        h["v_coef"] = 1.0 - self.beta2 ** t
+        return h
+
+
+@register
+class Adamax(Optimizer):
+    """AdaMax, Adam with the infinity norm (reference: optimizer.py
+    Adamax)."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def fused_rule(self):
+        return _kernel_rule(_fu.adamax_fused_update)
+
+    def fused_hyper(self, index):
+        h = super().fused_hyper(index)
+        t = self._index_update_count[index]
+        h["lr"] = float(h["lr"] / (1.0 - self.beta1 ** t))
+        h["beta1"] = float(self.beta1)
+        h["one_minus_beta1"] = 1.0 - float(self.beta1)
+        h["beta2"] = float(self.beta2)
+        if self.clip_gradient is not None:
+            h["clip_gradient"] = float(self.clip_gradient)
+        return h
+
+
+@register
+class Nadam(Optimizer):
+    """Nesterov Adam (reference: optimizer.py Nadam); per parameter, in
+    plain PyTorch (no fused rule in the JAX package either)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        w = weight._data
+        with torch.no_grad():
+            g = self._prep_grad(grad._data, w, wd)
+            momentum_t = self.beta1 * (
+                1.0 - 0.5 * 0.96 ** (t * self.schedule_decay))
+            momentum_t_1 = self.beta1 * (
+                1.0 - 0.5 * 0.96 ** ((t + 1) * self.schedule_decay))
+            self.m_schedule = self.m_schedule * momentum_t
+            m_schedule_next = self.m_schedule * momentum_t_1
+            m, v = state[0]._data, state[1]._data
+            m.copy_(self.beta1 * m + (1.0 - self.beta1) * g)
+            v.copy_(self.beta2 * v + (1.0 - self.beta2) * g * g)
+            grad_prime = g / (1.0 - self.m_schedule)
+            m_prime = m / (1.0 - m_schedule_next)
+            v_prime = v / (1.0 - self.beta2 ** t)
+            m_bar = (1.0 - momentum_t) * grad_prime + momentum_t_1 * m_prime
+            w.copy_(w - lr * m_bar / (_fu._sqrt(v_prime) + self.epsilon))
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (reference: optimizer.py
+    SGLD); per parameter, in plain PyTorch, the noise drawn from the
+    port's generator of the weight's device."""
+
+    def create_state(self, index, weight):
+        return None
+
+    def update(self, index, weight, grad, state):
+        from . import random as _random
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data
+        with torch.no_grad():
+            g = self._prep_grad(grad._data)
+            noise = torch.randn(w.shape, generator=_random.generator(
+                w.device), dtype=w.dtype, device=w.device) * math.sqrt(lr)
+            w.copy_(w - lr / 2 * (g + wd * w) + noise)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (reference: optimizer.py
+    DCASGD); per parameter, in plain PyTorch."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        prev = weight.copy()
+        if self.momentum == 0.0:
+            return (None, prev)
+        return (_zeros_like(weight), prev)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data
+        mom, prev = state
+        with torch.no_grad():
+            g = self._prep_grad(grad._data)
+            delta = -lr * (g + wd * w + self.lamda * g * g
+                           * (w - prev._data))
+            if mom is not None:
+                mom._data.copy_(mom._data * self.momentum + delta)
+                delta = mom._data
+            prev._data.copy_(w)
+            w.copy_(w + delta)
+
+
+@register
+class LBSGD(Optimizer):
+    """Large-batch SGD (reference: optimizer.py LBSGD): per parameter,
+    the gradient accumulates over ``batch_scale`` micro-batches, then one
+    momentum-SGD step (``sgd_fused_update`` on a list of one) at the
+    learning rate scaled by the warm-up strategy ('linear', 'power2',
+    'sqrt' toward ``batch_scale`` over ``warmup_epochs``) or by the LARS
+    trust ratio (``warmup_strategy='lars'``)."""
+
+    def __init__(self, momentum=0.0, warmup_strategy="linear",
+                 warmup_epochs=5, batch_scale=1, updates_per_epoch=32,
+                 begin_epoch=0, num_epochs=60, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = int(batch_scale)
+        self.updates_per_epoch = updates_per_epoch
+        self.init_updates = begin_epoch * updates_per_epoch
+        self.num_epochs = num_epochs
+        self._cum = {}                     # index -> [cum_grad, n]
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return _zeros_like(weight)
+
+    def _warmup_mult(self, nup):
+        nwup = self.warmup_epochs * self.updates_per_epoch
+        maxmult = float(self.batch_scale)
+        if nup >= nwup:
+            return maxmult
+        if nwup <= 1:
+            return 1.0
+        if self.warmup_strategy == "linear":
+            return 1.0 + (maxmult - 1) * nup / nwup
+        if self.warmup_strategy == "power2":
+            return 1.0 + (maxmult - 1) * (nup * nup) / (nwup * nwup)
+        if self.warmup_strategy == "sqrt":
+            return 1.0 + (maxmult - 1) * math.sqrt(float(nup) / nwup)
+        return 1.0
+
+    def _lars(self, weight, grad, wd):
+        w2 = float((weight * weight).sum())
+        g2 = float((grad * grad).sum())
+        lars = math.sqrt(w2 / (g2 + wd * w2 + 1e-18))
+        return min(max(lars, 0.01), 100.0)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = grad._data
+        if self.batch_scale > 1:
+            # the micro-batch count runs on for the whole run, so the
+            # warm-up advances; the sum restarts at each macro-batch
+            cum = self._cum.get(index)
+            if cum is None:
+                self._cum[index] = cum = [g.clone(), 1]
+            elif cum[1] % self.batch_scale == 0:
+                cum[0] = g.clone()
+                cum[1] += 1
+            else:
+                cum[0] = cum[0] + g
+                cum[1] += 1
+            if cum[1] % self.batch_scale != 0:
+                return                      # an accumulating micro-batch
+            g = cum[0] / self.batch_scale
+            nup = self.init_updates + cum[1]
+        else:
+            nup = self.init_updates + self.num_update
+        if self.warmup_strategy == "lars":
+            lr = lr * self._lars(weight._data, g, wd)
+        else:
+            lr = lr * self._warmup_mult(nup)
+        h = {"lr": float(lr), "wd": float(wd),
+             "rescale_grad": float(self.rescale_grad)}
+        if self.clip_gradient is not None and self.clip_gradient > 0:
+            h["clip_gradient"] = float(self.clip_gradient)
+        if state is not None:
+            h["momentum"] = float(self.momentum)
+        with torch.no_grad():
+            _fu.sgd_fused_update([weight._data], [g],
+                                 [tuple(a._data for a in
+                                        fused_state_arrays(state))], [h])
+
+
+@register
+class Test(Optimizer):
+    """Test optimizer: accumulating SGD (reference: optimizer.py Test)."""
+
+    def create_state(self, index, weight):
+        return _zeros_like(weight)
+
+    def fused_rule(self):
+        return _kernel_rule(_fu.test_fused_update)
+
+    def fused_hyper(self, index):
+        # update()'s: the raw lr, no scheduler, multipliers or counts
+        return {"lr": float(self.lr),
+                "rescale_grad": float(self.rescale_grad)}
 
 
 class Updater(object):
@@ -301,7 +775,8 @@ class Updater(object):
         ``weight``'s device after ``set_states``); shared by the
         per-parameter path and the fused train step."""
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
+            self.states[index] = self.optimizer.create_state_multi_precision(
+                index, weight)
             self.states_synced[index] = True
         elif not self.states_synced.get(index, True):
             self.states[index] = _state_on(self.states[index],
@@ -310,8 +785,8 @@ class Updater(object):
         return self.states[index]
 
     def __call__(self, index, grad, weight):
-        self.optimizer.update(index, weight, grad,
-                              self.ensure_state(index, weight))
+        self.optimizer.update_multi_precision(
+            index, weight, grad, self.ensure_state(index, weight))
 
     def get_states(self, dump_optimizer=False):
         """The states as the bytes of an optimizer-state file."""
@@ -341,7 +816,10 @@ _STATE_GLOBALS = {
     ("numpy._core.multiarray", "_reconstruct"),
     ("numpy.core.multiarray", "scalar"),
     ("numpy._core.multiarray", "scalar"),
-    ("numpy", "ndarray"), ("numpy", "dtype"), ("_codecs", "encode")}
+    ("numpy", "ndarray"), ("numpy", "dtype"), ("_codecs", "encode"),
+    # bfloat16 states: numpy has no bfloat16; both packages carry it as
+    # ml_dtypes' (what NDArray.asnumpy returns)
+    ("ml_dtypes", "bfloat16")}
 
 
 class _StateUnpickler(pickle.Unpickler):
@@ -365,7 +843,7 @@ def _state_numpy(state):
 
 def _state_on(state, device):
     if isinstance(state, numpy.ndarray):
-        return NDArray(torch.from_numpy(numpy.array(state)).to(device))
+        return array(state, ctx=device, dtype=state.dtype)
     if isinstance(state, NDArray):
         return state.as_in_context(device)
     if isinstance(state, (tuple, list)):
@@ -377,24 +855,24 @@ def get_updater(optimizer):
     return Updater(optimizer)
 
 
-def fused_apply(optimizer, items):
+def apply_all(optimizer, items):
     """Update every ``(index, weight, grad, state)`` of ``items`` in place
-    through ONE call of ``optimizer.fused_rule()``: one launch of the
-    update kernel on CUDA tensors, the plain version on CPU tensors
-    (reference: the JAX package's ``optimizer.fused_apply``, one donated
-    XLA program; Gluon's ``Trainer.step`` calls it)."""
-    rule = optimizer.fused_rule()
-    if rule is None:
-        raise NotImplementedError("%s has no update rule"
-                                  % type(optimizer).__name__)
-    for _i, w, _g, _s in items:
-        if w.dtype != numpy.float32:
-            raise MXNetError("%s: weight dtype %s; mxnet_tpu_torch updates "
-                             "float32 weights only (ROADMAP A8.4)"
-                             % (type(optimizer).__name__, w.dtype))
-    hypers = [optimizer.fused_hyper(i) for i, _w, _g, _s in items]
-    with torch.no_grad():       # the weights are autograd leaves
-        rule([w._data for _i, w, _g, _s in items],
-             [g._data for _i, _w, g, _s in items],
-             [tuple(a._data for a in fused_state_arrays(s))
-              for _i, _w, _g, s in items], hypers)
+    through ONE call of ``optimizer.fused_rule()`` (one launch of the
+    update kernel on CUDA tensors, the plain version on CPU tensors), a
+    float16 weight of a ``multi_precision`` optimizer on its float32
+    master copy (its state ``(state, master)``). False, and nothing
+    done, when the optimizer has no fused rule."""
+    if optimizer.fused_rule() is None:
+        return False
+    optimizer._rule_call(items, master=True)
+    return True
+
+
+def fused_apply(optimizer, items):
+    """The JAX package's ``optimizer.fused_apply``: :func:`apply_all`,
+    declining (False, nothing done) for an optimizer without a fused rule
+    or with ``multi_precision``, as the JAX one does; Gluon's ``Trainer``
+    then takes :func:`apply_all` or the per-parameter updates."""
+    if optimizer.multi_precision:
+        return False
+    return apply_all(optimizer, items)

@@ -443,7 +443,8 @@ def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
     if wd_mult is not None:
         attrs["__wd_mult__"] = wd_mult
     if dtype is not None:
-        attrs["__dtype__"] = np.dtype(dtype).name
+        attrs["__dtype__"] = ("bfloat16" if str(dtype) == "bfloat16"
+                              else np.dtype(dtype).name)
     if init is not None:
         attrs["__init__"] = init if isinstance(init, str) else init.dumps()
     attrs.update(kwargs)

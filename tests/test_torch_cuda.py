@@ -568,6 +568,97 @@ def test_fused_update_kernel_matches_plain_bitwise(card, kind, misaligned):
             assert torch.equal(a, b)
 
 
+# each rule's hypers beside lr, wd and rescale_grad, and its state counts
+_RULE_HYPERS = {
+    "sgd": (dict(momentum=0.9), (0, 1)),
+    "nag": (dict(momentum=0.9), (0, 1)),
+    "signum": (dict(momentum=0.9, one_minus_momentum=0.1, wdlh_coef=0.999,
+                    lr_wd=1e-5), (0, 1)),
+    "adam": (dict(beta1=0.9, beta2=0.999, one_minus_beta1=0.1,
+                  one_minus_beta2=1 - 0.999, epsilon=1e-8), (2,)),
+    "adagrad": (dict(eps=1e-7), (1,)),
+    "rmsprop": (dict(gamma1=0.9, one_minus_gamma1=0.1, epsilon=1e-8,
+                     clip_weights=0.5), (1, 3)),
+    "adadelta": (dict(rho=0.9, one_minus_rho=0.1, epsilon=1e-5), (2,)),
+    "ftrl": (dict(lamda1=0.01, beta=1.0), (2,)),
+    "ftml": (dict(beta1=0.6, one_minus_beta1=0.4, beta2=0.999,
+                  one_minus_beta2=1 - 0.999, epsilon=1e-8, d_coef=4.0,
+                  v_coef=1 - 0.999), (3,)),
+    "adamax": (dict(beta1=0.9, one_minus_beta1=0.1, beta2=0.999), (2,)),
+    "test": ({}, (1,)),
+}
+_RULE_CASES = [(r, d, m) for r in sorted(_RULE_HYPERS)
+               for d in ("float32", "bfloat16", "float16")
+               for m in ((False, True) if d == "float16" else (False,))]
+
+
+def _same_bits(a, b):
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return bool(((a.view(ints) == b.view(ints))
+                 | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("rule,dtype,master", _RULE_CASES)
+def test_fused_update_rules_match_plain_bitwise(card, rule, dtype, master):
+    """Every rule of fused_update.cu, each state count, with and without
+    clipping, on float32 / bf16 / float16 weights (float16 also in the
+    master mode: float32 states and master), one launch a call, bitwise
+    equal to the plain version; a bf16 or float16 list with a float32
+    tensor in it (a cast net's BatchNorm; beside float16 tensors on
+    masters, a float32 one without) takes the same one launch."""
+    extra, counts = _RULE_HYPERS[rule]
+    dt = getattr(torch, dtype)
+    sdt = torch.float32 if master else dt
+    shapes = [(7,), (1000,), (64, 3, 7, 7), (4097,), (300, 100)]
+    gen = torch.Generator().manual_seed(31)
+    name = "%s_fused_update" % rule
+    for n_state in counts:
+        for clip in (False, True):
+            def rnd(shape, scale, t):
+                return (torch.randn(shape, generator=gen) * scale).to(card, t)
+            types = [dt] * len(shapes)
+            if dtype != "float32":
+                types[1] = torch.float32
+            ws = [rnd(s, 0.05, t) for s, t in zip(shapes, types)]
+            gs = [rnd(s, 1.0, t) for s, t in zip(shapes, types)]
+            st = [tuple(rnd(s, 0.01, sdt if master else t).abs()
+                        for _ in range(n_state))
+                  for s, t in zip(shapes, types)]
+            ms = [None if w.dtype == torch.float32 else w.float()
+                  for w in ws] if master else None
+            hs = []
+            for i in range(len(shapes)):
+                h = dict(lr=0.1 * (i + 1), wd=1e-4 * i, rescale_grad=0.125,
+                         **extra)
+                if n_state == 3 and rule == "rmsprop":
+                    h["gamma2"] = 0.9
+                if clip and rule != "test":
+                    h["clip_gradient"] = 0.02
+                hs.append(h)
+            runs = []
+            for fn in (getattr(tfu, name), getattr(tfu, "_%s_fused" % rule)):
+                w = [x.clone() for x in ws]
+                s = [tuple(x.clone() for x in t) for t in st]
+                m = [x if x is None else x.clone()
+                     for x in ms] if master else None
+                n0 = tfu.LAUNCHES[name]
+                fn(w, gs, s, hs, m)
+                torch.cuda.synchronize()
+                runs.append((w, s, m, tfu.LAUNCHES[name] - n0))
+            (kw, ks, km, launched), (pw, ps, pm, plain) = runs
+            assert (launched, plain) == (1, 0)
+            assert all(_same_bits(a, b) for a, b in zip(kw, pw))
+            assert all(_same_bits(a, b) for x, y in zip(ks, ps)
+                       for a, b in zip(x, y))
+            if master:
+                pairs = [(w, a, b) for w, a, b in zip(kw, km, pm)
+                         if a is not None]
+                assert all(_same_bits(a, b) for _, a, b in pairs)
+                # the weight is its master rounded (NaN where the master
+                # is: centered RMSProp's random states give n < g_acc^2)
+                assert all(_same_bits(w, a.to(dt)) for w, a, _ in pairs)
+
+
 def test_resnet_fit_on_card_matches_cpu(card):
     sym = tmx.models.resnet(num_classes=10, num_layers=8,
                             image_shape=(3, 16, 16), bottle_neck=True)

@@ -44,6 +44,10 @@
   smaller than the crop, 4:4:0, 4:1:1 and 4:1:0 planes convert, and
   the plain version of its kernel gives the JAX package's native
   decoder's bits for a resize below the crop.
+* The model builders take ``dtype`` as the JAX builders do and build
+  the same float32 graph whatever it is (C.17).
+* ``asnumpy`` of a bfloat16 array on the CPU is a copy, as the JAX
+  package's (C.18).
 """
 import numpy as np
 import pytest
@@ -550,3 +554,32 @@ def test_nvjpeg_backend_takes_jax_decoders_domain():
         torch.from_numpy(items.astype(np.int64)), (3, 64, 72), [0.0] * 3,
         [1.0] * 3)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("net", ["alexnet", "vgg", "mobilenet",
+                                 "inception_bn"])
+def test_builders_take_dtype_as_jax(net):
+    """C.17: the builders raised for any ``dtype`` but float32; the JAX
+    builders take it and build the same float32 graph whatever it is."""
+    import mxnet_tpu.models  # noqa: F401
+    kw = {"vgg": {"num_layers": 11}}.get(net, {})
+    t = getattr(tmx.models, net)(num_classes=10, dtype="float16", **kw)
+    j = getattr(jmx.models, net)(num_classes=10, dtype="float16", **kw)
+    assert t.list_arguments() == j.list_arguments()
+    assert t.list_auxiliary_states() == j.list_auxiliary_states()
+    assert t.list_outputs() == j.list_outputs()
+    assert t.infer_shape(data=(2, 3, 96, 96)) == j.infer_shape(
+        data=(2, 3, 96, 96))
+
+
+def test_bfloat16_asnumpy_is_a_copy_as_jax():
+    """C.18: ``asnumpy`` of a bfloat16 array on the CPU returned a view of
+    the tensor, so a later in-place update (an optimizer step) changed
+    the host array; the JAX package's is a copy, as the port's of every
+    other type."""
+    for mx, kw in ((tmx, {"ctx": tmx.cpu()}), (jmx, {})):
+        x = mx.nd.array(np.ones(4, np.float32), **kw).astype("bfloat16")
+        host = x.asnumpy()
+        x += 1
+        assert host.astype(np.float32).tolist() == [1.0] * 4
+        assert x.asnumpy().astype(np.float32).tolist() == [2.0] * 4

@@ -163,7 +163,8 @@ def test_cpu_tensors_route_to_plain_version_and_launch_nothing(monkeypatch):
     w, g, state = _case(4, (5, 3), "sgd_mom")
     _port("sgd_mom", w, g, state, SGD_H)
     assert calls == [1]
-    assert tfu.LAUNCHES == {"sgd_fused_update": 0, "adam_fused_update": 0}
+    assert set(tfu.LAUNCHES) == set(tfu.CUDA_KERNELS)
+    assert not any(tfu.LAUNCHES.values())
     assert len(_build._loaded) == loaded
 
 
@@ -197,6 +198,26 @@ def test_adam_needs_two_states_and_lists_need_tensors():
         tfu.sgd_fused_update([], [], [], [])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_master_mode_takes_other_weight_types_in_sgd_only(dtype):
+    """A float32 master beside a float32 or bf16 weight (what the mp_sgd
+    ops pass) updates in SGD and SGD with momentum; every other rule takes
+    masters beside float16 weights only."""
+    for states in (0, 1):
+        ws, gs, st, hs = _lists(dtype=dtype, states=states)
+        st = [tuple(s.float() for s in t) for t in st]
+        ms = [w.float() for w in ws]
+        tfu.sgd_fused_update(ws, gs, st, hs, ms)
+        assert all(torch.equal(w, m.to(dtype)) and bool((m < 0).all())
+                   for w, m in zip(ws, ms))
+    ws, gs, _, _ = _lists(dtype=dtype)
+    st = [(torch.zeros(4), torch.zeros(4)) for _ in ws]
+    hs = [dict(SGD_H, beta1=0.9, one_minus_beta1=0.1, beta2=0.999,
+               one_minus_beta2=1e-3, epsilon=1e-8) for _ in ws]
+    with pytest.raises(MXNetError, match="float16 weights"):
+        tfu.adam_fused_update(ws, gs, st, hs, [w.float() for w in ws])
+
+
 def _find_tensor(first, n, b):
     """The kernel's block-to-tensor search: the last t with first[t] <= b."""
     lo, hi = 0, n - 1
@@ -221,20 +242,25 @@ def test_launch_table_covers_every_chunk_once(numels):
     gs = [torch.zeros(k) for k in numels]
     st = [(torch.zeros(k),) for k in numels]
     hs = [dict(SGD_H, lr=0.1 * (i + 1), wd=1e-4 * i) for i in range(n)]
-    buf, n_blocks, clip = tfu._pack("sgd_fused_update", "sgd_mom", ws, gs, st,
-                                    hs)
-    assert not clip
-    assert buf[:32].view(np.float32)[:3].tolist() == [
+    buf, n_blocks, flags = tfu._pack("sgd_fused_update", "sgd_mom", ws, gs,
+                                     st, hs)
+    assert not flags
+    sh, eb = tfu._SHARED_BYTES, tfu._ENTRY_BYTES
+    assert buf[:sh].view(np.float32)[:3].tolist() == [
         np.float32(SGD_H["rescale_grad"]), 0.0, np.float32(0.9)]
-    end = 32 + 48 * n
-    ent = buf[32:end].view(np.int64).reshape(n, 6)
+    end = sh + eb * n
+    ent = buf[sh:end].view(np.int64).reshape(n, eb // 8)
     assert ent[:, 0].tolist() == [w.data_ptr() for w in ws]
     assert ent[:, 1].tolist() == [g.data_ptr() for g in gs]
     assert ent[:, 2].tolist() == [s[0].data_ptr() for s in st]
-    assert ent[:, 3].tolist() == [0] * n and ent[:, 4].tolist() == numels
-    assert np.array_equal(buf[32:end].view(np.float32).reshape(n, 12)[:, 10:],
+    assert ent[:, 3:6].tolist() == [[0, 0, 0]] * n
+    assert ent[:, 6].tolist() == numels
+    f32 = buf[sh:end].view(np.float32).reshape(n, eb // 4)
+    assert np.array_equal(f32[:, 14:16],
                           np.array([(h["lr"], h["wd"]) for h in hs],
                                    np.float32))
+    assert buf[sh:end].view(np.int32).reshape(n, eb // 4)[:, 18].tolist() \
+        == [0] * n                      # float32 weights, no master
     first = buf[end:].view(np.int32)
     assert len(first) == n + 1 and first[-1] == n_blocks
     seen = [(t, b - first[t]) for b in range(n_blocks)

@@ -2,8 +2,10 @@
 against the JAX package's, on the CPU.
 
 * Each builder gives the JAX builder's graph: the same arguments,
-  auxiliary states and outputs, and the same inferred shapes; a float16
-  builder raises naming ROADMAP A8.4.
+  auxiliary states and outputs, and the same inferred shapes; with
+  ``dtype="float16"`` too (the same nodes, arguments, outputs and
+  shapes), which both packages accept and build the same float32 graph
+  for.
 * Two ``Module.fit`` steps of each network (10 classes, VGG 11, batch 2
   at 64 x 64, MobileNet at 96 x 96, SGD with momentum and weight decay) from the JAX
   package's initialization, each step held from the JAX package's own
@@ -83,9 +85,17 @@ def test_builder_matches_jax(net):
     assert t.list_outputs() == j.list_outputs()
     shape = (BATCH, 3, SIDE[net], SIDE[net])
     assert t.infer_shape(data=shape) == j.infer_shape(data=shape)
-    with pytest.raises(NotImplementedError, match="A8.4"):
-        getattr(tmx.models, net)(num_classes=10, dtype="float16",
-                                 **NETS[net])
+    t16 = getattr(tmx.models, net)(num_classes=10, dtype="float16",
+                                   **NETS[net])
+    j16 = getattr(jmx.models, net)(num_classes=10, dtype="float16",
+                                   **NETS[net])
+    for a, b in ((t16, j16), (t16, t)):
+        assert a.list_arguments() == b.list_arguments()
+        assert a.list_auxiliary_states() == b.list_auxiliary_states()
+        assert a.list_outputs() == b.list_outputs()
+        assert [n["op"] for n in json.loads(a.tojson())["nodes"]] == [
+            n["op"] for n in json.loads(b.tojson())["nodes"]]
+    assert t16.infer_shape(data=shape) == j16.infer_shape(data=shape)
 
 
 def _data(net):

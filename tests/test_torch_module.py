@@ -12,8 +12,9 @@ metrics exactly (accuracy, top-5) or within 1e-5 (cross-entropy). The
 port's fused step (one fused-update call over every parameter) and its
 unfused path (``MXNET_FUSED_STEP=0``; ``get_outputs()`` before
 ``update()``) must give the same result bitwise, as the JAX package
-holds its own two paths (tests/test_fused_step.py). What the port's
-``fit`` does not support yet must raise, naming the feature.
+holds its own two paths (tests/test_fused_step.py). ``multi_precision``
+(on these float32 weights) and NAG fit as in the JAX package too. What
+the port's ``fit`` does not support yet must raise, naming the feature.
 """
 import numpy as np
 import pytest
@@ -70,11 +71,11 @@ def init_params():
             {k: v.asnumpy() for k, v in aux.items()})
 
 
-def _jax_fit(init, opt):
+def _jax_fit(init, opt, params=None):
     mod = jmx.mod.Module(_symbol(jmx), context=jmx.cpu())
     metric = _metric(jmx)
     mod.fit(jmx.io.NDArrayIter(X, Y, batch_size=BATCH), num_epoch=EPOCHS,
-            optimizer=opt, optimizer_params=_opt(jmx, opt),
+            optimizer=opt, optimizer_params=params or _opt(jmx, opt),
             arg_params={k: jmx.nd.array(v) for k, v in init[0].items()},
             aux_params={k: jmx.nd.array(v) for k, v in init[1].items()},
             eval_metric=metric)
@@ -85,12 +86,13 @@ def _jax_fit(init, opt):
                 jmx.io.NDArrayIter(X, Y, batch_size=BATCH)).asnumpy())
 
 
-def _port_fit(init, opt):
+def _port_fit(init, opt, params=None):
     mod = tmx.mod.Module(_symbol(tmx), context=tmx.cpu())
     metric = _metric(tmx)
     arg, aux = module_params_from_numpy(init[0], init[1], device="cpu")
     mod.fit(tmx.io.NDArrayIter(X, Y, batch_size=BATCH), num_epoch=EPOCHS,
-            optimizer=opt, optimizer_params=_opt(tmx, opt), arg_params=arg,
+            optimizer=opt, optimizer_params=params or _opt(tmx, opt),
+            arg_params=arg,
             aux_params=aux, eval_metric=metric)
     arg, aux = module_params_to_numpy(*mod.get_params())
     return (arg, aux, metric.get_name_value(), mod.predict(
@@ -102,10 +104,7 @@ def jax_runs(init_params):
     return {opt: _jax_fit(init_params, opt) for opt in ("sgd", "adam")}
 
 
-@pytest.mark.parametrize("opt", ["sgd", "adam"])
-def test_fit_matches_jax(jax_runs, init_params, opt):
-    want = jax_runs[opt]
-    got = _port_fit(init_params, opt)
+def _assert_fit_matches(got, want, init_params):
     for g, w in ((got[0], want[0]), (got[1], want[1])):
         assert sorted(g) == sorted(w)
         for k in w:
@@ -120,6 +119,29 @@ def test_fit_matches_jax(jax_runs, init_params, opt):
     assert values[:2] == jvalues[:2]    # accuracy, top-5: exactly
     assert abs(values[2] - jvalues[2]) <= CE_TOL
     np.testing.assert_allclose(got[3], want[3], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+def test_fit_matches_jax(jax_runs, init_params, opt):
+    _assert_fit_matches(_port_fit(init_params, opt), jax_runs[opt],
+                        init_params)
+
+
+# multi_precision on float32 weights trains as without it (the JAX
+# Module takes its unfused path, the port its fused step: one function);
+# NAG, the other optimizers' rules on the fused step
+MORE = {"multi_precision": ("sgd", {"learning_rate": 0.1, "momentum": 0.9,
+                                    "wd": 1e-4, "multi_precision": True}),
+        "nag": ("nag", {"learning_rate": 0.05, "momentum": 0.9,
+                        "wd": 1e-4})}
+
+
+@pytest.mark.parametrize("case", sorted(MORE))
+def test_fit_matches_jax_with(init_params, case):
+    opt, params = MORE[case]
+    _assert_fit_matches(_port_fit(init_params, opt, dict(params)),
+                        _jax_fit(init_params, opt, dict(params)),
+                        init_params)
 
 
 def test_fused_and_unfused_paths_agree_bitwise(init_params, monkeypatch):
@@ -210,8 +232,6 @@ def test_per_index_hypers_match_jax(init_params, opt):
     ({"monitor": object()}, "A8.6"),
     ({"sparse_row_id_fn": lambda b: b}, "A8.6"),
     ({"kvstore": "dist_sync"}, "A13"),
-    ({"optimizer_params": {"multi_precision": True}}, "A8.4"),
-    ({"optimizer": "nag"}, "A8.5"),
     ({"epoch_end_callback": None, "elastic": True}, "A13"),
 ])
 def test_refused_features_raise(init_params, monkeypatch, kwargs, match):
@@ -237,10 +257,17 @@ def test_refused_contexts_weights_and_callbacks():
     mod.bind(data_shapes=[("data", (BATCH, 3, 16, 16))],
              label_shapes=[("softmax_label", (BATCH,))])
     mod.init_params(tmx.init.Xavier())
+    # a weight that init_params gave another type trains in that type
     mod._exec.arg_dict["fc1_bias"]._set_data(torch.zeros(10,
                                                          dtype=torch.float16))
-    with pytest.raises(NotImplementedError, match="float32"):
-        mod.init_optimizer(optimizer="sgd")
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.1})
+    i = mod._param_names.index("fc1_bias")
+    bias = mod._exec.arg_dict["fc1_bias"]
+    mod._updater(i, tmx.nd.ones((10,), ctx=tmx.cpu(), dtype="float16"),
+                 bias)
+    assert bias.dtype == np.float16
+    assert np.allclose(bias.asnumpy(), -0.1 / BATCH)
 
 
 def test_xavier_and_name_dispatch():
