@@ -402,7 +402,36 @@ Phases, each fatal on failure (no phase's failure is caught):
     a planted BatchNorm fault that must miss; ``train_imagenet.main``
     with ``--optimizer nag --benchmark 1`` for 16 batches (one
     ``nag_fused_update`` a step);
-53. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
+53. the serving front at full width: ``serve_http`` over one
+    ``ModelRegistry`` (phase 17's ResNet-50 fp32 checkpoint, max batch 32,
+    batch wait 2 ms) with a ``DecodeEngine`` at phase 4's configuration
+    attached: /healthz 503 before the warmups and ``ok`` after; counts 0,
+    then phase 4's mix as 16 concurrent streaming /generate requests
+    (every stream complete; tokens/s, TTFT, ITL through HTTP), the
+    68-request /predict set from 16 threads (scaled images whose answers
+    are spread and apart: within 1e-5 of the direct predictor), and under closed-loop traffic from 2 clients the int8
+    canary (``enable_shadow`` at 0.25), ``swap(quantized=)`` (the 16
+    images' int8 answers bitwise phase 17's) and the rollback, no request
+    failed; counts read: the paged kernels once a layer a prefill and a
+    step, the int8 kernels 53 + 1 a forward of the int8 engines, BatchNorm
+    51 a forward (batches and the three engines' warmups); a client that
+    resets mid-stream gives its pages back;
+    /metrics parses, every ``serving/mfu`` and ``decode/mfu`` at most
+    1.05 and the hand count against the health layer's count under the
+    ``mfu_divergence`` rule's 0.20; /traces holds one trace a request
+    with ``serve.*`` nested; /alerts lists the default rules; decode
+    tokens/s with trace sampling 1.0 and 0.0 in turns;
+54. faults and health: ``serve.worker`` and ``decode.step`` armed once
+    each on that server (the serve worker restarts and
+    ``worker_restart_burn`` fires on ``evaluate_once``; the decode
+    session in flight fails with 500 and the scheduler restarts; the
+    next requests complete); a NaN batch trips the numerics sentinel in
+    a ResNet-50 ``Module.fit`` (policy raise); phase 13's step with the
+    sentinel off / step / full, the flight recorder on and "off" again
+    (min of alternated rounds): the step mode held to the 2% budget above
+    twice the noise floor; a ``DataPipeline``-fed fit
+    whose traces hold ``train.data_wait`` and ``io.*`` spans;
+55. print a ``kernels`` JSON line (the ``rtc`` entry's times from phase
     20, its launches from phase 21; the flash kernels' fma-route rows'
     times from phase 38, their launches from phases 39 and 40;
     ``crop_mirror_normalize``'s times from phase 24, its launches from
@@ -410,9 +439,11 @@ Phases, each fatal on failure (no phase's failure is caught):
     launches from phase 22's first hybridized window, phase 28's four CLI
     runs, phase 30's fit, phase 31's first hybridized window, phase 34's
     runs, phase 35's fit, phase 36's first hybridized window and phase
-    49's fit; ``batch_norm_inference``'s from phase 27's and phase 32's
-    windows; phase 51's rows with their launches from phase 52), the card
-    line, and last ``{"ok": true, "device": {...}}``.
+    49's fit and phase 54's steps; ``batch_norm_inference``'s from phase
+    27's and phase 32's windows and phase 53; the paged and int8 kernels'
+    from phases 4 and 17 and phase 53; phase 51's rows with their
+    launches from phase 52), the card line, and last ``{"ok": true,
+    "device": {...}}``.
 
 Exits non-zero, printing no result, without a CUDA device or without
 the package beside it. ``--report PATH`` also writes every measurement
@@ -1124,6 +1155,19 @@ FULL = dict(vocab_size=32768, d_model=1024, n_heads=16, n_kv_heads=4,
             n_layers=12, d_ff=4096, max_len=256, pos_type="rope")
 
 
+def decode_mix(vocab):
+    """Phase 4's 16 requests: benchmark.py decode_serve's mix."""
+    rng = np.random.RandomState(0)
+    reqs = []
+    for _ in range(16):
+        if rng.rand() < 0.5:
+            plen, mnew = rng.randint(4, 24), rng.randint(32, 64)
+        else:
+            plen, mnew = rng.randint(48, 128), rng.randint(4, 16)
+        reqs.append((list(rng.randint(0, vocab, (plen,))), int(mnew)))
+    return reqs
+
+
 def serve(torch, fa):
     from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.parallel.transformer import (
@@ -1143,15 +1187,7 @@ def serve(torch, fa):
         log("serve: warmup %.1fs (prefill buckets %s, slot buckets %s)"
             % (time.time() - t0, eng.config.prefill_buckets,
                eng.config.slot_buckets))
-        rng = np.random.RandomState(0)
-        reqs = []                    # benchmark.py decode_serve's mix
-        for _ in range(16):
-            if rng.rand() < 0.5:
-                plen, mnew = rng.randint(4, 24), rng.randint(32, 64)
-            else:
-                plen, mnew = rng.randint(48, 128), rng.randint(4, 16)
-            reqs.append((list(rng.randint(0, cfg.vocab_size, (plen,))),
-                         int(mnew)))
+        reqs = decode_mix(cfg.vocab_size)
 
         def hist_count(name):
             return telemetry.snapshot().get(name, {"count": 0})["count"]
@@ -3118,11 +3154,13 @@ def serve_int8(torch, mx, i8, bnk, workdir, dev, num_layers=50,
             % (what, SERVE_IMAGES, drift[what]["max_abs"],
                drift[what]["fp32_abs_max"], drift[what]["rel_rms"],
                drift[what]["top1_agree"]))
+    int8_rows = runs["int8"]["per_image"]
     for r in runs.values():
         del r["per_image"]
     return {"checkpoint_s": t_ckpt, "quantize_s": t_quant,
             "quantized_layers": len(qp.meta), "runs": runs,
-            "drift": drift, "artifact": qp}
+            "drift": drift, "artifact": qp, "int8_rows": int8_rows,
+            "fp32_blob": fp32_blob}
 
 
 def profile_int8(torch, i8, bnk, pred, dev, batch, image, n_convs, n_bns,
@@ -8867,6 +8905,798 @@ def gluon_lowp(torch, mx, fu):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 53-54: the serving front and its observability
+# ---------------------------------------------------------------------------
+
+HTTP_SHADOW = 0.25      # phase 53: the canary's mirrored fraction
+HTTP_MIRRORS = 8        # mirrored requests before the int8 flip
+HTTP_CANARY_CLIENTS = 2     # closed-loop clients across the canary, swap
+                            # and rollback: each /predict parses ~3 MB of
+                            # JSON under the GIL that the swap's engine
+                            # build needs, so more clients slow the swap
+HTTP_CANARY_REQUESTS = 16   # answered requests after the flip, and again
+                            # after the rollback
+HTTP_TRACED = 24        # /predict requests whose traces are read back
+HTTP_OUT_TOL = 1e-5     # /predict vs the direct predictor, fp32
+HTTP_LOGIT_STD = 2.5    # the /predict set's images are scaled so that the
+                        # log-probabilities' spread a row is this: at unit
+                        # input the seeded weights' logits reach ~1e3 and
+                        # the softmax is one-hot. The network is linear in
+                        # its input's scale (its biases and BatchNorm
+                        # shifts are 0, its statistics the initial ones)
+HTTP_APART = 100        # every two images' direct answers differ by more
+                        # than this many HTTP_OUT_TOL: a swapped or
+                        # misplaced row of a coalesced batch shows
+HTTP_TRACE_ROUNDS = (1.0, 0.0, 0.0, 1.0, 1.0, 0.0)  # trace sampling a round
+HTTP_DISCONNECT_NEW = 64    # the hung-up stream's max_new_tokens
+HTTP_TIMEOUT = 300          # every client wait, seconds
+HTTP_DEADLINE_MS = 60000    # a /predict's deadline: handler threads parse
+                            # ~3 MB of JSON an image under the GIL the
+                            # engine's worker needs, so the default 2 s
+                            # (MXNET_SERVE_DEADLINE_MS) expires queued
+                            # requests at 16 clients
+HEALTH_ROUNDS = 6       # phase 54: rounds a configuration, the order
+                        # reversed every other round (after a warm one)
+HEALTH_STEPS = 12       # timed fit steps a round (after 2 warm ones)
+HEALTH_BUDGET = 0.02    # the JAX package's health_overhead promise (step),
+                        # enforced as it does: above max(budget, twice the
+                        # noise floor "off2", the "off" step re-measured)
+HEALTH_PIPE_ROWS = 512  # phase 54's DataPipeline-fed fit: 8 batches of 64
+
+
+def _http(port, method, path, body=None, headers=None):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+_PREDICT_BODIES = {}     # rows' bytes -> their /predict body
+
+
+def _http_predict(port, rows, rid=None):
+    """(status, outputs or the error body) of one /predict, with a
+    deadline of HTTP_DEADLINE_MS. The JSON body of an image is ~3 MB:
+    the clients share the server's process (and GIL), so each body is
+    encoded once."""
+    key = rows.tobytes()
+    body = _PREDICT_BODIES.get(key)
+    if body is None:
+        body = _PREDICT_BODIES[key] = json.dumps(
+            {"inputs": {"data": rows.tolist()},
+             "timeout_ms": HTTP_DEADLINE_MS}).encode()
+    st, _, body = _http(port, "POST", "/predict", body,
+                        {"X-Request-Id": rid} if rid else None)
+    if st != 200:
+        return st, body
+    return st, np.asarray(json.loads(body)["outputs"][0], np.float32)
+
+
+def _http_stream(port, prompt, max_new, out, i):
+    """One streaming /generate: its token lines as they arrive, with the
+    time of each (``out[i]``: tokens, times, the final line, status)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/generate", json.dumps(
+            {"prompt": [int(t) for t in prompt],
+             "max_new_tokens": int(max_new)}).encode(),
+            {"X-Request-Id": "gen-%d-%d" % (i, int(t0 * 1e6) % 10 ** 9)})
+        r = conn.getresponse()
+        toks, times, last = [], [], None
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            msg = json.loads(line)
+            if "token" in msg:
+                toks.append(msg["token"])
+                times.append(time.perf_counter() - t0)
+            else:
+                last = msg
+        out[i] = {"status": r.status, "tokens": toks, "times": times,
+                  "last": last, "rid": r.getheader("X-Request-Id")}
+    except Exception as e:          # noqa: BLE001 (reported, fatal)
+        out[i] = {"error": repr(e)}
+    finally:
+        conn.close()
+
+
+def http_generate_round(port, reqs, vocab):
+    """The mix as concurrent streaming clients: every stream complete and
+    well formed; tokens/s over the round's wall, TTFT and ITL."""
+    import threading
+    out = [None] * len(reqs)
+    threads = [threading.Thread(target=_http_stream,
+                                args=(port, p, m, out, i))
+               for i, (p, m) in enumerate(reqs)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a /generate client hung")
+    for (p, m), o in zip(reqs, out):
+        check("error" not in o, "a /generate stream failed: %s" % o)
+        check(o["status"] == 200 and o["last"] == {"done": True, "n": m}
+              and len(o["tokens"]) == m
+              and all(0 <= t < vocab for t in o["tokens"]),
+              "a /generate stream is incomplete or malformed: status %s, "
+              "%d of %d tokens, last line %s"
+              % (o["status"], len(o["tokens"]), m, o["last"]))
+    tokens = sum(len(o["tokens"]) for o in out)
+    itl = [(o["times"][-1] - o["times"][0]) / (len(o["times"]) - 1)
+           for o in out if len(o["times"]) > 1]
+    ttft = [o["times"][0] for o in out]
+    return {"requests": len(reqs), "tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+            "ttft_p99_ms": float(np.percentile(ttft, 99)) * 1e3,
+            "itl_p50_ms": float(np.percentile(itl, 50)) * 1e3,
+            "rids": [o["rid"] for o in out]}
+
+
+def http_predict_set(port, pool, direct, tag):
+    """serve_traffic's correctness set over HTTP: 64 one-image requests
+    from SERVE_CLIENTS threads and 4 of 4 rows, each answer within
+    HTTP_OUT_TOL of the direct predictor's rows."""
+    import threading
+    out, errors = {}, []
+    lock = threading.Lock()
+
+    def client(t):
+        try:
+            jobs = [((t + 3 * j) % SERVE_IMAGES,) for j in range(4)]
+            if t < 4:
+                jobs.append(tuple(range(4 * t, 4 * t + 4)))
+            for j, idx in enumerate(jobs):
+                st, res = _http_predict(port, pool[list(idx)],
+                                        "%s-%d-%d" % (tag, t, j))
+                with lock:
+                    if st != 200:
+                        errors.append((st, res[:200]))
+                    else:
+                        out[(t, j)] = (idx, res)
+        except Exception as e:          # noqa: BLE001 (reported, fatal)
+            with lock:
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a /predict client hung")
+    check(not errors, "/predict failed: %s" % errors[:3])
+    check(len(out) == 68, "%d of 68 /predict requests answered" % len(out))
+    err = 0.0
+    for idx, res in out.values():
+        err = max(err, float(np.abs(res - np.stack(
+            [direct[i] for i in idx])).max()))
+    check(err <= HTTP_OUT_TOL, "/predict differs from the direct predictor "
+          "by %.3g > %g" % (err, HTTP_OUT_TOL))
+    lerr = max(float(np.abs(np.log(res) - np.log(np.stack(
+        [direct[i] for i in idx]))).max()) for idx, res in out.values())
+    images = sum(len(v[0]) for v in out.values())
+    return {"requests": len(out), "images": images, "wall_s": wall,
+            "img_per_s": images / wall, "max_abs_err": err,
+            "max_log_prob_err": lerr}
+
+
+def spread_images(engine, pool):
+    """``pool`` scaled so that the direct answers' log-probabilities
+    spread by HTTP_LOGIT_STD a row, and those answers: every probability
+    above 0, none above 0.5, and every two images' answers more than
+    HTTP_APART x HTTP_OUT_TOL apart, so that the /predict set's tolerance
+    sees a row that went to another request."""
+    def answers(x):
+        return np.stack([engine.predict(x[i:i + 1])[0][0]
+                         for i in range(len(x))])
+    scale = 1e-3                    # logits ~1: nothing underflows
+    std = float(np.log(answers(pool * scale)).std(axis=1).mean())
+    scale *= HTTP_LOGIT_STD / std
+    x = (pool * scale).astype(np.float32)
+    rows = answers(x)
+    apart = min(float(np.abs(rows[i] - rows[j]).max())
+                for i in range(len(rows)) for j in range(i))
+    check(rows.min() > 0 and rows.max() <= 0.5
+          and apart > HTTP_APART * HTTP_OUT_TOL,
+          "the /predict set's answers are saturated or alike: probabilities"
+          " in [%.3g, %.3g], two images' answers %.3g apart"
+          % (rows.min(), rows.max(), apart))
+    return x, dict(enumerate(rows)), {
+        "scale": scale, "p_min": float(rows.min()),
+        "p_max": float(rows.max()), "apart": apart}
+
+
+class _Traffic(object):
+    """Closed-loop /predict clients (one image a request) until stopped:
+    every answer's status counted, the int8 answers kept by image."""
+
+    def __init__(self, port, pool, clients=SERVE_CLIENTS):
+        import threading
+        self.port, self.pool = port, pool
+        self.codes, self.errors, self.answers = {}, [], []
+        self.lock = threading.Lock()
+        self.stop = threading.Event()
+        self.threads = [threading.Thread(target=self._client, args=(t,))
+                        for t in range(clients)]
+        for t in self.threads:
+            t.start()
+
+    def _client(self, t):
+        j = 0
+        while not self.stop.is_set():
+            i = (t + 3 * j) % SERVE_IMAGES
+            try:
+                st, res = _http_predict(self.port, self.pool[i:i + 1])
+            except Exception as e:      # noqa: BLE001 (reported, fatal)
+                with self.lock:
+                    self.errors.append(repr(e))
+                return
+            with self.lock:
+                self.codes[st] = self.codes.get(st, 0) + 1
+                if st == 200:
+                    self.answers.append((i, res))
+            j += 1
+
+    def count(self):
+        with self.lock:
+            return sum(self.codes.values())
+
+    def finish(self):
+        self.stop.set()
+        for t in self.threads:
+            t.join(HTTP_TIMEOUT)
+        check(not any(t.is_alive() for t in self.threads),
+              "a traffic client hung")
+        return dict(self.codes)
+
+
+def _wait(cond, what, timeout=HTTP_TIMEOUT):
+    t_end = time.perf_counter() + timeout
+    while not cond():
+        check(time.perf_counter() < t_end, "timed out waiting for %s" % what)
+        time.sleep(0.01)
+
+
+def parse_prometheus(text):
+    """{(name, ((label, value), ...)): float} of a 0.0.4 exposition;
+    fails on a line it cannot parse."""
+    out = {}
+    pat = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+    lab = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = pat.match(line)
+        check(m is not None, "/metrics: unparsable line %r" % line)
+        labels = tuple(lab.findall(m.group(3) or ""))
+        out[(m.group(1), labels)] = float(m.group(4))
+    return out
+
+
+def _disconnect(port, prompt, max_new):
+    """A streaming /generate hung up (reset) after its first token."""
+    import socket
+    import struct
+    s = socket.create_connection(("127.0.0.1", port), timeout=HTTP_TIMEOUT)
+    body = json.dumps({"prompt": [int(t) for t in prompt],
+                       "max_new_tokens": int(max_new)}).encode()
+    s.sendall(b"POST /generate HTTP/1.1\r\nHost: x\r\nContent-Length: %d"
+              b"\r\n\r\n" % len(body) + body)
+    got = b""
+    while b'{"token"' not in got:
+        chunk = s.recv(4096)
+        check(chunk, "the stream ended before its first token")
+        got += chunk
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+    s.close()
+    return got
+
+
+def serve_http_phase(torch, mx, i8, bnk, fa, dev, fp32_blob, qp, int8_rows,
+                     num_layers=50, image=SERVE_IMAGE, classes=1000,
+                     batch=SERVE_BATCH, decode_model=None, phase4=None):
+    """Phase 53: ``serve_http`` over one ``ModelRegistry`` at full width:
+    /predict through phase 17's ResNet-50 fp32 checkpoint (``fp32_blob``;
+    max batch 32, batch wait 2 ms), with phase 17's int8 artifact ``qp``
+    and its answers ``int8_rows``; /generate through a ``DecodeEngine`` at
+    phase 4's configuration. /healthz 503 before the warmups, ``ok``
+    after. Counts 0, then: phase 4's mix as 16 concurrent streams; the
+    68-request /predict set from 16 threads (``spread_images``: each within
+    1e-5 of the direct predictor); under closed-loop traffic (2 clients) the int8 canary
+    (``enable_shadow`` at 0.25), ``swap(quantized=)`` (the 16 images'
+    int8 answers bitwise phase 17's) and the rollback, nothing dropped;
+    counts read: the paged kernels once a layer a prefill / step, the int8
+    kernels 53 + 1 a forward of the int8 engines, BatchNorm 51 a forward
+    (the batches, and the warmups of the three engines built). Then a
+    client that hangs up mid-stream (the pool's free count
+    returns), /metrics (every ``serving/mfu`` and ``decode/mfu`` at most
+    1.05; ``note_mfu_divergence`` of the hand count against the health
+    layer's count over the measured img/s under 0.20), /traces (one trace
+    a request, ``serve.*`` nested in it), /alerts (the default rules), and
+    decode tokens/s with trace sampling 1.0 against 0.0. Returns the
+    results and the live server for phase 54."""
+    from mxnet_tpu_torch import health, tracing
+    on_card = dev.type == "cuda"
+    dev_type = None if on_card else 1
+    sym = mx.models.resnet(num_classes=classes, num_layers=num_layers,
+                           image_shape=image)
+    n_convs = len(int8_conv_layers(mx, 1, sym, image))
+    n_bns = len(bn_layers(mx, 1, sym, image))
+    from mxnet_tpu_torch.parallel.transformer import (
+        TransformerConfig, init_transformer_params_np)
+    cfg = TransformerConfig(dtype=torch.bfloat16 if on_card
+                            else torch.float32, **(decode_model or FULL))
+    params = init_transformer_params_np(cfg, seed=0, device=dev)
+    reg = mx.serve.ModelRegistry(
+        sym.tojson(), fp32_blob, {"data": (1,) + image}, dev_type=dev_type,
+        config=mx.serve.ServeConfig(max_batch=batch, batch_wait_ms=2))
+    deng = mx.serve.DecodeEngine(params, cfg, mx.serve.DecodeConfig(),
+                                 device=dev).start()
+    reg.attach_decode(deng)
+    srv = mx.serve.serve_http(reg)
+    port = srv.port
+    cold = _http(port, "GET", "/healthz")
+    check(cold[0] == 503 and cold[2] == b"warming\n",
+          "/healthz before warmup: %s %r" % (cold[0], cold[2]))
+    t0 = time.perf_counter()
+    reg.warmup()
+    deng.warmup()
+    t_warm = time.perf_counter() - t0
+    warm = _http(port, "GET", "/healthz")
+    check(warm[0] == 200 and warm[2] == b"ok\n",
+          "/healthz after warmup: %s %r" % (warm[0], warm[2]))
+    log("serve_http: registry and decode warmup %.2fs; /healthz %d before, "
+        "%d after" % (t_warm, cold[0], warm[0]))
+    pool = np.random.RandomState(17).randn(SERVE_IMAGES, *image).astype(
+        np.float32)
+    spread, direct, spread_info = spread_images(reg.engine(), pool)
+    reqs = decode_mix(cfg.vocab_size)
+
+    def hist_count(name):
+        return mx.telemetry.snapshot().get(name, {"count": 0})["count"]
+
+    def value(name):
+        return mx.telemetry.snapshot().get(name, 0)
+
+    # -- the counted segment --------------------------------------------
+    n_pre0 = hist_count("decode/prefill_seconds")
+    n_step0 = hist_count("decode/step_seconds")
+    batches0 = value("serving/batches_total")
+    mirrors0 = value("quantize/shadow_requests_total")
+    fa.reset_launches()
+    i8.reset_launches()
+    bnk.reset_launches()
+    gen = http_generate_round(port, reqs, cfg.vocab_size)
+    pset = http_predict_set(port, spread, direct, "set")
+    traffic = _Traffic(port, pool, HTTP_CANARY_CLIENTS)
+    t_can = time.perf_counter()
+    reg.enable_shadow(qp, fraction=HTTP_SHADOW)
+    _wait(lambda: value("quantize/shadow_requests_total") - mirrors0
+          >= HTTP_MIRRORS, "%d mirrored requests" % HTTP_MIRRORS)
+    t0 = time.perf_counter()
+    reg.swap(quantized=qp)
+    t_swap = time.perf_counter() - t0
+    check(reg.quantized_active, "swap(quantized=) left fp32 active")
+    int8_http = {}
+    for i in range(SERVE_IMAGES):
+        st, res = _http_predict(port, pool[i:i + 1])
+        check(st == 200, "/predict after the int8 flip: %s" % st)
+        int8_http[i] = res[0]
+    n_before_rollback = traffic.count()
+    _wait(lambda: traffic.count() >= n_before_rollback
+          + HTTP_CANARY_REQUESTS, "int8 traffic")
+    t0 = time.perf_counter()
+    reg.swap(fp32_blob)
+    t_rollback = time.perf_counter() - t0
+    check(not reg.quantized_active, "the rollback left int8 active")
+    n_after = traffic.count()
+    _wait(lambda: traffic.count() >= n_after + HTTP_CANARY_REQUESTS,
+          "fp32 traffic")
+    reg.disable_shadow()
+    codes = traffic.finish()
+    t_can = time.perf_counter() - t_can
+    launches = dict(fa.LAUNCHES, **i8.LAUNCHES)
+    launches.update(bnk.LAUNCHES)
+    n_pre = hist_count("decode/prefill_seconds") - n_pre0
+    n_step = hist_count("decode/step_seconds") - n_step0
+    batches = value("serving/batches_total") - batches0
+    mirrored = value("quantize/shadow_requests_total") - mirrors0
+    shadow = reg.shadow_report()
+    check(not traffic.errors and set(codes) == {200},
+          "requests failed across the canary, swap and rollback: %s %s"
+          % (codes, traffic.errors[:3]))
+    bitwise = all(int8_http[i].tobytes() == int8_rows[i].tobytes()
+                  for i in range(SERVE_IMAGES))
+    check(bitwise, "int8 answers through HTTP differ from phase 17's")
+    # three engines were built and warmed in the segment (the shadow, the
+    # int8 swap's, the rollback's): a forward a bucket each, off the
+    # batch count
+    n_warm = 3 * len(reg.engine().config.buckets)
+    n_int8 = launches["int8_matmul"]
+    if on_card:
+        check(n_pre == len(reqs) and n_step > 0, "%d prefills for %d "
+              "requests, %d steps" % (n_pre, len(reqs), n_step))
+        check(launches["flash_prefill_paged"] == cfg.n_layers * n_pre
+              and launches["paged_decode_attention"]
+              == cfg.n_layers * n_step,
+              "paged kernels launched %s for %d prefills and %d steps x %d "
+              "layers" % (launches, n_pre, n_step, cfg.n_layers))
+        check(n_int8 >= 1 and launches["int8_conv_im2col"]
+              == n_convs * n_int8,
+              "int8 kernels launched %s: not %d + 1 a batch"
+              % (launches, n_convs))
+        check(launches["batch_norm_inference"] == n_bns * (batches + n_warm),
+              "batch_norm_inference launched %d times over %d batches and "
+              "%d warmup forwards, not %d a forward"
+              % (launches["batch_norm_inference"], batches, n_warm, n_bns))
+    log("serve_http /generate: %d streams, %d tokens in %.3fs: %.1f "
+        "tokens/s, TTFT p50 %.1f ms p99 %.1f ms, ITL p50 %.2f ms (phase 4 "
+        "direct: %s); %d prefills, %d decode steps"
+        % (gen["requests"], gen["tokens"], gen["wall_s"],
+           gen["tokens_per_s"], gen["ttft_p50_ms"], gen["ttft_p99_ms"],
+           gen["itl_p50_ms"], "not run" if phase4 is None else
+           "%.1f tokens/s, TTFT p50 %.1f ms p99 %.1f ms, ITL p50 %.2f ms"
+           % (phase4["tokens_per_s"], phase4["ttft_p50_ms"],
+              phase4["ttft_p99_ms"], phase4["itl_p50_ms"]), n_pre, n_step))
+    log("serve_http /predict set: %d requests (%d images) in %.3fs, max "
+        "|http - direct| %.3g, max |log p http - log p direct| %.3g; the "
+        "images scaled by %.4g: probabilities in [%.3g, %.3g], two images' "
+        "answers at least %.3g apart"
+        % (pset["requests"], pset["images"], pset["wall_s"],
+           pset["max_abs_err"], pset["max_log_prob_err"],
+           spread_info["scale"], spread_info["p_min"],
+           spread_info["p_max"], spread_info["apart"]))
+    log("serve_http canary -> int8 swap -> rollback under %d clients: %.2fs, "
+        "statuses %s, %d mirrored (shadow drift max %s p99 %s), swap %.2fs, "
+        "rollback %.2fs, int8 answers bitwise phase 17's %s; launches %s over "
+        "%d batches and %d warmup forwards (%d int8 forwards)"
+        % (HTTP_CANARY_CLIENTS, t_can, codes, mirrored, shadow["drift_max"],
+           shadow["drift_p99"], t_swap, t_rollback, bitwise, launches,
+           batches, n_warm, n_int8))
+    # -- a client that hangs up mid-stream --------------------------------
+    free0 = deng._pool.free_pages
+    pre0 = value("decode/preempted_total")
+    _disconnect(port, reqs[0][0], HTTP_DISCONNECT_NEW)
+    t0 = time.perf_counter()
+    _wait(lambda: deng._pool.free_pages == free0
+          and value("decode/preempted_total") > pre0,
+          "the hung-up session's pages")
+    t_free = time.perf_counter() - t0
+    log("serve_http disconnect: pool back to %d free pages %.3fs after the "
+        "reset; decode/preempted_total +%d"
+        % (free0, t_free, value("decode/preempted_total") - pre0))
+    # -- /metrics: the MFU gauges and the divergence ----------------------
+    st, _, body = _http(port, "GET", "/metrics")
+    check(st == 200, "/metrics answered %d" % st)
+    prom = parse_prometheus(body.decode())
+    serve_mfu = {dict(k[1])["bucket"]: v for k, v in prom.items()
+                 if k[0] == "mxnet_serving_mfu"}
+    decode_mfu = {"%s/%s" % (dict(k[1])["phase"], dict(k[1])["bucket"]): v
+                  for k, v in prom.items() if k[0] == "mxnet_decode_mfu"}
+    check(serve_mfu and decode_mfu, "/metrics lacks serving/mfu or "
+          "decode/mfu: %s %s" % (serve_mfu, decode_mfu))
+    hbm = {dict(k[1])["device"]: v for k, v in prom.items()
+           if k[0] == "mxnet_hbm_bytes_in_use"}
+    check(hbm or not on_card, "/metrics lacks hbm/bytes_in_use")
+    over = {k: v for k, v in list(serve_mfu.items())
+            + list(decode_mfu.items()) if v > 1.05 or v <= 0}
+    check(not over, "MFU gauges out of (0, 1.05]: %s" % over)
+    rec = reg.engine()._bucket_cost.get(batch)
+    check(rec is not None, "no cost record for the batch-%d bucket" % batch)
+    hand = network_flops(mx, sym, image) / 3.0        # forward, per image
+    est = hand * pset["img_per_s"] / health.peak_flops()
+    measured = rec["flops"] / batch * pset["img_per_s"] / health.peak_flops()
+    ratio = health.note_mfu_divergence(est, measured)
+    health.evaluate_once()
+    firing = health.evaluate_once()
+    check(abs(ratio - 1.0) < 0.20 and "mfu_divergence" not in firing,
+          "mfu_divergence %.4f (rule firing: %s)" % (abs(ratio - 1.0),
+                                                     firing))
+    log("serve_http /metrics: serving/mfu %s, decode/mfu %s (peak %.4g "
+        "FLOP/s, spec sheet); hbm/bytes_in_use %s; hand-count vs "
+        "health-count FLOPs/image %.4g vs %.4g: divergence %.4f"
+        % ({k: round(v, 4) for k, v in sorted(serve_mfu.items())},
+           {k: round(v, 4) for k, v in sorted(decode_mfu.items())},
+           health.peak_flops(), hbm, hand, rec["flops"] / batch,
+           abs(ratio - 1.0)))
+    # -- /traces: one trace a request, serve.* nested ---------------------
+    rids = ["trace-%d" % i for i in range(HTTP_TRACED)]
+    for i, rid in enumerate(rids):
+        check(_http_predict(port, pool[i % SERVE_IMAGES:][:1], rid)[0]
+              == 200, "/predict for the trace check failed")
+    nested = 0
+    for rid in rids:
+        st, _, body = _http(port, "GET", "/traces?id=%s" % rid)
+        check(st == 200, "/traces has no trace %s" % rid)
+        tr = json.loads(body)
+        names = {s["span_id"]: s["name"] for s in tr["spans"]}
+        pairs = {(s["name"], names.get(s["parent_id"])) for s in tr["spans"]}
+        check(tr["root"] == "http.request"
+              and ("serve.batch", "http.request") in pairs
+              and ("serve.compute", "serve.batch") in pairs
+              and ("serve.queue_wait", "http.request") in pairs,
+              "trace %s: spans %s" % (rid, sorted(pairs)))
+        nested += 1
+    one = [None]
+    _http_stream(port, reqs[0][0], reqs[0][1], one, 0)
+    st, _, body = _http(port, "GET", "/traces?id=%s" % one[0]["rid"])
+    check(st == 200, "/traces has no trace of a /generate request")
+    tr = json.loads(body)
+    names = {s["span_id"]: s["name"] for s in tr["spans"]}
+    pairs = {(s["name"], names.get(s["parent_id"])) for s in tr["spans"]}
+    check(("decode.prefill", "http.request") in pairs
+          and ("decode.step", "http.request") in pairs,
+          "a /generate trace's spans: %s" % sorted(pairs))
+    gen_phases = tr["phases"]
+    st, _, body = _http(port, "GET", "/alerts")
+    rules = sorted(r["name"] for r in json.loads(body)["rules"])
+    check(st == 200 and set(rules) >= {
+        "serve_p99", "decode_itl_p99", "queue_depth", "worker_restart_burn",
+        "kv_giveups", "numerics", "mfu_divergence", "badput_fraction"},
+        "/alerts rules: %s" % rules)
+    log("serve_http /traces: %d of %d requests' traces with serve.* nested; "
+        "a /generate trace's phases %s; /alerts rules %s"
+        % (nested, len(rids), gen_phases, rules))
+    # -- decode tokens/s, trace sampling 1.0 against 0.0 -------------------
+    overhead = []
+    for rate in HTTP_TRACE_ROUNDS:
+        prev = tracing.set_sample(rate)
+        try:
+            r = http_generate_round(port, reqs, cfg.vocab_size)
+        finally:
+            tracing.set_sample(prev)
+        overhead.append({"sample": rate, "tokens_per_s": r["tokens_per_s"],
+                         "wall_s": r["wall_s"]})
+    on = [r["tokens_per_s"] for r in overhead if r["sample"] == 1.0]
+    off = [r["tokens_per_s"] for r in overhead if r["sample"] == 0.0]
+    log("serve_http trace overhead: decode tokens/s sampled %s, unsampled "
+        "%s: median sampled / median unsampled %.4f (the unsampled rounds "
+        "spread %.4fx)"
+        % (["%.1f" % x for x in on], ["%.1f" % x for x in off],
+           float(np.median(on) / np.median(off)), max(off) / min(off)))
+    res = {"warmup_s": t_warm,
+           "healthz": [cold[0], warm[0]], "generate": gen,
+           "predict_set": pset, "predict_spread": spread_info,
+           "canary": {
+               "wall_s": t_can, "statuses": codes, "mirrored": mirrored,
+               "shadow": shadow, "swap_s": t_swap, "rollback_s": t_rollback,
+               "int8_bitwise_phase17": bitwise},
+           "launches": launches, "batches": batches, "warmup_forwards": n_warm,
+           "int8_forwards": n_int8,
+           "prefills": n_pre, "decode_steps": n_step,
+           "disconnect_free_s": t_free, "serving_mfu": serve_mfu,
+           "decode_mfu": decode_mfu, "mfu_divergence": abs(ratio - 1.0),
+           "traces_nested": nested, "alerts_rules": rules,
+           "trace_overhead": overhead}
+    return res, {"reg": reg, "decode": deng, "srv": srv, "pool": pool,
+                 "reqs": reqs, "vocab": cfg.vocab_size}
+
+
+def fault_phase(mx, live):
+    """Phase 54a: ``serve.worker`` and ``decode.step`` armed once each on
+    the live server: the serve worker restarts (its batch's request is
+    served), ``worker_restart_burn`` fires on ``evaluate_once``; the
+    decode scheduler's crash fails the session in flight with a 500 and
+    the scheduler restarts; the next requests complete."""
+    from mxnet_tpu_torch import fault, health
+    port, pool, reg = live["srv"].port, live["pool"], live["reg"]
+    health.evaluate_once()                  # primes the counter deltas
+
+    def value(name):
+        return mx.telemetry.snapshot().get(name, 0)
+
+    r0 = value("serving/worker_restarts_total")
+    fault.arm("serve.worker", step=1)
+    try:
+        st1, _ = _http_predict(port, pool[:1])
+        st2, _ = _http_predict(port, pool[1:2])
+        _wait(lambda: value("serving/worker_restarts_total") > r0,
+              "the serve worker's restart")
+    finally:
+        fault.disarm("serve.worker")
+    firing = health.evaluate_once()
+    check(st1 == 200 and st2 == 200, "/predict around the serve.worker "
+          "fault: %s %s" % (st1, st2))
+    check("worker_restart_burn" in firing, "worker_restart_burn did not fire"
+          " after a serve worker restart: %s" % firing)
+    d0 = value("decode/worker_restarts_total")
+    prompt, _ = live["reqs"][1]
+    fault.arm("decode.step", step=1)
+    try:
+        st, _, body = _http(port, "POST", "/generate", json.dumps(
+            {"prompt": [int(t) for t in prompt], "max_new_tokens": 8,
+             "stream": False}).encode())
+    finally:
+        fault.disarm("decode.step")
+    check(st == 500 and b"injected fault" in body,
+          "/generate under the decode.step fault: %s %r" % (st, body[:200]))
+    _wait(lambda: value("decode/worker_restarts_total") > d0,
+          "the decode scheduler's restart")
+    st_p, _ = _http_predict(port, pool[2:3])
+    st_g, _, body = _http(port, "POST", "/generate", json.dumps(
+        {"prompt": [int(t) for t in prompt], "max_new_tokens": 8,
+         "stream": False}).encode())
+    check(st_p == 200 and st_g == 200 and len(json.loads(body)["tokens"])
+          == 8, "requests after the faults: %s %s" % (st_p, st_g))
+    health.evaluate_once()
+    log("faults: serve.worker -> statuses %s %s, serving restarts +%d, "
+        "rules firing %s; decode.step -> %d (%s), decode restarts +%d; "
+        "after: /predict %d, /generate %d"
+        % (st1, st2, value("serving/worker_restarts_total") - r0, firing, st,
+           json.loads(body).get("error", "")[:60] if st_g != 200 else "ok",
+           value("decode/worker_restarts_total") - d0, st_p, st_g))
+    return {"serve_worker_statuses": [st1, st2], "rules_firing": firing,
+            "decode_step_status": st, "after": [st_p, st_g]}
+
+
+def _nan_iter(mx, shape, nan_batch, batches, ctx):
+    rng = np.random.RandomState(5)
+    x = rng.uniform(-1, 1, (batches,) + shape).astype(np.float32)
+    x[nan_batch] = np.nan
+    y = rng.randint(0, 1000, (batches, shape[0])).astype(np.float32)
+    return mx.io.NDArrayIter(x.reshape((-1,) + shape[1:]),
+                             y.reshape(-1), batch_size=shape[0])
+
+
+def health_phase(torch, mx, fu, workdir, num_layers=50, image=(3, 224, 224),
+                 batch=RESNET_BATCH):
+    """Phase 54b: a NaN batch trips the numerics sentinel in a ResNet-50
+    ``Module.fit`` (policy raise); phase 13's fit step timed with the
+    sentinel off / ``step`` / ``full``, the flight recorder on, and "off"
+    again as the noise floor (min of HEALTH_ROUNDS rounds of HEALTH_STEPS
+    steps, the order reversed every other round): on the card the
+    ``step`` mode's cost is held to the JAX package's 2% budget as its
+    ``health_overhead`` holds it (above twice the noise floor only); a
+    ``DataPipeline``-fed fit whose traces hold ``train.data_wait`` and
+    the ``io.*`` spans."""
+    from mxnet_tpu_torch import blackbox, health, tracing
+    ctx = mx.gpu(0) if torch.cuda.is_available() else mx.cpu()
+    sym = mx.models.resnet(num_classes=1000, num_layers=num_layers,
+                           image_shape=image)
+    shape = (batch,) + image
+    prev = health.set_numerics("step"), health.set_numerics_policy("raise")
+    trips0 = health.numerics_trips()
+    try:
+        mod = mx.mod.Module(sym, context=ctx)
+        tripped = None
+        try:
+            mod.fit(_nan_iter(mx, shape, 1, 3, ctx), num_epoch=1,
+                    optimizer="sgd",
+                    optimizer_params={"learning_rate": 0.1,
+                                      "momentum": 0.9},
+                    initializer=mx.init.Xavier(rnd_type="gaussian",
+                                               factor_type="in",
+                                               magnitude=2))
+        except health.NumericsError as e:
+            tripped = e.report
+        check(tripped is not None and tripped["nonfinite"] > 0,
+              "a NaN batch did not trip the sentinel: %s" % tripped)
+        check(health.numerics_trips() == trips0 + 1, "numerics trips %d"
+              % (health.numerics_trips() - trips0))
+        log("numerics: the NaN batch tripped the sentinel (report %s)"
+            % {k: v for k, v in tripped.items() if k != "per_param"})
+        del mod
+        # phase 13's step, the sentinel and the recorder in turns
+        mod = mx.mod.Module(sym, context=ctx)
+        train = synthetic_iter(mx, shape, 1000, 4, ctx)
+        mod.bind(data_shapes=train.provide_data,
+                 label_shapes=train.provide_label)
+        mod.init_params(mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2))
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4})
+        data_batch = next(iter(train))
+        metric = mx.metric.create(["accuracy"])
+        path = os.path.join(workdir, "flight.bin")
+        # "off2" is "off" measured again: its distance from "off" is the
+        # measure's noise floor (the JAX package's health_overhead)
+        configs = (("off", ("off", False)), ("step", ("step", False)),
+                   ("full", ("full", False)),
+                   ("off+recorder", ("off", True)),
+                   ("off2", ("off", False)))
+        times = {name: [] for name, _ in configs}
+
+        def loop(mode, rec):
+            health.set_numerics(mode)
+            blackbox.configure(path if rec else None)
+            for i in range(2 + HEALTH_STEPS):
+                if i == 2:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                mod.forward_backward(data_batch)
+                mod.update()
+                mod.update_metric(metric, data_batch.label)
+            mod._exec.flush_numerics()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / HEALTH_STEPS * 1e3
+
+        fu.reset_launches()
+        for _name, cfg in configs:
+            loop(*cfg)                  # warm: each mode's first steps
+        for rnd in range(HEALTH_ROUNDS):
+            for name, cfg in configs[::1 if rnd % 2 == 0 else -1]:
+                times[name].append(loop(*cfg))
+        blackbox.configure(None)
+        steps = (HEALTH_ROUNDS + 1) * len(configs) * (2 + HEALTH_STEPS)
+        check(fu.LAUNCHES["sgd_fused_update"] == steps
+              or not torch.cuda.is_available(),
+              "sgd_fused_update launched %d times for %d steps"
+              % (fu.LAUNCHES["sgd_fused_update"], steps))
+        best = {k: min(v) for k, v in times.items()}
+        over = {k: v / best["off"] - 1.0 for k, v in best.items()}
+        noise = abs(over["off2"])
+        gate = max(HEALTH_BUDGET, 2 * noise)
+        log("numerics step time (ms, min of %d alternated rounds of %d "
+            "ResNet-50 batch-%d steps): %s; overhead vs off %s; step mode "
+            "%+.2f%% against the %.0f%% budget (noise floor off2 %.2f%%, "
+            "gate %.2f%%)"
+            % (HEALTH_ROUNDS, HEALTH_STEPS, batch,
+               {k: round(v, 3) for k, v in best.items()},
+               {k: "%+.2f%%" % (100 * v) for k, v in over.items()},
+               100 * over["step"], 100 * HEALTH_BUDGET, 100 * noise,
+               100 * gate))
+        check(over["step"] <= gate or not torch.cuda.is_available(),
+              "the step-mode numerics sentinel costs "
+              "%+.2f%% a step, above the %.0f%% budget and twice the "
+              "%.2f%% noise floor" % (100 * over["step"],
+                                      100 * HEALTH_BUDGET, 100 * noise))
+        del mod
+    finally:
+        health.set_numerics(prev[0])
+        health.set_numerics_policy(prev[1])
+    # a DataPipeline-fed fit: train.data_wait and io.* spans
+    rng = np.random.RandomState(6)
+    x = rng.randn(HEALTH_PIPE_ROWS, 256).astype(np.float32)
+    y = rng.randint(0, 10, (HEALTH_PIPE_ROWS,)).astype(np.float32)
+    pipe = mx.io.DataPipeline(mx.io.ArrayBatchSource(x, y, batch_size=64),
+                              num_workers=0, prefetch=1, ctx=ctx)
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+        mx.sym.Variable("data"), num_hidden=10, name="fc"), name="softmax")
+    tracing.reset()
+    fu.reset_launches()
+    mx.mod.Module(net, context=ctx).fit(
+        pipe, num_epoch=1, optimizer="sgd",
+        optimizer_params={"learning_rate": 0.1})
+    pipe_launches = fu.LAUNCHES["sgd_fused_update"]
+    spans = {}
+    for t in tracing.finished_traces():
+        names = {s["span_id"]: s["name"] for s in t["spans"]}
+        for s in t["spans"]:
+            key = (s["name"], names.get(s["parent_id"]))
+            spans[key] = spans.get(key, 0) + 1
+    check(("train.data_wait", "train.step") in spans
+          and ("io.batch_wait", "train.data_wait") in spans
+          and any(k[0] == "io.h2d" for k in spans),
+          "pipeline fit spans: %s" % sorted(spans))
+    check(pipe_launches == HEALTH_PIPE_ROWS // 64
+          or not torch.cuda.is_available(), "pipeline fit launched "
+          "sgd_fused_update %d times" % pipe_launches)
+    log("pipeline fit traces: %s" % {"%s<%s" % k: n
+                                     for k, n in sorted(spans.items(),
+                                                        key=str)})
+    return {"tripped": {k: v for k, v in tripped.items()
+                        if k != "per_param"},
+            "step_ms": best, "overhead": over, "noise_floor": noise,
+            "step_rounds_ms": times,
+            "launches": steps + pipe_launches, "pipeline_spans": {
+                "%s<%s" % k: n for k, n in spans.items()}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="write the full report here (JSON)")
@@ -8927,8 +9757,11 @@ def main():
     try:
         served_int8 = serve_int8(torch, mx, i8, bnk, workdir,
                                  torch.device("cuda"))
-        int8_cpu = int8_vs_cpu(torch, mx, served_int8.pop("artifact"),
-                               torch.device("cuda"))
+        # phase 53 serves the same checkpoint and artifact over HTTP
+        qp17 = served_int8.pop("artifact")
+        int8_rows17 = served_int8.pop("int8_rows")
+        fp32_blob17 = served_int8.pop("fp32_blob")
+        int8_cpu = int8_vs_cpu(torch, mx, qp17, torch.device("cuda"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rtc_mods, rtc_compile = rtc_modules(mx)
@@ -9002,6 +9835,21 @@ def main():
     rule_rows = time_rules(torch, mx, fu, timer)
     del timer
     lowp = gluon_lowp(torch, mx, fu)
+    http53, live = serve_http_phase(torch, mx, i8, bnk, fa,
+                                    torch.device("cuda"), fp32_blob17, qp17,
+                                    int8_rows17, phase4=served)
+    del fp32_blob17, qp17, int8_rows17
+    try:
+        faults54 = fault_phase(mx, live)
+    finally:
+        live["srv"].close()
+        live["reg"].close(drain=False)
+        del live
+    hdir = os.path.join(root, "build", "chip_smoke_health")
+    try:
+        health54 = health_phase(torch, mx, fu, hdir)
+    finally:
+        shutil.rmtree(hdir, ignore_errors=True)
 
     sources = {"paged_decode_attention": (
         "mxnet_tpu_torch/ops/cuda/csrc/paged_decode_attention.cu",
@@ -9065,6 +9913,13 @@ def main():
     launches.update(served_int8["runs"]["int8"]["launches"])
     launches["batch_norm_inference"] = exported["window_launches"] \
         + zoo["window_launches"]
+    # phase 53's through HTTP (the counted segment: the /generate mix, the
+    # /predict set, the canary, the int8 swap and the rollback), phase
+    # 54's fit steps
+    for name in ("paged_decode_attention", "flash_prefill_paged",
+                 "int8_matmul", "int8_conv_im2col", "batch_norm_inference"):
+        launches[name] += http53["launches"][name]
+    launches["sgd_fused_update"] += health54["launches"]
     # rtc's from the custom op of phase 21 (its forward and backward)
     launches["rtc"] = custom["launches"]
     # the augment kernel's from the records fit of phase 26 and phase
@@ -9152,7 +10007,8 @@ def main():
               "data_pipeline_pool": pipeline,
               "fused_update_rules": rule_checks,
               "fused_update_rule_timings": rule_rows,
-              "gluon_low_precision": lowp, "kernels": kernels,
+              "gluon_low_precision": lowp, "serve_http": http53,
+              "faults": faults54, "health": health54, "kernels": kernels,
               "update_launches": {
                   "module_fit": fitted["launches"]["sgd_fused_update"],
                   "gluon_fit": gluon["launches"]["sgd_fused_update"],

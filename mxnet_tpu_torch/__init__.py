@@ -58,13 +58,21 @@ Ported so far:
   ``ArrayBatchSource`` / ``RecordBatchSource``, a seekable cursor that
   ``fit(resume=True)`` restores), and ``io.CSVIter`` / ``MNISTIter``.
 
+- the serving front and its observability: ``serve.serve_http``
+  (``/predict``, streaming ``/generate``, ``/healthz``, ``/metrics``,
+  ``/traces``, ``/alerts``) over ``serve.ModelRegistry`` (hot swap, the
+  int8 swap and its shadow canary), with ``tracing``, ``fault``,
+  ``health`` (MFU gauges, numerics sentinels, SLO alerts) and
+  ``blackbox`` (the flight recorder).
+
 Importing the package imports no triton, loads no CUDA library (nor
 NVRTC) and touches no GPU.
 """
-from . import (autograd, callback, checkpoint, config, context, convert,
-               executor, image, initializer, io, lr_scheduler, metric, model,
-               models, module, ndarray, ops, optimizer, parallel, quantize,
-               random, recordio, rnn, serve, serving, symbol, telemetry)
+from . import (autograd, blackbox, callback, checkpoint, config, context,
+               convert, executor, fault, health, image, initializer, io,
+               lr_scheduler, metric, model, models, module, ndarray, ops,
+               optimizer, parallel, quantize, random, recordio, rnn, serve,
+               serving, symbol, telemetry, tracing)
 from . import operator, rtc  # after ndarray and symbol: adds Custom
 from . import gluon
 from .base import MXNetError
@@ -77,10 +85,12 @@ mod = module
 init = initializer
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "num_gpus", "default_device", "autograd",
+           "num_gpus", "default_device", "autograd", "blackbox",
            "callback", "checkpoint", "config", "context", "convert",
-           "executor", "gluon", "image", "init", "initializer", "io",
+           "executor", "fault", "gluon", "health", "image", "init",
+           "initializer", "io",
            "lr_scheduler",
            "metric", "mod", "model", "models", "module", "nd", "ndarray",
            "operator", "ops", "optimizer", "parallel", "quantize", "random",
-           "recordio", "rnn", "rtc", "serve", "serving", "sym", "symbol", "telemetry"]
+           "recordio", "rnn", "rtc", "serve", "serving", "sym", "symbol",
+           "telemetry", "tracing"]

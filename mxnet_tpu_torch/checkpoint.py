@@ -15,10 +15,12 @@ single-device checkpoints and quantized artifacts use:
   ones (``checkpoint/corrupt_total``), as a :class:`ResumeState`.
 
 The manifest format is the JAX package's, so each package verifies and
-loads the other's checkpoints. Not ported yet: the fault-injection
-points ``ckpt.mid_write`` / ``ckpt.pre_rename`` (ROADMAP A4), sharded
-checkpoints (``ShardedCheckpointManager``) and the training and process
-supervisors (ROADMAP A16).
+loads the other's checkpoints. A write is a ``ckpt.write`` span under a
+sampled trace and passes the fault points ``ckpt.mid_write`` (staged,
+not yet fsynced) and ``ckpt.pre_rename`` (durable, not yet renamed); a
+checkpoint save leaves a ``checkpoint`` flight-recorder record. Not
+ported yet: sharded checkpoints (``ShardedCheckpointManager``) and the
+training and process supervisors (ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ import re
 import zlib
 from collections import namedtuple
 
+from . import fault as _fault
 from . import telemetry as _tm
+from . import tracing as _tr
 from .base import MXNetError
 
 __all__ = ["atomic_writer", "write_manifest", "manifest_path",
@@ -54,22 +58,26 @@ def atomic_writer(fname, mode="wb"):
     and the temp file is removed."""
     fname = os.fspath(fname)
     tmp = "%s.tmp.%d" % (fname, os.getpid())
-    f = open(tmp, mode)
-    try:
-        yield f
-        f.flush()
-        os.fsync(f.fileno())
-        f.close()
-        os.replace(tmp, fname)
-        _fsync_dir(os.path.dirname(os.path.abspath(fname)))
-    except BaseException:
-        if not f.closed:
-            f.close()
+    with _tr.child_span("ckpt.write",
+                        attrs={"file": os.path.basename(fname)}):
+        f = open(tmp, mode)
         try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
+            yield f
+            _fault.inject("ckpt.mid_write")
+            f.flush()
+            os.fsync(f.fileno())
+            f.close()
+            _fault.inject("ckpt.pre_rename")
+            os.replace(tmp, fname)
+            _fsync_dir(os.path.dirname(os.path.abspath(fname)))
+        except BaseException:
+            if not f.closed:
+                f.close()
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
 
 
 def _fsync_dir(path):

@@ -1,6 +1,8 @@
 """Runtime configuration: the MXNET_* environment-variable knobs this
 package reads, with the same names, types and defaults as the JAX
-package's table."""
+package's table, but for the MFU peaks (``MXNET_TPU_PEAK_FLOPS``,
+``MXNET_TPU_PEAK_HBM_GBPS``), whose defaults are the card's spec-sheet
+figures."""
 from __future__ import annotations
 
 import os
@@ -17,6 +19,114 @@ VARS = {
                                     "for a crashed decode scheduler thread "
                                     "(decode/worker_restarts_total). Past "
                                     "it the worker stays down."),
+    "MXNET_TELEMETRY": (bool, True,
+                        "Always-on runtime metrics (telemetry.py). 0 "
+                        "turns the hot-path recording off; "
+                        "telemetry.enable() flips it at runtime."),
+    "MXNET_SERVE_SHADOW_FRACTION": (float, 0.0,
+                                    "Default fraction of live requests "
+                                    "ModelRegistry.enable_shadow mirrors "
+                                    "to the shadow (quantized) engine "
+                                    "for drift measurement "
+                                    "(quantize/shadow_drift). Mirrors "
+                                    "run on a side thread and never "
+                                    "touch the primary request."),
+    "MXNET_TRACING": (bool, True,
+                      "End-to-end span tracing (tracing.py): request/"
+                      "step timelines across the serve, executor, "
+                      "module, io and checkpoint layers. 0 leaves every "
+                      "call site at one module-bool check."),
+    "MXNET_TRACE_SAMPLE": (float, 1.0,
+                           "Head-sampling probability for new traces "
+                           "(decided once at the root: an HTTP request "
+                           "or a train step). 0 disables recording but "
+                           "keeps the X-Request-Id echo."),
+    "MXNET_TRACE_OPS": (bool, False,
+                        "Record a per-op op.dispatch span for every "
+                        "eager dispatch under a sampled trace. Off by "
+                        "default: on microsecond-scale ops the span "
+                        "write costs more than the dispatch."),
+    "MXNET_TRACE_SLOW_MS": (int, 1000,
+                            "Slow-exemplar threshold: sampled traces "
+                            "whose root span exceeds this many ms (and "
+                            "every sampled trace ending in an error/"
+                            "timeout/injected fault) are kept in a "
+                            "separate ring."),
+    "MXNET_TRACE_RING": (int, 64,
+                         "How many finished traces the in-memory ring "
+                         "keeps for /traces."),
+    "MXNET_NUMERICS": (str, "off",
+                       "Numerics sentinel of the fused train step "
+                       "(health.py): off | step (loss proxy + global "
+                       "grad norm + nonfinite count: one device "
+                       "reduction and one small fetch per step, read one "
+                       "step behind) | full (adds per-parameter "
+                       "attribution so a trip names the layer)."),
+    "MXNET_NUMERICS_POLICY": (str, "warn",
+                              "What a numerics-sentinel trip does: "
+                              "warn (log + count + flight-record, "
+                              "keep training) | raise "
+                              "(health.NumericsError) | "
+                              "checkpoint-and-raise (fit saves the "
+                              "tripped state under <prefix>.numerics, "
+                              "then raises)."),
+    "MXNET_NUMERICS_SPIKE": (float, 0.0,
+                             "Grad-norm spike threshold: trip when the "
+                             "global grad norm exceeds this many times "
+                             "its running EMA. 0 disables spike "
+                             "detection (nonfinite detection stays "
+                             "on)."),
+    "MXNET_FLIGHT_RECORDER": (str, "",
+                              "Crash-safe flight-recorder path "
+                              "(blackbox.py): lifecycle events (swaps, "
+                              "checkpoints, faults, alerts, numerics "
+                              "trips) appended as CRC-framed fsync'd "
+                              "records, readable post-mortem with "
+                              "python -m mxnet_tpu_torch.blackbox. "
+                              "Empty disables."),
+    "MXNET_FLIGHT_RECORDER_MB": (float, 4.0,
+                                 "Flight-recorder ring bound: the "
+                                 "active segment rotates to <path>.1 "
+                                 "at half this size."),
+    "MXNET_SLO_INTERVAL_S": (float, 2.0,
+                             "SLO evaluator wake period (health.py "
+                             "background thread; it only reads "
+                             "telemetry)."),
+    "MXNET_SLO_SERVE_P99_MS": (float, 1000.0,
+                               "Default serve_p99 SLO rule threshold "
+                               "over the interval-local p99 of "
+                               "serving/request_seconds."),
+    "MXNET_SLO_DECODE_ITL_P99_MS": (float, 250.0,
+                                    "Default decode_itl_p99 SLO rule "
+                                    "threshold over decode/"
+                                    "step_seconds p99 (inter-token "
+                                    "latency)."),
+    "MXNET_SLO_MFU_DIVERGENCE": (float, 0.20,
+                                 "Default mfu_divergence SLO rule "
+                                 "threshold on the health/"
+                                 "mfu_divergence gauge (|measured/"
+                                 "hand-counted - 1|), events mode."),
+    "MXNET_SLO_BADPUT_FRACTION": (float, 0.5,
+                                  "Default badput_fraction SLO rule "
+                                  "threshold on the goodput/"
+                                  "badput_fraction gauge."),
+    "MXNET_TPU_PEAK_FLOPS": (float, 989.4e12,
+                             "Peak FLOP/s, the MFU denominator of the "
+                             "health gauges (the JAX package's knob "
+                             "name). Default: the spec-sheet dense bf16 "
+                             "figure of an NVIDIA H100 80GB HBM3 "
+                             "(SXM5, 700 W)."),
+    "MXNET_TPU_PEAK_HBM_GBPS": (float, 3350.0,
+                                "Peak device-memory bandwidth (GB/s) for "
+                                "the hbm_bw_util gauges (the JAX "
+                                "package's knob name). Default: the "
+                                "spec-sheet figure of an NVIDIA H100 "
+                                "80GB HBM3 (SXM5)."),
+    "MXNET_FAULT_INJECT": (str, "",
+                           "Arm fault-injection points at import: "
+                           "point:step:kind[:count] comma list "
+                           "(kinds: raise/transient/partition/delay/"
+                           "crash; see fault.py). Test-only."),
     "MXNET_SERVE_MAX_BATCH": (int, 8,
                               "Largest serving batch bucket "
                               "(serve.InferenceEngine). Buckets default "

@@ -22,12 +22,26 @@ graph included): inputs staged by ``forward(**kwargs)`` are cast to it.
 An input that lies on another device is copied onto the executor's and
 counted in :data:`INPUT_COPIES`; one already there (a batch a
 ``PrefetchingIter`` staged on the card) is bound as it is.
+
+Observability, as the JAX executor: the spans ``executor.forward`` /
+``executor.train_step`` under a sampled trace; a cost record per forward
+mode (``health.symbol_cost`` at the bound shapes; the fused step counts
+three forwards) behind ``forward_cost`` / ``fused_cost`` and the
+``executor/mfu`` gauge; and the numerics sentinel
+(``MXNET_NUMERICS=step|full``): the loss proxy, the global gradient norm
+and the nonfinite count reduced on the device after the gradients
+(``torch._foreach_norm``, one multi-tensor launch), copied to the host
+behind an event and read one step later (``flush_numerics`` reads the
+last), where ``health.check_numerics`` applies the policy.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from . import health as _health
+from . import telemetry as _tm
+from . import tracing as _tr
 from .base import MXNetError
 from .context import default_device
 from .ndarray.ndarray import NDArray, zeros
@@ -93,6 +107,13 @@ class Executor(object):
         self._graph = None      # (names, leaves, outputs) for backward
         self._rng_state = None  # generator state before the last forward
         self.outputs = []
+        self._fwd_cost = {}             # is_train -> cost record
+        self._fused_cost_rec = None
+        self._numerics_state = {}
+        self._pending_sentinel = None
+        self._last_step_end = None      # (host time, CUDA event or None)
+        self._wall_pending = None       # (event, event) not yet read
+        self._deduced = None            # simple_bind's shape deduction
 
     # -- execution ---------------------------------------------------------
     def _fn(self, is_train):
@@ -156,7 +177,13 @@ class Executor(object):
         is_train = bool(is_train)
         names = tuple(n for n in self._arg_names
                       if self._grad_req[n] != "null") if is_train else ()
-        leaves, outs, stats = self._run(is_train, names)
+        with _tr.child_span("executor.forward",
+                            attrs={"is_train": is_train}):
+            leaves, outs, stats = self._run(is_train, names)
+        if is_train not in self._fwd_cost:
+            self._fwd_cost[is_train] = _health.capture_cost(
+                "executor_forward", _health.next_cost_key("fwd"),
+                self._count_cost)
         self._graph = (names, leaves, outs) if names else None
         self._update_aux(stats)
         self.outputs = [NDArray(o.detach()) for o in outs]
@@ -227,17 +254,153 @@ class Executor(object):
         for k, v in (feed or {}).items():
             self._stage_input(k, v)
         self._graph = None
-        leaves, outs, stats = self._run(True, update_names)
-        grads = self._grads(outs, [leaves[n] for n in update_names],
-                            self._cotangents(outs, out_grads))
-        outs = [o.detach() for o in outs]
-        del leaves           # autograd is done: nothing holds the graph
-        rule([self.arg_dict[n]._data for n in update_names], grads,
-             [tuple(a._data for a in states[n]) for n in update_names],
-             [hyper[n] for n in update_names])
-        self._update_aux(stats)
+        numerics = _health.numerics_mode()
+        with _tr.child_span("executor.train_step"):
+            leaves, outs, stats = self._run(True, update_names)
+            grads = self._grads(outs, [leaves[n] for n in update_names],
+                                self._cotangents(outs, out_grads))
+            outs = [o.detach() for o in outs]
+            del leaves       # autograd is done: nothing holds the graph
+            sentinel = (self._sentinel(grads, outs, numerics)
+                        if numerics != "off" else None)
+            rule([self.arg_dict[n]._data for n in update_names], grads,
+                 [tuple(a._data for a in states[n]) for n in update_names],
+                 [hyper[n] for n in update_names])
+            self._update_aux(stats)
         self.outputs = [NDArray(o) for o in outs]
+        if self._fused_cost_rec is None:
+            fwd = _health.capture_cost(
+                "fused_step", _health.next_cost_key("step"),
+                self._count_cost)
+            if fwd is not None:
+                # forward + backward: three forwards' FLOPs and bytes
+                self._fused_cost_rec = dict(fwd, flops=3 * fwd["flops"],
+                                            bytes=3 * fwd["bytes"])
+        if _tm._enabled:
+            _tm.counter("executor/fused_step_total",
+                        "Completed fused train steps").inc()
+        self._note_step_wall()
+        # the sentinel verdict is read one step behind: step N's vector
+        # lands on the host behind an event while step N+1 is queued, so
+        # the host never waits for the step in flight (flush_numerics()
+        # drains the last one at epoch end)
+        pending, self._pending_sentinel = self._pending_sentinel, None
+        if sentinel is not None:
+            self._pending_sentinel = (sentinel, numerics, update_names)
+        if pending is not None:
+            self._check_sentinel(*pending)
         return self.outputs
+
+    # -- health --------------------------------------------------------------
+    def _count_cost(self):
+        """``health.symbol_cost`` of one forward at the bound shapes."""
+        shapes, sizes = {}, {}
+        for d in (self.arg_dict, self.aux_dict):
+            for n, a in d.items():
+                shapes[n] = tuple(a._data.shape)
+                sizes[n] = a._data.element_size()
+        return _health.symbol_cost(self._symbol, shapes, sizes,
+                                   self._deduced)
+
+    def _note_step_wall(self):
+        """``executor/mfu`` from the interval between consecutive step
+        ends: on the card the device time between two events recorded
+        after each step (read once the later one has completed, so the
+        host never waits), on the host the host clock. Nothing while
+        telemetry is off or the step has no cost record."""
+        rec = self._fused_cost_rec
+        if rec is None or not _tm._enabled:
+            self._last_step_end = self._wall_pending = None
+            return
+        now = _tm.monotonic()
+        ev = None
+        if self._ctx.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self._ctx))
+        last, self._last_step_end = self._last_step_end, (now, ev)
+        if last is None:
+            return
+        if ev is None:
+            _health.note_executor_step(rec, now - last[0])
+            return
+        pend = self._wall_pending
+        if pend is not None and pend[1].query():
+            _health.note_executor_step(
+                rec, pend[0].elapsed_time(pend[1]) / 1e3)
+            pend = None
+        if pend is None:
+            self._wall_pending = (last[1], ev)
+
+    def _sentinel(self, grads, outs, numerics):
+        """The step's packed sentinel on the device: [loss, grad norm,
+        nonfinite (, per-parameter norms, per-parameter nonfinite
+        counts)], copied to the host behind an event on the card."""
+        f32 = torch.float32
+        flo = [g for g in grads if g.is_floating_point()]
+        it = iter(torch._foreach_norm(flo, 2, dtype=f32) if flo else ())
+        dev = outs[0].device
+        zero = torch.zeros((), dtype=f32, device=dev)
+        per = [next(it) if g.is_floating_point() else zero for g in grads]
+        sq = torch.stack(per).square() if per else zero.reshape(1)
+        loss = outs[0].float().mean()
+        if numerics == "full":
+            nf = torch.stack([(~torch.isfinite(g)).sum().to(f32)
+                              if g.is_floating_point() else zero
+                              for g in grads])
+            bad = nf.sum()
+        else:
+            # a nonfinite element makes its parameter's norm nonfinite:
+            # the figure counts the affected parameters
+            bad = (~torch.isfinite(sq)).sum().to(f32)
+        head = torch.stack([loss, sq.sum().sqrt(), bad])
+        vec = head if numerics == "step" else torch.cat(
+            [head, sq.sqrt(), nf])
+        if vec.device.type != "cuda":
+            return (vec, None)
+        host = torch.empty(vec.shape, dtype=f32, pin_memory=True)
+        host.copy_(vec, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(vec.device))
+        return (host, ev)
+
+    def _check_sentinel(self, sentinel, numerics, update_names):
+        """Read one step's sentinel (waiting only for that step) and
+        apply the numerics policy."""
+        vec, ev = sentinel
+        if ev is not None:
+            ev.synchronize()
+        vals = vec.tolist()
+        report = {"loss": float(vals[0]), "grad_norm": float(vals[1]),
+                  "nonfinite": int(vals[2])}
+        if numerics == "full":
+            p = len(update_names)
+            report["per_param"] = {
+                n: {"norm": float(vals[3 + i]),
+                    "nonfinite": int(vals[3 + p + i])}
+                for i, n in enumerate(update_names)}
+        _health.check_numerics(report, state=self._numerics_state)
+
+    def flush_numerics(self):
+        """Read the deferred sentinel of the last fused step (applies the
+        policy to a trip on a run's final step); ``Module.fit`` calls it
+        at each epoch end."""
+        pending, self._pending_sentinel = self._pending_sentinel, None
+        if pending is not None:
+            self._check_sentinel(*pending)
+
+    def fused_cost(self):
+        """Cost record of the fused step (three forwards), or None."""
+        return self._fused_cost_rec
+
+    def forward_cost(self, is_train=False):
+        """Cost record of the forward in this mode (the serve engine
+        prices its bucket batches with it), counted on first use."""
+        is_train = bool(is_train)
+        if is_train not in self._fwd_cost:
+            self._fwd_cost[is_train] = _health.capture_cost(
+                "executor_forward", _health.next_cost_key("fwd"),
+                self._count_cost)
+        return self._fwd_cost[is_train]
 
     # -- parameter management ---------------------------------------------
     def alias_args(self, other, names):

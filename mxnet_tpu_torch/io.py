@@ -29,6 +29,8 @@ from collections import OrderedDict, deque, namedtuple
 import numpy as np
 import torch
 
+from . import fault as _fault
+from . import tracing as _tr
 from .base import MXNetError
 from .ndarray.ndarray import NDArray, array
 
@@ -809,6 +811,7 @@ def _pipeline_worker_loop(source, in_q, out_q, shm_prefix):
         epoch, index = task
         metas = []
         try:
+            _fault.inject("io.worker")
             t0 = time.monotonic()
             data, label, pad = source.get_batch(epoch, index)
             dt = time.monotonic() - t0
@@ -1132,8 +1135,12 @@ class DataPipeline(DataIter):
     the resumable cursor (epoch, batch, seed, the shard): restoring
     seeks, decoding nothing on the way. ``close()`` (also by ``with``)
     stops the thread and the workers; it is idempotent and not terminal.
-    The JAX package's tracing spans, telemetry and ``io.worker`` fault
-    point come with ROADMAP A3 / A4 / A16."""
+    Under a sampled trace the consumer's wait is an ``io.batch_wait``
+    span, and the staging thread records ``io.decode`` (inline decode)
+    and ``io.h2d`` spans into the trace of the step that last drew a
+    batch; every decode task passes the ``io.worker`` fault point (in the
+    worker process, or on the staging thread when ``num_workers`` is 0).
+    The JAX package's ``io/*`` telemetry comes with ROADMAP A16."""
 
     def __init__(self, source, num_workers=None, prefetch=None, ctx=None,
                  restart_budget=None):
@@ -1161,6 +1168,7 @@ class DataPipeline(DataIter):
         self._end_seen = False
         self._cond = threading.Condition()
         self._staged = deque()
+        self._trace_ctx = None   # the trace of the last consumer draw
         self._stop = False
         self._error = None
         self._stager = None
@@ -1337,6 +1345,7 @@ class DataPipeline(DataIter):
         """A numpy batch -> (DataBatch, event): on the card through the
         next pinned slot (on the stager's stream; its previous copy has
         landed before the slot is written again), or host NDArrays."""
+        t0 = time.perf_counter()
         arrays = [a.astype(np.float32) if a.dtype == np.float64 else a
                   for a in list(data) + list(label)]
         event = None
@@ -1356,6 +1365,10 @@ class DataPipeline(DataIter):
                                              non_blocking=True)))
             event = slot.event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self._device))
+        tctx = self._trace_ctx
+        if tctx is not None:
+            # the host side of the copy: the pinned write and the launch
+            _tr.record_span("io.h2d", tctx, t0, time.perf_counter())
         n = len(data)
         return (DataBatch(staged[:n], staged[n:], pad=pad,
                           provide_data=self.provide_data,
@@ -1368,7 +1381,12 @@ class DataPipeline(DataIter):
         for index in range(self._next_index, self._source.num_batches(epoch)):
             if self._stop:
                 return
+            _fault.inject("io.worker")
+            t0 = time.perf_counter()
             data, label, pad = self._source.get_batch(epoch, index)
+            tctx = self._trace_ctx
+            if tctx is not None:
+                _tr.record_span("io.decode", tctx, t0, time.perf_counter())
             if not self._push(self._stage(data, label, pad)):
                 return
         self._push(_END)
@@ -1453,7 +1471,9 @@ class DataPipeline(DataIter):
 
     # -- consumer side -----------------------------------------------------
     def iter_next(self):
+        self._trace_ctx = tctx = _tr.active()
         self._ensure_running()
+        t0 = time.perf_counter() if tctx is not None else None
         with self._cond:
             while not self._staged:
                 if self._error is not None:
@@ -1468,6 +1488,8 @@ class DataPipeline(DataIter):
                                      "without delivering the epoch end")
             item = self._staged.popleft() if self._staged else _END
             self._cond.notify_all()
+        if t0 is not None:
+            _tr.record_span("io.batch_wait", tctx, t0, time.perf_counter())
         if item is _END:
             self._current_batch = None
             if self._error is not None:

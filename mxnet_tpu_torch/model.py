@@ -82,6 +82,9 @@ def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params,
                    {"params": param_name, "symbol": sym_file,
                     "states": states_fname}, nbatch=nbatch,
                    extra={"io_cursor": io_cursor} if io_cursor else None)
+    from . import blackbox as _bb
+    _bb.record_event("checkpoint", file=os.path.basename(param_name),
+                     seconds=round(_tm.monotonic() - t0, 4))
     _tm.counter("checkpoint/saves_total", "Checkpoints written").inc()
     _tm.histogram("checkpoint/save_seconds",
                   "Wall time of one checkpoint save (params + manifest)"

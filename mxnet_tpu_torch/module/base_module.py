@@ -11,10 +11,16 @@ cursor when it has one) and ``resume`` restarts from the newest
 checkpoint that verifies, at its epoch and, for a save made within an
 epoch, at its batch: an iterator with a cursor (``DataPipeline``) seeks
 to the manifest's, one without replays the batches the save had
-trained. What the JAX ``fit`` adds beyond that is refused by name until
-its ROADMAP item comes: elastic training (``MXNET_ELASTIC_*``, A13),
-monitors and ``sparse_row_id_fn`` (A8.6). The SIGTERM grace-window save
-waits for A16.
+trained. Each step passes the ``engine.step`` fault point and, under a
+sampled trace, is one ``train.step`` root span with the children
+``train.forward_backward``, ``train.update`` and ``train.data_wait``
+(checkpoints are ``train.checkpoint`` roots); a numerics-sentinel trip
+(``health.NumericsError``) under ``checkpoint-and-raise`` saves the
+tripped state under ``<prefix>.numerics`` before it propagates. What the
+JAX ``fit`` adds beyond that is refused by name until its ROADMAP item
+comes: elastic training (``MXNET_ELASTIC_*``, A13), monitors and
+``sparse_row_id_fn`` (A8.6). The SIGTERM grace-window save and the
+goodput ledger wait for A16.
 """
 from __future__ import annotations
 
@@ -24,8 +30,11 @@ import time
 
 import numpy as np
 
+from .. import fault as _fault
+from .. import health as _health
 from .. import io as _io
 from .. import metric as _metric
+from .. import tracing as _tr
 from ..base import MXNetError
 from ..initializer import Uniform
 from ..model import BatchEndParam
@@ -286,14 +295,27 @@ class BaseModule(object):
                     end_of_batch = True
                 while not end_of_batch:
                     data_batch = next_data_batch
-                    self.forward_backward(data_batch)
-                    self.update()
-                    self.update_metric(eval_metric, data_batch.label)
-                    try:
-                        next_data_batch = next(data_iter)
-                        self.prepare(next_data_batch)
-                    except StopIteration:
-                        end_of_batch = True
+                    _fault.inject("engine.step")
+                    with _tr.start_span("train.step",
+                                        attrs={"epoch": epoch,
+                                               "nbatch": nbatch}):
+                        try:
+                            with _tr.child_span("train.forward_backward"):
+                                self.forward_backward(data_batch)
+                            with _tr.child_span("train.update"):
+                                self.update()
+                        except _health.NumericsError:
+                            self._numerics_checkpoint(
+                                checkpoint_prefix, epoch, nbatch + 1,
+                                save_optimizer_states, train_data)
+                            raise
+                        self.update_metric(eval_metric, data_batch.label)
+                        with _tr.child_span("train.data_wait"):
+                            try:
+                                next_data_batch = next(data_iter)
+                                self.prepare(next_data_batch)
+                            except StopIteration:
+                                end_of_batch = True
                     if end_of_batch:
                         eval_name_vals = eval_metric.get_name_value()
                     if batch_end_callback is not None:
@@ -303,6 +325,14 @@ class BaseModule(object):
                         for callback in _as_list(batch_end_callback):
                             callback(params)
                     nbatch += 1
+                # the deferred sentinel of the epoch's last step
+                try:
+                    self._flush_numerics()
+                except _health.NumericsError:
+                    self._numerics_checkpoint(
+                        checkpoint_prefix, epoch, nbatch,
+                        save_optimizer_states, train_data)
+                    raise
                 for name, val in eval_name_vals:
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name,
                                      val)
@@ -315,10 +345,9 @@ class BaseModule(object):
                         callback(epoch, self.symbol, arg_p, aux_p)
                 if checkpoint_prefix is not None and \
                         (epoch + 1) % int(checkpoint_period) == 0:
-                    cursor = getattr(train_data, "checkpoint_state", None)
-                    self.save_checkpoint(
-                        checkpoint_prefix, epoch + 1, save_optimizer_states,
-                        io_cursor=cursor(epoch + 1, 0) if cursor else None)
+                    self._save_fit_checkpoint(checkpoint_prefix, epoch + 1, 0,
+                                              save_optimizer_states,
+                                              train_data)
                 if eval_data is not None:
                     res = self.score(eval_data, validation_metric,
                                      score_end_callback=eval_end_callback,
@@ -335,6 +364,35 @@ class BaseModule(object):
                 closer = getattr(it, "close", None)
                 if callable(closer):
                     closer()
+
+    def _save_fit_checkpoint(self, prefix, epoch, nbatch,
+                             save_optimizer_states, train_data=None):
+        """One fit checkpoint (a ``train.checkpoint`` root span), with the
+        iterator's cursor where it has one."""
+        cursor = getattr(train_data, "checkpoint_state", None)
+        with _tr.start_span("train.checkpoint",
+                            attrs={"epoch": epoch, "nbatch": nbatch}):
+            self.save_checkpoint(
+                prefix, epoch, save_optimizer_states, nbatch=nbatch,
+                io_cursor=cursor(epoch, nbatch) if cursor else None)
+
+    def _numerics_checkpoint(self, prefix, epoch, nbatch,
+                             save_optimizer_states, train_data):
+        """Policy ``checkpoint-and-raise``: keep the tripped state under
+        a separate prefix (``<prefix>.numerics``: the nonfinite
+        parameters are the evidence) without touching the recovery chain
+        ``load_latest_valid`` walks."""
+        if prefix is not None and \
+                _health.numerics_policy() == "checkpoint-and-raise":
+            self._save_fit_checkpoint(prefix + ".numerics", epoch, nbatch,
+                                      save_optimizer_states, train_data)
+
+    def _flush_numerics(self):
+        """Read the bound executor's deferred numerics sentinel; no-op
+        for modules without one."""
+        exe = getattr(self, "_exec", None)
+        if exe is not None and hasattr(exe, "flush_numerics"):
+            exe.flush_numerics()
 
     # -- properties / interface --------------------------------------------
     @property

@@ -25,6 +25,7 @@ import numbers
 import numpy as np
 import torch
 
+from .. import tracing as _tr
 from ..base import MXNetError
 from ..context import Context, default_device
 
@@ -82,7 +83,12 @@ def invoke_op(name, inputs, attrs=None, out=None):
     if "ctx" in op.attr_defaults and not any(
             isinstance(t, torch.Tensor) for t in tensors):
         attrs["ctx"] = _device(attrs.get("ctx"))
-    with torch.set_grad_enabled(autograd.is_recording()):
+    # a per-op span only when opted in (MXNET_TRACE_OPS) and under a
+    # sampled trace: the default dispatch pays one module-attr read
+    tr_scope = (_tr.child_span("op.dispatch", attrs={"op": name})
+                if _tr._trace_ops and _tr.active() is not None
+                else _tr.NOOP)
+    with tr_scope, torch.set_grad_enabled(autograd.is_recording()):
         res = apply(op, tensors, attrs)
     if op.mutate_inputs:       # updated in place: the weight comes back
         return inputs[op.mutate_inputs[0]]

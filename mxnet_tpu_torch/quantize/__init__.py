@@ -25,9 +25,10 @@ Quick start::
                                 input_shapes={"data": (1, 3, 224, 224)})
     eng = mx.serve.InferenceEngine(pred).start().warmup()
 
-``serve.ModelRegistry.swap(quantized=...)`` and ``enable_shadow`` (the
-hot swap and the canary) are ROADMAP A10; ``contrib.quantization.
-quantize_model`` (the reference's triple-op route) is ROADMAP A11.
+``serve.ModelRegistry.swap(quantized=...)`` hot-swaps a live server to
+the artifact and ``enable_shadow`` canaries it under live traffic first;
+``contrib.quantization.quantize_model`` (the reference's triple-op route)
+is ROADMAP A11.
 """
 from .calibrate import (MinMaxObserver, PercentileObserver, make_observer,
                         collect_activation_ranges)

@@ -21,7 +21,7 @@ Counterpart of the JAX package's ``quantize/ptq.py``:
 
 Weights get one exact float32 scale per output channel; activations one
 calibrated scale per tensor. ``serve.ModelRegistry.swap(quantized=...)``
-and its shadow canary are ROADMAP A10.
+serves an artifact on a live server, ``enable_shadow`` canaries it.
 """
 from __future__ import annotations
 

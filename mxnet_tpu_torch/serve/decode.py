@@ -31,6 +31,17 @@ Decoding is greedy (argmax). The engine runs on ``cuda:0`` unless the
 caller passes ``device="cpu"``; all model work runs on the scheduler
 thread under ``torch.inference_mode()``.
 
+Observability, as the JAX engine: a request's trace context
+(``submit(ctx=)``, kept as ``DecodeSession.tctx``) gets the
+``decode.schedule``, ``decode.prefill`` and ``decode.step`` spans; the
+``decode.step`` fault point sits at the top of each scheduler iteration;
+each prefill and step wall (it ends when the tokens are on the host) is
+priced with this engine's cost record of its bucket
+(``health.transformer_cost``) into ``decode/mfu{phase,bucket}``;
+:attr:`DecodeEngine.ready` is the ``/healthz`` gate. ``program_count``,
+``warm_report`` and ``warmup(use_manifest=)`` belong to the compiled-
+program registry (ROADMAP A6).
+
 Telemetry: ``decode/requests_total``, ``decode/rejected_total{reason}``,
 ``decode/tokens_total``, ``decode/slot_occupancy``,
 ``decode/page_pool_free``, ``decode/prefill_seconds``,
@@ -50,7 +61,10 @@ from collections import deque
 import numpy as _np
 import torch
 
+from .. import fault as _fault
+from .. import health as _health
 from .. import telemetry as _tm
+from .. import tracing as _tr
 from ..base import MXNetError
 from ..config import get as _cfg
 from ..context import default_device
@@ -130,10 +144,11 @@ class DecodeSession(object):
 
     __slots__ = ("prompt", "prompt_len", "max_new_tokens", "stop_token",
                  "deadline", "t_enq", "t_admit", "t_first", "t_done",
-                 "page_ids", "block_table", "pos", "last_token",
+                 "tctx", "page_ids", "block_table", "pos", "last_token",
                  "generated", "out_tokens", "error", "_q", "_finished")
 
-    def __init__(self, prompt, max_new_tokens, stop_token, deadline):
+    def __init__(self, prompt, max_new_tokens, stop_token, deadline,
+                 tctx=None):
         self.prompt = prompt
         self.prompt_len = len(prompt)
         self.max_new_tokens = max_new_tokens
@@ -143,6 +158,7 @@ class DecodeSession(object):
         self.t_admit = None
         self.t_first = None
         self.t_done = None
+        self.tctx = tctx                 # the trace context, or None
         self.page_ids = None
         self.block_table = None
         self.pos = 0                     # next position to WRITE
@@ -168,6 +184,8 @@ class DecodeSession(object):
         self._finished = True
         self.error = error
         self.t_done = _tm.monotonic()
+        if error is not None and self.tctx is not None:
+            _tr.mark_error(error, ctx=self.tctx)
         self._q.put(_SENTINEL)
 
     @property
@@ -246,6 +264,8 @@ class DecodeEngine(object):
         self._warmup_req = None
         self._restarts_used = 0
         self._iter_hook = None
+        self._ready = False
+        self._prog_costs = {}            # (phase, bucket) -> cost record
 
         self._m_requests = _tm.counter(
             "decode/requests_total", "Decode requests admitted")
@@ -303,6 +323,7 @@ class DecodeEngine(object):
                              % timeout)
         if req["error"] is not None:
             raise req["error"]
+        self._ready = True
         return self
 
     def _do_warmup(self):
@@ -313,10 +334,39 @@ class DecodeEngine(object):
             n_pb = bucket // self._cfg.page_size
             self._run_prefill(_np.zeros(n_pb, _np.int32),
                               _np.zeros((1, bucket), _np.int32), bucket)
+            self._cost("prefill", bucket)
         for nslots in self._cfg.slot_buckets:
             self._run_step(
                 _np.zeros((nslots, self._cfg.pages_per_seq), _np.int32),
                 _np.zeros(nslots, _np.int32), _np.zeros(nslots, _np.int32))
+            self._cost("step", nslots)
+        if self._device.type == "cuda":
+            _tm.record_hbm(self._device)
+
+    def _cost(self, phase, bucket):
+        """This engine's cost record of a prefill bucket (``bucket``
+        prompt positions) or a step bucket (``bucket`` slots over the
+        block table's context): ``health.transformer_cost``."""
+        key = (phase, bucket)
+        if key not in self._prog_costs:
+            cfg = self._model_cfg
+            itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+            if phase == "prefill":
+                args = (cfg, "prefill", 1, bucket, bucket, itemsize)
+            else:
+                args = (cfg, "step", bucket, 1, self._cfg.max_context,
+                        itemsize)
+            self._prog_costs[key] = _health.capture_cost(
+                "decode_" + phase, _health.next_cost_key("dec"),
+                _health.transformer_cost, args)
+        return self._prog_costs[key]
+
+    @property
+    def ready(self):
+        """Warmed and the scheduler thread alive (the /healthz gate, as
+        ``InferenceEngine.ready``)."""
+        return (self._ready and self._worker is not None
+                and self._worker.is_alive())
 
     @property
     def config(self):
@@ -375,10 +425,11 @@ class DecodeEngine(object):
             self._cond.notify_all()
         if self._worker is not None:
             self._worker.join(timeout=timeout)
+        self._ready = False
 
     # -- admission ---------------------------------------------------------
     def submit(self, prompt, max_new_tokens=None, timeout_ms=None,
-               stop_token=None):
+               stop_token=None, ctx=None):
         """Admit one generation request; returns its
         :class:`DecodeSession` stream.
 
@@ -387,7 +438,9 @@ class DecodeEngine(object):
         Raises :class:`QueueFullError` when the waiting queue is at
         depth, and its subclass :class:`PagePoolExhausted` when the page
         pool cannot cover prompt + max_new_tokens. The page reservation
-        covers the request's WHOLE lifetime."""
+        covers the request's WHOLE lifetime. ``ctx``: the trace context
+        the scheduler records ``decode.*`` spans under (defaults to the
+        caller's active one)."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise MXNetError("empty prompt")
@@ -412,7 +465,8 @@ class DecodeEngine(object):
         timeout = (self._cfg.default_timeout if timeout_ms is None
                    else float(timeout_ms) / 1e3)
         deadline = (_tm.monotonic() + timeout) if timeout > 0 else None
-        sess = DecodeSession(prompt, max_new, stop_token, deadline)
+        sess = DecodeSession(prompt, max_new, stop_token, deadline,
+                             ctx if ctx is not None else _tr.active())
         # pages for the whole lifetime: the prefill BUCKET (its page
         # write covers the padded prompt) and prompt+max_new positions
         ps = self._cfg.page_size
@@ -487,7 +541,7 @@ class DecodeEngine(object):
                 try:
                     self._loop()
                     return               # clean exit: engine closed
-                except Exception as exc:  # crash containment boundary
+                except BaseException as exc:  # crash containment boundary
                     self._crash_recover(exc)
                     with self._cond:
                         if self._closing:
@@ -548,6 +602,7 @@ class DecodeEngine(object):
             hook = self._iter_hook
             if hook is not None:
                 hook()
+            _fault.inject("decode.step")
             with self._cond:
                 wreq, self._warmup_req = self._warmup_req, None
             if wreq is not None:
@@ -565,7 +620,8 @@ class DecodeEngine(object):
                     self._cond.wait(0.05)
                 if self._warmup_req is not None:
                     continue
-                self._expire_locked()
+                t_sched0 = _tm.monotonic()
+                evictions = self._expire_locked()
                 admits = []
                 while (self._waiting
                        and len(self._live) < self._cfg.slots):
@@ -577,6 +633,9 @@ class DecodeEngine(object):
                     self._live.append(sess)
                     admits.append(sess)
                 self._m_occupancy.set(len(self._live))
+                t_sched1 = _tm.monotonic()
+            if admits or evictions:
+                self._record_schedule(admits, evictions, t_sched0, t_sched1)
             for sess in admits:
                 self._prefill(sess)
             self._step()
@@ -585,12 +644,14 @@ class DecodeEngine(object):
         """Fail sessions past their deadline (queued: before a prefill
         is wasted on them; live: the slot frees this iteration) and
         sweep cancelled live sessions whose pages were kept until the
-        step in flight landed."""
+        step in flight landed. Returns the number evicted."""
         now = _tm.monotonic()
+        evicted = 0
         for sess in [s for s in self._live if s.done]:
             self._live.remove(sess)
             self._release_pages(sess)
             self._m_preempted.inc()
+            evicted += 1
         self._m_occupancy.set(len(self._live))
         self._m_free.set(self._pool.free_pages)
         for sess in [s for s in self._waiting
@@ -598,6 +659,7 @@ class DecodeEngine(object):
             self._waiting.remove(sess)
             self._release_pages(sess)
             self._m_timeouts.inc()
+            evicted += 1
             sess._finish(DeadlineExceededError(
                 "deadline expired after %.0f ms in the decode queue"
                 % ((now - sess.t_enq) * 1e3)))
@@ -605,9 +667,26 @@ class DecodeEngine(object):
                      if s.deadline is not None and now > s.deadline]:
             self._m_timeouts.inc()
             self._m_preempted.inc()
+            evicted += 1
             self._retire_locked(sess, DeadlineExceededError(
                 "deadline expired after %d of %d tokens"
                 % (sess.generated, sess.max_new_tokens)))
+        return evicted
+
+    def _record_schedule(self, admits, evictions, t0, t1):
+        sid = None
+        attrs = {"slots": len(self._live),
+                 "live_pages": self._pool.used_pages,
+                 "evictions": evictions}
+        for sess in admits:
+            ctx = sess.tctx
+            if ctx is None or not ctx.sampled:
+                continue
+            if sid is None:
+                sid = _tr.new_span_id()
+            _tr.record_span("decode.schedule", ctx, t0, t1,
+                            span_id=sid, parent_id=ctx.span_id,
+                            attrs=attrs)
 
     def _prefill(self, sess):
         """Bucketed prefill for one admission: pad the prompt to its
@@ -626,7 +705,17 @@ class DecodeEngine(object):
         padded[0, :sess.prompt_len] = sess.prompt
         t0 = _tm.monotonic()
         tok0 = self._run_prefill(page_ids, padded, sess.prompt_len)
-        self._m_prefill.observe(_tm.monotonic() - t0)
+        # the wall ends with the first token on the host
+        t1 = _tm.monotonic()
+        self._m_prefill.observe(
+            t1 - t0, trace_id=sess.tctx.trace_id if sess.tctx else None)
+        _health.note_decode("prefill", bucket, t1 - t0,
+                            self._cost("prefill", bucket))
+        if sess.tctx is not None and sess.tctx.sampled:
+            _tr.record_span("decode.prefill", sess.tctx, t0, t1,
+                            parent_id=sess.tctx.span_id,
+                            attrs={"bucket": bucket,
+                                   "prompt_len": sess.prompt_len})
         with self._cond:
             if sess.done:
                 return
@@ -663,7 +752,21 @@ class DecodeEngine(object):
             bt[i] = sess.block_table
         t0 = _tm.monotonic()
         toks = self._run_step(bt, tokens, pos)
-        self._m_step.observe(_tm.monotonic() - t0)
+        # the wall ends with the tokens on the host
+        t1 = _tm.monotonic()
+        self._m_step.observe(t1 - t0)
+        _health.note_decode("step", nslots, t1 - t0,
+                            self._cost("step", nslots))
+        traced = [s for s in live
+                  if s.tctx is not None and s.tctx.sampled]
+        if traced:
+            sid = _tr.new_span_id()
+            attrs = {"slots": len(live), "bucket": nslots,
+                     "live_pages": self._pool.used_pages}
+            for sess in traced:
+                _tr.record_span("decode.step", sess.tctx, t0, t1,
+                                span_id=sid, parent_id=sess.tctx.span_id,
+                                attrs=attrs)
         with self._cond:
             for i, sess in enumerate(live):
                 if sess.done:            # expired/retired concurrently

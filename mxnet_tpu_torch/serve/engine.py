@@ -22,27 +22,59 @@ predictor's device. Kept from the JAX engine:
 * telemetry: ``serving/queue_depth``, ``serving/batch_rows``,
   ``serving/padding_waste_ratio``, ``serving/queue_wait_seconds`` vs
   ``serving/compute_seconds``, ``serving/request_seconds``,
-  ``serving/{requests,rejected,timeouts,batches,worker_restarts}_total``.
+  ``serving/{requests,rejected,timeouts,batches,worker_restarts}_total``,
+  and ``serving/mfu{bucket}`` / ``serving/hbm_bw_util{bucket}``: each
+  batch's compute wall (it ends when the outputs are on the host) priced
+  with this engine's cost record of the bucket (``health``);
+* tracing: a request carries its trace context (``submit(ctx=)``) to the
+  worker, which records ``serve.queue_wait``, ``serve.batch`` and under
+  it ``serve.coalesce``, ``serve.pad``, ``serve.compute`` and
+  ``serve.slice`` into every sampled request of the batch;
+* the ``serve.worker`` fault point at the top of each worker loop
+  iteration; :func:`engines_status` lists the live engines.
 
-Not ported yet: the tracing spans (``serve.*``, ROADMAP A3), the
-``serve.worker`` fault point (A4), the per-bucket MFU of ``health`` (A5),
-the compiled-program registry and its warm-set manifest (A6), and the
-``engines_status`` rows of ``diagnostics()``.
+Not ported yet: the compiled-program registry and its warm-set manifest
+(``warm_report``, ``warmup(use_manifest=)``; ROADMAP A6).
 """
 from __future__ import annotations
 
 import logging
 import threading
+import weakref
 from collections import deque
 
 import numpy as np
 
+from .. import fault as _fault
+from .. import health as _health
 from .. import telemetry as _tm
+from .. import tracing as _tr
 from ..base import MXNetError
 from .batching import parse_buckets, pick_bucket, validate_buckets
 
 __all__ = ["ServeConfig", "InferenceEngine", "QueueFullError",
-           "DeadlineExceededError", "EngineClosedError"]
+           "DeadlineExceededError", "EngineClosedError", "engines_status"]
+
+# live engines of this process (engines_status)
+_ENGINES = weakref.WeakSet()
+
+
+def engines_status():
+    """One status row per live InferenceEngine: readiness, queue depth,
+    worker liveness, restart-budget burn, buckets."""
+    out = []
+    for eng in list(_ENGINES):
+        if not eng._accepting and not eng._workers:
+            continue                     # closed, not collected yet
+        out.append({
+            "ready": eng.ready,
+            "accepting": eng._accepting,
+            "queue_depth": len(eng._queue),
+            "workers": len(eng._workers),
+            "workers_alive": sum(t.is_alive() for t in eng._workers),
+            "restarts_used": eng._restarts_used,
+            "buckets": list(eng._cfg.buckets)})
+    return out
 
 
 class QueueFullError(MXNetError):
@@ -96,14 +128,15 @@ class ServeConfig(object):
 class _Request(object):
     """One submitted inference request; a thread-event future."""
 
-    __slots__ = ("feed", "rows", "deadline", "t_enq", "_event", "outputs",
-                 "error", "_tc_lock", "_timeout_counted")
+    __slots__ = ("feed", "rows", "deadline", "t_enq", "tctx", "_event",
+                 "outputs", "error", "_tc_lock", "_timeout_counted")
 
-    def __init__(self, feed, rows, deadline):
+    def __init__(self, feed, rows, deadline, tctx=None):
         self.feed = feed
         self.rows = rows
         self.deadline = deadline
         self.t_enq = _tm.monotonic()
+        self.tctx = tctx                 # the trace context, or None
         self._event = threading.Event()
         self.outputs = None
         self.error = None
@@ -184,6 +217,9 @@ class InferenceEngine(object):
         self._ready = False
         self._workers = []
         self._restarts_used = 0
+        self._bucket_cost = {}           # bucket -> cost record
+        self._cost_tag = None
+        _ENGINES.add(self)
 
         self._m_requests = _tm.counter(
             "serving/requests_total", "Inference requests accepted")
@@ -237,8 +273,24 @@ class InferenceEngine(object):
             with self._pred_locks[b]:
                 for o in pred._exe.forward(is_train=False, **feed):
                     o.asnumpy()
+            self._note_bucket_cost(b, pred)
+        dev = self._base._exe._ctx
+        if dev.type == "cuda":
+            _tm.record_hbm(dev)         # the warmed ladder's footprint
         self._ready = True
         return self
+
+    def _note_bucket_cost(self, bucket, pred):
+        """This engine's cost record of a bucket: the bucket executor's
+        forward record, aliased under a process-unique engine tag (two
+        live engines, a shadow or a draining one, never share one)."""
+        if bucket not in self._bucket_cost:
+            if self._cost_tag is None:
+                self._cost_tag = _health.next_cost_key("eng")
+            self._bucket_cost[bucket] = _health.register_cost(
+                "serve_bucket", "%s/%s" % (self._cost_tag, bucket),
+                pred._exe.forward_cost(False))
+        return self._bucket_cost[bucket]
 
     @property
     def ready(self):
@@ -248,6 +300,11 @@ class InferenceEngine(object):
     @property
     def config(self):
         return self._cfg
+
+    def engine(self):
+        """This engine (``ModelRegistry.engine()`` returns its current
+        one): the HTTP front end reads the input names through it."""
+        return self
 
     def close(self, drain=True, timeout=30.0):
         """Stop admission; with ``drain`` run every queued request through
@@ -273,7 +330,7 @@ class InferenceEngine(object):
         self._ready = False
 
     # -- request path ------------------------------------------------------
-    def submit(self, feed, timeout_ms=None):
+    def submit(self, feed, timeout_ms=None, ctx=None):
         """Enqueue one request; returns its future (``.result()``).
 
         ``feed``: ``{input_name: array-like}`` (a bare array for a
@@ -281,12 +338,16 @@ class InferenceEngine(object):
         ``1 <= rows <= max_batch``. Raises :class:`QueueFullError` at
         once when the queue is full and :class:`EngineClosedError` when
         draining or closed. Requests submitted before :meth:`start` wait
-        in the queue for the workers."""
+        in the queue for the workers. ``ctx``: the
+        :class:`tracing.SpanContext` the worker records the request's
+        spans under (the HTTP front end passes its request span);
+        defaults to the caller's active one."""
         feed, rows = self._check_feed(feed)
         timeout = (self._cfg.default_timeout if timeout_ms is None
                    else float(timeout_ms) / 1e3)
         deadline = (_tm.monotonic() + timeout) if timeout > 0 else None
-        req = _Request(feed, rows, deadline)
+        req = _Request(feed, rows, deadline,
+                       tctx=ctx if ctx is not None else _tr.active())
         with self._cond:
             if not self._accepting:
                 self._m_rejected.inc()
@@ -341,12 +402,14 @@ class InferenceEngine(object):
     def _take_batch(self):
         """Pop a FIFO run of requests of at most ``max_batch`` rows,
         waiting up to ``batch_wait`` after the first for more. None when
-        the engine is closed and the queue empty."""
+        the engine is closed and the queue empty, else ``(batch,
+        t_coalesce0, t_coalesce1)`` (the ``serve.coalesce`` window)."""
         with self._cond:
             while not self._queue:
                 if not self._accepting:
                     return None
                 self._cond.wait(0.1)
+            t_co0 = _tm.monotonic()
             batch = [self._queue.popleft()]
             rows = batch[0].rows
 
@@ -373,7 +436,7 @@ class InferenceEngine(object):
             self._m_depth.set(len(self._queue))
             if self._queue:
                 self._cond.notify()      # more work for another worker
-        return batch
+        return batch, t_co0, _tm.monotonic()
 
     def _worker_main(self):
         """Worker thread: run the loop; when it crashes (an exception that
@@ -383,7 +446,7 @@ class InferenceEngine(object):
             try:
                 self._worker_loop()
                 return                   # clean exit: engine closed
-            except Exception as exc:
+            except BaseException as exc:
                 with self._cond:
                     if not self._accepting:
                         return           # crash during drain: no restart
@@ -400,23 +463,29 @@ class InferenceEngine(object):
 
     def _worker_loop(self):
         while True:
-            batch = self._take_batch()
-            if batch is None:
+            _fault.inject("serve.worker")
+            taken = self._take_batch()
+            if taken is None:
                 return
+            batch, t_co0, t_co1 = taken
             try:
-                self._run_batch(batch)
+                self._run_batch(batch, t_co0, t_co1)
             except Exception as exc:     # fail the batch, keep serving
                 err = MXNetError("batch processing failed: %s" % exc)
                 for req in batch:
                     if not req._event.is_set():
                         req.set_error(err)
 
-    def _run_batch(self, batch):
+    def _run_batch(self, batch, t_co0=None, t_co1=None):
         now = _tm.monotonic()
         live = []
         for req in batch:
             if req.deadline is not None and now > req.deadline:
                 req._count_timeout()
+                if req.tctx is not None and req.tctx.sampled:
+                    # the retained 504 exemplar: all its time was queue
+                    _tr.record_span("serve.queue_wait", req.tctx,
+                                    req.t_enq, now)
                 req.set_error(DeadlineExceededError(
                     "deadline expired after %.0f ms in queue"
                     % ((now - req.t_enq) * 1e3)))
@@ -426,6 +495,8 @@ class InferenceEngine(object):
             return
         rows = sum(r.rows for r in live)
         bucket = pick_bucket(rows, self._cfg.buckets)
+        traced = [r for r in live if r.tctx is not None and r.tctx.sampled]
+        t_pad0 = _tm.monotonic()
         if len(live) == 1 and live[0].rows == bucket:
             feed = live[0].feed          # exact fit: no host copy
         else:
@@ -440,34 +511,79 @@ class InferenceEngine(object):
                     buf[offset:offset + r.rows] = r.feed[k]
                     offset += r.rows
                 feed[k] = buf
+        t_pad1 = _tm.monotonic()
+        # the batch is one unit of work under N request parents: each of
+        # its spans has one id, recorded into every traced request; the
+        # executor's own spans join the first traced request's trace
+        # under serve.compute
+        batch_sid = _tr.new_span_id() if traced else None
+        comp_sid = _tr.new_span_id() if traced else None
+        leader = traced[0].tctx if traced else None
+        compute_ctx = (leader.child_of(comp_sid)
+                       if leader is not None else None)
         t0 = _tm.monotonic()
         try:
             pred = self._bucket_pred(bucket)
-            with self._pred_locks[bucket]:
+            with self._pred_locks[bucket], _tr.use_context(compute_ctx):
                 outs = pred._exe.forward(is_train=False, **feed)
                 outs_np = [o.asnumpy() for o in outs]
         except Exception as exc:          # surface, don't kill the worker
             err = MXNetError("batch execution failed: %s" % exc)
             for req in live:
+                _tr.mark_error(err, ctx=req.tctx)
                 req.set_error(err)
             return
+        # the wall ends with the outputs on the host
         t1 = _tm.monotonic()
         self._m_batches.inc()
         self._m_batch_rows.observe(rows)
         self._m_waste.observe((bucket - rows) / float(bucket))
-        self._m_compute.observe(t1 - t0)
+        self._m_compute.observe(
+            t1 - t0, trace_id=leader.trace_id if leader else None)
+        _health.note_serve_batch(bucket, t1 - t0,
+                                 self._note_bucket_cost(bucket, pred))
         exact_fit = len(live) == 1 and live[0].rows == bucket
         offset = 0
+        results = []
+        t_slice0 = _tm.monotonic()
         for req in live:
             if exact_fit:
-                res = outs_np
+                results.append(outs_np)
             else:
                 # copies: a view would pin the whole padded output
-                res = [o[offset:offset + req.rows].copy() for o in outs_np]
+                results.append([o[offset:offset + req.rows].copy()
+                                for o in outs_np])
             offset += req.rows
+        t_slice1 = _tm.monotonic()
+        if traced:
+            # spans go in BEFORE the results: the submitter's root span
+            # may close its trace the instant result() returns
+            pad_sid = _tr.new_span_id()
+            slice_sid = _tr.new_span_id()
+            co_sid = _tr.new_span_id() if t_co0 is not None else None
+            battrs = {"rows": rows, "bucket": bucket, "fanin": len(live)}
+            for req in traced:
+                ctx = req.tctx
+                _tr.record_span("serve.queue_wait", ctx, req.t_enq, now)
+                _tr.record_span("serve.batch", ctx, t_co0 or t_pad0,
+                                t_slice1, span_id=batch_sid,
+                                parent_id=ctx.span_id, attrs=battrs)
+                if co_sid is not None:
+                    _tr.record_span("serve.coalesce", ctx, t_co0, t_co1,
+                                    span_id=co_sid, parent_id=batch_sid)
+                _tr.record_span("serve.pad", ctx, t_pad0, t_pad1,
+                                span_id=pad_sid, parent_id=batch_sid)
+                _tr.record_span("serve.compute", ctx, t0, t1,
+                                span_id=comp_sid, parent_id=batch_sid,
+                                attrs={"bucket": bucket})
+                _tr.record_span("serve.slice", ctx, t_slice0, t_slice1,
+                                span_id=slice_sid, parent_id=batch_sid)
+        for req, res in zip(live, results):
             req.set_result(res)
             self._m_qwait.observe(t0 - req.t_enq)
-            self._m_latency.observe(t1 - req.t_enq)
+            self._m_latency.observe(
+                t1 - req.t_enq,
+                trace_id=req.tctx.trace_id if req.tctx else None)
 
     # -- bucket executors --------------------------------------------------
     def _bucket_pred(self, bucket):

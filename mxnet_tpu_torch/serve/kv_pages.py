@@ -77,6 +77,12 @@ class PagePool(object):
         with self._lock:
             return len(self._allocated)
 
+    def can_cover(self, n):
+        """Would ``alloc(n)`` succeed right now? (Advisory: admission
+        still calls ``alloc`` and handles the race through its raise.)"""
+        with self._lock:
+            return len(self._free) >= int(n)
+
     def alloc(self, n):
         """Allocate ``n`` pages; returns their ids (position order).
         Raises :class:`PagePoolExhausted` — synchronously, never a

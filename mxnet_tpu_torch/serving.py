@@ -16,8 +16,7 @@ convolution weights that ``int8_conv_im2col``'s wgmma route takes are
 bound once in channels-last memory (OHWI, K-major), so that no forward
 copies them (the artifact's format is unchanged). ``dev_type`` is
 the C API's: None (the default) or 2 binds on the card ``dev_id``, 1 on
-the host. The telemetry endpoint (``serve_metrics``) is not ported yet
-(ROADMAP A16).
+the host. ``serve_metrics`` starts the telemetry endpoint beside it.
 """
 from __future__ import annotations
 
@@ -98,6 +97,14 @@ class Predictor(object):
         _bind_conv_weights_channels_last(sym, self._exe)
         self._input_names = list(shapes)
         self._outputs = None
+
+    def serve_metrics(self, port=0, addr="127.0.0.1"):
+        """Start the telemetry ``/metrics`` + ``/healthz`` endpoint next
+        to this predictor (``telemetry.serve``). Returns the
+        :class:`telemetry.TelemetryServer` handle: keep it and
+        ``close()`` it on shutdown."""
+        from . import telemetry
+        return telemetry.serve(port=port, addr=addr)
 
     def _type_dict(self):
         """Every buffer in its checkpoint type; inputs float32 unless

@@ -286,6 +286,11 @@ class Symbol(object):
         """(arg_shapes, out_shapes, aux_shapes) from known input shapes,
         in list_arguments / list_outputs / list_auxiliary_states order.
         Raises :class:`MXNetError` when a shape cannot be inferred."""
+        return self._infer_shape(*args, **kwargs)[:3]
+
+    def _infer_shape(self, *args, **kwargs):
+        """:meth:`infer_shape`'s three lists, then ``_deduce_shapes``'
+        pair (every leaf's shape, every node output's shape)."""
         arg_names = self.list_arguments()
         aux_names = self.list_auxiliary_states()
         known = {n: tuple(s) for n, s in zip(arg_names, args)
@@ -301,7 +306,7 @@ class Symbol(object):
         out_shapes = [shapes[n.name] if n.is_var else outs[(id(n), oi)]
                       for n, oi in self._entries]
         return ([shapes[n] for n in arg_names], out_shapes,
-                [shapes[n] for n in aux_names])
+                [shapes[n] for n in aux_names], (shapes, outs))
 
     # -- serialization -----------------------------------------------------
     def tojson(self):
@@ -344,13 +349,15 @@ class Symbol(object):
         from ..context import default_device
         from ..ndarray.ndarray import zeros
         ctx = default_device(ctx)
-        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        arg_shapes, _, aux_shapes, deduced = self._infer_shape(**kwargs)
         type_dict = type_dict or {}
         args = [zeros(s, ctx=ctx, dtype=type_dict.get(n, np.float32))
                 for n, s in zip(self.list_arguments(), arg_shapes)]
         aux = [zeros(s, ctx=ctx, dtype=type_dict.get(n, np.float32))
                for n, s in zip(self.list_auxiliary_states(), aux_shapes)]
-        return self.bind(ctx, args, grad_req=grad_req, aux_states=aux)
+        exe = self.bind(ctx, args, grad_req=grad_req, aux_states=aux)
+        exe._deduced = deduced       # its cost count reuses the shapes
+        return exe
 
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):

@@ -10,8 +10,9 @@ its config, admission control (full queue, closed engine, bad feeds),
 deadlines (counted once), drain on close, worker restarts, warmup of
 every bucket, and ``Predictor.reshape`` sharing the weights but never
 the inputs. As in the JAX package's tests/test_serve.py, without the
-tracing, fault-point, health and program-registry hooks, which are not
-ported yet.
+tracing, fault-point and health hooks (tests/test_torch_tracing.py,
+test_torch_health.py and test_torch_serve_http.py hold those) and the
+program registry, which is not ported yet.
 """
 import threading
 import time
